@@ -1,0 +1,14 @@
+"""ray_tpu_torch: the PyTorch/CUDA port of ``ray_tpu``, for NVIDIA Hopper.
+
+A package of its own beside the JAX one: it imports ``torch``, never
+``jax`` and nothing of ``ray_tpu``. Tensor code is PyTorch; each TPU
+kernel on a ported path is a kernel written by hand for ``sm_90a`` under
+``ops/csrc/``, built at first use. Entry points run on the card unless
+the caller passes ``device="cpu"`` (the tests do; the kernels' plain
+versions run there).
+
+Ported so far: the serving data plane on the dense KV layout
+(``models.llama``, ``ops.attention``, ``serve.llm``).
+"""
+
+__version__ = "0.1.0"
