@@ -12,17 +12,30 @@ Phases, one line each; any failure raises and exits non-zero:
               source, all started together); the compiler's register and
               spill report is printed.
 3. kernels -- each kernel against its plain PyTorch version on the card,
-              at the shapes the serving path gives it, with its time, the
-              plain version's, the least time the card could take
-              (bound) and one PyTorch library call's as a yardstick.
+              in bf16 and f32, at the shapes the serving and training
+              paths give it, with its time, the plain version's, the
+              least time the card could take (bound) and one PyTorch
+              library call's as a yardstick: B1 (flash forward), B2
+              (flash backward dK/dV) and B3 (flash backward dQ).
 4. serve   -- Llama-3-8B at full width and depth (random weights from a
               seed, int8 weight-only, ``attn_impl="flash"``) answers 12
               requests from 4 client threads through ``LLMServer``; every
-              prefill must have launched the flash kernel once per layer.
+              prefill must have launched B1 once per layer.
 5. parity  -- for 3 of those prompts the engine's greedy tokens equal the
               port's own ``generate`` on the same params.
 6. profile -- device time by kernel over 8 more requests (torch.profiler),
               and the device's idle share of that window.
+7. train   -- Llama-3-8B widths at 4 layers (bf16 params, flash
+              attention, ``remat="dots"``, fused loss, AdamW) trains 6
+              steps of batch 4 x 1024 tokens through ``build_train_step``,
+              then one step with ``grad_accum=2``: finite losses and grad
+              norms, and launch counts of B1 (twice per layer and
+              micro-step: forward and remat), B2 and B3 (once each).
+              Step time, tokens/s, MFU, peak memory and the device time
+              of one profiled step by kernel group. Before the steps,
+              flash against plain attention on the initial params and the
+              first batch: the loss and every gradient leaf within a
+              relative L2 tolerance.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -32,6 +45,8 @@ the repository (no network) and stops every process it starts.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -66,9 +81,38 @@ TOL_O_BF16_ABS, TOL_O_BF16_REL = 4e-3, 2.0 ** -7
 TOL_O_F32 = 1e-4
 TOL_LSE = 1e-4
 
+# Kernels B2 and B3 against flash_attention_bwd_plain on the same inputs.
+# Each gradient element is held to A * max|plain| + R * |plain|, with the
+# scale of the gradient (which grows with S) taken from the plain result.
+# bf16: the kernels and the plain version round P and dS to bf16 at the
+# same places, but their f32 sums run in different orders, so a P or dS
+# element near a rounding boundary may land one bf16 ulp apart, and the
+# outputs are rounded to bf16 (one ulp is at most 2**-7 of the value):
+# A = 2**-8, R = 2**-7, the bound the CPU tests hold the port's plain
+# version to against the JAX package's kernels. f32: nothing is rounded
+# to a narrower type, so only summation order differs: A = 1e-4, R = 0.
+TOL_BWD = {torch.bfloat16: (2.0 ** -8, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
+
 N_HEADS, HEAD_DIM = 32, 128
-KERNEL_SHAPES = [(128, True), (256, True), (512, True), (200, True),
-                 (256, False)]
+# (batch, S, causal): B1 at the serving path's prefill buckets, a ragged
+# length, a full mask, and the training shape.
+KERNEL_SHAPES = [(1, 128, True), (1, 256, True), (1, 512, True),
+                 (1, 200, True), (1, 256, False), (4, 1024, True)]
+# (batch, S) for B2 and B3, causal: B = 1 at short, mid and training
+# length and one ragged length, then the training shape itself.
+BWD_SHAPES = [(1, 128), (1, 512), (1, 1024), (1, 1000), (4, 1024)]
+# The train phase: Llama-3-8B widths at the depth of the reference's own
+# training geometry (bench.py: 4 layers, batch x 1024, bf16 params,
+# flash, remat "dots"), fused loss, optax.adamw(1e-4)'s settings. Token
+# rows are SEQ + 1 long so the model sees SEQ positions after the shift.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 1024, 6
+# Flash against plain attention at those widths, both in bf16: plain
+# attention rounds its scores to bf16 before the softmax and the kernels
+# keep them in f32, so the two differ at bf16 rounding. Each gradient
+# leaf is held to a relative L2 distance of 5e-2 and the loss to 1e-2.
+TOL_PARITY_GRAD, TOL_PARITY_LOSS = 5e-2, 1e-2
+# The same comparison in f32 at a narrow width: only summation order.
+TOL_PARITY_F32 = 1e-4
 ENGINE = {"num_slots": 8, "max_seq_len": 1024,
           "prefill_buckets": (128, 256, 512)}
 N_REQUESTS, N_CLIENTS, N_PARITY = 12, 4, 3
@@ -145,13 +189,13 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def qkv(S, dtype):
-        return [torch.randn((1, S, N_HEADS, HEAD_DIM), generator=gen,
+    def qkv(B, S, dtype):
+        return [torch.randn((B, S, N_HEADS, HEAD_DIM), generator=gen,
                             device=dev, dtype=dtype) for _ in range(3)]
 
     rows = []
-    for S, causal in KERNEL_SHAPES:
-        q, k, v = qkv(S, torch.float32)
+    for B, S, causal in KERNEL_SHAPES:
+        q, k, v = qkv(B, S, torch.float32)
         o, lse = attention.flash_fwd_cuda(q, k, v, causal)
         po, plse = attention.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
@@ -161,7 +205,7 @@ def phase_kernels(dev):
               f"flash_fwd f32 S={S} causal={causal}: O err {err_f32}, "
               f"LSE err {err_lse_f32}")
 
-        q, k, v = qkv(S, torch.bfloat16)
+        q, k, v = qkv(B, S, torch.bfloat16)
         o, lse = attention.flash_fwd_cuda(q, k, v, causal)
         po, plse = attention.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
@@ -181,14 +225,14 @@ def phase_kernels(dev):
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), 50)
-        bound_ms, bound_by = attention_bound(1, S, N_HEADS, HEAD_DIM,
+        bound_ms, bound_by = attention_bound(B, S, N_HEADS, HEAD_DIM,
                                              causal, torch.bfloat16)
-        rows.append({"S": S, "causal": causal, "max_abs_err": err_o,
+        rows.append({"B": B, "S": S, "causal": causal, "max_abs_err": err_o,
                      "lse_max_abs_err": err_lse, "tol_used": used,
                      "f32_max_abs_err": err_f32, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
-        log("kernels", f"flash_fwd bf16 B=1 H={N_HEADS} D={HEAD_DIM} S={S} "
+        log("kernels", f"flash_fwd bf16 B={B} H={N_HEADS} D={HEAD_DIM} S={S} "
             f"{'causal' if causal else 'full'}: O err {err_o:.3g} "
             f"({used:.2f} of tol {TOL_O_BF16_ABS} + 2^-7 |plain|), LSE err {err_lse:.3g} (tol {TOL_LSE}), "
             f"f32 O err {err_f32:.3g} (tol {TOL_O_F32}), f32 LSE err "
@@ -196,6 +240,119 @@ def phase_kernels(dev):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{bound_ms * 1e3:.2f} us ({bound_by}), sdpa {lib_ms:.4f} ms")
     check(attention.flash_fwd_cuda.launches > 0, "flash_fwd never launched")
+    return rows
+
+
+def bwd_bound(B, S, H, D, dtype, products, n_out):
+    """(bound_ms, bound_by) for one causal backward kernel: ``products``
+    products of 2 * D flops per visible (query, key) pair, S(S+1)/2 per
+    head; bytes of q, k, v, dO read once, LSE and delta (f32) read once
+    and ``n_out`` gradients written once."""
+    pairs = S * (S + 1) // 2
+    flops = 2.0 * D * products * B * H * pairs
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = (4 + n_out) * B * S * H * D * elem + 2 * B * H * S * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def held(got, want, dtype):
+    """(max abs error, share of the elementwise limit A * max|want| +
+    R * |want| that the worst element uses) for one gradient."""
+    a, r = TOL_BWD[dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    limit = a * w.abs().max() + r * w.abs()
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def phase_bwd_kernels(dev):
+    """B2 and B3 against flash_attention_bwd_plain on the card, in bf16
+    and f32, on the O and LSE that B1 gives for random q, k, v and a
+    random dO; then the time of each kernel, of the plain backward (which
+    computes dQ, dK and dV together), and of SDPA's backward (its dQ, dK
+    and dV from torch.autograd.grad of an SDPA output, forward excluded),
+    in bf16."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+    for B, S in BWD_SHAPES:
+        row = {"B": B, "S": S, "causal": True}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = [torch.randn((B, S, N_HEADS, HEAD_DIM),
+                                       generator=gen, device=dev,
+                                       dtype=dtype) for _ in range(4)]
+            o, lse = attention.flash_fwd_cuda(q, k, v, True)
+            delta = attention.attention_delta(o, do)
+            dk, dv = attention.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
+            dq = attention.flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+            pdq, pdk, pdv = attention.flash_attention_bwd_plain(
+                q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            for g, w, what in ((dk, pdk, "dk"), (dv, pdv, "dv"),
+                               (dq, pdq, "dq")):
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"non-finite {what} at B={B} S={S} {name}")
+                err, used = held(g, w, dtype)
+                row[f"{name}_{what}_err"], row[f"{name}_{what}_used"] = (
+                    err, used)
+                check(used <= 1.0, f"flash backward {what} {name} B={B} "
+                      f"S={S}: max abs err {err:.3g}, {used:.2f} of the "
+                      f"limit {TOL_BWD[dtype]}")
+        # bf16 q, k, v, dO, O, LSE from the last pass of the loop.
+        ms_dkv = time_ms(lambda: attention.flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta), 20)
+        ms_dq = time_ms(lambda: attention.flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta), 20)
+        plain_ms = time_ms(lambda: attention.flash_attention_bwd_plain(
+            q, k, v, o, lse, do), 5)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 20)
+        b2 = bwd_bound(B, S, N_HEADS, HEAD_DIM, torch.bfloat16, 4, 2)
+        b3 = bwd_bound(B, S, N_HEADS, HEAD_DIM, torch.bfloat16, 3, 1)
+        row.update({"dkv_ms": ms_dkv, "dq_ms": ms_dq, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "dkv_bound_ms": b2[0],
+                    "dkv_bound_by": b2[1], "dq_bound_ms": b3[0],
+                    "dq_bound_by": b3[1]})
+        rows.append(row)
+        log("kernels", f"flash_bwd B={B} H={N_HEADS} D={HEAD_DIM} S={S} "
+            f"causal: bf16 err dk {row['bf16_dk_err']:.3g} "
+            f"({row['bf16_dk_used']:.2f} of limit), dv "
+            f"{row['bf16_dv_err']:.3g} ({row['bf16_dv_used']:.2f}), dq "
+            f"{row['bf16_dq_err']:.3g} ({row['bf16_dq_used']:.2f}); f32 "
+            f"err dk {row['f32_dk_err']:.3g} ({row['f32_dk_used']:.2f}), "
+            f"dv {row['f32_dv_err']:.3g} ({row['f32_dv_used']:.2f}), dq "
+            f"{row['f32_dq_err']:.3g} ({row['f32_dq_used']:.2f}); B2 "
+            f"{ms_dkv:.4f} ms (bound {b2[0] * 1e3:.2f} us, {b2[1]}), B3 "
+            f"{ms_dq:.4f} ms (bound {b3[0] * 1e3:.2f} us, {b3[1]}), plain "
+            f"backward {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms")
+
+    # The gradient that reaches attention may be a strided view: through
+    # the autograd Function it must give what its contiguous copy gives.
+    B, S = 1, 512
+    q, k, v = (torch.randn((B, S, N_HEADS, HEAD_DIM), generator=gen,
+                           device=dev, dtype=torch.bfloat16
+                           ).requires_grad_(True) for _ in range(3))
+    out = attention.flash_attention(q, k, v, causal=True)
+    g = torch.randn((B, N_HEADS, S, HEAD_DIM), generator=gen, device=dev,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    strided = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    dense = torch.autograd.grad(out, (q, k, v), g.contiguous())
+    check(not g.is_contiguous()
+          and all(torch.equal(a, b) for a, b in zip(strided, dense)),
+          "a strided dO gave other gradients than its contiguous copy")
+    log("kernels", "flash_bwd: a strided dO gives the gradients of its "
+        "contiguous copy, bit for bit")
     return rows
 
 
@@ -304,6 +461,17 @@ def phase_parity(server, cfg, reqs, results, dev):
         check(same, "engine greedy tokens differ from generate")
 
 
+def _kernel_group(name: str) -> str:
+    low = name.lower()
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if kernel in low:
+            return kernel
+    if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet",
+                              "splitk")):
+        return "matmul"
+    return "elementwise/other"
+
+
 def phase_profile(server, cfg):
     """Where the serving time goes: device time by kernel over 8 requests
     (prompts of 100-500 tokens, 32 new tokens each) under torch.profiler,
@@ -329,24 +497,17 @@ def phase_profile(server, cfg):
     kernels = [(e.key, e.device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.device_time_total > 0]
+               and e.device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(ms for _, ms, _ in kernels)
     if not kernels:
         log("profile", "the profiler recorded no device time")
         return
 
-    def group(name):
-        low = name.lower()
-        if "flash_fwd" in low:
-            return "flash_fwd"
-        if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass",
-                                  "nvjet", "splitk")):
-            return "matmul"
-        return "elementwise/other"
-
     groups = {}
     for name, ms, _ in kernels:
-        groups[group(name)] = groups.get(group(name), 0.0) + ms
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
     log("profile", f"8 requests, {wall_ms:.1f} ms wall, device busy "
         f"{busy:.1f} ms (idle {100 * (1 - busy / wall_ms):.1f}%); "
         + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
@@ -354,6 +515,206 @@ def phase_profile(server, cfg):
                                         key=lambda kv: -kv[1])))
     for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:8]:
         log("profile", f"  {ms:8.2f} ms {count:6d}x  {name[:90]}")
+
+
+def _grads(cfg, params, batch, impl):
+    from ray_tpu_torch.models.llama import loss_fn
+
+    leaves = torch.utils._pytree.tree_leaves(params)
+    loss = loss_fn(params, batch, cfg, attn_impl=impl)
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def _rel_l2(got, want):
+    return [((a.float() - b.float()).norm() / b.float().norm()).item()
+            for a, b in zip(got, want)]
+
+
+def phase_train_parity(cfg, params, batch, card):
+    """Flash against plain attention on the same params and batch, both
+    in bf16 (the gate), and each of them against the same model computed
+    in f32 with plain attention (printed: how much of their distance is
+    the bf16 rounding of either)."""
+    lf, gf = _grads(cfg, params, batch, "flash")
+    lx, gx = _grads(cfg, params, batch, "xla")
+    rel = _rel_l2(gf, gx)
+    loss_rel = abs(lf - lx) / abs(lx)
+    l32, g32 = _grads(dataclasses.replace(cfg, dtype=torch.float32), params,
+                      batch, "xla")
+    rf, rx = _rel_l2(gf, g32), _rel_l2(gx, g32)
+    del gf, gx, g32
+    log("train", f"flash vs plain attention (bf16): loss {lf:.5f} vs "
+        f"{lx:.5f} (rel {loss_rel:.2e}, tol {TOL_PARITY_LOSS}); grad "
+        f"leaves' relative L2 max {max(rel):.3e}, median "
+        f"{np.median(rel):.3e} over {len(rel)} leaves (tol "
+        f"{TOL_PARITY_GRAD}). Against f32 compute (loss {l32:.5f}): flash "
+        f"max {max(rf):.3e} median {np.median(rf):.3e}, plain max "
+        f"{max(rx):.3e} median {np.median(rx):.3e}; {card}")
+    check(loss_rel <= TOL_PARITY_LOSS and max(rel) <= TOL_PARITY_GRAD,
+          "flash and plain attention disagree on the loss or a gradient")
+    return rel, loss_rel
+
+
+def phase_train_f32(dev):
+    """The training path in f32 at a narrow width with head dim 128 (the
+    kernels' width): flash and plain attention must then agree to f32
+    summation order, which holds B1, B2, B3, the autograd Function, GQA,
+    remat and the fused loss to each other far more tightly than bf16
+    can. f32 products on the card run in full f32 (TF32 off)."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on; the f32 check needs full f32")
+    cfg = LlamaConfig(vocab_size=1000, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, hidden_dim=512, max_seq_len=512,
+                      dtype=torch.float32, param_dtype=torch.float32,
+                      attn_impl="flash", remat="dots")
+    params = init_params(cfg, seed=1, device=dev)
+    for t in torch.utils._pytree.tree_leaves(params):
+        t.requires_grad_(True)
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 301))
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    lf, gf = _grads(cfg, params, batch, "flash")
+    lx, gx = _grads(cfg, params, batch, "xla")
+    rel = _rel_l2(gf, gx)
+    loss_rel = abs(lf - lx) / abs(lx)
+    log("train", f"f32, dim 256, head dim 128, 2 layers, 2 x 300 "
+        f"positions: flash vs plain attention loss rel {loss_rel:.2e}, "
+        f"grad leaves' relative L2 max {max(rel):.3e} (tol "
+        f"{TOL_PARITY_F32})")
+    check(loss_rel <= TOL_PARITY_F32 and max(rel) <= TOL_PARITY_F32,
+          "f32 flash and plain attention disagree")
+    return max(rel)
+
+
+def phase_train(dev, card):
+    """Llama-3-8B widths at TRAIN_LAYERS layers through the port's
+    build_train_step; see the module docstring."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models.llama import (
+        LlamaConfig, flops_per_token, init_params, loss_fn)
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.parallel import build_train_step, create_train_state
+
+    f32_rel = phase_train_f32(dev)
+
+    kernels = (attention.flash_fwd_cuda, attention.flash_bwd_dkv_cuda,
+               attention.flash_bwd_dq_cuda)
+
+    def reset():
+        for fn in kernels:
+            fn.launches = 0
+
+    def counts():
+        return tuple(fn.launches for fn in kernels)
+
+    cfg = LlamaConfig.llama3_8b(
+        n_layers=TRAIN_LAYERS, max_seq_len=TRAIN_SEQ, attn_impl="flash",
+        remat="dots", param_dtype=torch.bfloat16)
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = create_train_state(init_params(cfg, seed=0, device=dev),
+                               device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in
+                   torch.utils._pytree.tree_leaves(state.params))
+    log("train", f"Llama-3-8B widths, {L} layers, {n_params / 1e9:.3f} B "
+        f"params (bf16) built in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; {card}")
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, cfg.vocab_size,
+                           (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int64)
+               for _ in range(TRAIN_STEPS + 2)]
+
+    # Flash against plain attention: the initial params, the first batch.
+    batch = {"tokens": torch.as_tensor(batches[0], device=dev)}
+    rel, loss_rel = phase_train_parity(cfg, state.params, batch, card)
+
+    # The main path: TRAIN_STEPS steps, counts from 0.
+    step = build_train_step(lambda p, b: loss_fn(p, b, cfg), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    losses, norms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": batches[i]})
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        times.append(time.perf_counter() - t0)
+    got = counts()
+    want = (2 * L * TRAIN_STEPS, L * TRAIN_STEPS, L * TRAIN_STEPS)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    check(got == want, f"launches (B1, B2, B3) {got} != {want} for "
+          f"{TRAIN_STEPS} steps of {L} layers under remat")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = flops_per_token(cfg, TRAIN_SEQ) * tokens / step_s / PEAK_FLOPS[
+        torch.bfloat16]
+    log("train", "losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; grad norms " + ", ".join(f"{x:.3f}" for x in norms))
+    log("train", f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens: step times " + ", ".join(f"{x:.3f}" for x in times)
+        + f" s; median after the first {step_s:.4f} s = "
+        f"{tokens / step_s:.0f} tokens/s, MFU {100 * mfu:.2f}% "
+        f"(flops_per_token over 989 TFLOP/s); peak memory "
+        f"{peak / 2**30:.2f} GiB; launches B1 {got[0]}, B2 {got[1]}, B3 "
+        f"{got[2]} (expected {want}); {card}")
+
+    # One step with grad_accum=2: two micro-batches of TRAIN_BATCH / 2.
+    step2 = build_train_step(lambda p, b: loss_fn(p, b, cfg), grad_accum=2,
+                             device=dev)
+    reset()
+    state, m = step2(state, {"tokens": batches[TRAIN_STEPS]})
+    got2, want2 = counts(), (2 * L * 2, L * 2, L * 2)
+    loss2, norm2 = m["loss"].item(), m["grad_norm"].item()
+    check(np.isfinite(loss2) and np.isfinite(norm2),
+          f"grad_accum=2: non-finite loss {loss2} or grad norm {norm2}")
+    check(got2 == want2, f"grad_accum=2 launches {got2} != {want2}")
+    log("train", f"grad_accum=2 step {m['step']}: loss {loss2:.4f}, grad "
+        f"norm {norm2:.3f}, launches B1 {got2[0]}, B2 {got2[1]}, B3 "
+        f"{got2[2]} (expected {want2})")
+    launches = tuple(a + b for a, b in zip(got, got2))
+
+    # Device time of one profiled step by kernel group.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": batches[TRAIN_STEPS + 1]})
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split, top = {}, []
+    for e in prof.key_averages():
+        # User annotations (Optimizer.step) span kernels counted already.
+        if (e.device_type == DeviceType.CUDA and e.device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)):
+            g = _kernel_group(e.key)
+            split[g] = split.get(g, 0.0) + e.device_time_total / 1e3
+            top.append((e.device_time_total / 1e3, e.count, e.key))
+    busy = sum(split.values())
+    if busy:
+        log("train", f"profiled step: {wall_ms:.1f} ms wall, device busy "
+            f"{busy:.1f} ms (idle {100 * (1 - busy / wall_ms):.1f}%); "
+            + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
+                        for g, ms in sorted(split.items(),
+                                            key=lambda kv: -kv[1]))
+            + f"; {card}")
+        for ms, count, name in sorted(top, reverse=True)[:10]:
+            log("train", f"  {ms:8.2f} ms {count:6d}x  {name[:90]}")
+    else:
+        log("train", "the profiler recorded no device time")
+
+    del state
+    return {"launches": launches, "step_s": step_s,
+            "tokens_per_s": tokens / step_s, "mfu": mfu,
+            "peak_gib": peak / 2**30, "losses": losses,
+            "grad_rel_l2_max": max(rel), "loss_rel": loss_rel,
+            "f32_grad_rel_l2_max": f32_rel}
 
 
 def main() -> int:
@@ -367,15 +728,46 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     phase_build()
     rows = phase_kernels(dev)
-    launches = phase_serve(dev)
+    bwd_rows = phase_bwd_kernels(dev)
+    serve_launches = phase_serve(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(dev, card)
 
     main_row = next(r for r in rows if r["S"] == 512 and r["causal"])
+    bwd_main = next(r for r in bwd_rows
+                    if (r["B"], r["S"]) == (TRAIN_BATCH, TRAIN_SEQ))
+    bwd_shape = (f"B={TRAIN_BATCH} H={N_HEADS} S={TRAIN_SEQ} D={HEAD_DIM} "
+                 f"causal bf16")
+
+    def bwd_kernel(name, key, outs, replaces, launches):
+        return {
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r[f"bf16_{o}_err"] for r in bwd_rows
+                               for o in outs),
+            "f32_max_abs_err": max(r[f"f32_{o}_err"] for r in bwd_rows
+                                   for o in outs),
+            "tol_used_max": max(r[f"{t}_{o}_used"] for r in bwd_rows
+                                for o in outs for t in ("bf16", "f32")),
+            "ms": bwd_main[f"{key}_ms"],
+            "plain_ms": bwd_main["plain_ms"],
+            "plain_computes": "dQ, dK and dV",
+            "bound_ms": bwd_main[f"{key}_bound_ms"],
+            "bound_by": bwd_main[f"{key}_bound_by"],
+            "library_ms": bwd_main["library_ms"],
+            "library_computes": "SDPA backward: dQ, dK and dV",
+            "shape": bwd_shape, "per_shape": bwd_rows}
+
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:47",
-        "launches": launches,
+        "launches": serve_launches + train["launches"][0],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train["launches"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -384,7 +776,12 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shape": f"B=1 H={N_HEADS} S=512 D={HEAD_DIM} causal bf16",
         "per_shape": rows,
-    }]}), flush=True)
+    }, bwd_kernel("flash_bwd_dkv", "dkv", ("dk", "dv"),
+                  "ray_tpu/ops/attention.py:149", train["launches"][1]),
+        bwd_kernel("flash_bwd_dq", "dq", ("dq",),
+                   "ray_tpu/ops/attention.py:211", train["launches"][2])],
+        "train": {k: v for k, v in train.items() if k != "launches"}}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

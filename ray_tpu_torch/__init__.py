@@ -8,7 +8,9 @@ the caller passes ``device="cpu"`` (the tests do; the kernels' plain
 versions run there).
 
 Ported so far: the serving data plane on the dense KV layout
-(``models.llama``, ``ops.attention``, ``serve.llm``).
+(``models.llama``, ``ops.attention``, ``serve.llm``) and training on one
+device (``ops.fused_loss``, ``parallel.train_step``, the attention's
+backward kernels).
 """
 
 __version__ = "0.1.0"

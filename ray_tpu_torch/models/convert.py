@@ -1,8 +1,12 @@
-"""Params from numpy: the bridge from the JAX package's param tree.
+"""Params to and from numpy: the bridge between the JAX package's param
+tree and the port's.
 
 The caller turns the JAX tree into numpy (bf16 leaves upcast to float32
-first, since numpy has no bf16 of its own); this module turns that tree
-into the port's, on a device, with the port's dtypes. Both the plain tree
+first, since numpy has no bf16 of its own); ``params_from_numpy`` turns
+that tree into the port's, on a device, in the config's ``param_dtype``
+(f32 or bf16: a bf16 value upcast to f32 converts back exactly), and
+``params_to_numpy`` is its inverse, so trained params can be held
+against the reference's. Both the plain tree
 of ``init_params`` and the int8 tree of ``quantize_weights_int8``
 (``w_q``/``w_s``, ``lm_head_q``/``lm_head_s``) convert. The layout is
 the same on both sides (stacked layers, weights [in, out]), so nothing is
@@ -47,3 +51,16 @@ def params_from_numpy(tree: Dict[str, Any], config: LlamaConfig,
         else:
             out[name] = _leaf(name, value, config, dev)
     return out
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's param tree -> numpy on the host, float leaves as f32
+    (bf16 upcast exactly), int8 leaves as int8: the layout the JAX
+    package's tree has, for comparing the two."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    return {name: ({k: leaf(v) for k, v in value.items()}
+                   if isinstance(value, dict) else leaf(value))
+            for name, value in tree.items()}

@@ -1,5 +1,5 @@
-"""Llama-2/3 decoder for serving, in PyTorch: the counterpart of
-``ray_tpu/models/llama.py`` (its serving half and what that rests on).
+"""Llama-2/3 decoder for serving and training, in PyTorch: the counterpart
+of ``ray_tpu/models/llama.py`` (its dense serving and training halves).
 
 Params are the JAX package's tree, as tensors: ``embed`` [V, D],
 ``layers`` (a dict of weights stacked on a leading [n_layers] axis, stored
@@ -30,19 +30,31 @@ Numerics against the JAX package (the tests hold each of these):
   f32 arithmetic. Dequantization multiplies in the compute dtype, as the
   reference does.
 
-``n_experts > 0`` (MoE), ``attn_impl="ring"``, remat and the paged-KV
-functions belong to later slices and raise ``NotImplementedError``.
+- training: ``loss_fn`` (fused blockwise or materialized logits, with an
+  optional mask) and its gradients match the reference to f32 rounding in
+  f32 (``tests/test_torch_train.py``). The embedding's gradient sums
+  repeated tokens in f32 and then rounds, as the reference's one-hot
+  matmul does. ``remat`` is per-layer ``torch.utils.checkpoint``:
+  ``True`` recomputes the whole layer, ``"dots"`` keeps the weight
+  matmuls' outputs (``aten.mm``, products without batch dimensions, the
+  counterpart of ``dots_with_no_batch_dims_saveable``); neither changes a
+  value.
+
+``n_experts > 0`` (MoE), ``attn_impl="ring"`` and the paged-KV functions
+belong to later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
 
@@ -208,8 +220,14 @@ def _weight(p: Dict[str, torch.Tensor], name: str,
     return p[name].to(dtype)
 
 
-def _layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _layer_views(params: Params) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's params as views of the stacked tensors, taken with
+    one ``unbind`` per tensor: its backward stacks the layers' gradients
+    once, where indexing each layer would add a full-size zero tensor
+    per layer."""
+    views = {k: v.unbind(0) for k, v in params["layers"].items()}
+    n = len(next(iter(views.values())))
+    return [{k: v[i] for k, v in views.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -285,11 +303,33 @@ def _get_attention_fn(impl) -> Callable:
     raise ValueError(f"unknown attn_impl {impl!r}")
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """Gather, then cast: the same values as the reference's cast-then-
+    gather, without casting the whole [V, D] table on every call. The
+    backward sums the rows of repeated tokens in f32 and rounds once to
+    the compute type, then to the table's type, as the reference's
+    one-hot matmul (``preferred_element_type=f32``) and its cast do;
+    autograd's own index backward would sum in the table's type."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens, dtype):
+        ctx.save_for_backward(tokens)
+        ctx.shape, ctx.table_dtype, ctx.dtype = (
+            embed.shape, embed.dtype, dtype)
+        return embed[tokens].to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        acc.index_add_(0, tokens.reshape(-1),
+                       g.reshape(-1, ctx.shape[1]).float())
+        return acc.to(ctx.dtype).to(ctx.table_dtype), None, None
+
+
 def _embed(params: Params, tokens: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
-    # Gather, then cast: the same values as the reference's cast-then-
-    # gather, without casting the whole [V, D] table on every call.
-    return params["embed"][tokens].to(dtype)
+    return _EmbedLookup.apply(params["embed"], tokens, dtype)
 
 
 def lm_head_weight(params: Params, config: LlamaConfig) -> torch.Tensor:
@@ -328,43 +368,78 @@ def _qkv(x: torch.Tensor, p: Dict[str, torch.Tensor], c: LlamaConfig):
 # Forward
 # ---------------------------------------------------------------------------
 
+def _layer(c: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
+           attn_fn: Callable, x: torch.Tensor, p: Dict[str, torch.Tensor]):
+    """One decoder layer: x [B, S, D] -> (x, pre-repeat k, v)."""
+    B, S, _ = x.shape
+    rep = c.n_heads // c.n_kv_heads
+    q, k, v = _qkv(x, p, c)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = attn_fn(q, _repeat_kv(k, rep), _repeat_kv(v, rep), causal=True)
+    x = x + attn.reshape(B, S, -1) @ _weight(p, "wo", c.dtype)
+    return _ffn(x, p, c), k, v
+
+
 def prefill_kv(params: Params, tokens: torch.Tensor, config: LlamaConfig,
                attn_impl: Optional[Any] = None):
     """Prefill trunk: prompt [B, P] -> (normed hidden [B, P, D], per-layer
-    pre-repeat ks/vs [L, B, P, n_kv, head_dim]). Shared by ``prefill``,
-    ``forward`` and the engine's insert, so all give the same KV."""
+    pre-repeat ks/vs [L, B, P, n_kv, head_dim]). Shared by ``prefill``
+    and the engine's insert, so both give the same KV."""
     _dense_only(config)
     c = config
-    B, P = tokens.shape
-    cos, sin = rope_freqs(c.head_dim, P, c.rope_theta, tokens.device)
+    cos, sin = rope_freqs(c.head_dim, tokens.shape[1], c.rope_theta,
+                          tokens.device)
     attn_fn = _get_attention_fn(attn_impl or c.attn_impl)
-    rep = c.n_heads // c.n_kv_heads
     x = _embed(params, tokens, c.dtype)
     ks, vs = [], []
-    for i in range(c.n_layers):
-        p = _layer_params(params, i)
-        q, k, v = _qkv(x, p, c)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        attn = attn_fn(q, _repeat_kv(k, rep), _repeat_kv(v, rep),
-                       causal=True)
-        x = x + attn.reshape(B, P, -1) @ _weight(p, "wo", c.dtype)
-        x = _ffn(x, p, c)
+    for p in _layer_views(params):
+        x, k, v = _layer(c, cos, sin, attn_fn, x, p)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["norm_f"], c.norm_eps)
     return x, torch.stack(ks), torch.stack(vs)
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """remat="dots": keep the weight matmuls' outputs (``aten.mm``, no
+    batch dimensions), recompute everything else, attention included."""
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_dots():
+    return create_selective_checkpoint_contexts(_save_matmuls)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, config: LlamaConfig,
                    attn_impl: Optional[Any] = None):
     """Trunk only: tokens [B, S] -> (normed hidden [B, S, D], aux). aux is
-    the MoE load-balance term of the reference, 0 for a dense model."""
-    if config.remat:
-        raise NotImplementedError(
-            "remat is a training option; it comes with the training "
-            "slice (ROADMAP A2)")
-    x, _, _ = prefill_kv(params, tokens, config, attn_impl)
+    the MoE load-balance term of the reference, 0 for a dense model.
+    ``config.remat`` checkpoints each layer: ``True`` whole, ``"dots"``
+    keeping its weight matmuls' outputs."""
+    _dense_only(config)
+    c = config
+    if isinstance(c.remat, str) and c.remat != "dots":
+        raise ValueError(
+            f"remat={c.remat!r}: expected False, True, or 'dots'")
+    cos, sin = rope_freqs(c.head_dim, tokens.shape[1], c.rope_theta,
+                          tokens.device)
+    attn_fn = _get_attention_fn(attn_impl or c.attn_impl)
+
+    def layer(x, p):
+        return _layer(c, cos, sin, attn_fn, x, p)[0]
+
+    x = _embed(params, tokens, c.dtype)
+    for p in _layer_views(params):
+        if c.remat == "dots":
+            x = checkpoint(layer, x, p, use_reentrant=False,
+                           context_fn=_remat_dots)
+        elif c.remat:
+            x = checkpoint(layer, x, p, use_reentrant=False)
+        else:
+            x = layer(x, p)
+    x = rms_norm(x, params["norm_f"], c.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -373,6 +448,47 @@ def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     """tokens [B, S] -> f32 logits [B, S, V]."""
     x, _ = forward_hidden(params, tokens, config, attn_impl)
     return _logits(x, params, config)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            config: LlamaConfig, attn_impl: Optional[Any] = None,
+            fused: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy, f32 scalar. batch: ``tokens`` [B, S]
+    (+ optional ``mask`` [B, S], weighting each target by mask[:, 1:]).
+
+    ``fused`` streams the lm_head product and logsumexp over vocab blocks
+    (``ops.fused_loss``) so the [B, S, V] logits never exist whole; the
+    reference's default, which it also reads from ``RAY_TPU_FUSED_LOSS``
+    (the port takes the argument only). Both routes give the same values
+    to f32 rounding."""
+    c = config
+    tokens = batch["tokens"]
+    targets = tokens[:, 1:]
+    hidden, aux = forward_hidden(params, tokens[:, :-1], c, attn_impl)
+    if fused:
+        from ray_tpu_torch.ops.fused_loss import blockwise_xent
+
+        b, s, d = hidden.shape
+        nll = blockwise_xent(hidden.reshape(b * s, d),
+                             lm_head_weight(params, c),
+                             targets.reshape(-1)).reshape(b, s)
+    else:
+        logits = _logits(hidden, params, c)
+        tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+        nll = torch.logsumexp(logits, dim=-1) - tgt
+    mask = batch.get("mask")
+    if mask is not None:
+        m = mask[:, 1:].float()
+        return (nll * m).sum() / m.sum().clamp_min(1.0) + aux
+    return nll.mean() + aux
+
+
+def flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    """Approximate training FLOPs/token (fwd+bwd ~ 6*N + attention), the
+    reference's formula."""
+    n = config.num_params()
+    attn = 12 * config.n_layers * config.dim * seq_len
+    return 6.0 * n + attn
 
 
 # ---------------------------------------------------------------------------
@@ -445,8 +561,7 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
 
     bidx = torch.arange(B, device=dev)
     keep = None if active is None else active.to(dev)[:, None, None]
-    for i in range(c.n_layers):
-        p = _layer_params(params, i)
+    for i, p in enumerate(_layer_views(params)):
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         q, k, v = _qkv(x, p, c)
         q, k = rope1(q), rope1(k)

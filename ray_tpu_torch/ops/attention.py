@@ -1,5 +1,6 @@
-"""Flash attention forward: the Hopper kernel, its plain version, and the
-public ``flash_attention`` with the reference's dispatch rules.
+"""Flash attention: the Hopper kernels, their plain versions, and the
+public ``flash_attention`` with the reference's dispatch rules and
+gradient.
 
 Kernel B1 (``csrc/flash_fwd.cu``) replaces the TPU kernel
 ``ray_tpu/ops/attention.py::_fwd_kernel`` (launched by ``_flash_fwd_bhsd``).
@@ -16,15 +17,26 @@ a later version's. It takes f32 and bf16 at head dim 128, the serving
 path's types and width, and refuses anything else. The design notes are in
 the source.
 
+Kernels B2 and B3 (``csrc/flash_bwd.cu``) replace the TPU backward kernels
+``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` (launched by ``_bhsd_bwd``):
+dK and dV per key tile over the query tiles that see it, and dQ per query
+tile over its key tiles, from O's saved LSE and delta = rowsum(dO * O)
+(computed here in f32, as the reference does). They round where the TPU
+kernels round (P before P^T dO, dS before dS^T Q and dS K) and are built
+for the same two types at head dim 128. ``flash_attention`` is a
+``torch.autograd.Function`` whose forward launches B1 and whose backward
+launches B2 and B3, the counterpart of the reference's ``custom_vjp``.
+
 Rules kept from the reference (``ray_tpu/ops/attention.py``):
 
-- sequences shorter than 128 take plain math (``_use_kernel``);
+- sequences shorter than 128 take plain math (``_use_kernel``), and
+  autograd runs through it (the reference's XLA vjp);
 - non-causal attention needs both lengths to be multiples of 128;
-- ragged causal lengths are fine: the kernel masks by absolute index, so
+- ragged causal lengths are fine: the kernels mask by absolute index, so
   nothing is padded (padding was a TPU tiling constraint).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
-plain version, CUDA tensors the kernel, which launches or raises. There is
+plain versions, CUDA tensors the kernels, which launch or raise. There is
 no fallback from one to the other. Layout is [B, S, H, D] at the public
 function, as in the reference and ``models/llama.py``; LSE is [B, H, S].
 """
@@ -82,6 +94,50 @@ def _check(q, k, v):
         raise TypeError(f"mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def _cuda_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, *more: torch.Tensor) -> None:
+    """Raise unless the tensors are what every kernel here takes: CUDA
+    tensors on one device, contiguous, q/k/v in f32 or bf16 at head dim
+    128."""
+    _check(q, k, v)
+    for t in (q, k, v, *more):
+        if t.device != q.device or t.device.type != "cuda":
+            raise ValueError(f"{name} needs CUDA tensors on one device, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: unsupported dtype {q.dtype}")
+    if q.shape[-1] != KERNEL_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[-1]}, the kernel is "
+                         f"built for {KERNEL_HEAD_DIM}")
+
+
+def _launch(source: str, symbol: str, ptrs, q: torch.Tensor,
+            k: torch.Tensor, causal: bool) -> None:
+    """Call ``symbol`` of the library built from ``csrc/<source>.cu``:
+    (pointers..., B, S, Sk, H, D, dtype, causal, scale, stream), on
+    q's device and current stream. Raises on a refused launch."""
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.load(source)
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    err_string = getattr(lib, f"{source}_error_string")
+    err_string.restype = ctypes.c_char_p
+    err_string.argtypes = [ctypes.c_int]
+    B, S, H, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ptrs, B, S, k.shape[1], H, D, _DTYPE_CODES[q.dtype],
+                 int(bool(causal)), 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{err_string(err).decode()} ({err})")
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -89,41 +145,12 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, f32 or bf16, head dim 128). Returns
     (O, LSE [B, H, S] f32). Raises on any input the kernel does not take
     and on a refused launch. ``flash_fwd_cuda.launches`` counts launches."""
-    from ray_tpu_torch.ops import _build
-
-    _check(q, k, v)
-    for t in (q, k, v):
-        if t.device.type != "cuda":
-            raise ValueError(f"flash_fwd_cuda needs CUDA tensors, got "
-                             f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError("flash_fwd_cuda needs contiguous tensors")
-    if q.device != k.device or q.device != v.device:
-        raise ValueError("q, k, v on different devices")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_fwd_cuda: unsupported dtype {q.dtype}")
-    B, S, H, D = q.shape
-    Sk = k.shape[1]
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash_fwd_cuda: head dim {D}, the kernel is "
-                         f"built for {KERNEL_HEAD_DIM}")
-    lib = _build.load("flash_fwd")
-    fn = lib.flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    lib.flash_fwd_error_string.restype = ctypes.c_char_p
-    lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
+    _cuda_inputs("flash_fwd_cuda", q, k, v)
+    B, S, H, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), B, S, Sk, H, D, _DTYPE_CODES[q.dtype],
-                 int(bool(causal)), 1.0 / math.sqrt(D), stream)
-    if err != 0:
-        msg = lib.flash_fwd_error_string(err).decode()
-        raise RuntimeError(f"flash_fwd launch failed: {msg} ({err})")
+    _launch("flash_fwd", "flash_fwd",
+            [t.data_ptr() for t in (q, k, v, out, lse)], q, k, causal)
     flash_fwd_cuda.launches += 1
     return out, lse
 
@@ -131,13 +158,148 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd_cuda.launches = 0
 
 
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, [B, H, S]: the backward's per-row
+    term, computed outside the kernels as the reference does."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2) \
+        .contiguous()
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The function of kernels B2 and B3 in plain PyTorch: (dQ, dK, dV)
+    in q's type from O, its LSE [B, H, S] and dO. Products take operands
+    of the input type (upcast, so bf16 products are exact) and sum in
+    f32; P is rounded to the input type before P^T dO and dS before
+    dS^T Q and dS K, as in the kernels. Masked pairs get P = 0 by index."""
+    D = q.shape[-1]
+    S, Sk = q.shape[1], k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = attention_delta(out, do)[..., None]                # [B,H,S,1]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        mask = (torch.arange(S, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _bwd_inputs(name, q, k, v, do, lse, delta):
+    _cuda_inputs(name, q, k, v, do, lse, delta)
+    B, S, H, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{name}: dO must match q, got {tuple(do.shape)} "
+                         f"{do.dtype}")
+    for t in (lse, delta):
+        if t.shape != (B, H, S) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: LSE and delta must be [B, H, S] "
+                             f"f32, got {tuple(t.shape)} {t.dtype}")
+
+
+def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, causal: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel B2: (dK, dV) [B, Sk, H, D] in q's type from q, dO
+    [B, S, H, D], k, v [B, Sk, H, D] and LSE, delta [B, H, S] f32 (CUDA,
+    contiguous, f32 or bf16, head dim 128). Raises on any input the kernel
+    does not take and on a refused launch. ``.launches`` counts launches."""
+    _bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd", "flash_bwd_dkv",
+            [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
+            q, k, causal)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, causal: bool = True
+                      ) -> torch.Tensor:
+    """Launch kernel B3: dQ [B, S, H, D] in q's type, from the same inputs
+    as ``flash_bwd_dkv_cuda``. ``.launches`` counts launches."""
+    _bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd", "flash_bwd_dq",
+            [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
+            q, k, causal)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """(dQ, dK, dV) of flash attention: the plain version for CPU tensors,
+    kernels B2 and B3 for CUDA tensors. dO is cast to q's type and made
+    contiguous (the gradient that reaches attention may be a strided
+    view)."""
+    do = do.to(q.dtype)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    do = do.contiguous()
+    delta = attention_delta(out, do)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """O and LSE from B1 (or its plain version) in the forward; dQ, dK, dV
+    from B2 and B3 (or their plain version) in the backward. Saves q, k,
+    v, O and the f32 LSE; LSE is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal)
+        elif q.device.type == "cuda":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            out, lse = flash_fwd_cuda(q, k, v, causal)
+        else:
+            raise ValueError(f"flash_attention: no kernel for {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, return_lse: bool = False
                     ) -> Union[torch.Tensor,
                                Tuple[torch.Tensor, torch.Tensor]]:
     """q, k, v [B, S, H, D] -> O [B, S, H, D] (and LSE [B, H, S] f32 with
-    ``return_lse``). Below 128 tokens the reference's plain attention
-    (``models.llama.xla_attention``) gives O, as in the reference."""
+    ``return_lse``), differentiable in q, k and v. Below 128 tokens the
+    reference's plain attention (``models.llama.xla_attention``) gives O
+    and autograd runs through it, as in the reference."""
     _check(q, k, v)
     S, Sk = q.shape[1], k.shape[1]
     if S < MIN_KERNEL_SEQ or Sk < MIN_KERNEL_SEQ:
@@ -150,11 +312,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not causal and (S % 128 or Sk % 128):
         raise NotImplementedError(
             "non-causal flash requires seq_len % 128 == 0")
-    if q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, causal)
-    elif q.device.type == "cuda":
-        out, lse = flash_fwd_cuda(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal)
-    else:
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    out, lse = _FlashAttention.apply(q, k, v, causal)
     return (out, lse) if return_lse else out

@@ -40,7 +40,7 @@ def _forbidden(module: str) -> bool:
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"llama.py", "attention.py", "engine.py", "deployment.py",
-            "chip_smoke.py"} <= names
+            "fused_loss.py", "train_step.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -87,6 +87,24 @@ def test_server_default_device_raises():
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
         LLMServer()
+
+
+def test_create_train_state_default_device_raises():
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params
+    from ray_tpu_torch.parallel import create_train_state
+
+    _no_cuda()
+    params = init_params(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(params)
+
+
+def test_build_train_step_default_device_raises():
+    from ray_tpu_torch.parallel import build_train_step
+
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_train_step(lambda params, batch: None)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -11,6 +11,8 @@ sum matmuls in different orders) and identical tokens over a short
 generation; int8 quantization bit-identical.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -189,5 +191,37 @@ def test_later_slices_raise():
     toks = _t(_tokens(6, 1, 4))
     with pytest.raises(NotImplementedError):
         T.forward(tp, toks, T.LlamaConfig.tiny(attn_impl="ring"))
-    with pytest.raises(NotImplementedError):
-        T.forward(tp, toks, T.LlamaConfig.tiny(remat=True))
+
+
+@pytest.mark.parametrize("remat", [True, "dots"])
+def test_remat_keeps_loss_and_grads(remat):
+    """Checkpointed layers (whole, or keeping the weight matmuls) give the
+    loss and every gradient of the plain run: recomputation repeats the
+    same arithmetic. At 128 positions the attention is the flash route's
+    autograd Function, which the checkpoint reruns."""
+    _, _, tc, tp = _pair("f32")
+    batch = {"tokens": _t(_tokens(8, 2, 129))}
+
+    def run(cfg):
+        p = {k: ({n: t.clone().requires_grad_(True) for n, t in v.items()}
+                 if isinstance(v, dict) else v.clone().requires_grad_(True))
+             for k, v in tp.items()}
+        loss = T.loss_fn(p, batch, cfg)
+        loss.backward()
+        grads = [p["embed"].grad, p["lm_head"].grad, p["norm_f"].grad]
+        grads += [p["layers"][k].grad for k in sorted(p["layers"])]
+        return loss.detach(), grads
+
+    base = dataclasses.replace(tc, attn_impl="flash")
+    loss0, grads0 = run(base)
+    loss1, grads1 = run(dataclasses.replace(base, remat=remat))
+    _close(loss1.numpy(), loss0.numpy(), 1e-6)
+    for g1, g0 in zip(grads1, grads0):
+        _close(g1.numpy(), g0.numpy(), 1e-6)
+
+
+def test_unknown_remat_raises():
+    _, _, tc, tp = _pair("f32")
+    with pytest.raises(ValueError, match="remat"):
+        T.forward(tp, _t(_tokens(6, 1, 4)),
+                  dataclasses.replace(tc, remat="full"))
