@@ -36,6 +36,25 @@ Phases, one line each; any failure raises and exits non-zero:
               flash against plain attention on the initial params and the
               first batch: the loss and every gradient leaf within a
               relative L2 tolerance.
+8. ring    -- (run after phase 3) the ring collectives C1-C4
+              (``ring.cu``) bitwise against their plain versions at ring
+              sizes 2, 4 and 8, f32 and bf16, sum and max, ragged and
+              large per-rank blocks, and the split-phase forms (C1 per
+              hop) against C2 and C3; the same at the ZeRO path's size
+              (the 4-layer flat parameter vector, 4 ranks, bf16), and the
+              four kernels' times beside their plain versions', bounds
+              and one library call's.
+9. zero    -- f32 at dim 256: ZeRO at 2 ranks bitwise equal to plain
+              data parallelism through C4, ZeRO at 4 ranks against the
+              one-device step. Then Llama-3-8B widths at 4 layers through
+              ``build_zero_train_step`` over 4 virtual ranks (batch 4 x
+              1024, one row per rank): 3 monolithic steps (C2 + C3, one
+              launch each per step), one profiled step, then 3 steps with
+              ``overlap=True`` (C1, 24 launches per step) from the same
+              params: finite losses and grad norms, exact launch counts,
+              every rank's copy equal to rank 0's, overlap within bf16
+              re-association of monolithic; step time, tokens/s, peak
+              memory and the ring kernels' share of a profiled step.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -717,11 +736,497 @@ def phase_train(dev, card):
             "f32_grad_rel_l2_max": f32_rel}
 
 
+# The ring collectives C1-C4 against their plain versions: ring sizes,
+# types, ops, and per-rank blocks (rows x 128 elements, or a ragged shape
+# whose per-rank and per-slab element counts are not multiples of 128, so
+# every padding path runs). n = 4 and 8 reuse comm slots (hop t >= 2); n = 2
+# never does. Every case must be bitwise: the kernels run the plain
+# versions' hop schedule and round each combine once, as torch does.
+RING_NS = (2, 4, 8)
+RING_SHAPES = ((8, 128), (1000, 125), (65536, 128))
+RING_OPS = ("sum", "max")
+# The ZeRO phase: ranks, steps per route, chunks under overlap, and the
+# f32 checks' config (the train phase's narrow one) and steps.
+ZERO_N, ZERO_STEPS, ZERO_CHUNKS = 4, 3, 4
+ZERO_F32_STEPS = 3
+# ZeRO against the one-device step in f32: the summed gradients differ only
+# in summation order, and each param is held to TOL_ZERO_F32 after the
+# steps. Except where a gradient element sums to almost nothing (below
+# TOL_ZERO_F32_G but not 0 at some step, from cancelling terms): AdamW
+# divides each element by its own magnitude plus eps (1e-8), so there f32
+# rounding noise of about 1e-9 changes the update direction itself, and
+# such a param is held to the most AdamW can move it apart, 2 lr per step.
+# (The card read 1.3e-5 on one such lm_head element, whose first gradient
+# was about 4e-9.)
+TOL_ZERO_F32 = 1e-5
+TOL_ZERO_F32_G = 1e-7
+TOL_ZERO_F32_NZ = 2 * 1e-4 * ZERO_F32_STEPS
+# Overlap against monolithic in bf16, after ZERO_STEPS AdamW steps from the
+# same params: the chunked rings sum each gradient element in another order
+# (each hop rounds to bf16), which moves AdamW's normalised update by a
+# few parts in 2**8 and flips the bf16 rounding of some params by one ulp.
+# Gate: the relative L2 distance of the two runs' params, measured against
+# the distance they moved from the initial params, at most 0.2; the first
+# step's loss equal (same params, same batch).
+TOL_ZERO_OVERLAP = 0.2
+
+
+def ring_bound(in_bytes, out_bytes):
+    """(bound_ms, "bytes"): each input read once, each output written
+    once, at the card's memory rate; a ring does no arithmetic to speak
+    of (one combine per element and hop)."""
+    return (in_bytes + out_bytes) / PEAK_BYTES * 1e3, "bytes"
+
+
+def _ring_cases(x, group, op, shards=None, hop=None):
+    """Yield (name, kernel result, plain result) for every ring kernel:
+    C4 and C2 on the rank-major x [n, L] (L divisible by n), C3 on
+    ``shards`` and C1 on ``hop`` (both x unless given), and the split-phase
+    forms (one C1 launch per hop) against the monolithic kernels. Each
+    plain result is computed first and each pair dropped after use, to
+    keep the ZeRO size within the card's memory."""
+    from ray_tpu_torch.util.collective import ring as R
+
+    shards = x if shards is None else shards
+    hop = x if hop is None else hop
+    cuda = dict(impl="cuda", group=group)
+    want = R.ring_allreduce(x, op, impl="plain")
+    yield "C4 allreduce", R.ring_allreduce(x, op, **cuda), want
+    want = None
+    want = R.ring_reduce_scatter(x, op, impl="plain")
+    rs = R.ring_reduce_scatter(x, op, **cuda)
+    yield "C2 reduce_scatter", rs, want
+    want = None
+    yield "C1 split reduce_scatter vs C2", R.wait_ring_reduce_scatter(
+        R.start_ring_reduce_scatter(x, op, **cuda)), rs
+    rs = None
+    want = R.ring_allgather(shards, impl="plain")
+    ag = R.ring_allgather(shards, **cuda)
+    yield "C3 allgather", ag, want
+    want = None
+    yield "C1 split allgather vs C3", R.wait_ring_allgather(
+        R.start_ring_allgather(shards, **cuda)), ag
+    ag = None
+    want = R.wait_ring_permute(R.start_ring_permute(hop, impl="plain"))
+    yield "C1 permute", R.wait_ring_permute(
+        R.start_ring_permute(hop, **cuda)), want
+
+
+def _ring_times(group, n, rows, gen, dev):
+    """Kernel, plain, bound and library times of C1-C4 in bf16, sum, at
+    per-rank blocks of ``rows`` x 128 (C4, C2: the rank's whole block;
+    C3: its shard of rows / n; C1: one hop of the overlap path, rows /
+    (n * ZERO_CHUNKS))."""
+    from ray_tpu_torch.util.collective import ring as R
+
+    dtype = torch.bfloat16
+    e = torch.finfo(dtype).bits // 8
+    c, h = rows // n, rows // (n * ZERO_CHUNKS)
+    x = torch.randn((n, rows, 128), generator=gen, device=dev, dtype=dtype)
+    full, part, one = n * rows * 128 * e, n * c * 128 * e, n * h * 128 * e
+    iters = 5 if full > 2**30 else 20
+    out = {}
+    out["C4"] = dict(
+        ms=time_ms(lambda: R.ring_allreduce_cuda(x, group=group), iters),
+        plain_ms=time_ms(lambda: R.ring_allreduce_plain(x), iters),
+        library_ms=time_ms(lambda: x.sum(0), iters),
+        library_computes="x.sum(0)", bound=ring_bound(full, full))
+    # From here x is scratch: the reduce-scatter accumulates in it, as the
+    # ZeRO path's does in its gradient buffer.
+    out["C2"] = dict(
+        ms=time_ms(lambda: R.ring_reduce_scatter_cuda(
+            x, group=group, donate=True), iters),
+        plain_ms=time_ms(lambda: R.ring_reduce_scatter_plain(
+            x, donate=True), iters),
+        library_ms=time_ms(lambda: x.view(n, n, c, 128).sum(0), iters),
+        library_computes="x.view(n, n, c, 128).sum(0)",
+        bound=ring_bound(full, part))
+    shard = torch.randn((n, c, 128), generator=gen, device=dev, dtype=dtype)
+    del x
+    out["C3"] = dict(
+        ms=time_ms(lambda: R.ring_allgather_cuda(shard, group=group), iters),
+        plain_ms=time_ms(lambda: R.ring_allgather_plain(shard), iters),
+        library_ms=time_ms(lambda: shard.reshape(1, -1, 128).expand(
+            n, -1, -1).contiguous(), iters),
+        library_computes="x.reshape(1, -1, 128).expand(n, -1, -1)"
+                         ".contiguous()",
+        bound=ring_bound(part, full))
+    block = shard[:, :h].contiguous()
+    del shard
+    out["C1"] = dict(
+        ms=time_ms(lambda: R.ring_permute_cuda(block, group=group), 20),
+        plain_ms=time_ms(lambda: R.ring_permute_plain(block), 20),
+        library_ms=time_ms(lambda: torch.roll(block, 1, 0), 20),
+        library_computes="torch.roll(x, 1, 0)",
+        bound=ring_bound(one, one))
+    del block
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = {"C4": rows, "C2": rows, "C3": c, "C1": h}
+    for k, row in out.items():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+        row.update({"n": n, "rows": shapes[k], "dtype": "bf16"})
+    return out
+
+
+def phase_ring_kernels(dev, card, zero_rows=None):
+    """C1-C4 against their plain versions on the card, bit for bit, at
+    every ring size, type, op and block of RING_*; then, at ``zero_rows``
+    (the ZeRO path's flat parameter vector, in 128-lane rows, n = 4, bf16,
+    sum), the same checks and the four kernels' times beside their plain
+    versions', their bounds and one library call's; and the times at
+    65536 rows per rank."""
+    from ray_tpu_torch.util.collective import RingGroup
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    checked = 0
+    for n in RING_NS:
+        group = RingGroup(n, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in RING_SHAPES:
+                x = torch.randn((n,) + shape, generator=gen, device=dev,
+                                dtype=dtype)
+                for op in RING_OPS:
+                    for name, got, want in _ring_cases(x, group, op):
+                        check(got.shape == want.shape
+                              and torch.equal(got, want),
+                              f"{name} n={n} {dtype} {shape} op={op}: "
+                              f"differs from its plain version (max abs "
+                              f"{(got.float() - want.float()).abs().max()})")
+                        checked += 1
+        group.check()
+        del group
+    log("ring", f"C1-C4 bitwise equal to their plain versions in {checked} "
+        f"cases: n {RING_NS}, f32 and bf16, ops {RING_OPS}, per-rank "
+        f"blocks {RING_SHAPES}; split-phase reduce-scatter and allgather "
+        f"(C1 per hop) bitwise equal to C2 and C3")
+    timings = []
+    group = RingGroup(ZERO_N, dev)
+    if zero_rows:
+        x = torch.randn((ZERO_N, zero_rows * 128), generator=gen,
+                        device=dev, dtype=torch.bfloat16)
+        c = zero_rows // ZERO_N
+        shards = x[:, :c * 128].contiguous()
+        hop = x[:, :c * 128 // ZERO_CHUNKS].contiguous()
+        for name, got, want in _ring_cases(x, group, "sum", shards, hop):
+            check(torch.equal(got, want), f"{name} at the ZeRO size differs "
+                  f"from its plain version")
+            del got, want
+        del x, shards, hop
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("ring", f"ZeRO size ({ZERO_N} ranks x {zero_rows} x 128 bf16, "
+            f"sum; C3 on its {c}-row shards, C1 on one overlap hop of "
+            f"{c // ZERO_CHUNKS} rows): C1-C4 and the split-phase forms "
+            f"bitwise equal to their plain versions")
+        timings.append(_ring_times(group, ZERO_N, zero_rows, gen, dev))
+    timings.append(_ring_times(group, ZERO_N, 65536, gen, dev))
+    group.check()
+    del group
+    gc.collect()
+    torch.cuda.empty_cache()
+    for t in timings:
+        for k, row in t.items():
+            log("ring", f"{k} n={row['n']} {row['rows']} rows bf16: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['library_computes']} {row['library_ms']:.4f} ms; "
+                f"{card}")
+    return timings
+
+
+def _zero_f32_cfg():
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=1000, dim=256, n_layers=2, n_heads=2,
+                       n_kv_heads=1, hidden_dim=512, max_seq_len=512,
+                       dtype=torch.float32, param_dtype=torch.float32,
+                       attn_impl="flash", remat="dots")
+
+
+def phase_zero_f32(dev):
+    """The ZeRO step in f32 at dim 256 (the train phase's f32 config):
+    (1) at n = 2, bitwise equal to plain data parallelism whose summed
+    gradient goes through C4 (``build_replicated_train_step``); the
+    embedding's backward sums with ``index_add_``, whose CUDA atomics add
+    in a varying order, so both steps run under
+    ``torch.use_deterministic_algorithms`` (index_add_ then sums in a fixed
+    order); (2) monolithic at n = 4 against the one-device
+    ``build_train_step`` on the same global batch, its loss scaled by n to
+    match ZeRO's summed gradients (only summation order differs), to
+    TOL_ZERO_F32 (see there). Returns C4's launches in (1) and the largest
+    param difference of (2) outside the near-zero gradients."""
+    import functools
+    import warnings
+
+    from ray_tpu_torch.models.llama import init_params, loss_fn
+    from ray_tpu_torch.parallel import (
+        build_replicated_train_step, build_train_step,
+        build_zero_train_step, create_train_state, create_zero_state)
+    from ray_tpu_torch.parallel.train_step import LR, WEIGHT_DECAY
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import ring as R
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on; the f32 check needs full f32")
+    cfg = _zero_f32_cfg()
+    opt = functools.partial(torch.optim.AdamW, lr=LR,
+                            weight_decay=WEIGHT_DECAY)
+    rng = np.random.RandomState(3)
+    toks = [rng.randint(0, cfg.vocab_size, (ZERO_N, 301))
+            for _ in range(ZERO_F32_STEPS)]
+
+    def run(make_step, n, **kw):
+        group = RingGroup(n, dev)
+        state = create_zero_state(init_params(cfg, seed=1, device=dev), opt,
+                                  group)
+        step = make_step(lambda p, b: loss_fn(p, b, cfg), opt, group, **kw)
+        for t in toks:
+            state, m = step(state, {"tokens": t[:n]})
+        group.check()
+        return state, m["loss"].item()
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            zero, zl = run(build_zero_train_step, 2)
+            for k in R.KERNELS:
+                k.launches = 0
+            rep, rl = run(build_replicated_train_step, 2)
+            c4 = R.ring_allreduce_cuda.launches
+        finally:
+            torch.use_deterministic_algorithms(prev)
+    check(c4 == ZERO_F32_STEPS, f"replicated step: C4 launches {c4} != "
+          f"{ZERO_F32_STEPS}")
+    check(torch.equal(zero.flat, rep.flat) and zl == rl,
+          "ZeRO (n = 2) and the replicated C4 step differ")
+    log("zero", f"f32 dim 256, n=2, {ZERO_F32_STEPS} AdamW steps: ZeRO "
+        f"(C2 + C3) bitwise equal to the replicated step through C4 "
+        f"({c4} launches); every rank's copy equal")
+    del zero, rep
+
+    zero, zl = run(build_zero_train_step, ZERO_N)
+    one = create_train_state(init_params(cfg, seed=1, device=dev),
+                             device=dev)
+    init = _flat_of(one.params)
+    step = build_train_step(lambda p, b: ZERO_N * loss_fn(p, b, cfg),
+                            device=dev)
+    near_zero = torch.zeros_like(init, dtype=torch.bool)
+    for t in toks:
+        one, m = step(one, {"tokens": t})
+        g = _flat_of(one.params, grad=True).abs()
+        near_zero |= (g > 0) & (g < TOL_ZERO_F32_G)
+    want = _flat_of(one.params)
+    diff = (_flat_of(zero.params) - want).abs()
+    err = diff[~near_zero].max().item()
+    err_nz = diff[near_zero].max().item() if near_zero.any() else 0.0
+    moved = (want - init).norm().item()
+    rel = diff.norm().item() / moved
+    loss_err = abs(ZERO_N * zl - m["loss"].item())
+    log("zero", f"f32 dim 256, n={ZERO_N}, {ZERO_F32_STEPS} AdamW steps: "
+        f"ZeRO vs the one-device build_train_step (loss x {ZERO_N}): max abs "
+        f"param difference {err:.3g} (tol {TOL_ZERO_F32}) over "
+        f"{int((~near_zero).sum())} params; the {int(near_zero.sum())} "
+        f"whose gradient fell below {TOL_ZERO_F32_G} (not 0) at some step "
+        f"{err_nz:.3g} (tol {TOL_ZERO_F32_NZ:.3g}); L2 distance "
+        f"{rel:.3g} of the distance moved; loss {loss_err:.3g}")
+    check(err <= TOL_ZERO_F32 and err_nz <= TOL_ZERO_F32_NZ,
+          f"ZeRO n={ZERO_N} vs one-device step: params differ by {err} "
+          f"(near-zero gradients: {err_nz})")
+    return c4, err
+
+
+def _flat_of(tree, grad=False):
+    """A param tree (or its gradients) as one f32 vector, leaves in name
+    order."""
+    return torch.cat([(t.grad if grad else t).detach().float().reshape(-1)
+                      for _, t in sorted(_flat_leaves(tree))])
+
+
+def _flat_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def _sq_dist(a, b, chunk=1 << 27):
+    """sum((a - b)^2) in f32 over two equal flat tensors, in chunks."""
+    total = torch.zeros((), dtype=torch.float32, device=a.device)
+    for i in range(0, a.numel(), chunk):
+        d = a[i:i + chunk].float() - b[i:i + chunk].float()
+        total += d.square().sum()
+    return total.item()
+
+
+def _profile_step(step, state, batch):
+    """(wall ms, device busy ms, ring-kernel device ms) of one step under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": batch})
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = ring_ms = 0.0
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA and e.device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)):
+            busy += e.device_time_total / 1e3
+            if "ring_" in e.key and "_kernel" in e.key:
+                ring_ms += e.device_time_total / 1e3
+    return wall_ms, busy, ring_ms
+
+
+def phase_zero_train(dev, card):
+    """Llama-3-8B widths at TRAIN_LAYERS layers through
+    ``build_zero_train_step`` over ZERO_N virtual ranks: ZERO_STEPS
+    monolithic steps (C2 + C3) and one profiled step, then the same with
+    ``overlap=True`` (C1 per hop) from the same initial params. See the
+    module docstring for the gates."""
+    import functools
+
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.parallel import build_zero_train_step, create_zero_state
+    from ray_tpu_torch.parallel.train_step import LR, WEIGHT_DECAY
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import ring as R
+
+    cfg = LlamaConfig.llama3_8b(
+        n_layers=TRAIN_LAYERS, max_seq_len=TRAIN_SEQ, attn_impl="flash",
+        remat="dots", param_dtype=torch.bfloat16)
+    L = cfg.n_layers
+    opt = functools.partial(torch.optim.AdamW, lr=LR,
+                            weight_decay=WEIGHT_DECAY)
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, cfg.vocab_size,
+                           (ZERO_N, TRAIN_SEQ + 1)).astype(np.int64)
+               for _ in range(ZERO_STEPS + 1)]
+    tokens = ZERO_N * TRAIN_SEQ
+    kernels = R.KERNELS + (attention.flash_fwd_cuda,
+                           attention.flash_bwd_dkv_cuda,
+                           attention.flash_bwd_dq_cuda)
+
+    def run(overlap):
+        name = "overlap" if overlap else "monolithic"
+        group = RingGroup(ZERO_N, dev)
+        torch.cuda.reset_peak_memory_stats()
+        state = create_zero_state(init_params(cfg, seed=0, device=dev), opt,
+                                  group)
+        step = build_zero_train_step(
+            lambda p, b: loss_fn(p, b, cfg), opt, group, overlap=overlap,
+            n_chunks=ZERO_CHUNKS)
+        for k in kernels:
+            k.launches = 0
+        losses, norms, times = [], [], []
+        for i in range(ZERO_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, {"tokens": batches[i]})
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            times.append(time.perf_counter() - t0)
+        group.check()
+        ring = [k.launches for k in kernels[:4]]
+        b = [k.launches for k in kernels[4:]]
+        n_c = len(state.layout) - 1
+        want = ([2 * (ZERO_N - 1) * n_c * ZERO_STEPS, 0, 0, 0] if overlap
+                else [0, ZERO_STEPS, ZERO_STEPS, 0])
+        want_b = [2 * L * ZERO_N * ZERO_STEPS, L * ZERO_N * ZERO_STEPS,
+                  L * ZERO_N * ZERO_STEPS]
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"{name}: non-finite loss or grad norm {losses} {norms}")
+        check(ring == want, f"{name}: launches (C1, C2, C3, C4) {ring} != "
+              f"{want}")
+        check(b == want_b, f"{name}: launches (B1, B2, B3) {b} != {want_b}")
+        check(all(torch.equal(state.flat[r], state.flat[0])
+                  for r in range(ZERO_N)),
+              f"{name}: a rank's parameter copy differs from rank 0's")
+        peak = torch.cuda.max_memory_allocated()
+        step_s = float(np.median(times[1:]))
+        log("zero", f"{name}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+            + "; grad norms " + ", ".join(f"{x:.3f}" for x in norms))
+        log("zero", f"{name}: {ZERO_STEPS} steps of {ZERO_N} ranks x "
+            f"{TRAIN_SEQ} tokens: step times "
+            + ", ".join(f"{x:.3f}" for x in times) + f" s; median after the "
+            f"first {step_s:.4f} s = {tokens / step_s:.0f} tokens/s; peak "
+            f"memory {peak / 2**30:.2f} GiB; launches C1-C4 {ring} (expected "
+            f"{want}), B1-B3 {b}; every rank's copy equal to rank 0's; {card}")
+        rec = {"losses": losses, "grad_norms": norms, "step_times_s": times,
+               "step_s": step_s, "tokens_per_s": tokens / step_s,
+               "peak_gib": peak / 2**30, "launches_c1_c4": ring,
+               "launches_b1_b3": b, "chunks": n_c}
+        return group, state, step, rec
+
+    def profiled(name, step, state, rec):
+        wall, busy, ring_ms = _profile_step(step, state, batches[ZERO_STEPS])
+        rec.update({"profiled_wall_ms": wall, "profiled_busy_ms": busy,
+                    "ring_ms": ring_ms,
+                    "ring_share": ring_ms / busy if busy else None})
+        if busy:
+            log("zero", f"{name}: profiled step {wall:.1f} ms wall, device "
+                f"busy {busy:.1f} ms (idle {100 * (1 - busy / wall):.1f}%), "
+                f"ring kernels {ring_ms:.1f} ms ({100 * ring_ms / busy:.1f}% "
+                f"of busy); {card}")
+        else:
+            log("zero", f"{name}: the profiler recorded no device time")
+
+    n_params = cfg.num_params()
+    log("zero", f"Llama-3-8B widths, {L} layers, {n_params / 1e9:.3f} B "
+        f"params (bf16), {ZERO_N} virtual ranks, AdamW (optax.adamw(1e-4)'s "
+        f"settings), batch {ZERO_N} x {TRAIN_SEQ}; {card}")
+    group, state, step, mono = run(False)
+    mono_final = state.flat[0].clone()
+    spec = state.spec
+    profiled("monolithic", step, state, mono)
+    del group, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The initial params as one flat vector, in the state's layout.
+    init = torch.zeros_like(mono_final)
+    p0 = init_params(cfg, seed=0, device=dev)
+    for path, shape, off in spec:
+        leaf = p0
+        for key in path:
+            leaf = leaf[key]
+        init[off:off + shape.numel()] = leaf.reshape(-1)
+    del p0
+
+    group, state, step, over = run(True)
+    moved = _sq_dist(mono_final, init) ** 0.5
+    rel = _sq_dist(state.flat[0], mono_final) ** 0.5 / moved
+    loss0 = abs(over["losses"][0] - mono["losses"][0]) / abs(mono["losses"][0])
+    log("zero", f"overlap vs monolithic after {ZERO_STEPS} steps: params' "
+        f"L2 distance {rel:.3e} of the distance moved from the initial "
+        f"params (tol {TOL_ZERO_OVERLAP}); first-step loss rel diff "
+        f"{loss0:.2e}")
+    check(loss0 <= 1e-6, "overlap and monolithic disagree on the first "
+          "step's loss (same params, same batch)")
+    check(rel <= TOL_ZERO_OVERLAP, "overlap and monolithic params differ "
+          "beyond bf16 re-association")
+    profiled("overlap", step, state, over)
+    del group, state, step, mono_final, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": L, "params": n_params, "monolithic": mono,
+            "overlap": over, "overlap_vs_mono_rel_l2": rel}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    from ray_tpu_torch.models.llama import LlamaConfig
+
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
     log("env", f"{card}; torch {torch.__version__}, CUDA "
@@ -729,10 +1234,23 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(dev)
     bwd_rows = phase_bwd_kernels(dev)
+    n_params = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS).num_params()
+    group = ZERO_N * 128
+    ring_rows = phase_ring_kernels(dev, card,
+                                   -(-n_params // group) * group // 128)
     serve_launches = phase_serve(dev)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c4_launches, zero_f32_err = phase_zero_f32(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero = phase_zero_train(dev, card)
+    mono, over = zero["monolithic"], zero["overlap"]
+    zero_b = [a + b for a, b in zip(mono["launches_b1_b3"],
+                                    over["launches_b1_b3"])]
 
     main_row = next(r for r in rows if r["S"] == 512 and r["causal"])
     bwd_main = next(r for r in bwd_rows
@@ -740,11 +1258,13 @@ def main() -> int:
     bwd_shape = (f"B={TRAIN_BATCH} H={N_HEADS} S={TRAIN_SEQ} D={HEAD_DIM} "
                  f"causal bf16")
 
-    def bwd_kernel(name, key, outs, replaces, launches):
+    def bwd_kernel(name, key, outs, replaces, train_launches, zero_launches):
         return {
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": train_launches + zero_launches,
+            "launches_by_path": {"train": train_launches,
+                                 "zero_train": zero_launches},
             "max_abs_err": max(r[f"bf16_{o}_err"] for r in bwd_rows
                                for o in outs),
             "f32_max_abs_err": max(r[f"f32_{o}_err"] for r in bwd_rows
@@ -760,14 +1280,31 @@ def main() -> int:
             "library_computes": "SDPA backward: dQ, dK and dV",
             "shape": bwd_shape, "per_shape": bwd_rows}
 
+    def ring_kernel(key, name, line, by_path):
+        main = ring_rows[0][key]
+        return {
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/ring.cu",
+            "replaces": f"ray_tpu/util/collective/pallas/ring.py:{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": 0.0,
+            "tolerance": "bitwise: torch.equal with the plain version",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_computes": main["library_computes"],
+            "shape": f"n={main['n']} ranks x {main['rows']} x 128 bf16 sum",
+            "per_shape": [t[key] for t in ring_rows]}
+
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:47",
-        "launches": serve_launches + train["launches"][0],
+        "launches": serve_launches + train["launches"][0] + zero_b[0],
         "launches_by_path": {"serve": serve_launches,
-                             "train": train["launches"][0]},
+                             "train": train["launches"][0],
+                             "zero_train": zero_b[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -777,10 +1314,21 @@ def main() -> int:
         "shape": f"B=1 H={N_HEADS} S=512 D={HEAD_DIM} causal bf16",
         "per_shape": rows,
     }, bwd_kernel("flash_bwd_dkv", "dkv", ("dk", "dv"),
-                  "ray_tpu/ops/attention.py:149", train["launches"][1]),
+                  "ray_tpu/ops/attention.py:149", train["launches"][1],
+                  zero_b[1]),
         bwd_kernel("flash_bwd_dq", "dq", ("dq",),
-                   "ray_tpu/ops/attention.py:211", train["launches"][2])],
-        "train": {k: v for k, v in train.items() if k != "launches"}}),
+                   "ray_tpu/ops/attention.py:211", train["launches"][2],
+                   zero_b[2]),
+        ring_kernel("C1", "ring_permute", 378,
+                    {"zero_train_overlap": over["launches_c1_c4"][0]}),
+        ring_kernel("C2", "ring_reduce_scatter", 169,
+                    {"zero_train": mono["launches_c1_c4"][1]}),
+        ring_kernel("C3", "ring_allgather", 146,
+                    {"zero_train": mono["launches_c1_c4"][2]}),
+        ring_kernel("C4", "ring_allreduce", 107,
+                    {"zero_replicated_f32": c4_launches})],
+        "train": {k: v for k, v in train.items() if k != "launches"},
+        "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,508 @@
+// Ring collectives C1-C4 for Hopper (sm_90a), over a ring of n virtual
+// ranks on one card.
+//
+// Replace the TPU kernels of ray_tpu/util/collective/pallas/ring.py:
+//   C1 ring_permute_kernel        <- _permute_kernel        (_permute_block)
+//   C2 ring_reduce_scatter_kernel <- _reduce_scatter_kernel (_reduce_scatter_block)
+//   C3 ring_allgather_kernel      <- _allgather_kernel      (_allgather_block)
+//   C4 ring_allreduce_kernel      <- _allreduce_kernel      (_allreduce_block)
+//
+// Each rank's data is one row of a rank-major tensor: rank r's block starts
+// at base + r * rank_stride and holds rows of 128 lanes, the reference's
+// (rows, 128) per-device layout. The kernel body is written per rank
+// against a table of per-rank pointers (input, output, comm slots, flags),
+// so a transport with one process per card and peer-mapped pointers changes
+// only how the host fills that table.
+//
+// Design.
+//   - Grid (blocks_per_rank, n): block (b, r) plays rank r and owns the
+//     fixed range b of every chunk, so a block only ever talks to block
+//     (b, r +- 1); no barrier spans the grid.
+//   - One hop t, per block (the reference's _send_recv / _cap_wait /
+//     _cap_signal, ring.py:78-104):
+//       1. t >= 2: acquire-wait on the capacity flag of slot t % 2 (the
+//          right neighbour drained that slot at hop t - 2);
+//       2. store its range of the send chunk into the right neighbour's
+//          comm slot t % 2 (a peer store through the pointer table);
+//       3. __threadfence, then a release store of the neighbour's receive
+//          flag;
+//       4. acquire-spin on its own receive flag;
+//       5. combine the slot into its own range of the output (slot reads
+//          bypass L1: another SM wrote them);
+//       6. release the capacity flag of that slot to the left neighbour
+//          (not after the last two hops, whose slots are not reused in
+//          this call; the next call is ordered after this one on the
+//          stream).
+//     The reference compiles the capacity handshake out in interpret mode;
+//     here it always runs.
+//   - Flags are epochs: hop t of a call with base B writes B + t + 1, with
+//     B = seq * total_hops from the group's per-kind call counter, so flags
+//     grow monotonically and are never reset between calls.
+//   - The schedule is the reference's index arithmetic (my +- t mod n), so
+//     every element is combined in the plain version's order. Combine is
+//     sum / max / min / prod in f32, rounded once per hop to the element
+//     type: bit for bit what torch does for `a + b` on two bf16 tensors.
+//   - All n * blocks_per_rank blocks must be resident at once, or a
+//     spinning block waits for one that never runs: the grid is capped
+//     from cudaOccupancyMaxActiveBlocksPerMultiprocessor and launched with
+//     cudaLaunchCooperativeKernel, which refuses a grid that cannot be
+//     resident. Every spin is bounded (about one second of clock64); on
+//     timeout the block writes an error record to pinned host memory and
+//     exits, its neighbours then time out in turn, and the wrapper raises.
+//   - C2 accumulates in place in its input (the caller's buffer, or a copy
+//     the wrapper makes), not in the reference's separate acc scratch; its
+//     last hop writes the rank's own reduced chunk straight to the output.
+//
+// Bound on the H100: bytes. Each kernel moves (reads + writes) its input
+// once and its output once at least, at 3.35 TB/s; the ring's n - 1 (C1:
+// 1, C4: 2(n - 1)) hops through the slots move more than that, so a
+// monolithic kernel on one card sits several times above the bound. The
+// copies are 16-byte vectors, neighbouring threads on neighbouring
+// addresses.
+//
+// Types: float32 and bfloat16. The wrapper refuses anything else.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+//        -Xcompiler -fPIC (ray_tpu_torch/ops/_build.py does this).
+
+#include <algorithm>
+#include <mutex>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MAX_RANKS = 16;
+constexpr int MAX_BPR = 1024;          // blocks per rank (flag table size)
+constexpr int NT = 256;                // threads per block
+constexpr long long MIN_VECS_PER_BLOCK = 4 * NT;
+constexpr long long SPIN_TIMEOUT_CYCLES = 2000000000LL;   // ~1 s
+
+enum Kind { PERMUTE = 0, REDUCE_SCATTER = 1, ALLGATHER = 2, ALLREDUCE = 3 };
+enum Op { SUM = 0, MAX = 1, MIN = 2, PROD = 3 };
+enum Wait { WAIT_RECV = 0, WAIT_CAP = 1 };
+
+typedef unsigned long long u64;
+
+struct RingArgs {
+  char* in[MAX_RANKS];        // per-rank input (C2: accumulated in place)
+  char* out[MAX_RANKS];       // per-rank output
+  char* slot[MAX_RANKS];      // per-rank comm slots: 2 x chunk bytes
+  u64* recv[MAX_RANKS];       // per-rank receive flags [MAX_BPR][2]
+  u64* cap[MAX_RANKS];        // per-rank capacity flags [MAX_BPR][2]
+  long long chunk_vecs;       // 16-byte vectors per chunk (one hop's payload)
+  u64 base;                   // hop t's epoch is base + t + 1
+  int* err_dev;               // elects the first block to report
+  long long* err_host;        // pinned host record: set, kind, rank, block,
+                              // hop, what, wanted, seen
+  int n, bpr, kind;
+};
+
+__device__ __forceinline__ int mod(int a, int n) { return ((a % n) + n) % n; }
+
+__device__ __forceinline__ void st_release(u64* p, u64 v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <int OP> __device__ __forceinline__ float combine(float a, float b) {
+  if (OP == SUM) return a + b;
+  if (OP == PROD) return a * b;
+  // NaN propagates, as in torch.maximum / torch.minimum.
+  if (a != a) return a;
+  if (b != b) return b;
+  if (OP == MAX) return a > b ? a : b;
+  return a < b ? a : b;
+}
+
+template <typename T, int OP>
+__device__ __forceinline__ uint4 combine_vec(uint4 a, uint4 b) {
+  T* pa = reinterpret_cast<T*>(&a);
+  const T* pb = reinterpret_cast<const T*>(&b);
+#pragma unroll
+  for (int i = 0; i < int(sizeof(uint4) / sizeof(T)); ++i)
+    pa[i] = from_f<T>(combine<OP>(to_f(pa[i]), to_f(pb[i])));
+  return a;
+}
+
+// Thread 0 records the first timeout of the launch in pinned host memory.
+__device__ void report(const RingArgs& a, int r, int b, int t, int what,
+                       u64 want, u64 seen) {
+  if (atomicCAS(a.err_dev, 0, 1) != 0) return;
+  volatile long long* h = a.err_host;
+  h[1] = a.kind;
+  h[2] = r;
+  h[3] = b;
+  h[4] = t;
+  h[5] = what;
+  h[6] = static_cast<long long>(want);
+  h[7] = static_cast<long long>(seen);
+  __threadfence_system();
+  h[0] = 1;
+  __threadfence_system();
+}
+
+// Thread 0 acquire-spins until *flag >= want, bounded by the timeout; the
+// whole block learns the outcome at the barrier. False: the block exits.
+__device__ bool wait_flag(const RingArgs& a, const u64* flag, u64 want, int r,
+                          int b, int t, int what) {
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    const long long t0 = clock64();
+    u64 seen;
+    while ((seen = ld_acquire(flag)) < want) {
+      if (clock64() - t0 > SPIN_TIMEOUT_CYCLES) {
+        report(a, r, b, t, what, want, seen);
+        ok = 0;
+        break;
+      }
+      __nanosleep(64);
+    }
+  }
+  return __syncthreads_and(ok) != 0;
+}
+
+// Every thread's stores are ordered before thread 0's release of the flag.
+__device__ __forceinline__ void signal_flag(u64* flag, u64 value) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(flag, value);
+}
+
+struct Block {
+  int r, b, n, right, left;
+  long long lo, hi;           // this block's vector range within a chunk
+};
+
+__device__ __forceinline__ Block block_of(const RingArgs& a) {
+  Block k;
+  k.b = blockIdx.x;
+  k.r = blockIdx.y;
+  k.n = a.n;
+  k.right = k.r + 1 == a.n ? 0 : k.r + 1;
+  k.left = k.r == 0 ? a.n - 1 : k.r - 1;
+  const long long per = (a.chunk_vecs + a.bpr - 1) / a.bpr;
+  k.lo = min(a.chunk_vecs, per * k.b);
+  k.hi = min(a.chunk_vecs, k.lo + per);
+  return k;
+}
+
+__device__ __forceinline__ int flag_index(int b, int slot) {
+  return b * 2 + slot;
+}
+
+// st(i, ld(i)) for this thread's share of [lo, hi): four vectors loaded
+// before any is stored, so each thread keeps 64 bytes in flight.
+template <typename Ld, typename St>
+__device__ __forceinline__ void each_vec(long long lo, long long hi, Ld ld,
+                                         St st) {
+  long long i = lo + threadIdx.x;
+  for (; i + 3 * NT < hi; i += 4 * NT) {
+    const uint4 v0 = ld(i), v1 = ld(i + NT), v2 = ld(i + 2 * NT),
+                v3 = ld(i + 3 * NT);
+    st(i, v0);
+    st(i + NT, v1);
+    st(i + 2 * NT, v2);
+    st(i + 3 * NT, v3);
+  }
+  for (; i < hi; i += NT) st(i, ld(i));
+}
+
+// Steps 1-3 of hop t: wait for capacity, store the send range into the
+// right neighbour's slot, release its receive flag.
+__device__ bool hop_send(const RingArgs& a, const Block& k, int t,
+                         const uint4* src) {
+  const int slot = t & 1;
+  const int f = flag_index(k.b, slot);
+  if (t >= 2 && !wait_flag(a, a.cap[k.r] + f, a.base + t - 1, k.r, k.b, t,
+                           WAIT_CAP))
+    return false;
+  uint4* dst = reinterpret_cast<uint4*>(a.slot[k.right]) + slot * a.chunk_vecs;
+  each_vec(k.lo, k.hi, [&](long long i) { return src[i]; },
+           [&](long long i, uint4 v) { __stcg(dst + i, v); });
+  signal_flag(a.recv[k.right] + f, a.base + t + 1);
+  return true;
+}
+
+// Step 4: wait until the left neighbour's hop-t payload is in our slot.
+__device__ __forceinline__ bool hop_recv(const RingArgs& a, const Block& k,
+                                         int t) {
+  return wait_flag(a, a.recv[k.r] + flag_index(k.b, t & 1), a.base + t + 1,
+                   k.r, k.b, t, WAIT_RECV);
+}
+
+__device__ __forceinline__ const uint4* my_slot(const RingArgs& a,
+                                                const Block& k, int t) {
+  return reinterpret_cast<const uint4*>(a.slot[k.r]) + (t & 1) * a.chunk_vecs;
+}
+
+// Step 6: the slot is drained; the left neighbour may refill it at t + 2.
+__device__ __forceinline__ void hop_release(const RingArgs& a, const Block& k,
+                                            int t, int total) {
+  if (t < total - 2)
+    signal_flag(a.cap[k.left] + flag_index(k.b, t & 1), a.base + t + 1);
+}
+
+// One accumulate hop: dst = combine(cur, slot) over this block's range.
+template <typename T, int OP>
+__device__ bool hop_reduce(const RingArgs& a, const Block& k, int t, int total,
+                           const uint4* send, const uint4* cur, uint4* dst) {
+  if (!hop_send(a, k, t, send) || !hop_recv(a, k, t)) return false;
+  const uint4* in = my_slot(a, k, t);
+  each_vec(k.lo, k.hi,
+           [&](long long i) { return combine_vec<T, OP>(cur[i], __ldcg(in + i)); },
+           [&](long long i, uint4 v) { dst[i] = v; });
+  hop_release(a, k, t, total);
+  return true;
+}
+
+// One copy hop: dst = slot over this block's range.
+__device__ bool hop_copy(const RingArgs& a, const Block& k, int t, int total,
+                         const uint4* send, uint4* dst) {
+  if (!hop_send(a, k, t, send) || !hop_recv(a, k, t)) return false;
+  const uint4* in = my_slot(a, k, t);
+  each_vec(k.lo, k.hi, [&](long long i) { return __ldcg(in + i); },
+           [&](long long i, uint4 v) { dst[i] = v; });
+  hop_release(a, k, t, total);
+  return true;
+}
+
+// C1: one hop of the whole block, straight into the right neighbour's
+// output (no slots): out[right] = in[r].
+template <typename T>
+__global__ void __launch_bounds__(NT)
+ring_permute_kernel(const __grid_constant__ RingArgs a) {
+  const Block k = block_of(a);
+  const uint4* src = reinterpret_cast<const uint4*>(a.in[k.r]);
+  uint4* dst = reinterpret_cast<uint4*>(a.out[k.right]);
+  each_vec(k.lo, k.hi, [&](long long i) { return src[i]; },
+           [&](long long i, uint4 v) { __stcg(dst + i, v); });
+  signal_flag(a.recv[k.right] + flag_index(k.b, 0), a.base + 1);
+  hop_recv(a, k, 0);
+}
+
+// C2: n - 1 accumulate hops; rank r ends with chunk r, written to out[r].
+template <typename T, int OP>
+__global__ void __launch_bounds__(NT)
+ring_reduce_scatter_kernel(const __grid_constant__ RingArgs a) {
+  const Block k = block_of(a);
+  uint4* acc = reinterpret_cast<uint4*>(a.in[k.r]);
+  uint4* out = reinterpret_cast<uint4*>(a.out[k.r]);
+  const long long cv = a.chunk_vecs;
+  const int total = k.n - 1;
+  // Shifted by -1 against the allreduce sweep, so the last chunk a rank
+  // reduces is its own (ring.py:186-189).
+  for (int t = 0; t < total; ++t) {
+    const int send = mod(k.r - t - 1, k.n), recv = mod(k.r - t - 2, k.n);
+    uint4* dst = t == total - 1 ? out : acc + recv * cv;
+    if (!hop_reduce<T, OP>(a, k, t, total, acc + send * cv, acc + recv * cv,
+                           dst))
+      return;
+  }
+}
+
+// C3: n - 1 copy hops; out[r] = (in[0], ..., in[n-1]).
+template <typename T>
+__global__ void __launch_bounds__(NT)
+ring_allgather_kernel(const __grid_constant__ RingArgs a) {
+  const Block k = block_of(a);
+  const uint4* in = reinterpret_cast<const uint4*>(a.in[k.r]);
+  uint4* out = reinterpret_cast<uint4*>(a.out[k.r]);
+  const long long cv = a.chunk_vecs;
+  const int total = k.n - 1;
+  uint4* mine = out + k.r * cv;
+  each_vec(k.lo, k.hi, [&](long long i) { return in[i]; },
+           [&](long long i, uint4 v) { mine[i] = v; });
+  for (int t = 0; t < total; ++t) {
+    const int send = mod(k.r - t, k.n), recv = mod(k.r - t - 1, k.n);
+    if (!hop_copy(a, k, t, total, out + send * cv, out + recv * cv)) return;
+  }
+}
+
+// C4: a reduce-scatter sweep, then an allgather sweep: 2(n - 1) hops.
+template <typename T, int OP>
+__global__ void __launch_bounds__(NT)
+ring_allreduce_kernel(const __grid_constant__ RingArgs a) {
+  const Block k = block_of(a);
+  const uint4* in = reinterpret_cast<const uint4*>(a.in[k.r]);
+  uint4* out = reinterpret_cast<uint4*>(a.out[k.r]);
+  const long long cv = a.chunk_vecs;
+  const int total = 2 * (k.n - 1);
+  for (int c = 0; c < k.n; ++c)
+    each_vec(k.lo, k.hi, [&](long long i) { return in[c * cv + i]; },
+             [&](long long i, uint4 v) { out[c * cv + i] = v; });
+  int t = 0;
+  for (int s = 0; s < k.n - 1; ++s, ++t) {
+    const int send = mod(k.r - s, k.n), recv = mod(k.r - s - 1, k.n);
+    if (!hop_reduce<T, OP>(a, k, t, total, out + send * cv, out + recv * cv,
+                           out + recv * cv))
+      return;
+  }
+  for (int s = 0; s < k.n - 1; ++s, ++t) {
+    const int send = mod(k.r - s + 1, k.n), recv = mod(k.r - s, k.n);
+    if (!hop_copy(a, k, t, total, out + send * cv, out + recv * cv)) return;
+  }
+}
+
+template <typename T>
+const void* kernel_for(int kind, int op) {
+  switch (kind) {
+    case PERMUTE: return reinterpret_cast<const void*>(ring_permute_kernel<T>);
+    case ALLGATHER:
+      return reinterpret_cast<const void*>(ring_allgather_kernel<T>);
+    case REDUCE_SCATTER:
+      switch (op) {
+        case SUM: return reinterpret_cast<const void*>(ring_reduce_scatter_kernel<T, SUM>);
+        case MAX: return reinterpret_cast<const void*>(ring_reduce_scatter_kernel<T, MAX>);
+        case MIN: return reinterpret_cast<const void*>(ring_reduce_scatter_kernel<T, MIN>);
+        case PROD: return reinterpret_cast<const void*>(ring_reduce_scatter_kernel<T, PROD>);
+      }
+      return nullptr;
+    case ALLREDUCE:
+      switch (op) {
+        case SUM: return reinterpret_cast<const void*>(ring_allreduce_kernel<T, SUM>);
+        case MAX: return reinterpret_cast<const void*>(ring_allreduce_kernel<T, MAX>);
+        case MIN: return reinterpret_cast<const void*>(ring_allreduce_kernel<T, MIN>);
+        case PROD: return reinterpret_cast<const void*>(ring_allreduce_kernel<T, PROD>);
+      }
+      return nullptr;
+  }
+  return nullptr;
+}
+
+// How many blocks of `fn` the device holds at once (occupancy per SM times
+// the SMs), asked of the runtime once per kernel and device.
+cudaError_t resident_blocks(const void* fn, int dev, int* out) {
+  constexpr int SLOTS = 64;
+  static const void* fns[SLOTS];
+  static int devs[SLOTS], counts[SLOTS];
+  static int used = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < used; ++i)
+    if (fns[i] == fn && devs[i] == dev) {
+      *out = counts[i];
+      return cudaSuccess;
+    }
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, NT, 0);
+  if (err != cudaSuccess) return err;
+  *out = per_sm * sms;
+  if (used < SLOTS) {
+    fns[used] = fn;
+    devs[used] = dev;
+    counts[used++] = *out;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Launch one ring collective on `stream`.
+//   kind: 0 permute (C1), 1 reduce-scatter (C2), 2 allgather (C3),
+//         3 allreduce (C4); op: 0 sum, 1 max, 2 min, 3 prod (C2, C4);
+//   dtype: 0 float32, 1 bfloat16.
+//   in / out: rank r's block at base + r * stride (strides in elements);
+//   chunk_elems: elements per chunk, the payload of one hop (C1: the whole
+//   block; C2, C4: a block of n chunks; C3: the input block);
+//   slots: n x 2 x chunk_elems elements; flags: n x 2 x MAX_BPR x 2 u64
+//   (receive flags, then capacity flags, per rank); base: epoch base;
+//   err_dev: an int in device memory; err_host: the device address of 8
+//   int64 in pinned host memory.
+// Returns a cudaError_t; 0 when the launch was accepted.
+extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
+                           long long in_stride, void* out,
+                           long long out_stride, long long chunk_elems,
+                           void* slots, void* flags, unsigned long long base,
+                           void* err_dev, void* err_host, void* stream) {
+  if (n < 2 || n > MAX_RANKS || chunk_elems < 1 || kind < 0 || kind > 3)
+    return int(cudaErrorInvalidValue);
+  const int elem = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  if (elem == 0) return int(cudaErrorInvalidValue);
+  const int vec = 16 / elem;
+  if (chunk_elems % vec || in_stride % vec || out_stride % vec)
+    return int(cudaErrorInvalidValue);
+  const void* fn = dtype == 0 ? kernel_for<float>(kind, op)
+                              : kernel_for<__nv_bfloat16>(kind, op);
+  if (fn == nullptr) return int(cudaErrorInvalidValue);
+
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  int resident = 0;
+  err = resident_blocks(fn, dev, &resident);
+  if (err != cudaSuccess) return int(err);
+
+  RingArgs a;
+  a.n = n;
+  a.kind = kind;
+  a.chunk_vecs = chunk_elems / vec;
+  a.base = base;
+  a.err_dev = static_cast<int*>(err_dev);
+  a.err_host = static_cast<long long*>(err_host);
+  // As many blocks per rank as the payload wants, capped so that all
+  // n * bpr blocks are resident at once.
+  const long long cap = std::min<long long>(MAX_BPR, resident / n);
+  if (cap < 1) return int(cudaErrorCooperativeLaunchTooLarge);
+  const long long want =
+      (a.chunk_vecs + MIN_VECS_PER_BLOCK - 1) / MIN_VECS_PER_BLOCK;
+  a.bpr = int(std::max(1LL, std::min(cap, want)));
+
+  const long long slot_bytes = 2 * chunk_elems * elem;
+  u64* f = static_cast<u64*>(flags);
+  for (int r = 0; r < MAX_RANKS; ++r) {
+    const bool live = r < n;
+    a.in[r] = live ? static_cast<char*>(in) + r * in_stride * elem : nullptr;
+    a.out[r] = live ? static_cast<char*>(out) + r * out_stride * elem : nullptr;
+    a.slot[r] = live && slots ? static_cast<char*>(slots) + r * slot_bytes
+                              : nullptr;
+    a.recv[r] = live ? f + (size_t(r) * 2 + 0) * MAX_BPR * 2 : nullptr;
+    a.cap[r] = live ? f + (size_t(r) * 2 + 1) * MAX_BPR * 2 : nullptr;
+  }
+  if (kind != PERMUTE && slots == nullptr) return int(cudaErrorInvalidValue);
+
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(fn, dim3(a.bpr, n), dim3(NT), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// The device address of pinned host memory (the timeout record).
+extern "C" int ring_host_device_ptr(void* host, void** device) {
+  return int(cudaHostGetDevicePointer(device, host, 0));
+}
+
+// Constants the Python side must agree with.
+extern "C" int ring_max_ranks() { return MAX_RANKS; }
+extern "C" int ring_max_blocks_per_rank() { return MAX_BPR; }
+
+extern "C" const char* ring_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -5,9 +5,10 @@ The reference jits one SPMD step over a mesh and donates the state, so
 params and optimizer state are updated in place in device memory. Here
 the step runs eagerly on one device and the update is in place too:
 ``torch.optim.AdamW`` writes the params and its moments where they lie,
-and the step returns the same ``TrainState``, advanced. Meshes and the
-ZeRO-sharded update (``weight_update="sharded"``) belong to the
-multi-device slice (ROADMAP A7) and raise ``NotImplementedError``.
+and the step returns the same ``TrainState``, advanced. Meshes and the GSPMD
+sharded update (``weight_update="sharded"``) raise
+``NotImplementedError``; data parallelism with a ZeRO-sharded update is
+``parallel.zero.build_zero_train_step``.
 
 The step computes what the reference's does: the loss and gradients of
 ``loss_fn(params, batch)``; with ``grad_accum`` > 1 the batch is split
@@ -100,8 +101,10 @@ def build_train_step(
             f"{weight_update!r}")
     if weight_update == "sharded" or mesh is not None:
         raise NotImplementedError(
-            "meshes and the sharded weight update are not ported yet; "
-            "they come with the multi-device slice (ROADMAP A7)")
+            "meshes and the GSPMD sharded weight update are not ported "
+            "(ROADMAP A7); for data parallelism with a sharded (ZeRO) "
+            "update use ray_tpu_torch.parallel.build_zero_train_step over "
+            "a RingGroup")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     dev = resolve_device(device)

@@ -1,0 +1,61 @@
+"""Ring collectives of the port over n virtual ranks (the port of
+``ray_tpu/util/collective/pallas``), and ``RingGroup``.
+
+Rank-major API: rank r's shard is ``x[r]``::
+
+    ring_allreduce(x, op)            # [n, ...] -> [n, ...]      (C4)
+    ring_allgather(x)                # [n, ...] -> [n, n, ...]   (C3)
+    ring_reduce_scatter(x, op)       # [n, n*k, ...] -> [n, k, ...] (C2)
+    select_impl(...)                 # auto -> cuda | plain
+
+Split-phase (one hop per C1 launch; every start balanced by a wait)::
+
+    h = start_ring_reduce_scatter(x)   # hop 0 on the comm stream
+    y = heavy_compute(...)             # runs beside the hops
+    shard = wait_ring_reduce_scatter(h)
+    start_ring_allgather / wait_ring_allgather
+    start_ring_permute / wait_ring_permute
+
+The int8 ring (C5, C6: ``quantized_ring_allreduce``, the quantized
+split-phase reduce-scatter and ``local_quantization_residual``) is not
+ported yet; those names raise ``NotImplementedError``.
+"""
+
+from ray_tpu_torch.util.collective.group import RingGroup, default_group
+from ray_tpu_torch.util.collective.ring import (
+    LANES, SplitPhaseHandle, ring_allgather, ring_allreduce,
+    ring_reduce_scatter, select_impl, start_ring_allgather,
+    start_ring_permute, start_ring_reduce_scatter, wait_ring_allgather,
+    wait_ring_permute, wait_ring_reduce_scatter,
+)
+from ray_tpu_torch.util.collective.types import ReduceOp
+
+
+def _quantized(name: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name}: the int8 ring (TPU kernels C5 _qhop_kernel and C6 "
+            f"_qar_kernel, ray_tpu/util/collective/pallas/quantized.py) is "
+            f"not ported yet")
+    fn.__name__ = name
+    return fn
+
+
+quantized_ring_allreduce = _quantized("quantized_ring_allreduce")
+start_quantized_ring_reduce_scatter = _quantized(
+    "start_quantized_ring_reduce_scatter")
+wait_quantized_ring_reduce_scatter = _quantized(
+    "wait_quantized_ring_reduce_scatter")
+local_quantization_residual = _quantized("local_quantization_residual")
+
+__all__ = [
+    "ring_allreduce", "ring_allgather", "ring_reduce_scatter",
+    "quantized_ring_allreduce", "select_impl", "SplitPhaseHandle",
+    "start_ring_reduce_scatter", "wait_ring_reduce_scatter",
+    "start_ring_allgather", "wait_ring_allgather",
+    "start_ring_permute", "wait_ring_permute",
+    "start_quantized_ring_reduce_scatter",
+    "wait_quantized_ring_reduce_scatter",
+    "local_quantization_residual", "RingGroup", "default_group",
+    "ReduceOp", "LANES",
+]

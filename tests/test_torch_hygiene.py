@@ -40,7 +40,8 @@ def _forbidden(module: str) -> bool:
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"llama.py", "attention.py", "engine.py", "deployment.py",
-            "fused_loss.py", "train_step.py", "chip_smoke.py"} <= names
+            "fused_loss.py", "train_step.py", "ring.py", "group.py",
+            "zero.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -105,6 +106,14 @@ def test_build_train_step_default_device_raises():
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
         build_train_step(lambda params, batch: None)
+
+
+def test_ring_group_default_device_raises():
+    from ray_tpu_torch.util.collective import RingGroup
+
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RingGroup(4)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

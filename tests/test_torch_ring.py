@@ -1,0 +1,220 @@
+"""The port's ring collectives (``ray_tpu_torch.util.collective``) against
+the JAX package's Pallas ring kernels, run as
+``tests/test_pallas_collective.py`` runs them: ``impl="pallas_interpret"``
+under ``shard_map`` over ``jax.devices()[:n]``.
+
+Inputs come from numpy seeds; rank r's shard is row r of the host array on
+both sides. The port's plain ring versions (what ``auto`` runs on a CPU
+tensor) follow the reference's hop schedule element for element, and
+every combine is one f32 operation on both sides, so every case is held
+bit for bit (``assert_array_equal``): allreduce sum, max, min, prod and
+avg (avg divides the ring sum by n on both sides), allgather,
+reduce-scatter with a ragged slab (per-slab padding), permute, and the
+split-phase forms against the monolithic ones.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+from jax.experimental.shard_map import shard_map  # noqa: E402
+from jax.sharding import Mesh  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from ray_tpu.util.collective import pallas as J  # noqa: E402
+from ray_tpu_torch.util import collective as T  # noqa: E402
+from ray_tpu_torch.util.collective import ring as R  # noqa: E402
+
+IMPL = "pallas_interpret"
+
+
+def _jax(fn, host, n):
+    """fn over each rank's shard, as the reference runs it (rank-major
+    result: row r is rank r's output)."""
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("x",))
+    g = jax.jit(shard_map(lambda x: fn(x[0])[None], mesh=mesh,
+                          in_specs=P("x"), out_specs=P("x"),
+                          check_rep=False))
+    return np.asarray(g(host))
+
+
+def _port(out):
+    return out.numpy()
+
+
+def _host(seed, *shape, op="sum"):
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    if op == "prod":
+        x = 1.0 + 0.1 * x        # products of a few factors near 1
+    return x
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", ["sum", "max", "min", "prod", "avg"])
+def test_allreduce_matches_reference(n, op):
+    # 5 x 7 per rank: the LANES padding path.
+    host = _host(10 + n, n, 5, 7, op=op)
+    want = _jax(lambda x: J.ring_allreduce(x, "x", n=n, op=op, impl=IMPL),
+                host, n)
+    got = T.ring_allreduce(torch.from_numpy(host), op)
+    np.testing.assert_array_equal(_port(got), want)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_allgather_matches_reference(n):
+    host = _host(20 + n, n, 3, 50)
+    want = _jax(lambda x: J.ring_allgather(x, "x", n=n, impl=IMPL), host, n)
+    got = T.ring_allgather(torch.from_numpy(host))
+    assert got.shape == (n, n, 3, 50)
+    np.testing.assert_array_equal(_port(got), want)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_reduce_scatter_ragged_slab_matches_reference(op):
+    # Each rank reduces (n * 3, 5, 7) and keeps its slab of 105 elements:
+    # not a multiple of 128, so each slab is padded on its own.
+    n = 4
+    host = _host(30, n, n * 3, 5, 7)
+    want = _jax(lambda x: J.ring_reduce_scatter(x, "x", n=n, op=op,
+                                                impl=IMPL), host, n)
+    got = T.ring_reduce_scatter(torch.from_numpy(host), op)
+    assert got.shape == (n, 3, 5, 7)
+    np.testing.assert_array_equal(_port(got), want)
+
+
+def test_permute_matches_reference():
+    n = 4
+    host = _host(40, n, 3, 50)
+
+    def perm(x):
+        return J.wait_ring_permute(J.start_ring_permute(x, "x", n=n,
+                                                        impl=IMPL))
+
+    want = _jax(perm, host, n)
+    got = T.wait_ring_permute(T.start_ring_permute(torch.from_numpy(host)))
+    np.testing.assert_array_equal(_port(got), want)
+    np.testing.assert_array_equal(want, np.roll(host, 1, axis=0))
+
+
+def test_split_phase_matches_monolithic_and_reference():
+    """After tests/test_overlap.py:59-110: start + wait replays the
+    monolithic hop schedule, so the results are equal bit for bit."""
+    n = 4
+    x = (np.arange(n * n * 8 * 128, dtype=np.float32) / 100.0).reshape(
+        n, n * 8, 128)
+    xt = torch.from_numpy(x)
+
+    mono = T.ring_reduce_scatter(xt)
+    split = T.wait_ring_reduce_scatter(T.start_ring_reduce_scatter(xt))
+    np.testing.assert_array_equal(split.numpy(), mono.numpy())
+
+    def jsplit(v):
+        return J.wait_ring_reduce_scatter(
+            J.start_ring_reduce_scatter(v, "x", n=n, impl=IMPL))
+
+    np.testing.assert_array_equal(split.numpy(), _jax(jsplit, x, n))
+
+    shards = xt[:, :8]
+    mono = T.ring_allgather(shards)
+    split = T.wait_ring_allgather(T.start_ring_allgather(shards))
+    np.testing.assert_array_equal(split.numpy(), mono.numpy())
+    for r in range(n):          # gather of the shards = the shards
+        np.testing.assert_array_equal(split[r].numpy(), shards.numpy())
+
+
+def test_donated_and_out_forms_match():
+    n = 4
+    x = torch.from_numpy(_host(50, n, n * 2, 128))
+    want = T.ring_reduce_scatter(x)
+    donated = x.clone()
+    np.testing.assert_array_equal(
+        T.ring_reduce_scatter(donated, donate=True).numpy(), want.numpy())
+    shards = torch.from_numpy(_host(51, n, 2, 128))
+    out = torch.zeros((n, n, 2, 128))
+    assert T.ring_allgather(shards, out=out) is out
+    np.testing.assert_array_equal(out.numpy(),
+                                  T.ring_allgather(shards).numpy())
+    h = T.start_ring_allgather(shards, out=torch.zeros((n, n, 2, 128)))
+    np.testing.assert_array_equal(T.wait_ring_allgather(h).numpy(),
+                                  out.numpy())
+
+
+def test_bf16_plain_ring_rounds_once_per_hop():
+    """bf16: each hop rounds one f32 combine to bf16, as ``a + b`` on two
+    bf16 tensors does; the result is that chain of adds in ring order."""
+    n = 4
+    x = torch.from_numpy(_host(60, n, n, 128)).bfloat16()
+    got = T.ring_allreduce(x)
+    # Chunk c leaves rank c at hop 0 and collects ranks c + 1, c + 2, ...
+    # in ring order during the reduce-scatter sweep.
+    for c in range(n):
+        order = [(c + i) % n for i in range(n)]
+        acc = x[order[0], c]
+        for r in order[1:]:
+            acc = acc + x[r, c]
+        assert torch.equal(got[0, c], acc)
+    assert all(torch.equal(got[r], got[0]) for r in range(n))
+
+
+def test_auto_on_cpu_takes_the_plain_version():
+    assert T.select_impl("auto", torch.device("cpu")) == "plain"
+    assert T.select_impl("auto", torch.device("cuda", 0)) == "cuda"
+    assert T.select_impl("plain", torch.device("cuda", 0)) == "plain"
+    with pytest.raises(ValueError):
+        T.select_impl("pallas")
+    before = [k.launches for k in R.KERNELS]
+    x = torch.from_numpy(_host(70, 4, 8, 128))
+    np.testing.assert_array_equal(
+        T.ring_allreduce(x).numpy(),
+        R.ring_allreduce_plain(x.view(4, 8, 128), "sum").numpy())
+    T.wait_ring_reduce_scatter(T.start_ring_reduce_scatter(x))
+    assert [k.launches for k in R.KERNELS] == before
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    n = 4
+    good = torch.zeros((n, n * 2, 128))
+    for wrapper in R.KERNELS:
+        with pytest.raises(TypeError, match="dtype"):
+            wrapper(good.to(torch.int32))
+        with pytest.raises(TypeError, match="dtype"):
+            wrapper(good.half())
+        with pytest.raises(ValueError, match="takes"):
+            wrapper(torch.zeros((n, 8, 64)))
+        with pytest.raises(ValueError, match="ranks"):
+            wrapper(torch.zeros((1, 8, 128)))
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(good)
+    with pytest.raises(ValueError, match="split"):
+        R.ring_reduce_scatter_cuda(torch.zeros((n, 6, 128)))
+    # An explicit kernel request on a CPU tensor raises; it never runs the
+    # plain version in its place.
+    with pytest.raises(ValueError, match="CUDA"):
+        T.ring_allreduce(good, impl="cuda")
+    with pytest.raises(ValueError, match="divisible"):
+        T.ring_reduce_scatter(torch.zeros((n, 6, 3)))
+    with pytest.raises(ValueError, match="reduce op"):
+        T.ring_allreduce(good, "xor")
+
+
+def test_reduce_op_enum_and_group_on_cpu():
+    g = T.RingGroup(4, device="cpu")
+    x = torch.from_numpy(_host(80, 4, 3, 5))
+    np.testing.assert_array_equal(g.allreduce(x, T.ReduceOp.AVERAGE).numpy(),
+                                  T.ring_allreduce(x, "avg").numpy())
+    np.testing.assert_array_equal(g.allgather(x).numpy(),
+                                  T.ring_allgather(x).numpy())
+    xs = torch.from_numpy(_host(81, 4, 8, 5))
+    np.testing.assert_array_equal(
+        g.reducescatter(xs, T.ReduceOp.MAX).numpy(),
+        T.ring_reduce_scatter(xs, "max").numpy())
+    g.check()
+
+
+@pytest.mark.parametrize("name", [
+    "quantized_ring_allreduce", "start_quantized_ring_reduce_scatter",
+    "wait_quantized_ring_reduce_scatter", "local_quantization_residual"])
+def test_quantized_names_raise(name):
+    with pytest.raises(NotImplementedError, match="C5"):
+        getattr(T, name)(torch.zeros(4, 128))
