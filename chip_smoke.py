@@ -55,6 +55,33 @@ Phases, one line each; any failure raises and exits non-zero:
               every rank's copy equal to rank 0's, overlap within bf16
               re-association of monolithic; step time, tokens/s, peak
               memory and the ring kernels' share of a profiled step.
+10. qring  -- (run after phase 8) the int8 ring C5 and C6 (``ring.cu``)
+              bitwise against their plain versions at ring sizes 2, 4 and
+              8, f32, for a ragged block, exactly 1024 elements and a large
+              block per rank, each with random data, an all-zero chunk
+              (the 1e-30 scale floor) and a chunk whose max sits in one
+              block (the per-rank barrier): C6 through
+              ``quantized_ring_allreduce``, C5 alone and through the
+              split-phase int8 reduce-scatter. The fallback ladder (f64,
+              a small call, ``precision="bf16"``) takes C4, not C6. At the
+              quantized ZeRO size (the 1-layer flat vector, 4 ranks, f32)
+              C6 in place and C5 on one overlap hop bitwise, and both
+              kernels' times beside their plain versions', bounds and
+              yardsticks (``x.sum(0)``, ``torch.roll``).
+11. zero quantized -- f32 at dim 256, 2 and 4 ranks: the int8 ZeRO step
+              (monolithic, overlap, error feedback) through C5 / C6 equal
+              to the same steps through the plain versions bit for bit.
+              Then Llama-3-8B widths at 1 layer over 4 virtual ranks with
+              ``quantized_grads=True``: 3 monolithic steps (C6 + C3), 3
+              with ``error_feedback=True``, 3 with ``overlap=True`` (C5
+              and C1 per hop), each from the same params and followed by
+              one profiled step: finite losses and grad norms, the first
+              loss equal to the exact step's, exact launch counts, every
+              rank's copy equal to rank 0's, ``ef`` finite, f32 and
+              non-zero. Recorded, not gated: step time, tokens/s, peak
+              memory, C5/C6's share of a profiled step, and the first
+              step's int8 gradient shard against the exact reduce-scatter
+              (relative L2, share of elements sent as 0).
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -1063,9 +1090,9 @@ def _sq_dist(a, b, chunk=1 << 27):
     return total.item()
 
 
-def _profile_step(step, state, batch):
-    """(wall ms, device busy ms, ring-kernel device ms) of one step under
-    torch.profiler."""
+def _profile_step(step, state, batch, names=("ring_",)):
+    """(wall ms, device busy ms, {name: device ms of the kernels whose
+    name holds it and "_kernel"}) of one step under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1076,14 +1103,15 @@ def _profile_step(step, state, batch):
         m["loss"].item()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = ring_ms = 0.0
+    busy, by = 0.0, dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         if (e.device_type == DeviceType.CUDA and e.device_time_total > 0
                 and not getattr(e, "is_user_annotation", False)):
             busy += e.device_time_total / 1e3
-            if "ring_" in e.key and "_kernel" in e.key:
-                ring_ms += e.device_time_total / 1e3
-    return wall_ms, busy, ring_ms
+            for name in names:
+                if name in e.key and "_kernel" in e.key:
+                    by[name] += e.device_time_total / 1e3
+    return wall_ms, busy, by
 
 
 def phase_zero_train(dev, card):
@@ -1167,7 +1195,8 @@ def phase_zero_train(dev, card):
         return group, state, step, rec
 
     def profiled(name, step, state, rec):
-        wall, busy, ring_ms = _profile_step(step, state, batches[ZERO_STEPS])
+        wall, busy, by = _profile_step(step, state, batches[ZERO_STEPS])
+        ring_ms = by["ring_"]
         rec.update({"profiled_wall_ms": wall, "profiled_busy_ms": busy,
                     "ring_ms": ring_ms,
                     "ring_share": ring_ms / busy if busy else None})
@@ -1220,6 +1249,447 @@ def phase_zero_train(dev, card):
             "overlap": over, "overlap_vs_mono_rel_l2": rel}
 
 
+# The int8 ring C5, C6 against their plain versions: ring sizes, per-rank
+# shapes (a ragged one, exactly _MIN_QUANT_ELEMS elements, a large block)
+# and three data variants: randn; one chunk all zero (every hop of it
+# takes the 1e-30 scale floor); one element 1e3 (a chunk's max sits in
+# one block, so the per-rank barrier decides every scale of that chunk).
+# Every case bitwise: the kernels and the plain versions take the same
+# scales, codes and roundings.
+QRING_SHAPES = ((1000, 125), (1024,), (65536, 128))
+QRING_VARIANTS = ("randn", "zero_chunk", "one_block_max")
+# The quantized ZeRO phase: Llama-3-8B widths at QZERO_LAYERS layers (the
+# f32 carry and the error-feedback buffer are 4 bytes per param per rank
+# each: 66 GiB before activations at 1 layer, 100 GiB at 4), ZERO_N ranks,
+# ZERO_STEPS steps per route, ZERO_CHUNKS chunks under overlap.
+QZERO_LAYERS = 1
+
+
+def _qring_input(n, shape, variant, gen, dev):
+    x = torch.randn((n,) + shape, generator=gen, device=dev)
+    flat = x.view(n, -1)
+    size = flat.shape[1]
+    chunk = -(-size // (n * 128)) * 128
+    if variant == "zero_chunk":
+        flat[:, :min(chunk, size)] = 0.0
+    elif variant == "one_block_max":
+        flat[n - 1, min(size - 1, chunk + chunk // 2 + 3)] = 1e3
+    return x
+
+
+def _qring_cases(x, group):
+    """(name, kernel result, plain result) for C6 through
+    quantized_ring_allreduce, C5 alone on the padded block, and the
+    split-phase int8 reduce-scatter (C5 per hop)."""
+    from ray_tpu_torch.util.collective import quantized as Q
+    from ray_tpu_torch.util.collective import ring as R
+
+    cuda = dict(impl="cuda", group=group)
+    n = x.shape[0]
+    yield ("C6 quantized_ring_allreduce",
+           Q.quantized_ring_allreduce(x, **cuda),
+           Q.quantized_ring_allreduce(x, impl="plain"))
+    block = R._to_block(x, n)[0]
+    yield ("C5 qhop", Q.ring_qhop_cuda(block, group=group),
+           Q.ring_qhop_plain(block))
+    yield ("C5 split-phase int8 reduce_scatter",
+           Q.wait_quantized_ring_reduce_scatter(
+               Q.start_quantized_ring_reduce_scatter(block, **cuda)),
+           Q.wait_quantized_ring_reduce_scatter(
+               Q.start_quantized_ring_reduce_scatter(block, impl="plain")))
+
+
+def _qring_times(group, n, elems, gen, dev, x=None):
+    """Kernel, plain, bound and yardstick times of C6 (in place on the
+    rank-major f32 block of ``elems`` per rank) and C5 (one overlap hop:
+    elems / (n * ZERO_CHUNKS) per rank). Yardsticks, not the same
+    function (no library call requantizes per hop): x.sum(0) (C6) and
+    torch.roll (C5)."""
+    from ray_tpu_torch.util.collective import quantized as Q
+
+    if x is None:
+        x = torch.randn((n, elems), generator=gen, device=dev)
+    xb = x.view(n, -1, 128)
+    full = n * elems * 4
+    iters = 3 if full > 2**30 else 20
+    out = {"C6": dict(
+        ms=time_ms(lambda: Q.ring_qallreduce_cuda(xb, group=group, out=xb),
+                   iters),
+        plain_ms=time_ms(lambda: Q.ring_qallreduce_plain(xb, out=xb),
+                         1 if full > 2**30 else 5),
+        yardstick_ms=time_ms(lambda: x.sum(0), iters),
+        yardstick_computes="x.sum(0), the exact sum (yardstick)",
+        bound=ring_bound(full, full), rows=elems // 128)}
+    h = elems // (n * ZERO_CHUNKS * 128) * 128
+    hop = torch.randn((n, h // 128, 128), generator=gen, device=dev)
+    del x, xb
+    out["C5"] = dict(
+        ms=time_ms(lambda: Q.ring_qhop_cuda(hop, group=group), 20),
+        plain_ms=time_ms(lambda: Q.ring_qhop_plain(hop), 5),
+        yardstick_ms=time_ms(lambda: torch.roll(hop, 1, 0), 20),
+        yardstick_computes="torch.roll(x, 1, 0), the exact hop (yardstick)",
+        bound=ring_bound(n * h * 4, n * h * 4), rows=h // 128)
+    del hop
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row in out.values():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+        row.update({"n": n, "dtype": "f32", "library_ms": None})
+    return out
+
+
+def phase_qring_kernels(dev, card, zero_elems=None):
+    """C5 and C6 against their plain versions on the card, bit for bit, at
+    every ring size, shape and variant of QRING_*; the ladder (a bf16 call
+    and a call below _MIN_QUANT_ELEMS take C4, not C6); then at
+    ``zero_elems`` per rank (the quantized ZeRO path's flat vector, n = 4)
+    the same checks in place, and the two kernels' times beside their
+    plain versions', bounds and yardsticks; and the times at 65536 rows
+    per rank."""
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import quantized as Q
+    from ray_tpu_torch.util.collective import ring as R
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    checked = 0
+    for n in RING_NS:
+        group = RingGroup(n, dev)
+        for shape in QRING_SHAPES:
+            for variant in QRING_VARIANTS:
+                x = _qring_input(n, shape, variant, gen, dev)
+                for name, got, want in _qring_cases(x, group):
+                    check(got.shape == want.shape and torch.equal(got, want),
+                          f"{name} n={n} {shape} {variant}: differs from "
+                          f"its plain version (max abs "
+                          f"{(got - want).abs().max()})")
+                    checked += 1
+        group.check()
+        del group
+    log("ring", f"C5, C6 bitwise equal to their plain versions in {checked} "
+        f"cases: n {RING_NS}, f32, per-rank shapes {QRING_SHAPES}, "
+        f"{QRING_VARIANTS}")
+
+    group = RingGroup(ZERO_N, dev)
+    kernels = (R.KERNELS[3], Q.KERNELS[1])     # C4, C6
+    for name, x, kw in (
+            ("f64", torch.randn((ZERO_N, 4096), generator=gen, device=dev,
+                                dtype=torch.float64), {}),
+            ("small", torch.randn((ZERO_N, 100), generator=gen, device=dev),
+             {}),
+            ("precision=bf16", torch.randn((ZERO_N, 4096), generator=gen,
+                                           device=dev),
+             {"precision": "bf16"})):
+        before = [k.launches for k in kernels]
+        got = Q.quantized_ring_allreduce(x, group=group, **kw)
+        want = R.ring_allreduce(x.to(torch.bfloat16), impl="plain").to(
+            x.dtype)
+        moved = [k.launches - b for k, b in zip(kernels, before)]
+        check(moved == [1, 0] and torch.equal(got, want),
+              f"ladder, {name}: launches (C4, C6) {moved} != [1, 0] or the "
+              f"bf16 ring's result differs")
+    log("ring", "ladder: f64 input, 100 elements per rank and "
+        "precision='bf16' each took C4 once (C6 not at all) and equal the "
+        "plain bf16 ring")
+
+    timings = []
+    if zero_elems:
+        x = torch.randn((ZERO_N, zero_elems), generator=gen, device=dev)
+        y = x.clone()
+        Q.ring_qallreduce_cuda(x.view(ZERO_N, -1, 128), group=group,
+                               out=x.view(ZERO_N, -1, 128))
+        Q.ring_qallreduce_plain(y.view(ZERO_N, -1, 128),
+                                out=y.view(ZERO_N, -1, 128))
+        check(torch.equal(x, y), "C6 at the quantized ZeRO size differs from "
+              "its plain version")
+        del y
+        h = zero_elems // (ZERO_N * ZERO_CHUNKS * 128) * 128
+        hop = x[:, :h].reshape(ZERO_N, -1, 128)
+        check(torch.equal(Q.ring_qhop_cuda(hop, group=group),
+                          Q.ring_qhop_plain(hop)),
+              "C5 at the quantized ZeRO hop differs from its plain version")
+        del hop
+        log("ring", f"quantized ZeRO size ({ZERO_N} ranks x {zero_elems} f32,"
+            f" C6 in place; C5 on one overlap hop of {h}): bitwise equal to "
+            f"the plain versions")
+        timings.append(_qring_times(group, ZERO_N, zero_elems, gen, dev, x))
+        del x
+    timings.append(_qring_times(group, ZERO_N, 65536 * 128, gen, dev))
+    group.check()
+    del group
+    gc.collect()
+    torch.cuda.empty_cache()
+    for t in timings:
+        for k, row in t.items():
+            log("ring", f"{k} n={row['n']} {row['rows']} rows f32: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['yardstick_computes']} {row['yardstick_ms']:.4f} ms; "
+                f"{card}")
+    return timings
+
+
+def phase_zero_quant_f32(dev):
+    """The int8 exchange in f32 at dim 256 (the train phase's f32 config),
+    at n = 2 and ZERO_N, monolithic (C6), overlap (C5 per hop) and with
+    error feedback: ZERO_F32_STEPS AdamW steps through the kernels equal
+    the same steps through the plain versions bit for bit (params, ef and
+    loss), with exact C5 / C6 launch counts. Under
+    ``torch.use_deterministic_algorithms``, as phase_zero_f32 (index_add_).
+    Returns the number of bitwise comparisons."""
+    import functools
+    import warnings
+
+    from ray_tpu_torch.models.llama import init_params, loss_fn
+    from ray_tpu_torch.parallel import build_zero_train_step, create_zero_state
+    from ray_tpu_torch.parallel.train_step import LR, WEIGHT_DECAY
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import quantized as Q
+
+    cfg = _zero_f32_cfg()
+    opt = functools.partial(torch.optim.AdamW, lr=LR,
+                            weight_decay=WEIGHT_DECAY)
+    rng = np.random.RandomState(4)
+    toks = [rng.randint(0, cfg.vocab_size, (ZERO_N, 301))
+            for _ in range(ZERO_F32_STEPS)]
+
+    def run(n, collective, **kw):
+        group = RingGroup(n, dev)
+        ef = kw.get("error_feedback", False)
+        state = create_zero_state(init_params(cfg, seed=1, device=dev), opt,
+                                  group, error_feedback=ef)
+        step = build_zero_train_step(lambda p, b: loss_fn(p, b, cfg), opt,
+                                     group, collective=collective,
+                                     quantized_grads=True, **kw)
+        for t in toks:
+            state, m = step(state, {"tokens": t[:n]})
+        group.check()
+        return state, m["loss"].item()
+
+    routes = (("monolithic", {}),
+              ("overlap", {"overlap": True, "n_chunks": ZERO_CHUNKS}),
+              ("error feedback", {"error_feedback": True}))
+    checked = 0
+    prev = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for n in (2, ZERO_N):
+                for name, kw in routes:
+                    for k in Q.KERNELS:
+                        k.launches = 0
+                    got, gl = run(n, "cuda", **kw)
+                    launches = [k.launches for k in Q.KERNELS]
+                    want, wl = run(n, "plain", **kw)
+                    n_c = len(got.layout) - 1
+                    expect = ([(n - 1) * n_c * ZERO_F32_STEPS, 0]
+                              if kw.get("overlap") else [0, ZERO_F32_STEPS])
+                    check(launches == expect, f"int8 ZeRO f32 n={n} {name}: "
+                          f"launches (C5, C6) {launches} != {expect}")
+                    same = torch.equal(got.flat, want.flat) and gl == wl
+                    if got.ef is not None:
+                        same = same and torch.equal(got.ef, want.ef)
+                    check(same, f"int8 ZeRO f32 n={n} {name}: the kernels' "
+                          f"steps differ from the plain versions'")
+                    checked += 1
+                    del got, want
+        finally:
+            torch.use_deterministic_algorithms(prev)
+    log("zero", f"int8 exchange, f32 dim 256, n = 2 and {ZERO_N}, "
+        f"{ZERO_F32_STEPS} AdamW steps, monolithic (C6), overlap (C5 per "
+        f"hop, {ZERO_CHUNKS} chunks) and error feedback: {checked} runs "
+        f"bitwise equal to the plain versions (params, ef, loss), launches "
+        f"exact")
+    return checked
+
+
+def _int8_first_grad(cfg, opt, batch, n, dev):
+    """The first step's gradient of ``cfg`` over n ranks through the
+    exact reduce-scatter (C2) and through the int8 ring (C6): (loss, the
+    int8 shards' relative L2 distance from the exact ones, the share of
+    shard elements sent as 0, the share sent as 0 where the exact sum is
+    not 0). Everything it allocates is freed on return."""
+    from ray_tpu_torch.models.llama import init_params, loss_fn
+    from ray_tpu_torch.parallel import create_zero_state
+    from ray_tpu_torch.parallel import zero as Z
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import quantized as Q
+    from ray_tpu_torch.util.collective import ring as R
+
+    group = RingGroup(n, dev)
+    state = create_zero_state(init_params(cfg, seed=0, device=dev), opt,
+                              group)
+    loss, _ = Z._local_grads(state, lambda p, b: loss_fn(p, b, cfg), batch)
+    s = state.flat.shape[1] // n
+    with torch.no_grad():
+        g = state.grads.clone()
+        exact = R.ring_reduce_scatter(g.view(n, -1, 128), group=group,
+                                      donate=True)
+        del g
+        full = Q.quantized_ring_allreduce(state.grads, group=group,
+                                          donate=True)
+        diff = ref = 0.0
+        zeros = zeros_nz = 0
+        step_e = 1 << 26
+        for r in range(n):
+            q, e = full[r, r * s:(r + 1) * s], exact[r].view(-1)
+            for i in range(0, s, step_e):
+                qi, ei = q[i:i + step_e], e[i:i + step_e].float()
+                diff += (qi - ei).square().sum().item()
+                ref += ei.square().sum().item()
+                zeros += (qi == 0).sum().item()
+                zeros_nz += ((qi == 0) & (ei != 0)).sum().item()
+    group.check()
+    return (loss.item(), (diff / ref) ** 0.5, zeros / (n * s),
+            zeros_nz / (n * s))
+
+
+def phase_zero_quant(dev, card):
+    """Llama-3-8B widths at QZERO_LAYERS layers through
+    ``build_zero_train_step(quantized_grads=True)`` over ZERO_N virtual
+    ranks, from the same initial params: ZERO_STEPS monolithic steps (C6 +
+    C3), ZERO_STEPS with ``error_feedback=True``, and ZERO_STEPS with
+    ``overlap=True`` (C5 per reduce-scatter hop, C1 per allgather hop),
+    each followed by one profiled step. Before them the first step's
+    gradient through the exact reduce-scatter (C2) and through the int8
+    ring (C6): the relative L2 distance of the shards and the share of
+    elements the int8 exchange sends as 0. See the module docstring for
+    the gates."""
+    import functools
+
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.parallel import build_zero_train_step, create_zero_state
+    from ray_tpu_torch.parallel.train_step import LR, WEIGHT_DECAY
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import quantized as Q
+    from ray_tpu_torch.util.collective import ring as R
+
+    f32_checked = phase_zero_quant_f32(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = LlamaConfig.llama3_8b(
+        n_layers=QZERO_LAYERS, max_seq_len=TRAIN_SEQ, attn_impl="flash",
+        remat="dots", param_dtype=torch.bfloat16)
+    L, n = cfg.n_layers, ZERO_N
+    opt = functools.partial(torch.optim.AdamW, lr=LR,
+                            weight_decay=WEIGHT_DECAY)
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, cfg.vocab_size,
+                           (n, TRAIN_SEQ + 1)).astype(np.int64)
+               for _ in range(ZERO_STEPS + 1)]
+    tokens = n * TRAIN_SEQ
+    ring_kernels = R.KERNELS + Q.KERNELS
+    b_kernels = (attention.flash_fwd_cuda, attention.flash_bwd_dkv_cuda,
+                 attention.flash_bwd_dq_cuda)
+    n_params = cfg.num_params()
+    log("zero", f"int8 exchange: Llama-3-8B widths, {L} layer, "
+        f"{n_params / 1e9:.3f} B params (bf16), {n} virtual ranks, AdamW, "
+        f"batch {n} x {TRAIN_SEQ}; {card}")
+
+    # The first step's gradient, exact and through the int8 ring.
+    loss0, grad_rel, zero_share, zero_share_nz = _int8_first_grad(
+        cfg, opt, {"tokens": batches[0]}, n, dev)
+    log("zero", f"int8 exchange of the first step's gradient against the "
+        f"exact reduce-scatter (C2, bf16): shards' relative L2 distance "
+        f"{grad_rel:.4f}; {100 * zero_share:.2f}% of shard elements sent as "
+        f"0 ({100 * zero_share_nz:.2f}% where the exact sum is not 0)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(name, **kw):
+        group = RingGroup(n, dev)
+        torch.cuda.reset_peak_memory_stats()
+        ef = kw.get("error_feedback", False)
+        state = create_zero_state(init_params(cfg, seed=0, device=dev), opt,
+                                  group, error_feedback=ef)
+        step = build_zero_train_step(
+            lambda p, b: loss_fn(p, b, cfg), opt, group, quantized_grads=True,
+            n_chunks=ZERO_CHUNKS, **kw)
+        for k in ring_kernels + b_kernels:
+            k.launches = 0
+        losses, norms, times = [], [], []
+        for i in range(ZERO_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, {"tokens": batches[i]})
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            times.append(time.perf_counter() - t0)
+        group.check()
+        ring = [k.launches for k in ring_kernels]
+        b = [k.launches for k in b_kernels]
+        n_c = len(state.layout) - 1
+        hops = (n - 1) * n_c * ZERO_STEPS
+        want = ([hops, 0, 0, 0, hops, 0] if kw.get("overlap")
+                else [0, 0, ZERO_STEPS, 0, 0, ZERO_STEPS])
+        want_b = [2 * L * n * ZERO_STEPS, L * n * ZERO_STEPS,
+                  L * n * ZERO_STEPS]
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"int8 {name}: non-finite loss or grad norm {losses} {norms}")
+        loss_rel = abs(losses[0] - loss0) / abs(loss0)
+        check(loss_rel <= 1e-6, f"int8 {name}: first loss {losses[0]} is not "
+              f"the exact step's {loss0}")
+        check(ring == want, f"int8 {name}: launches (C1-C6) {ring} != {want}")
+        check(b == want_b, f"int8 {name}: launches (B1-B3) {b} != {want_b}")
+        check(all(torch.equal(state.flat[r], state.flat[0])
+                  for r in range(n)),
+              f"int8 {name}: a rank's parameter copy differs from rank 0's")
+        rec = {}
+        if ef:
+            # max|ef| as a reduction (no copy of the 19 GiB buffer); a
+            # NaN or an inf anywhere makes it non-finite.
+            ef_max = torch.linalg.vector_norm(state.ef, float("inf")).item()
+            check(state.ef.dtype == torch.float32 and np.isfinite(ef_max)
+                  and ef_max > 0,
+                  f"int8 {name}: ef is not finite, f32 and non-zero")
+            rec["ef_abs_max"] = ef_max
+        peak = torch.cuda.max_memory_allocated()
+        step_s = float(np.median(times[1:]))
+        log("zero", f"int8 {name}: losses "
+            + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+            + ", ".join(f"{x:.3f}" for x in norms))
+        log("zero", f"int8 {name}: {ZERO_STEPS} steps of {n} ranks x "
+            f"{TRAIN_SEQ} tokens: step times "
+            + ", ".join(f"{x:.3f}" for x in times) + f" s; median after the "
+            f"first {step_s:.4f} s = {tokens / step_s:.0f} tokens/s; peak "
+            f"memory {peak / 2**30:.2f} GiB; launches C1-C6 {ring} (expected "
+            f"{want}), B1-B3 {b}; every rank's copy equal; {card}")
+        wall, busy, by = _profile_step(step, state, batches[ZERO_STEPS],
+                                       ("ring_q", "ring_"))
+        q_ms, ring_ms = by["ring_q"], by["ring_"]
+        if busy:
+            log("zero", f"int8 {name}: profiled step {wall:.1f} ms wall, "
+                f"device busy {busy:.1f} ms (idle "
+                f"{100 * (1 - busy / wall):.1f}%), C5/C6 {q_ms:.1f} ms "
+                f"({100 * q_ms / busy:.1f}% of busy), all ring kernels "
+                f"{ring_ms:.1f} ms; {card}")
+        else:
+            log("zero", f"int8 {name}: the profiler recorded no device time")
+        rec.update({
+            "losses": losses, "grad_norms": norms, "step_times_s": times,
+            "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "peak_gib": peak / 2**30, "launches_c1_c6": ring,
+            "launches_b1_b3": b, "chunks": n_c, "first_loss_rel": loss_rel,
+            "profiled_wall_ms": wall, "profiled_busy_ms": busy,
+            "q_ms": q_ms, "ring_ms": ring_ms,
+            "q_share": q_ms / busy if busy else None})
+        del state, step, group
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+
+    out = {"layers": L, "params": n_params, "first_loss": loss0,
+           "first_grad_rel_l2": grad_rel, "first_grad_zero_share": zero_share,
+           "first_grad_zero_share_nonzero_exact": zero_share_nz,
+           "f32_bitwise_runs": f32_checked}
+    out["monolithic"] = run("monolithic")
+    out["error_feedback"] = run("error feedback", error_feedback=True)
+    out["overlap"] = run("overlap", overlap=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1238,6 +1708,9 @@ def main() -> int:
     group = ZERO_N * 128
     ring_rows = phase_ring_kernels(dev, card,
                                    -(-n_params // group) * group // 128)
+    q_params = LlamaConfig.llama3_8b(n_layers=QZERO_LAYERS).num_params()
+    qring_rows = phase_qring_kernels(dev, card,
+                                     -(-q_params // group) * group)
     serve_launches = phase_serve(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1249,8 +1722,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     zero = phase_zero_train(dev, card)
     mono, over = zero["monolithic"], zero["overlap"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    zq = phase_zero_quant(dev, card)
+    qmono, qef, qover = zq["monolithic"], zq["error_feedback"], zq["overlap"]
+    qruns = (qmono, qef, qover)
     zero_b = [a + b for a, b in zip(mono["launches_b1_b3"],
                                     over["launches_b1_b3"])]
+    zq_b = [sum(r["launches_b1_b3"][i] for r in qruns) for i in range(3)]
 
     main_row = next(r for r in rows if r["S"] == 512 and r["causal"])
     bwd_main = next(r for r in bwd_rows
@@ -1258,13 +1737,16 @@ def main() -> int:
     bwd_shape = (f"B={TRAIN_BATCH} H={N_HEADS} S={TRAIN_SEQ} D={HEAD_DIM} "
                  f"causal bf16")
 
-    def bwd_kernel(name, key, outs, replaces, train_launches, zero_launches):
+    def bwd_kernel(name, key, outs, replaces, train_launches, zero_launches,
+                   zq_launches):
         return {
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
-            "replaces": replaces, "launches": train_launches + zero_launches,
+            "replaces": replaces,
+            "launches": train_launches + zero_launches + zq_launches,
             "launches_by_path": {"train": train_launches,
-                                 "zero_train": zero_launches},
+                                 "zero_train": zero_launches,
+                                 "zero_quant": zq_launches},
             "max_abs_err": max(r[f"bf16_{o}_err"] for r in bwd_rows
                                for o in outs),
             "f32_max_abs_err": max(r[f"f32_{o}_err"] for r in bwd_rows
@@ -1296,15 +1778,33 @@ def main() -> int:
             "shape": f"n={main['n']} ranks x {main['rows']} x 128 bf16 sum",
             "per_shape": [t[key] for t in ring_rows]}
 
+    def qring_kernel(key, name, line, by_path):
+        main = qring_rows[0][key]
+        return {
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/ring.cu",
+            "replaces": f"ray_tpu/util/collective/pallas/quantized.py:{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": 0.0,
+            "tolerance": "bitwise: torch.equal with the plain version",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "yardstick_ms": main["yardstick_ms"],
+            "yardstick_computes": main["yardstick_computes"],
+            "shape": f"n={main['n']} ranks x {main['rows']} x 128 f32",
+            "per_shape": [t[key] for t in qring_rows]}
+
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:47",
-        "launches": serve_launches + train["launches"][0] + zero_b[0],
+        "launches": (serve_launches + train["launches"][0] + zero_b[0]
+                     + zq_b[0]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train["launches"][0],
-                             "zero_train": zero_b[0]},
+                             "zero_train": zero_b[0], "zero_quant": zq_b[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1315,20 +1815,30 @@ def main() -> int:
         "per_shape": rows,
     }, bwd_kernel("flash_bwd_dkv", "dkv", ("dk", "dv"),
                   "ray_tpu/ops/attention.py:149", train["launches"][1],
-                  zero_b[1]),
+                  zero_b[1], zq_b[1]),
         bwd_kernel("flash_bwd_dq", "dq", ("dq",),
                    "ray_tpu/ops/attention.py:211", train["launches"][2],
-                   zero_b[2]),
+                   zero_b[2], zq_b[2]),
         ring_kernel("C1", "ring_permute", 378,
-                    {"zero_train_overlap": over["launches_c1_c4"][0]}),
+                    {"zero_train_overlap": over["launches_c1_c4"][0],
+                     "zero_quant_overlap": qover["launches_c1_c6"][0]}),
         ring_kernel("C2", "ring_reduce_scatter", 169,
                     {"zero_train": mono["launches_c1_c4"][1]}),
         ring_kernel("C3", "ring_allgather", 146,
-                    {"zero_train": mono["launches_c1_c4"][2]}),
+                    {"zero_train": mono["launches_c1_c4"][2],
+                     "zero_quant": qmono["launches_c1_c6"][2]
+                     + qef["launches_c1_c6"][2]}),
         ring_kernel("C4", "ring_allreduce", 107,
-                    {"zero_replicated_f32": c4_launches})],
+                    {"zero_replicated_f32": c4_launches}),
+        qring_kernel("C5", "ring_qhop", 121,
+                     {"zero_quant_overlap": qover["launches_c1_c6"][4]}),
+        qring_kernel("C6", "ring_qallreduce", 49,
+                     {"zero_quant_monolithic": qmono["launches_c1_c6"][5],
+                      "zero_quant_error_feedback":
+                          qef["launches_c1_c6"][5]})],
         "train": {k: v for k, v in train.items() if k != "launches"},
-        "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err}),
+        "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
+        "zero_quant": zq}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

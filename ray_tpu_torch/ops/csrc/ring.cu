@@ -1,4 +1,4 @@
-// Ring collectives C1-C4 for Hopper (sm_90a), over a ring of n virtual
+// Ring collectives C1-C6 for Hopper (sm_90a), over a ring of n virtual
 // ranks on one card.
 //
 // Replace the TPU kernels of ray_tpu/util/collective/pallas/ring.py:
@@ -6,6 +6,9 @@
 //   C2 ring_reduce_scatter_kernel <- _reduce_scatter_kernel (_reduce_scatter_block)
 //   C3 ring_allgather_kernel      <- _allgather_kernel      (_allgather_block)
 //   C4 ring_allreduce_kernel      <- _allreduce_kernel      (_allreduce_block)
+// and of ray_tpu/util/collective/pallas/quantized.py (the int8 ring):
+//   C5 ring_qhop_kernel           <- _qhop_kernel           (_qhop_block)
+//   C6 ring_qallreduce_kernel     <- _qar_kernel            (_qar_block)
 //
 // Each rank's data is one row of a rank-major tensor: rank r's block starts
 // at base + r * rank_stride and holds rows of 128 lanes, the reference's
@@ -60,13 +63,46 @@
 // copies are 16-byte vectors, neighbouring threads on neighbouring
 // addresses.
 //
-// Types: float32 and bfloat16. The wrapper refuses anything else.
+// Types: float32 and bfloat16 (C5, C6: float32 only, as the reference
+// feeds them). The wrapper refuses anything else.
+//
+// The int8 ring (C5, C6). Every hop quantizes the outgoing f32 chunk to
+// int8 with ONE scale, max|chunk| / 127 floored at 1e-30, over the whole
+// chunk (quantized.py:43-46), sends the payload and the scale, and the
+// receiver dequantizes: C6's reduce-scatter sweep accumulates
+// (__fmaf_rn(q, scale, acc): one rounding, what the reference computes),
+// its allgather sweep and C5 overwrite (q * scale). The scale is a max
+// over a chunk that bpr blocks share, so each quantizing hop starts with
+// a per-rank barrier inside the cooperative launch:
+//   - each block reduces max|x| over its range (as the bits of |x|, which
+//     order like the floats and carry a NaN through);
+//   - thread 0 publishes it with a 64-bit atomicMax on the rank's word of
+//     hop parity t % 2, tagged with the hop's epoch in the high half (a
+//     newer epoch always wins, so the words are never reset), fences, and
+//     arrives on the rank's counter: every block adds 1 and block 0 adds
+//     MAX_BPR - bpr more, so hop t of a call with base B is complete when
+//     the counter reaches (B + t + 1) * MAX_BPR whatever bpr each call had;
+//   - it spins (bounded, reported like the flags) until then, and reads the
+//     word. The word of parity t % 2 is rewritten at hop t + 2 only after
+//     every block of the rank has passed hop t + 1's barrier, so after it
+//     has read hop t's. Max is exact and order-free: the scale is
+//     deterministic.
+// Each sending block stores its int8 range into the right neighbour's slot
+// and its own copy of the scale into a per-block scale slot beside it, so
+// the receiving block (b, right) needs no second barrier. Quantize as
+// _quantize: IEEE x / scale (__fdiv_rn), rintf (half to even), clamp to
+// +-127. Slots per rank: 2 x chunk int8 payloads, then 2 x MAX_BPR f32
+// scales. A range is counted in groups of 16 elements (64 bytes of f32 in,
+// 16 bytes of int8 out). C5 and C6 read each send chunk twice (max, then
+// quantize); that and the second pass over the chunk are what a faster
+// version would fold together.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ray_tpu_torch/ops/_build.py does this).
 
 #include <algorithm>
 #include <mutex>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,9 +115,17 @@ constexpr int NT = 256;                // threads per block
 constexpr long long MIN_VECS_PER_BLOCK = 4 * NT;
 constexpr long long SPIN_TIMEOUT_CYCLES = 2000000000LL;   // ~1 s
 
-enum Kind { PERMUTE = 0, REDUCE_SCATTER = 1, ALLGATHER = 2, ALLREDUCE = 3 };
+constexpr int FLAG_SECTIONS = 3;       // receive, capacity, barrier words
+constexpr int QGROUP = 16;             // elements per int8 vector
+constexpr float QMAX = 127.0f;
+constexpr float SCALE_FLOOR = 1e-30f;
+
+enum Kind {
+  PERMUTE = 0, REDUCE_SCATTER = 1, ALLGATHER = 2, ALLREDUCE = 3, QHOP = 4,
+  QALLREDUCE = 5
+};
 enum Op { SUM = 0, MAX = 1, MIN = 2, PROD = 3 };
-enum Wait { WAIT_RECV = 0, WAIT_CAP = 1 };
+enum Wait { WAIT_RECV = 0, WAIT_CAP = 1, WAIT_BARRIER = 2 };
 
 typedef unsigned long long u64;
 
@@ -91,7 +135,11 @@ struct RingArgs {
   char* slot[MAX_RANKS];      // per-rank comm slots: 2 x chunk bytes
   u64* recv[MAX_RANKS];       // per-rank receive flags [MAX_BPR][2]
   u64* cap[MAX_RANKS];        // per-rank capacity flags [MAX_BPR][2]
-  long long chunk_vecs;       // 16-byte vectors per chunk (one hop's payload)
+  u64* bar[MAX_RANKS];        // per-rank barrier words (C5, C6): arrivals,
+                              // then the max word of each hop parity
+  float* scale[MAX_RANKS];    // per-rank scale slots [2][MAX_BPR] (C5, C6)
+  long long chunk_vecs;       // 16-byte vectors per chunk (one hop's payload;
+                              // C5, C6: groups of 16 elements)
   u64 base;                   // hop t's epoch is base + t + 1
   int* err_dev;               // elects the first block to report
   long long* err_host;        // pinned host record: set, kind, rank, block,
@@ -367,9 +415,201 @@ ring_allreduce_kernel(const __grid_constant__ RingArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The int8 ring: C5 and C6 (float32 only).
+// ---------------------------------------------------------------------------
+
+// max |x| over this block's groups [lo, hi) of src, as the bits of |x|
+// (valid in thread 0).
+__device__ unsigned block_absmax_bits(const float4* src, long long lo,
+                                      long long hi) {
+  __shared__ unsigned warp_max[NT / 32];
+  unsigned m = 0;
+  for (long long g = lo + threadIdx.x; g < hi; g += NT) {
+#pragma unroll
+    for (int j = 0; j < QGROUP / 4; ++j) {
+      const float4 v = src[g * (QGROUP / 4) + j];
+      m = max(m, max(max(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y))),
+                     max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w)))));
+    }
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = threadIdx.x < NT / 32 ? warp_max[threadIdx.x] : 0u;
+    m = __reduce_max_sync(0xffffffffu, m);
+  }
+  return m;
+}
+
+// The per-rank barrier of hop t: publish this block's max, wait for every
+// block of the rank, read the rank's max and turn it into the scale
+// (max / 127 floored at 1e-30; a NaN max stays NaN, as jnp.maximum keeps
+// it). False: the block exits.
+__device__ bool rank_scale(const RingArgs& a, const Block& k, int t,
+                           unsigned bits, float* scale) {
+  __shared__ float s_scale;
+  int ok = 1;
+  if (threadIdx.x == 0) {
+    u64* bar = a.bar[k.r];
+    u64* word = bar + 1 + (t & 1);
+    const u64 epoch = a.base + t + 1;
+    const u64 tag = epoch & 0xffffffffull;
+    atomicMax(reinterpret_cast<unsigned long long*>(word), (tag << 32) | bits);
+    __threadfence();
+    atomicAdd(reinterpret_cast<unsigned long long*>(bar),
+              static_cast<unsigned long long>(k.b == 0 ? MAX_BPR - a.bpr + 1
+                                                       : 1));
+    const u64 want = epoch * MAX_BPR;
+    const long long t0 = clock64();
+    u64 seen;
+    while ((seen = ld_acquire(bar)) < want) {
+      if (clock64() - t0 > SPIN_TIMEOUT_CYCLES) {
+        report(a, k.r, k.b, t, WAIT_BARRIER, want, seen);
+        ok = 0;
+        break;
+      }
+      __nanosleep(64);
+    }
+    if (ok) {
+      const u64 w = ld_acquire(word);
+      if ((w >> 32) != tag) {
+        report(a, k.r, k.b, t, WAIT_BARRIER, tag, w >> 32);
+        ok = 0;
+      }
+      const float s = __fdiv_rn(__uint_as_float(static_cast<unsigned>(w)), QMAX);
+      s_scale = s < SCALE_FLOOR ? SCALE_FLOOR : s;
+    }
+  }
+  if (!__syncthreads_and(ok)) return false;
+  *scale = s_scale;
+  return true;
+}
+
+__device__ __forceinline__ int quantize1(float x, float scale) {
+  const float r = rintf(__fdiv_rn(x, scale));
+  return static_cast<int>(fminf(fmaxf(r, -QMAX), QMAX));
+}
+
+// 16 f32 elements -> 16 int8 codes in one 16-byte vector.
+__device__ __forceinline__ uint4 quantize16(const float4* src, float scale) {
+  uint4 out;
+  unsigned* w = reinterpret_cast<unsigned*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 v = src[j];
+    w[j] = (quantize1(v.x, scale) & 0xff) |
+           ((quantize1(v.y, scale) & 0xff) << 8) |
+           ((quantize1(v.z, scale) & 0xff) << 16) |
+           (static_cast<unsigned>(quantize1(v.w, scale) & 0xff) << 24);
+  }
+  return out;
+}
+
+__device__ __forceinline__ float code(unsigned w, int i) {
+  return static_cast<float>(static_cast<signed char>((w >> (8 * i)) & 0xff));
+}
+
+// dst = q * scale (ACC: dst = fma(q, scale, dst), one rounding) for the 16
+// codes of q.
+template <bool ACC>
+__device__ __forceinline__ void dequantize16(uint4 q, float scale,
+                                             float4* dst) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(&q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float4 v = ACC ? dst[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ACC) {
+      v.x = __fmaf_rn(code(w[j], 0), scale, v.x);
+      v.y = __fmaf_rn(code(w[j], 1), scale, v.y);
+      v.z = __fmaf_rn(code(w[j], 2), scale, v.z);
+      v.w = __fmaf_rn(code(w[j], 3), scale, v.w);
+    } else {
+      v.x = __fmul_rn(code(w[j], 0), scale);
+      v.y = __fmul_rn(code(w[j], 1), scale);
+      v.z = __fmul_rn(code(w[j], 2), scale);
+      v.w = __fmul_rn(code(w[j], 3), scale);
+    }
+    dst[j] = v;
+  }
+}
+
+// One quantized hop t: the rank's scale of the send chunk, the int8 range
+// and this block's copy of the scale into the right neighbour's slot t % 2,
+// then the left neighbour's payload dequantized into dst (ACC: accumulated).
+template <bool ACC>
+__device__ bool qhop(const RingArgs& a, const Block& k, int t, int total,
+                     const float4* send, float4* dst) {
+  constexpr int F4 = QGROUP / 4;
+  float scale;
+  if (!rank_scale(a, k, t, block_absmax_bits(send, k.lo, k.hi), &scale))
+    return false;
+  const int slot = t & 1;
+  const int f = flag_index(k.b, slot);
+  if (t >= 2 && !wait_flag(a, a.cap[k.r] + f, a.base + t - 1, k.r, k.b, t,
+                           WAIT_CAP))
+    return false;
+  uint4* out = reinterpret_cast<uint4*>(a.slot[k.right]) + slot * a.chunk_vecs;
+  for (long long g = k.lo + threadIdx.x; g < k.hi; g += NT)
+    __stcg(out + g, quantize16(send + g * F4, scale));
+  if (threadIdx.x == 0) __stcg(a.scale[k.right] + slot * MAX_BPR + k.b, scale);
+  signal_flag(a.recv[k.right] + f, a.base + t + 1);
+  if (!hop_recv(a, k, t)) return false;
+  const uint4* in = my_slot(a, k, t);
+  const float s = __ldcg(a.scale[k.r] + slot * MAX_BPR + k.b);
+  for (long long g = k.lo + threadIdx.x; g < k.hi; g += NT)
+    dequantize16<ACC>(__ldcg(in + g), s, dst + g * F4);
+  hop_release(a, k, t, total);
+  return true;
+}
+
+// C5: one fused hop of the whole block: out[right] = dequant(quant(in[r]))
+// with one scale over rank r's block.
+__global__ void __launch_bounds__(NT)
+ring_qhop_kernel(const __grid_constant__ RingArgs a) {
+  const Block k = block_of(a);
+  qhop<false>(a, k, 0, 1, reinterpret_cast<const float4*>(a.in[k.r]),
+              reinterpret_cast<float4*>(a.out[k.r]));
+}
+
+// C6: the reference's schedule (quantized.py:83-94): a reduce-scatter sweep
+// that accumulates, then an allgather sweep that overwrites, 2(n - 1) hops,
+// each requantizing its send chunk with a fresh scale. out starts as a copy
+// of in (no copy when the two are one buffer: in place).
+__global__ void __launch_bounds__(NT)
+ring_qallreduce_kernel(const __grid_constant__ RingArgs a) {
+  constexpr int F4 = QGROUP / 4;
+  const Block k = block_of(a);
+  const float4* in = reinterpret_cast<const float4*>(a.in[k.r]);
+  float4* out = reinterpret_cast<float4*>(a.out[k.r]);
+  const long long cf = a.chunk_vecs * F4;     // float4 per chunk
+  const int total = 2 * (k.n - 1);
+  if (in != out)
+    for (int c = 0; c < k.n; ++c)
+      for (long long g = k.lo + threadIdx.x; g < k.hi; g += NT)
+#pragma unroll
+        for (int j = 0; j < F4; ++j)
+          out[c * cf + g * F4 + j] = in[c * cf + g * F4 + j];
+  int t = 0;
+  for (int s = 0; s < k.n - 1; ++s, ++t) {
+    const int send = mod(k.r - s, k.n), recv = mod(k.r - s - 1, k.n);
+    if (!qhop<true>(a, k, t, total, out + send * cf, out + recv * cf)) return;
+  }
+  for (int s = 0; s < k.n - 1; ++s, ++t) {
+    const int send = mod(k.r - s + 1, k.n), recv = mod(k.r - s, k.n);
+    if (!qhop<false>(a, k, t, total, out + send * cf, out + recv * cf)) return;
+  }
+}
+
 template <typename T>
 const void* kernel_for(int kind, int op) {
   switch (kind) {
+    case QHOP:
+    case QALLREDUCE:
+      if (!std::is_same<T, float>::value || op != SUM) return nullptr;
+      return kind == QHOP ? reinterpret_cast<const void*>(ring_qhop_kernel)
+                          : reinterpret_cast<const void*>(ring_qallreduce_kernel);
     case PERMUTE: return reinterpret_cast<const void*>(ring_permute_kernel<T>);
     case ALLGATHER:
       return reinterpret_cast<const void*>(ring_allgather_kernel<T>);
@@ -391,6 +631,16 @@ const void* kernel_for(int kind, int op) {
       return nullptr;
   }
   return nullptr;
+}
+
+bool quantized(int kind) { return kind == QHOP || kind == QALLREDUCE; }
+
+// Bytes of comm slots one rank needs for a call (see ring_slot_bytes).
+long long rank_slot_bytes(int kind, int elem, long long chunk_elems) {
+  if (kind == PERMUTE) return 0;
+  if (quantized(kind))
+    return 2 * chunk_elems + 2 * MAX_BPR * (long long)sizeof(float);
+  return 2 * chunk_elems * elem;
 }
 
 // How many blocks of `fn` the device holds at once (occupancy per SM times
@@ -426,27 +676,31 @@ cudaError_t resident_blocks(const void* fn, int dev, int* out) {
 
 // Launch one ring collective on `stream`.
 //   kind: 0 permute (C1), 1 reduce-scatter (C2), 2 allgather (C3),
-//         3 allreduce (C4); op: 0 sum, 1 max, 2 min, 3 prod (C2, C4);
-//   dtype: 0 float32, 1 bfloat16.
-//   in / out: rank r's block at base + r * stride (strides in elements);
-//   chunk_elems: elements per chunk, the payload of one hop (C1: the whole
-//   block; C2, C4: a block of n chunks; C3: the input block);
-//   slots: n x 2 x chunk_elems elements; flags: n x 2 x MAX_BPR x 2 u64
-//   (receive flags, then capacity flags, per rank); base: epoch base;
-//   err_dev: an int in device memory; err_host: the device address of 8
-//   int64 in pinned host memory.
+//         3 allreduce (C4), 4 quantized hop (C5), 5 quantized allreduce
+//         (C6); op: 0 sum, 1 max, 2 min, 3 prod (C2, C4; C5, C6 sum only);
+//   dtype: 0 float32, 1 bfloat16 (C5, C6: float32 only).
+//   in / out: rank r's block at base + r * stride (strides in elements;
+//   C6 may run in place, in == out);
+//   chunk_elems: elements per chunk, the payload of one hop (C1, C5: the
+//   whole block; C2, C4, C6: a block of n chunks; C3: the input block);
+//   slots: n x ring_slot_bytes(kind, ...) / n bytes; flags: n x 3 x
+//   MAX_BPR x 2 u64 (receive flags, capacity flags, barrier words, per
+//   rank); base: epoch base; err_dev: an int in device memory; err_host:
+//   the device address of 8 int64 in pinned host memory.
 // Returns a cudaError_t; 0 when the launch was accepted.
 extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
                            long long in_stride, void* out,
                            long long out_stride, long long chunk_elems,
                            void* slots, void* flags, unsigned long long base,
                            void* err_dev, void* err_host, void* stream) {
-  if (n < 2 || n > MAX_RANKS || chunk_elems < 1 || kind < 0 || kind > 3)
+  if (n < 2 || n > MAX_RANKS || chunk_elems < 1 || kind < 0 ||
+      kind > QALLREDUCE)
     return int(cudaErrorInvalidValue);
   const int elem = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
   if (elem == 0) return int(cudaErrorInvalidValue);
   const int vec = 16 / elem;
-  if (chunk_elems % vec || in_stride % vec || out_stride % vec)
+  const int unit = quantized(kind) ? QGROUP : vec;
+  if (chunk_elems % unit || in_stride % vec || out_stride % vec)
     return int(cudaErrorInvalidValue);
   const void* fn = dtype == 0 ? kernel_for<float>(kind, op)
                               : kernel_for<__nv_bfloat16>(kind, op);
@@ -462,7 +716,7 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   RingArgs a;
   a.n = n;
   a.kind = kind;
-  a.chunk_vecs = chunk_elems / vec;
+  a.chunk_vecs = chunk_elems / unit;
   a.base = base;
   a.err_dev = static_cast<int*>(err_dev);
   a.err_host = static_cast<long long*>(err_host);
@@ -474,16 +728,22 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
       (a.chunk_vecs + MIN_VECS_PER_BLOCK - 1) / MIN_VECS_PER_BLOCK;
   a.bpr = int(std::max(1LL, std::min(cap, want)));
 
-  const long long slot_bytes = 2 * chunk_elems * elem;
+  const long long slot_bytes = rank_slot_bytes(kind, elem, chunk_elems);
   u64* f = static_cast<u64*>(flags);
   for (int r = 0; r < MAX_RANKS; ++r) {
     const bool live = r < n;
+    char* slot = live && slots ? static_cast<char*>(slots) + r * slot_bytes
+                               : nullptr;
+    u64* rf = live ? f + size_t(r) * FLAG_SECTIONS * MAX_BPR * 2 : nullptr;
     a.in[r] = live ? static_cast<char*>(in) + r * in_stride * elem : nullptr;
     a.out[r] = live ? static_cast<char*>(out) + r * out_stride * elem : nullptr;
-    a.slot[r] = live && slots ? static_cast<char*>(slots) + r * slot_bytes
-                              : nullptr;
-    a.recv[r] = live ? f + (size_t(r) * 2 + 0) * MAX_BPR * 2 : nullptr;
-    a.cap[r] = live ? f + (size_t(r) * 2 + 1) * MAX_BPR * 2 : nullptr;
+    a.slot[r] = slot;
+    a.scale[r] = slot && quantized(kind)
+                     ? reinterpret_cast<float*>(slot + 2 * chunk_elems)
+                     : nullptr;
+    a.recv[r] = rf;
+    a.cap[r] = live ? rf + MAX_BPR * 2 : nullptr;
+    a.bar[r] = live ? rf + 2 * MAX_BPR * 2 : nullptr;
   }
   if (kind != PERMUTE && slots == nullptr) return int(cudaErrorInvalidValue);
 
@@ -494,6 +754,15 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   return int(cudaGetLastError());
 }
 
+// Bytes of comm slots a call needs for all n ranks: C1 none; C2-C4 two
+// chunks of the element type per rank; C5, C6 two int8 chunks and 2 x
+// MAX_BPR f32 scales per rank.
+extern "C" long long ring_slot_bytes(int kind, int dtype, int n,
+                                     long long chunk_elems) {
+  const int elem = dtype == 0 ? 4 : 2;
+  return n * rank_slot_bytes(kind, elem, chunk_elems);
+}
+
 // The device address of pinned host memory (the timeout record).
 extern "C" int ring_host_device_ptr(void* host, void** device) {
   return int(cudaHostGetDevicePointer(device, host, 0));
@@ -502,6 +771,7 @@ extern "C" int ring_host_device_ptr(void* host, void** device) {
 // Constants the Python side must agree with.
 extern "C" int ring_max_ranks() { return MAX_RANKS; }
 extern "C" int ring_max_blocks_per_rank() { return MAX_BPR; }
+extern "C" int ring_flag_sections() { return FLAG_SECTIONS; }
 
 extern "C" const char* ring_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

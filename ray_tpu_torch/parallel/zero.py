@@ -47,9 +47,23 @@ returns the same state, advanced.
 
 ``optimizer`` is a callable that builds a ``torch.optim`` optimizer over
 a list of tensors (``functools.partial(torch.optim.Adam, lr=1e-2)``); the
-first step on a state builds it over that state's shards. The int8
-gradient exchange (``quantized_grads``, ``error_feedback``) needs kernels
-C5 and C6, which are not ported yet.
+first step on a state builds it over that state's shards.
+
+``quantized_grads=True`` sends the gradient exchange over the int8 ring
+(the weight allgather stays exact, C3 or C1 per hop): monolithic, the
+f32 carry goes through ``quantized_ring_allreduce`` (C6, in place) and
+rank r keeps chunk r of ITS row of the result, which has passed one more
+int8 hop than the partial sums (as the reference's ``_my_shard``);
+under ``overlap`` each chunk goes through the split-phase int8
+reduce-scatter (C5 per hop). ``error_feedback=True`` (with
+``quantized_grads`` and a state from ``create_zero_state(...,
+error_feedback=True)``) adds the last step's residual ``ef`` to the
+gradient before the exchange and keeps what this step's first int8
+compression drops (``local_quantization_residual``, per chunk under
+overlap). The int8 ring sends f32, so under ``quantized_grads`` the
+gradient buffer is f32 and the carry is that buffer, in place. The
+reduced shard is cast to the params' dtype for the torch optimizer (the
+reference hands optax an f32 gradient when the carry is f32).
 """
 
 from __future__ import annotations
@@ -60,9 +74,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ray_tpu_torch.util.collective import (
-    LANES, RingGroup, ring_allgather, ring_allreduce, ring_reduce_scatter,
-    start_ring_allgather, start_ring_reduce_scatter, wait_ring_allgather,
-    wait_ring_reduce_scatter,
+    LANES, RingGroup, local_quantization_residual, quantized_ring_allreduce,
+    ring_allgather, ring_allreduce, ring_reduce_scatter,
+    start_quantized_ring_reduce_scatter, start_ring_allgather,
+    start_ring_reduce_scatter, wait_quantized_ring_reduce_scatter,
+    wait_ring_allgather, wait_ring_reduce_scatter,
 )
 
 Params = Dict[str, Any]
@@ -94,7 +110,10 @@ class ZeroTrainState:
     params (``rank_params(r)`` gives its tree of views). ``shards`` is
     ``[n, padded // n]``, the tensors the optimizer updates: rank r's
     1/n, in the layout of the first step run on this state (``layout``).
-    ``optimizer`` is built by that step.
+    ``optimizer`` is built by that step. ``grads`` is the gradient
+    buffer ``[n, padded]`` the exchange runs in (the params' dtype, f32
+    under ``quantized_grads``). ``ef`` is the error-feedback buffer
+    ``[n, padded]`` f32 (row r rank r's), or None.
     """
 
     flat: torch.Tensor
@@ -109,6 +128,7 @@ class ZeroTrainState:
     opt_params: List[List[torch.Tensor]] = dataclasses.field(
         default_factory=list)
     grads: Optional[torch.Tensor] = None
+    ef: Optional[torch.Tensor] = None
 
     def _tree(self, r: int, requires_grad: bool):
         tree: Params = {}
@@ -136,11 +156,14 @@ class ZeroTrainState:
 
 
 def create_zero_state(params: Params, optimizer: Factory,
-                      group: RingGroup) -> ZeroTrainState:
+                      group: RingGroup, error_feedback: bool = False
+                      ) -> ZeroTrainState:
     """A ZeRO state on ``group.device``: ``params`` (a tree of tensors of
     one float dtype) flattened and copied to every rank's row, and the
     optimizer factory, which the first step applies to the rank shards
-    (moments exist for 1/n of the params per rank, as in the reference)."""
+    (moments exist for 1/n of the params per rank, as in the reference).
+    With ``error_feedback`` the state carries a zeroed f32 residual buffer
+    ``ef`` [n, padded] for the int8 exchange."""
     spec, leaves, off = [], [], 0
     for path, leaf in _paths(params):
         spec.append((path, leaf.shape, off))
@@ -157,8 +180,10 @@ def create_zero_state(params: Params, optimizer: Factory,
     with torch.no_grad():
         flat[:, :off] = torch.cat(
             [t.detach().reshape(-1).to(group.device) for t in leaves])
+    ef = (torch.zeros(flat.shape, dtype=torch.float32, device=group.device)
+          if error_feedback else None)
     return ZeroTrainState(flat=flat, group=group, make_optimizer=optimizer,
-                          spec=spec, size=off)
+                          spec=spec, size=off, ef=ef)
 
 
 def _chunks(padded: int, n: int, n_chunks: int) -> List[int]:
@@ -218,13 +243,18 @@ def _rank_batches(batch: Dict[str, Any], n: int, device: torch.device
     return [{k: v[r] for k, v in chunks.items()} for r in range(n)]
 
 
-def _local_grads(state: ZeroTrainState, loss_fn, batch: Dict[str, Any]):
+def _local_grads(state: ZeroTrainState, loss_fn, batch: Dict[str, Any],
+                 dtype: Optional[torch.dtype] = None):
     """Every rank's loss and gradient of its own batch slice, the
-    gradients flattened into ``state.grads[r]``. Returns (mean loss,
-    sum of squared gradients over ranks, f32)."""
+    gradients flattened into ``state.grads[r]`` (of ``dtype``, by default
+    the params'). Returns (mean loss, sum of squared gradients over
+    ranks, f32)."""
     n = state.flat.shape[0]
-    if state.grads is None:
-        state.grads = torch.zeros_like(state.flat)
+    dtype = dtype or state.flat.dtype
+    if state.grads is None or state.grads.dtype != dtype:
+        state.grads = None
+        state.grads = torch.zeros(state.flat.shape, dtype=dtype,
+                                  device=state.flat.device)
     grads_buf = state.grads
     losses, sq = [], None
     for r, part in enumerate(_rank_batches(batch, n, state.flat.device)):
@@ -273,23 +303,48 @@ def build_zero_train_step(
     step with the weight update sharded over ``group``'s n ranks (see the
     module docstring). ``collective`` picks the ring: ``auto`` (the kernels
     on the card, the plain versions on the CPU), ``cuda`` or ``plain``.
-    ``metrics`` holds ``loss`` and ``grad_norm`` as f32 scalar tensors on
-    the device and the new ``step``."""
-    if quantized_grads or error_feedback:
-        raise NotImplementedError(
-            "quantized_grads / error_feedback need the int8 ring (TPU "
-            "kernels C5 _qhop_kernel and C6 _qar_kernel, "
-            "ray_tpu/util/collective/pallas/quantized.py), not ported yet")
+    ``metrics`` holds ``loss`` and ``grad_norm`` (of the raw gradients) as
+    f32 scalar tensors on the device and the new ``step``."""
+    if error_feedback and not quantized_grads:
+        raise ValueError(
+            "error_feedback corrects compression error and needs "
+            "quantized_grads=True (the exact exchange has no residual)")
     if n_chunks < 1:
         raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
     n = group.n
 
+    # The int8 ring sends an f32 carry, so under quantized_grads the
+    # gradient buffer is f32 and the exchange runs in it, in place: no
+    # f32 copy of the [n, padded] gradients beside a buffer of the
+    # params' dtype (the values are the same: bf16 -> f32 is exact).
+    grad_dtype = torch.float32 if quantized_grads else None
+
+    def feed_back(carry: torch.Tensor, ef: torch.Tensor) -> None:
+        """Error feedback on a [n, m] slice of the f32 carry, in place:
+        add the last residual, then keep what this exchange's first int8
+        compression drops (n scales per rank), before the ring clobbers
+        the carry."""
+        carry += ef
+        local_quantization_residual(carry.view(n, -1, LANES), n,
+                                    out=ef.view(n, -1, LANES))
+
     def mono(state: ZeroTrainState) -> None:
         s = state.flat.shape[1] // n
-        gshard = ring_reduce_scatter(
-            state.grads.view(n, n * s // LANES, LANES), "sum",
-            impl=collective, group=group, donate=True)
-        _step_opt(state, 0, [gshard[r].view(-1) for r in range(n)])
+        dtype = state.flat.dtype
+        if quantized_grads:
+            if error_feedback:
+                feed_back(state.grads, state.ef)
+            full = quantized_ring_allreduce(state.grads, "sum",
+                                            impl=collective, group=group,
+                                            donate=True)
+            # Rank r's shard: chunk r of its own row (_my_shard).
+            shards = [full[r, r * s:(r + 1) * s].to(dtype) for r in range(n)]
+        else:
+            gshard = ring_reduce_scatter(
+                state.grads.view(n, n * s // LANES, LANES), "sum",
+                impl=collective, group=group, donate=True)
+            shards = [gshard[r].view(-1) for r in range(n)]
+        _step_opt(state, 0, shards)
         ring_allgather(state.shards.view(n, s // LANES, LANES),
                        impl=collective, group=group,
                        out=state.flat.view(n, n, s // LANES, LANES))
@@ -298,11 +353,19 @@ def build_zero_train_step(
         offs = [sum(sizes[:c]) for c in range(len(sizes))]
 
         def start_rs(c):
-            chunk = state.grads[:, offs[c]:offs[c] + sizes[c]]
-            return start_ring_reduce_scatter(
-                chunk.view(n, sizes[c] // LANES, LANES), "sum",
-                impl=collective, group=group, donate=True)
+            # Under error feedback each chunk takes its residual, with n
+            # scales of its own, just before its ring starts.
+            sl = slice(offs[c], offs[c] + sizes[c])
+            chunk = state.grads[:, sl]
+            if error_feedback:
+                feed_back(chunk, state.ef[:, sl])
+            start = (start_quantized_ring_reduce_scatter if quantized_grads
+                     else start_ring_reduce_scatter)
+            return start(chunk.view(n, sizes[c] // LANES, LANES), "sum",
+                         impl=collective, group=group, donate=True)
 
+        wait = (wait_quantized_ring_reduce_scatter if quantized_grads
+                else wait_ring_reduce_scatter)
         handles = [start_rs(0)]
         gathers = []
         opt_off = 0
@@ -311,8 +374,9 @@ def build_zero_train_step(
             if c + 1 < len(sizes):
                 # The next chunk's hops run beside this chunk's update.
                 handles.append(start_rs(c + 1))
-            gshard = wait_ring_reduce_scatter(handles[c])
-            _step_opt(state, c, [gshard[r].view(-1) for r in range(n)])
+            gshard = wait(handles[c])
+            _step_opt(state, c, [gshard[r].reshape(-1).to(state.flat.dtype)
+                                 for r in range(n)])
             shard = state.shards[:, opt_off:opt_off + cs]
             out = state.flat[:, offs[c]:offs[c] + size]
             # The updated chunk leaves at once; its hops run beside the
@@ -328,11 +392,15 @@ def build_zero_train_step(
                 ) -> Tuple[ZeroTrainState, Dict]:
         if state.group is not group:
             raise ValueError("the state lives on another RingGroup")
+        if error_feedback and state.ef is None:
+            raise ValueError(
+                "error_feedback=True needs a state carrying an ef buffer; "
+                "build it with create_zero_state(..., error_feedback=True)")
         padded = state.flat.shape[1]
         sizes = _chunks(padded, n, n_chunks) if overlap else [padded]
         _build_optimizer(state, ("overlap" if overlap else "monolithic",
                                  *sizes), optimizer)
-        loss, sq = _local_grads(state, loss_fn, batch)
+        loss, sq = _local_grads(state, loss_fn, batch, grad_dtype)
         with torch.no_grad():
             if overlap:
                 pipelined(state, sizes)

@@ -16,9 +16,13 @@ Split-phase (one hop per C1 launch; every start balanced by a wait)::
     start_ring_allgather / wait_ring_allgather
     start_ring_permute / wait_ring_permute
 
-The int8 ring (C5, C6: ``quantized_ring_allreduce``, the quantized
-split-phase reduce-scatter and ``local_quantization_residual``) is not
-ported yet; those names raise ``NotImplementedError``.
+The int8 ring (``quantized.py``; every hop requantizes to int8 with one
+scale per chunk)::
+
+    quantized_ring_allreduce(x, op)  # [n, ...] -> [n, ...]      (C6)
+    h = start_quantized_ring_reduce_scatter(x)   # one C5 launch per hop
+    shard = wait_quantized_ring_reduce_scatter(h)
+    local_quantization_residual(block, n)        # error feedback
 """
 
 from ray_tpu_torch.util.collective.group import RingGroup, default_group
@@ -28,25 +32,11 @@ from ray_tpu_torch.util.collective.ring import (
     start_ring_permute, start_ring_reduce_scatter, wait_ring_allgather,
     wait_ring_permute, wait_ring_reduce_scatter,
 )
+from ray_tpu_torch.util.collective.quantized import (
+    local_quantization_residual, quantized_ring_allreduce,
+    start_quantized_ring_reduce_scatter, wait_quantized_ring_reduce_scatter,
+)
 from ray_tpu_torch.util.collective.types import ReduceOp
-
-
-def _quantized(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: the int8 ring (TPU kernels C5 _qhop_kernel and C6 "
-            f"_qar_kernel, ray_tpu/util/collective/pallas/quantized.py) is "
-            f"not ported yet")
-    fn.__name__ = name
-    return fn
-
-
-quantized_ring_allreduce = _quantized("quantized_ring_allreduce")
-start_quantized_ring_reduce_scatter = _quantized(
-    "start_quantized_ring_reduce_scatter")
-wait_quantized_ring_reduce_scatter = _quantized(
-    "wait_quantized_ring_reduce_scatter")
-local_quantization_residual = _quantized("local_quantization_residual")
 
 __all__ = [
     "ring_allreduce", "ring_allgather", "ring_reduce_scatter",

@@ -3,13 +3,16 @@
 The port's form of a one-axis mesh (``ray_tpu/parallel/mesh.py``
 ``mesh_axis_size``) and of the device half of the reference's
 ``PallasGroup`` (``collective_group/pallas_collective_group.py:70-140``):
-``allreduce``, ``allgather`` and ``reducescatter`` on rank-major tensors
-(rank r's data is ``x[r]``), through the ring kernels C2-C4 on a CUDA
-device and their plain versions on the CPU. Unlike ``PallasGroup`` there
+``allreduce`` (exact, or int8 with ``quantized=True``), ``allgather`` and
+``reducescatter`` on rank-major tensors (rank r's data is ``x[r]``),
+through the ring kernels C2-C4 and C6 on a CUDA device and their plain
+versions on the CPU. Unlike ``PallasGroup`` there
 is no fallback: on the card the group launches the kernel or raises.
 
 The group owns the kernels' workspace: the comm slots (grown to the
-largest call, reused), one flag table per kernel kind, a per-kind call
+largest call, reused; for C5 and C6 int8 payloads and per-block scales),
+one flag table per kernel kind (receive, capacity and, for C5 and C6, the
+per-rank barrier words), a per-kind call
 counter that sets each call's flag epochs, a comm stream for the
 split-phase forms, and the timeout record (pinned host memory the kernels
 write when a spin times out). Its ring launches are ordered: a launch on
@@ -27,11 +30,12 @@ import torch
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.util.collective import ring
+from ray_tpu_torch.util.collective.quantized import quantized_ring_allreduce
 from ray_tpu_torch.util.collective.ring import (
-    KINDS, MAX_BLOCKS_PER_RANK, MAX_RANKS, hops,
+    FLAG_SECTIONS, KINDS, MAX_BLOCKS_PER_RANK, MAX_RANKS, hops,
 )
 
-_WAITS = ("receive", "capacity")
+_WAITS = ("receive", "capacity", "barrier")
 
 
 class _Workspace(NamedTuple):
@@ -79,8 +83,13 @@ class RingGroup:
         return f"RingGroup(n={self.n}, device={self.device})"
 
     # ------------------------------------------------------------ data plane
-    def allreduce(self, x: torch.Tensor, op: Any = "sum") -> torch.Tensor:
-        """``ring_allreduce`` over this group (C4 on the card)."""
+    def allreduce(self, x: torch.Tensor, op: Any = "sum",
+                  quantized: bool = False) -> torch.Tensor:
+        """``ring_allreduce`` over this group (C4 on the card), or with
+        ``quantized`` ``quantized_ring_allreduce`` (C6, or its bf16 rung),
+        as the reference's ``PallasGroup.device_allreduce``."""
+        if quantized:
+            return quantized_ring_allreduce(x, op, group=self)
         return ring.ring_allreduce(x, op, group=self)
 
     def allgather(self, x: torch.Tensor) -> torch.Tensor:
@@ -122,7 +131,8 @@ class RingGroup:
                 stream.wait_stream(self._last)
             flags = self._flags.get(kind)
             if flags is None:
-                flags = torch.zeros((self.n, 2, MAX_BLOCKS_PER_RANK, 2),
+                flags = torch.zeros((self.n, FLAG_SECTIONS,
+                                     MAX_BLOCKS_PER_RANK, 2),
                                     dtype=torch.int64, device=self.device)
                 self._flags[kind] = flags
             flags.record_stream(stream)

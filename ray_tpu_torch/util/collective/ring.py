@@ -1,5 +1,6 @@
 """Ring collectives C1-C4 over a ring of n virtual ranks: the port of
-``ray_tpu/util/collective/pallas/ring.py``.
+``ray_tpu/util/collective/pallas/ring.py`` (the int8 ring, C5 and C6, is
+in ``quantized.py`` and shares this module's launch path).
 
 The reference runs each kernel per device under ``shard_map``; here one
 tensor holds every rank's data, rank-major: rank ``r``'s shard is
@@ -61,8 +62,14 @@ LANES = 128
 # Must match ring.cu (checked when the library loads).
 MAX_RANKS = 16
 MAX_BLOCKS_PER_RANK = 1024
+# Flag table sections per rank: receive flags, capacity flags, and the
+# per-rank barrier words of the int8 ring (C5, C6).
+FLAG_SECTIONS = 3
 
-KINDS = ("permute", "reduce_scatter", "allgather", "allreduce")
+# Kernel kinds, in ring.cu's numbering: C1-C4 here, C5 and C6 (the int8
+# ring) in quantized.py.
+KINDS = ("permute", "reduce_scatter", "allgather", "allreduce", "qhop",
+         "qallreduce")
 _OPS = {"sum": 0, "max": 1, "min": 2, "prod": 3}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _COMBINE = {
@@ -79,7 +86,8 @@ _REDUCE_OPS = {ReduceOp.SUM: "sum", ReduceOp.AVERAGE: "avg",
 def hops(kind: str, n: int) -> int:
     """Ring hops of one call of ``kind`` over n ranks."""
     return {"permute": 1, "reduce_scatter": n - 1, "allgather": n - 1,
-            "allreduce": 2 * (n - 1)}[kind]
+            "allreduce": 2 * (n - 1), "qhop": 1,
+            "qallreduce": 2 * (n - 1)}[kind]
 
 
 def select_impl(requested: str = "auto",
@@ -234,10 +242,13 @@ def _lib() -> ctypes.CDLL:
                                          ctypes.POINTER(ctypes.c_void_p)]
     lib.ring_error_string.restype = ctypes.c_char_p
     lib.ring_error_string.argtypes = [ctypes.c_int]
-    if (lib.ring_max_ranks(), lib.ring_max_blocks_per_rank()) != (
-            MAX_RANKS, MAX_BLOCKS_PER_RANK):
+    lib.ring_slot_bytes.restype = ctypes.c_longlong
+    lib.ring_slot_bytes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+    if (lib.ring_max_ranks(), lib.ring_max_blocks_per_rank(),
+            lib.ring_flag_sections()) != (MAX_RANKS, MAX_BLOCKS_PER_RANK,
+                                          FLAG_SECTIONS):
         raise RuntimeError("ring.cu and ring.py disagree on MAX_RANKS / "
-                           "MAX_BLOCKS_PER_RANK")
+                           "MAX_BLOCKS_PER_RANK / FLAG_SECTIONS")
     _lib_cache["ring"] = lib
     return lib
 
@@ -285,12 +296,13 @@ def _check_block(name: str, x: torch.Tensor, divisible: bool = False
 def _launch(group, kind: str, op: str, x: torch.Tensor, out: torch.Tensor,
             chunk_elems: int) -> None:
     lib = _lib()
-    slot_bytes = (0 if kind == "permute"
-                  else x.shape[0] * 2 * chunk_elems * x.element_size())
+    kind_code, dtype_code = KINDS.index(kind), _DTYPE_CODES[x.dtype]
+    slot_bytes = lib.ring_slot_bytes(kind_code, dtype_code, x.shape[0],
+                                     chunk_elems)
     ws = group._begin(kind, slot_bytes)
     with torch.cuda.device(x.device.index):
         err = lib.ring_launch(
-            KINDS.index(kind), _OPS[op], _DTYPE_CODES[x.dtype], x.shape[0],
+            kind_code, _OPS[op], dtype_code, x.shape[0],
             x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
             chunk_elems, ws.slots_ptr, ws.flags_ptr, ws.base,
             ws.err_dev_ptr, ws.err_host_ptr, ws.stream.cuda_stream)
