@@ -10,13 +10,17 @@ Phases, one line each; any failure raises and exits non-zero:
 2. build   -- nvcc builds every kernel source under
               ``ray_tpu_torch/ops/csrc`` for sm_90a (one process per
               source, all started together); the compiler's register and
-              spill report is printed.
+              spill report is printed per kernel, and the bf16 B2 and B3
+              (tensor cores) must not spill.
 3. kernels -- each kernel against its plain PyTorch version on the card,
               in bf16 and f32, at the shapes the serving and training
               paths give it, with its time, the plain version's, the
               least time the card could take (bound) and one PyTorch
               library call's as a yardstick: B1 (flash forward), B2
-              (flash backward dK/dV) and B3 (flash backward dQ).
+              (flash backward dK/dV) and B3 (flash backward dQ), B2 and
+              B3 with their TFLOP/s; then B1-B3 at head dims 64 and 16
+              (padded to 128 by the wrappers) and with the full mask at
+              S=256.
 4. serve   -- Llama-3-8B at full width and depth (random weights from a
               seed, int8 weight-only, ``attn_impl="flash"``) answers 12
               requests from 4 client threads through ``LLMServer``; every
@@ -25,7 +29,10 @@ Phases, one line each; any failure raises and exits non-zero:
               port's own ``generate`` on the same params.
 6. profile -- device time by kernel over 8 more requests (torch.profiler),
               and the device's idle share of that window.
-7. train   -- Llama-3-8B widths at 4 layers (bf16 params, flash
+7. train   -- f32 checks first: flash against plain attention at dim
+              256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
+              16), which also trains one step with exact B1-B3 counts.
+              Llama-3-8B widths at 4 layers (bf16 params, flash
               attention, ``remat="dots"``, fused loss, AdamW) trains 6
               steps of batch 4 x 1024 tokens through ``build_train_step``,
               then one step with ``grad_accum=2``: finite losses and grad
@@ -38,12 +45,12 @@ Phases, one line each; any failure raises and exits non-zero:
               relative L2 tolerance.
 8. ring    -- (run after phase 3) the ring collectives C1-C4
               (``ring.cu``) bitwise against their plain versions at ring
-              sizes 2, 4 and 8, f32 and bf16, sum and max, ragged and
-              large per-rank blocks, and the split-phase forms (C1 per
-              hop) against C2 and C3; the same at the ZeRO path's size
-              (the 4-layer flat parameter vector, 4 ranks, bf16), and the
-              four kernels' times beside their plain versions', bounds
-              and one library call's.
+              sizes 2, 4 and 8, f32, bf16, f16 and int32, sum and max,
+              ragged and large per-rank blocks, and the split-phase forms
+              (C1 per hop) against C2 and C3; the same at the ZeRO path's
+              size (the 4-layer flat parameter vector, 4 ranks, bf16),
+              and the four kernels' times beside their plain versions',
+              bounds and one library call's.
 9. zero    -- f32 at dim 256: ZeRO at 2 ranks bitwise equal to plain
               data parallelism through C4, ZeRO at 4 ranks against the
               one-device step. Then Llama-3-8B widths at 4 layers through
@@ -82,6 +89,13 @@ Phases, one line each; any failure raises and exits non-zero:
               memory, C5/C6's share of a profiled step, and the first
               step's int8 gradient shard against the exact reduce-scatter
               (relative L2, share of elements sent as 0).
+
+Every profiled window (serve, train, each ZeRO route) is one
+torch.profiler window with no schedule that must hold every event: it
+fails if the profiler warns that it cleared or dropped events, if the
+device was busy longer than the window's wall time, or if the trace holds
+another number of launches of a hand-written kernel than its wrapper
+counted.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -136,8 +150,9 @@ TOL_LSE = 1e-4
 # outputs are rounded to bf16 (one ulp is at most 2**-7 of the value):
 # A = 2**-8, R = 2**-7, the bound the CPU tests hold the port's plain
 # version to against the JAX package's kernels. f32: nothing is rounded
-# to a narrower type, so only summation order differs: A = 1e-4, R = 0.
-TOL_BWD = {torch.bfloat16: (2.0 ** -8, 2.0 ** -7), torch.float32: (1e-4, 0.0)}
+# to a narrower type and the f32 kernels run full f32 FMAs, so only
+# summation order differs: A = 1e-5, R = 0 (the card read at most 1e-6).
+TOL_BWD = {torch.bfloat16: (2.0 ** -8, 2.0 ** -7), torch.float32: (1e-5, 0.0)}
 
 N_HEADS, HEAD_DIM = 32, 128
 # (batch, S, causal): B1 at the serving path's prefill buckets, a ragged
@@ -147,6 +162,10 @@ KERNEL_SHAPES = [(1, 128, True), (1, 256, True), (1, 512, True),
 # (batch, S) for B2 and B3, causal: B = 1 at short, mid and training
 # length and one ragged length, then the training shape itself.
 BWD_SHAPES = [(1, 128), (1, 512), (1, 1024), (1, 1000), (4, 1024)]
+# Head dims below the kernels' 128, which the wrappers pad (LlamaConfig.tiny
+# has 16), checked at (1, PADDED_SEQ) through B1, B2 and B3, causal; and
+# the full mask at 128 (flash_attention takes it at S % 128 == 0).
+PADDED_HEAD_DIMS, PADDED_SEQ = (64, 16), 256
 # The train phase: Llama-3-8B widths at the depth of the reference's own
 # training geometry (bench.py: 4 layers, batch x 1024, bf16 params,
 # flash, remat "dots"), fused loss, optax.adamw(1e-4)'s settings. Token
@@ -209,22 +228,71 @@ def attention_bound(B, S, H, D, causal, dtype):
                                        else "bytes")
 
 
+def ptxas_kernels(report: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_bytes"}} from an
+    ``nvcc -Xptxas -v`` report (spill bytes: stores plus loads)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$.]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": None, "spill_bytes": 0})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
+    """Build every kernel source; print and return each kernel's
+    registers and spills from the compiler's report."""
     from ray_tpu_torch.ops import _build
 
     names = _build.all_kernels()
     t0 = time.perf_counter()
     _build.build(names)
     log("build", f"nvcc sm_90a {names} in {time.perf_counter() - t0:.1f} s")
+    kernels = {}
     for name in names:
-        report = _build.build_log(name).splitlines()
-        regs = [line.split("Used ")[1].split(",")[0] for line in report
-                if "Used " in line and "registers" in line]
-        spills = [line.strip() for line in report
-                  if any(int(n) for n in
-                         re.findall(r"(\d+) bytes spill", line))]
-        log("build", f"{name}: {len(regs)} instantiations, registers "
-            f"{sorted(set(regs))}, spills {spills or 'none'}")
+        found = ptxas_kernels(_build.build_log(name))
+        kernels.update(found)
+        regs = sorted({k["registers"] for k in found.values()})
+        spills = {n: k["spill_bytes"] for n, k in found.items()
+                  if k["spill_bytes"]}
+        log("build", f"{name}: {len(found)} kernels, registers {regs}, "
+            f"spills {spills or 'none'}")
+    return kernels
+
+
+def kernel_report(kernels: dict, name: str) -> dict:
+    """The report of the one kernel whose mangled name holds ``name``."""
+    hits = [v for k, v in kernels.items() if name in k]
+    check(len(hits) == 1, f"{len(hits)} kernels named {name} in the "
+          f"compiler's report")
+    return hits[0]
+
+
+def blocks_per_sm(kernel: int, dtype) -> int:
+    """Blocks of B2 (kernel 0) or B3 (1) resident on one SM at once, from
+    the CUDA runtime's occupancy calculator."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _build
+
+    fn = _build.load("flash_bwd").flash_bwd_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    n = ctypes.c_int(0)
+    err = fn(kernel, 0 if dtype == torch.float32 else 1, ctypes.byref(n))
+    check(err == 0, f"occupancy query failed ({err})")
+    return n.value
 
 
 def phase_kernels(dev):
@@ -289,13 +357,17 @@ def phase_kernels(dev):
     return rows
 
 
+def bwd_flops(B, S, H, D, products):
+    """The operations of one causal backward kernel: ``products`` products
+    of 2 * D flops per visible (query, key) pair, S(S+1)/2 per head."""
+    return 2.0 * D * products * B * H * (S * (S + 1) // 2)
+
+
 def bwd_bound(B, S, H, D, dtype, products, n_out):
-    """(bound_ms, bound_by) for one causal backward kernel: ``products``
-    products of 2 * D flops per visible (query, key) pair, S(S+1)/2 per
-    head; bytes of q, k, v, dO read once, LSE and delta (f32) read once
-    and ``n_out`` gradients written once."""
-    pairs = S * (S + 1) // 2
-    flops = 2.0 * D * products * B * H * pairs
+    """(bound_ms, bound_by) for one causal backward kernel: its
+    operations (``bwd_flops``); bytes of q, k, v, dO read once, LSE and
+    delta (f32) read once and ``n_out`` gradients written once."""
+    flops = bwd_flops(B, S, H, D, products)
     elem = torch.finfo(dtype).bits // 8
     nbytes = (4 + n_out) * B * S * H * D * elem + 2 * B * H * S * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -366,10 +438,13 @@ def phase_bwd_kernels(dev):
             out, (qt, kt, vt), dot, retain_graph=True), 20)
         b2 = bwd_bound(B, S, N_HEADS, HEAD_DIM, torch.bfloat16, 4, 2)
         b3 = bwd_bound(B, S, N_HEADS, HEAD_DIM, torch.bfloat16, 3, 1)
+        tf2 = bwd_flops(B, S, N_HEADS, HEAD_DIM, 4) / ms_dkv / 1e9
+        tf3 = bwd_flops(B, S, N_HEADS, HEAD_DIM, 3) / ms_dq / 1e9
         row.update({"dkv_ms": ms_dkv, "dq_ms": ms_dq, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "dkv_bound_ms": b2[0],
                     "dkv_bound_by": b2[1], "dq_bound_ms": b3[0],
-                    "dq_bound_by": b3[1]})
+                    "dq_bound_by": b3[1], "dkv_tflops": tf2,
+                    "dq_tflops": tf3})
         rows.append(row)
         log("kernels", f"flash_bwd B={B} H={N_HEADS} D={HEAD_DIM} S={S} "
             f"causal: bf16 err dk {row['bf16_dk_err']:.3g} "
@@ -379,9 +454,11 @@ def phase_bwd_kernels(dev):
             f"err dk {row['f32_dk_err']:.3g} ({row['f32_dk_used']:.2f}), "
             f"dv {row['f32_dv_err']:.3g} ({row['f32_dv_used']:.2f}), dq "
             f"{row['f32_dq_err']:.3g} ({row['f32_dq_used']:.2f}); B2 "
-            f"{ms_dkv:.4f} ms (bound {b2[0] * 1e3:.2f} us, {b2[1]}), B3 "
-            f"{ms_dq:.4f} ms (bound {b3[0] * 1e3:.2f} us, {b3[1]}), plain "
-            f"backward {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms")
+            f"{ms_dkv:.4f} ms = {tf2:.1f} TFLOP/s (bound "
+            f"{b2[0] * 1e3:.2f} us, {b2[1]}), B3 {ms_dq:.4f} ms = "
+            f"{tf3:.1f} TFLOP/s (bound {b3[0] * 1e3:.2f} us, {b3[1]}), "
+            f"plain backward {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} "
+            f"ms")
 
     # The gradient that reaches attention may be a strided view: through
     # the autograd Function it must give what its contiguous copy gives.
@@ -400,6 +477,59 @@ def phase_bwd_kernels(dev):
     log("kernels", "flash_bwd: a strided dO gives the gradients of its "
         "contiguous copy, bit for bit")
     return rows
+
+
+def phase_head_dims(dev):
+    """B1, B2 and B3 at head dims below 128 (the wrappers pad them with
+    zeros and scale by the unpadded 1/sqrt(D)), causal, and at 128 with
+    the full mask, against the plain versions, in f32 and bf16, to the
+    limits of the full-width checks. Returns {case: the largest share of
+    its limit any output used}."""
+    from ray_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    used_by_dim = {}
+    cases = [(D, True) for D in PADDED_HEAD_DIMS] + [(HEAD_DIM, False)]
+    for D, causal in cases:
+        worst = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = [torch.randn((1, PADDED_SEQ, N_HEADS, D),
+                                       generator=gen, device=dev,
+                                       dtype=dtype) for _ in range(4)]
+            o, lse = attention.flash_fwd_cuda(q, k, v, causal)
+            po, plse = attention.flash_attention_plain(q, k, v, causal)
+            delta = attention.attention_delta(o, do)
+            dk, dv = attention.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                  causal)
+            dq = attention.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                             causal)
+            pdq, pdk, pdv = attention.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            check(o.shape == q.shape and dq.shape == q.shape
+                  and dk.shape == k.shape and dv.shape == v.shape,
+                  f"head dim {D}: outputs not sliced back to D")
+            diff = (o.float() - po.float()).abs()
+            if dtype == torch.float32:
+                used_o = diff.max().item() / TOL_O_F32
+            else:
+                used_o = (diff / (TOL_O_BF16_ABS + TOL_O_BF16_REL
+                                  * po.float().abs())).max().item()
+            used_lse = (lse - plse).abs().max().item() / TOL_LSE
+            used = [used_o, used_lse] + [held(g, w, dtype)[1] for g, w in (
+                (dq, pdq), (dk, pdk), (dv, pdv))]
+            mask = "causal" if causal else "full"
+            check(max(used) <= 1.0, f"head dim {D} {mask} {dtype}: shares "
+                  f"of the limits (O, LSE, dQ, dK, dV) {used}")
+            worst = max(worst, max(used))
+        used_by_dim[f"{D} {mask}"] = worst
+        log("kernels", f"head dim {D}"
+            + (" (padded to 128)" if D < HEAD_DIM else "")
+            + f", B=1 S={PADDED_SEQ} {mask}, f32 and bf16: B1 O and LSE, "
+            f"B2 dK dV, B3 dQ within their limits (at most {worst:.2f} of "
+            f"one)")
+    return used_by_dim
 
 
 def phase_serve(dev):
@@ -466,8 +596,7 @@ def phase_serve(dev):
               and launches == cfg.n_layers * prefills,
               f"flash launches {launches} != {cfg.n_layers} x {prefills}")
         phase_parity(server, cfg, reqs, results, dev)
-        phase_profile(server, cfg)
-        return launches
+        return launches, phase_profile(server, cfg)
     finally:
         server.shutdown()
 
@@ -507,60 +636,125 @@ def phase_parity(server, cfg, reqs, results, dev):
         check(same, "engine greedy tokens differ from generate")
 
 
+# Kernel groups of a profile, by a substring of the kernel's name: the
+# hand-written kernels first (ring_q before ring_), then the libraries'.
+_GROUPS = (("flash_fwd", "flash_fwd"), ("flash_bwd_dkv", "flash_bwd_dkv"),
+           ("flash_bwd_dq", "flash_bwd_dq"), ("ring_q", "ring C5/C6"),
+           ("ring_", "ring C1-C4"))
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        if kernel in low:
-            return kernel
+    for key, group in _GROUPS:
+        if key in low:
+            return group
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "nvjet",
                               "splitk")):
         return "matmul"
     return "elementwise/other"
 
 
+def _traced_kernels():
+    """(wrapper, a substring of its kernel's name) for every hand-written
+    kernel: a profile window must see as many launches of each as its
+    wrapper counted."""
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.util.collective import quantized as Q
+    from ray_tpu_torch.util.collective import ring as R
+
+    names = ("ring_permute_kernel", "ring_reduce_scatter_kernel",
+             "ring_allgather_kernel", "ring_allreduce_kernel",
+             "ring_qhop_kernel", "ring_qallreduce_kernel")
+    return [(attention.flash_fwd_cuda, "flash_fwd_kernel"),
+            (attention.flash_bwd_dkv_cuda, "flash_bwd_dkv"),
+            (attention.flash_bwd_dq_cuda, "flash_bwd_dq")] + list(
+                zip(R.KERNELS + Q.KERNELS, names))
+
+
+def profile_window(phase: str, fn, card: str = ""):
+    """Run fn() once under one torch.profiler window that keeps every event
+    (no schedule; ``acc_events`` where this torch has it) and return
+    {wall_ms, busy_ms, groups: {group: device ms}, top: [(ms, count,
+    name)]}. Fails if the profiler warns that it cleared or dropped
+    events, if the device was busy longer than the wall time, or if the
+    trace holds another number of launches of a hand-written kernel than
+    its wrapper counted in the window."""
+    import inspect
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    traced = _traced_kernels()
+    before = [w.launches for w, _ in traced]
+    kw = ({"acc_events": True}
+          if "acc_events" in inspect.signature(profile).parameters else {})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA], **kw) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.device_time_total > 0
+                  # user annotations span kernels counted already
+                  and not getattr(e, "is_user_annotation", False)]
+    lost = [str(w.message) for w in caught
+            if re.search(r"clears? events|drop|lost|overflow",
+                         str(w.message), re.I)]
+    check(not lost, f"{phase}: the profiler warned {lost}")
+    check(bool(events), f"{phase}: the profiler recorded no device time")
+    busy = sum(e.device_time_total for e in events) / 1e3
+    check(busy <= wall_ms, f"{phase}: device busy {busy:.1f} ms exceeds "
+          f"the window's wall time {wall_ms:.1f} ms")
+    short = []
+    for (w, name), b in zip(traced, before):
+        seen = sum(e.count for e in events if name in e.key)
+        if seen != w.launches - b:
+            short.append((name, seen, w.launches - b))
+    check(not short, f"{phase}: the trace and the wrappers disagree on "
+          f"launches (kernel, traced, launched): {short}")
+    groups = {}
+    for e in events:
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.device_time_total / 1e3
+    top = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                  for e in events), reverse=True)
+    log(phase, f"profiled: {wall_ms:.1f} ms wall, device busy {busy:.1f} "
+        f"ms (idle {100 * (1 - busy / wall_ms):.1f}%); "
+        + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
+                    for g, ms in sorted(groups.items(),
+                                        key=lambda kv: -kv[1]))
+        + "; every hand-written kernel's launches in the trace"
+        + (f"; {card}" if card else ""))
+    for ms, count, name in top[:8]:
+        log(phase, f"  {ms:8.2f} ms {count:6d}x  {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "groups": groups,
+            "top": [list(t) for t in top[:8]]}
+
+
 def phase_profile(server, cfg):
     """Where the serving time goes: device time by kernel over 8 requests
     (prompts of 100-500 tokens, 32 new tokens each) under torch.profiler,
     against the host's wall time for the same window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.RandomState(1)
     reqs = [{"prompt": rng.randint(0, cfg.vocab_size,
                                    int(rng.randint(100, 501))).tolist(),
              "max_tokens": 32} for _ in range(8)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         threads = [threading.Thread(target=server, args=(r,))
                    for r in reqs]
         for t in threads:
             t.start()
         for t in threads:
             t.join(600)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)]
-    busy = sum(ms for _, ms, _ in kernels)
-    if not kernels:
-        log("profile", "the profiler recorded no device time")
-        return
+        check(all(not t.is_alive() for t in threads), "requests hung")
 
-    groups = {}
-    for name, ms, _ in kernels:
-        g = _kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + ms
-    log("profile", f"8 requests, {wall_ms:.1f} ms wall, device busy "
-        f"{busy:.1f} ms (idle {100 * (1 - busy / wall_ms):.1f}%); "
-        + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
-                    for g, ms in sorted(groups.items(),
-                                        key=lambda kv: -kv[1])))
-    for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:8]:
-        log("profile", f"  {ms:8.2f} ms {count:6d}x  {name[:90]}")
+    return profile_window("profile", run)
 
 
 def _grads(cfg, params, batch, impl):
@@ -633,18 +827,60 @@ def phase_train_f32(dev):
     return max(rel)
 
 
+def phase_train_tiny(dev):
+    """LlamaConfig.tiny() (head dim 16, which the kernel wrappers pad to
+    128) under attn_impl="flash" on the card, in f32 at 2 x 128
+    positions: the loss and every gradient leaf against plain attention
+    (TOL_PARITY_F32), then one build_train_step step with B1 launched
+    twice per layer (forward and remat) and B2, B3 once."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.parallel import build_train_step, create_train_state
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32,
+                           attn_impl="flash", remat="dots")
+    L = cfg.n_layers
+    state = create_train_state(init_params(cfg, seed=2, device=dev),
+                               device=dev)
+    toks = np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (2, cfg.max_seq_len + 1)).astype(np.int64)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    lf, gf = _grads(cfg, state.params, batch, "flash")
+    lx, gx = _grads(cfg, state.params, batch, "xla")
+    rel = _rel_l2(gf, gx)
+    loss_rel = abs(lf - lx) / abs(lx)
+    check(loss_rel <= TOL_PARITY_F32 and max(rel) <= TOL_PARITY_F32,
+          f"tiny (head dim {cfg.head_dim}): flash and plain attention "
+          f"disagree: loss rel {loss_rel}, grad rel L2 max {max(rel)}")
+    kernels = (attention.flash_fwd_cuda, attention.flash_bwd_dkv_cuda,
+               attention.flash_bwd_dq_cuda)
+    for fn in kernels:
+        fn.launches = 0
+    step = build_train_step(lambda p, b: loss_fn(p, b, cfg), device=dev)
+    state, m = step(state, batch)
+    got, want = tuple(fn.launches for fn in kernels), (2 * L, L, L)
+    check(np.isfinite(m["loss"].item()) and got == want,
+          f"tiny flash step: loss {m['loss'].item()}, launches (B1, B2, "
+          f"B3) {got} != {want}")
+    log("train", f"LlamaConfig.tiny (head dim {cfg.head_dim}, padded to "
+        f"128), f32, flash vs plain attention: loss rel {loss_rel:.2e}, "
+        f"grad leaves' relative L2 max {max(rel):.3e} (tol "
+        f"{TOL_PARITY_F32}); one step, loss {m['loss'].item():.4f}, "
+        f"launches B1 {got[0]}, B2 {got[1]}, B3 {got[2]} (expected {want})")
+    return {"head_dim": cfg.head_dim, "loss_rel": loss_rel,
+            "grad_rel_l2_max": max(rel), "launches_b1_b3": list(got)}
+
+
 def phase_train(dev, card):
     """Llama-3-8B widths at TRAIN_LAYERS layers through the port's
     build_train_step; see the module docstring."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from ray_tpu_torch.models.llama import (
         LlamaConfig, flops_per_token, init_params, loss_fn)
     from ray_tpu_torch.ops import attention
     from ray_tpu_torch.parallel import build_train_step, create_train_state
 
     f32_rel = phase_train_f32(dev)
+    tiny = phase_train_tiny(dev)
 
     kernels = (attention.flash_fwd_cuda, attention.flash_bwd_dkv_cuda,
                attention.flash_bwd_dq_cuda)
@@ -727,40 +963,18 @@ def phase_train(dev, card):
     launches = tuple(a + b for a, b in zip(got, got2))
 
     # Device time of one profiled step by kernel group.
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, {"tokens": batches[TRAIN_STEPS + 1]})
+    def one_step():
+        _, m = step(state, {"tokens": batches[TRAIN_STEPS + 1]})
         m["loss"].item()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    split, top = {}, []
-    for e in prof.key_averages():
-        # User annotations (Optimizer.step) span kernels counted already.
-        if (e.device_type == DeviceType.CUDA and e.device_time_total > 0
-                and not getattr(e, "is_user_annotation", False)):
-            g = _kernel_group(e.key)
-            split[g] = split.get(g, 0.0) + e.device_time_total / 1e3
-            top.append((e.device_time_total / 1e3, e.count, e.key))
-    busy = sum(split.values())
-    if busy:
-        log("train", f"profiled step: {wall_ms:.1f} ms wall, device busy "
-            f"{busy:.1f} ms (idle {100 * (1 - busy / wall_ms):.1f}%); "
-            + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
-                        for g, ms in sorted(split.items(),
-                                            key=lambda kv: -kv[1]))
-            + f"; {card}")
-        for ms, count, name in sorted(top, reverse=True)[:10]:
-            log("train", f"  {ms:8.2f} ms {count:6d}x  {name[:90]}")
-    else:
-        log("train", "the profiler recorded no device time")
 
+    prof = profile_window("train", one_step, card)
     del state
     return {"launches": launches, "step_s": step_s,
             "tokens_per_s": tokens / step_s, "mfu": mfu,
             "peak_gib": peak / 2**30, "losses": losses,
             "grad_rel_l2_max": max(rel), "loss_rel": loss_rel,
-            "f32_grad_rel_l2_max": f32_rel}
+            "f32_grad_rel_l2_max": f32_rel, "tiny_flash": tiny,
+            "profiled": prof}
 
 
 # The ring collectives C1-C4 against their plain versions: ring sizes,
@@ -772,6 +986,9 @@ def phase_train(dev, card):
 RING_NS = (2, 4, 8)
 RING_SHAPES = ((8, 128), (1000, 125), (65536, 128))
 RING_OPS = ("sum", "max")
+# The block types C1-C4 take; int32 blocks span the whole int32 range, so
+# sums wrap around 2**32 as torch's do.
+RING_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 # The ZeRO phase: ranks, steps per route, chunks under overlap, and the
 # f32 checks' config (the train phase's narrow one) and steps.
 ZERO_N, ZERO_STEPS, ZERO_CHUNKS = 4, 3, 4
@@ -910,10 +1127,15 @@ def phase_ring_kernels(dev, card, zero_rows=None):
     checked = 0
     for n in RING_NS:
         group = RingGroup(n, dev)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in RING_DTYPES:
             for shape in RING_SHAPES:
-                x = torch.randn((n,) + shape, generator=gen, device=dev,
-                                dtype=dtype)
+                if dtype == torch.int32:
+                    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,) + shape,
+                                      generator=gen, device=dev,
+                                      dtype=dtype)
+                else:
+                    x = torch.randn((n,) + shape, generator=gen, device=dev,
+                                    dtype=dtype)
                 for op in RING_OPS:
                     for name, got, want in _ring_cases(x, group, op):
                         check(got.shape == want.shape
@@ -925,9 +1147,10 @@ def phase_ring_kernels(dev, card, zero_rows=None):
         group.check()
         del group
     log("ring", f"C1-C4 bitwise equal to their plain versions in {checked} "
-        f"cases: n {RING_NS}, f32 and bf16, ops {RING_OPS}, per-rank "
-        f"blocks {RING_SHAPES}; split-phase reduce-scatter and allgather "
-        f"(C1 per hop) bitwise equal to C2 and C3")
+        f"cases: n {RING_NS}, {[str(d)[6:] for d in RING_DTYPES]}, ops "
+        f"{RING_OPS}, per-rank blocks {RING_SHAPES}; split-phase "
+        f"reduce-scatter and allgather (C1 per hop) bitwise equal to C2 "
+        f"and C3")
     timings = []
     group = RingGroup(ZERO_N, dev)
     if zero_rows:
@@ -1090,28 +1313,13 @@ def _sq_dist(a, b, chunk=1 << 27):
     return total.item()
 
 
-def _profile_step(step, state, batch, names=("ring_",)):
-    """(wall ms, device busy ms, {name: device ms of the kernels whose
-    name holds it and "_kernel"}) of one step under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, {"tokens": batch})
+def _profile_step(phase, step, state, batch, card):
+    """profile_window over one step on ``batch``."""
+    def one_step():
+        _, m = step(state, {"tokens": batch})
         m["loss"].item()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy, by = 0.0, dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        if (e.device_type == DeviceType.CUDA and e.device_time_total > 0
-                and not getattr(e, "is_user_annotation", False)):
-            busy += e.device_time_total / 1e3
-            for name in names:
-                if name in e.key and "_kernel" in e.key:
-                    by[name] += e.device_time_total / 1e3
-    return wall_ms, busy, by
+
+    return profile_window(phase, one_step, card)
 
 
 def phase_zero_train(dev, card):
@@ -1195,18 +1403,14 @@ def phase_zero_train(dev, card):
         return group, state, step, rec
 
     def profiled(name, step, state, rec):
-        wall, busy, by = _profile_step(step, state, batches[ZERO_STEPS])
-        ring_ms = by["ring_"]
-        rec.update({"profiled_wall_ms": wall, "profiled_busy_ms": busy,
-                    "ring_ms": ring_ms,
-                    "ring_share": ring_ms / busy if busy else None})
-        if busy:
-            log("zero", f"{name}: profiled step {wall:.1f} ms wall, device "
-                f"busy {busy:.1f} ms (idle {100 * (1 - busy / wall):.1f}%), "
-                f"ring kernels {ring_ms:.1f} ms ({100 * ring_ms / busy:.1f}% "
-                f"of busy); {card}")
-        else:
-            log("zero", f"{name}: the profiler recorded no device time")
+        log("zero", f"{name}: one profiled step")
+        prof = _profile_step("zero", step, state, batches[ZERO_STEPS], card)
+        busy = prof["busy_ms"]
+        ring_ms = prof["groups"].get("ring C1-C4", 0.0)
+        rec.update({"profiled_wall_ms": prof["wall_ms"],
+                    "profiled_busy_ms": busy, "ring_ms": ring_ms,
+                    "ring_share": ring_ms / busy,
+                    "profiled_groups": prof["groups"]})
 
     n_params = cfg.num_params()
     log("zero", f"Llama-3-8B widths, {L} layers, {n_params / 1e9:.3f} B "
@@ -1656,25 +1860,18 @@ def phase_zero_quant(dev, card):
             f"first {step_s:.4f} s = {tokens / step_s:.0f} tokens/s; peak "
             f"memory {peak / 2**30:.2f} GiB; launches C1-C6 {ring} (expected "
             f"{want}), B1-B3 {b}; every rank's copy equal; {card}")
-        wall, busy, by = _profile_step(step, state, batches[ZERO_STEPS],
-                                       ("ring_q", "ring_"))
-        q_ms, ring_ms = by["ring_q"], by["ring_"]
-        if busy:
-            log("zero", f"int8 {name}: profiled step {wall:.1f} ms wall, "
-                f"device busy {busy:.1f} ms (idle "
-                f"{100 * (1 - busy / wall):.1f}%), C5/C6 {q_ms:.1f} ms "
-                f"({100 * q_ms / busy:.1f}% of busy), all ring kernels "
-                f"{ring_ms:.1f} ms; {card}")
-        else:
-            log("zero", f"int8 {name}: the profiler recorded no device time")
-        rec.update({
+        log("zero", f"int8 {name}: one profiled step")
+        prof = _profile_step("zero", step, state, batches[ZERO_STEPS], card)
+        wall, busy, groups = prof["wall_ms"], prof["busy_ms"], prof["groups"]
+        q_ms = groups.get("ring C5/C6", 0.0)
+        ring_ms = q_ms + groups.get("ring C1-C4", 0.0)
+        rec.update({"profiled_groups": groups,
             "losses": losses, "grad_norms": norms, "step_times_s": times,
             "step_s": step_s, "tokens_per_s": tokens / step_s,
             "peak_gib": peak / 2**30, "launches_c1_c6": ring,
             "launches_b1_b3": b, "chunks": n_c, "first_loss_rel": loss_rel,
             "profiled_wall_ms": wall, "profiled_busy_ms": busy,
-            "q_ms": q_ms, "ring_ms": ring_ms,
-            "q_share": q_ms / busy if busy else None})
+            "q_ms": q_ms, "ring_ms": ring_ms, "q_share": q_ms / busy})
         del state, step, group
         gc.collect()
         torch.cuda.empty_cache()
@@ -1701,9 +1898,10 @@ def main() -> int:
     card = nvidia_smi()
     log("env", f"{card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    phase_build()
+    built = phase_build()
     rows = phase_kernels(dev)
     bwd_rows = phase_bwd_kernels(dev)
+    head_dims = phase_head_dims(dev)
     n_params = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS).num_params()
     group = ZERO_N * 128
     ring_rows = phase_ring_kernels(dev, card,
@@ -1711,7 +1909,7 @@ def main() -> int:
     q_params = LlamaConfig.llama3_8b(n_layers=QZERO_LAYERS).num_params()
     qring_rows = phase_qring_kernels(dev, card,
                                      -(-q_params // group) * group)
-    serve_launches = phase_serve(dev)
+    serve_launches, serve_profile = phase_serve(dev)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(dev, card)
@@ -1739,6 +1937,11 @@ def main() -> int:
 
     def bwd_kernel(name, key, outs, replaces, train_launches, zero_launches,
                    zq_launches):
+        report = kernel_report(built, f"{name}_kernel")
+        check(report["spill_bytes"] == 0, f"{name} (bf16) spills "
+              f"{report['spill_bytes']} bytes")
+        f32_report = kernel_report(built, f"{name}_f32_kernel")
+        which = 0 if key == "dkv" else 1
         return {
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
@@ -1760,6 +1963,14 @@ def main() -> int:
             "bound_by": bwd_main[f"{key}_bound_by"],
             "library_ms": bwd_main["library_ms"],
             "library_computes": "SDPA backward: dQ, dK and dV",
+            "tflops": bwd_main[f"{key}_tflops"],
+            "registers": report["registers"],
+            "spills": report["spill_bytes"],
+            "blocks_per_sm": blocks_per_sm(which, torch.bfloat16),
+            "f32_registers": f32_report["registers"],
+            "f32_spills": f32_report["spill_bytes"],
+            "f32_blocks_per_sm": blocks_per_sm(which, torch.float32),
+            "head_dims_and_full_mask_tol_used": head_dims,
             "shape": bwd_shape, "per_shape": bwd_rows}
 
     def ring_kernel(key, name, line, by_path):
@@ -1836,6 +2047,7 @@ def main() -> int:
                      {"zero_quant_monolithic": qmono["launches_c1_c6"][5],
                       "zero_quant_error_feedback":
                           qef["launches_c1_c6"][5]})],
+        "serve_profile": serve_profile,
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
         "zero_quant": zq}),

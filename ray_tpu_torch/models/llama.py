@@ -119,7 +119,7 @@ def _dense_only(config: LlamaConfig) -> None:
     if config.n_experts:
         raise NotImplementedError(
             "MoE (n_experts > 0) is not ported yet; it comes with the "
-            "expert-parallel slice (ROADMAP A9)")
+            "expert-parallel slice")
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +297,7 @@ def _get_attention_fn(impl) -> Callable:
     if impl == "ring":
         raise NotImplementedError(
             "attn_impl='ring' (context parallel) is not ported yet; it "
-            "comes with the sequence-parallel slice (ROADMAP A9)")
+            "comes with the sequence-parallel slice")
     if impl == "xla":
         return xla_attention
     raise ValueError(f"unknown attn_impl {impl!r}")

@@ -13,17 +13,17 @@ serving shapes (S <= 512, D = 128, bf16) is bytes, not operations: about
 tensor cores' 989 TFLOP/s). This first version runs the products as
 register-tiled scalar f32 FMAs on the CUDA cores, which is simple and exact
 for f32 inputs, and so sits 60-70 times above that bound; tensor cores are
-a later version's. It takes f32 and bf16 at head dim 128, the serving
-path's types and width, and refuses anything else. The design notes are in
-the source.
+a later version's. It takes f32 and bf16. The design notes are in the
+source.
 
 Kernels B2 and B3 (``csrc/flash_bwd.cu``) replace the TPU backward kernels
 ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` (launched by ``_bhsd_bwd``):
 dK and dV per key tile over the query tiles that see it, and dQ per query
 tile over its key tiles, from O's saved LSE and delta = rowsum(dO * O)
 (computed here in f32, as the reference does). They round where the TPU
-kernels round (P before P^T dO, dS before dS^T Q and dS K) and are built
-for the same two types at head dim 128. ``flash_attention`` is a
+kernels round (P before P^T dO, dS before dS^T Q and dS K) and take the
+same two types: bf16 on the tensor cores (mma.sync), f32 as scalar FMAs,
+which keeps it exact. ``flash_attention`` is a
 ``torch.autograd.Function`` whose forward launches B1 and whose backward
 launches B2 and B3, the counterpart of the reference's ``custom_vjp``.
 
@@ -33,7 +33,11 @@ Rules kept from the reference (``ray_tpu/ops/attention.py``):
   autograd runs through it (the reference's XLA vjp);
 - non-causal attention needs both lengths to be multiples of 128;
 - ragged causal lengths are fine: the kernels mask by absolute index, so
-  nothing is padded (padding was a TPU tiling constraint).
+  nothing is padded along the sequence (a TPU tiling constraint);
+- head dims below 128 are padded with zeros up to 128, as ``_prep`` pads
+  them to the TPU's lane width, with the scale 1/sqrt(D) of the unpadded D;
+  the outputs are sliced back to D. The kernels are built at 128, so a
+  wider head raises.
 
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain versions, CUDA tensors the kernels, which launch or raise. There is
@@ -45,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -55,18 +59,31 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIM = 128
 
 
+def default_scale(q: torch.Tensor) -> float:
+    """1/sqrt(D) of q's own head dim."""
+    return 1.0 / math.sqrt(q.shape[-1])
+
+
+def pad_head(t: torch.Tensor, width: int = KERNEL_HEAD_DIM) -> torch.Tensor:
+    """t [..., D] with zeros appended along D up to ``width`` (t itself
+    when D is ``width``): zero columns add nothing to any product, so the
+    kernels' outputs sliced back to D are those at D."""
+    pad = width - t.shape[-1]
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True
+                          causal: bool = True, scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: (O [B, S, H, D] in q's
-    type, LSE [B, H, S] f32). Scores and P.V accumulate in f32 (operands
-    upcast, so bf16 products are exact); P is rounded to v's type before
-    P.V, as in the kernel. Keys are masked with -1e30 as in the reference,
-    so a row with no visible key gives O = 0 and LSE = -1e30."""
-    D = q.shape[-1]
+    type, LSE [B, H, S] f32), scores scaled by ``scale`` (default
+    1/sqrt(D)). Scores and P.V accumulate in f32 (operands upcast, so
+    bf16 products are exact); P is rounded to v's type before P.V, as in
+    the kernel. Keys are masked with -1e30 as in the reference, so a row
+    with no visible key gives O = 0 and LSE = -1e30."""
     S, Sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    s = s * (1.0 / math.sqrt(D))
+    s = s * (default_scale(q) if scale is None else scale)
     if causal:
         mask = (torch.arange(S, device=q.device)[:, None]
                 >= torch.arange(Sk, device=q.device)[None, :])
@@ -97,9 +114,14 @@ def _check(q, k, v):
 def _cuda_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, *more: torch.Tensor) -> None:
     """Raise unless the tensors are what every kernel here takes: CUDA
-    tensors on one device, contiguous, q/k/v in f32 or bf16 at head dim
-    128."""
+    tensors on one device, contiguous, q/k/v in f32 or bf16 at a head dim
+    of at most 128 (narrower heads are padded to 128 by the wrappers)."""
     _check(q, k, v)
+    if q.shape[-1] > KERNEL_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head dim {q.shape[-1]}; the flash kernels of the "
+            f"training slice are built at {KERNEL_HEAD_DIM} and pad "
+            f"narrower heads, and wider heads are not ported")
     for t in (q, k, v, *more):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"{name} needs CUDA tensors on one device, "
@@ -108,16 +130,18 @@ def _cuda_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name} needs contiguous tensors")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: unsupported dtype {q.dtype}")
-    if q.shape[-1] != KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {q.shape[-1]}, the kernel is "
-                         f"built for {KERNEL_HEAD_DIM}")
 
 
-def _launch(source: str, symbol: str, ptrs, q: torch.Tensor,
-            k: torch.Tensor, causal: bool) -> None:
+def _launch(source: str, symbol: str, tensors, q: torch.Tensor,
+            k: torch.Tensor, causal: bool, scale: float) -> None:
     """Call ``symbol`` of the library built from ``csrc/<source>.cu``:
     (pointers..., B, S, Sk, H, D, dtype, causal, scale, stream), on
-    q's device and current stream. Raises on a refused launch."""
+    q's device and current stream, q and k at the kernels' head dim.
+    Raises on a misaligned tensor and on a refused launch."""
+    ptrs = [t.data_ptr() for t in tensors]
+    if any(p % 16 for p in ptrs):
+        raise ValueError(f"{symbol}: the kernels read 16-byte aligned "
+                         f"tensors")
     from ray_tpu_torch.ops import _build
 
     lib = _build.load(source)
@@ -132,7 +156,7 @@ def _launch(source: str, symbol: str, ptrs, q: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*ptrs, B, S, k.shape[1], H, D, _DTYPE_CODES[q.dtype],
-                 int(bool(causal)), 1.0 / math.sqrt(D), stream)
+                 int(bool(causal)), scale, stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: "
                            f"{err_string(err).decode()} ({err})")
@@ -142,17 +166,20 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel B1 on q [B, S, H, D], k/v [B, Sk, H, D] (CUDA,
-    contiguous, f32 or bf16, head dim 128). Returns
-    (O, LSE [B, H, S] f32). Raises on any input the kernel does not take
-    and on a refused launch. ``flash_fwd_cuda.launches`` counts launches."""
+    contiguous, f32 or bf16, D <= 128; below 128 padded with zeros, scale
+    1/sqrt(D)). Returns (O [B, S, H, D], LSE [B, H, S] f32). Raises on
+    any input the kernel does not take and on a refused launch.
+    ``flash_fwd_cuda.launches`` counts launches."""
     _cuda_inputs("flash_fwd_cuda", q, k, v)
-    B, S, H, _ = q.shape
+    B, S, H, D = q.shape
+    scale = default_scale(q)
+    q, k, v = pad_head(q), pad_head(k), pad_head(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "flash_fwd",
-            [t.data_ptr() for t in (q, k, v, out, lse)], q, k, causal)
+    _launch("flash_fwd", "flash_fwd", (q, k, v, out, lse), q, k, causal,
+            scale)
     flash_fwd_cuda.launches += 1
-    return out, lse
+    return out[..., :D].contiguous(), lse
 
 
 flash_fwd_cuda.launches = 0
@@ -168,17 +195,19 @@ def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor,
-                              causal: bool = True
+                              causal: bool = True,
+                              scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The function of kernels B2 and B3 in plain PyTorch: (dQ, dK, dV)
-    in q's type from O, its LSE [B, H, S] and dO. Products take operands
-    of the input type (upcast, so bf16 products are exact) and sum in
-    f32; P is rounded to the input type before P^T dO and dS before
-    dS^T Q and dS K, as in the kernels. Masked pairs get P = 0 by index."""
-    D = q.shape[-1]
+    in q's type from O, its LSE [B, H, S] and dO, scores scaled by
+    ``scale`` (default 1/sqrt(D)). Products take operands of the input
+    type (upcast, so bf16 products are exact) and sum in f32; P is
+    rounded to the input type before P^T dO and dS before dS^T Q and
+    dS K, as in the kernels. Masked pairs get P = 0 by index."""
     S, Sk = q.shape[1], k.shape[1]
-    scale = 1.0 / math.sqrt(D)
+    if scale is None:
+        scale = default_scale(q)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     delta = attention_delta(out, do)[..., None]                # [B,H,S,1]
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
@@ -213,15 +242,17 @@ def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel B2: (dK, dV) [B, Sk, H, D] in q's type from q, dO
     [B, S, H, D], k, v [B, Sk, H, D] and LSE, delta [B, H, S] f32 (CUDA,
-    contiguous, f32 or bf16, head dim 128). Raises on any input the kernel
-    does not take and on a refused launch. ``.launches`` counts launches."""
+    contiguous, f32 or bf16, D <= 128; below 128 padded with zeros,
+    scale 1/sqrt(D)). Raises on any input the kernel does not take and on
+    a refused launch. ``.launches`` counts launches."""
     _bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta)
+    D, scale = q.shape[-1], default_scale(q)
+    q, k, v, do = (pad_head(t) for t in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd", "flash_bwd_dkv",
-            [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
-            q, k, causal)
+    _launch("flash_bwd", "flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+            q, k, causal, scale)
     flash_bwd_dkv_cuda.launches += 1
-    return dk, dv
+    return dk[..., :D].contiguous(), dv[..., :D].contiguous()
 
 
 flash_bwd_dkv_cuda.launches = 0
@@ -234,12 +265,13 @@ def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch kernel B3: dQ [B, S, H, D] in q's type, from the same inputs
     as ``flash_bwd_dkv_cuda``. ``.launches`` counts launches."""
     _bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, delta)
+    D, scale = q.shape[-1], default_scale(q)
+    q, k, v, do = (pad_head(t) for t in (q, k, v, do))
     dq = torch.empty_like(q)
-    _launch("flash_bwd", "flash_bwd_dq",
-            [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
-            q, k, causal)
+    _launch("flash_bwd", "flash_bwd_dq", (q, k, v, do, lse, delta, dq),
+            q, k, causal, scale)
     flash_bwd_dq_cuda.launches += 1
-    return dq
+    return dq[..., :D].contiguous()
 
 
 flash_bwd_dq_cuda.launches = 0

@@ -44,7 +44,9 @@
 //   - The schedule is the reference's index arithmetic (my +- t mod n), so
 //     every element is combined in the plain version's order. Combine is
 //     sum / max / min / prod in f32, rounded once per hop to the element
-//     type: bit for bit what torch does for `a + b` on two bf16 tensors.
+//     type: bit for bit what torch does for `a + b` on two bf16 or f16
+//     tensors. int32 combines in 32-bit integer arithmetic, sum and prod
+//     wrapping as torch's do, so it is exact in any order.
 //   - All n * blocks_per_rank blocks must be resident at once, or a
 //     spinning block waits for one that never runs: the grid is capped
 //     from cudaOccupancyMaxActiveBlocksPerMultiprocessor and launched with
@@ -63,8 +65,9 @@
 // copies are 16-byte vectors, neighbouring threads on neighbouring
 // addresses.
 //
-// Types: float32 and bfloat16 (C5, C6: float32 only, as the reference
-// feeds them). The wrapper refuses anything else.
+// Types: float32, bfloat16, float16 and int32, the reference's float and
+// int blocks (C5, C6: float32 only, as the reference feeds them). The
+// wrapper refuses anything else.
 //
 // The int8 ring (C5, C6). Every hop quantizes the outgoing f32 chunk to
 // int8 with ONE scale, max|chunk| / 127 floored at 1e-30, over the whole
@@ -105,6 +108,7 @@
 #include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -167,6 +171,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -174,6 +179,9 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 template <int OP> __device__ __forceinline__ float combine(float a, float b) {
@@ -186,13 +194,25 @@ template <int OP> __device__ __forceinline__ float combine(float a, float b) {
   return a < b ? a : b;
 }
 
+// int32: sum and prod wrap modulo 2^32 (unsigned arithmetic), as torch's.
+template <int OP> __device__ __forceinline__ int combine_int(int a, int b) {
+  if (OP == SUM) return int(unsigned(a) + unsigned(b));
+  if (OP == PROD) return int(unsigned(a) * unsigned(b));
+  if (OP == MAX) return a > b ? a : b;
+  return a < b ? a : b;
+}
+
 template <typename T, int OP>
 __device__ __forceinline__ uint4 combine_vec(uint4 a, uint4 b) {
   T* pa = reinterpret_cast<T*>(&a);
   const T* pb = reinterpret_cast<const T*>(&b);
 #pragma unroll
-  for (int i = 0; i < int(sizeof(uint4) / sizeof(T)); ++i)
-    pa[i] = from_f<T>(combine<OP>(to_f(pa[i]), to_f(pb[i])));
+  for (int i = 0; i < int(sizeof(uint4) / sizeof(T)); ++i) {
+    if constexpr (std::is_same<T, int>::value)
+      pa[i] = combine_int<OP>(pa[i], pb[i]);
+    else
+      pa[i] = from_f<T>(combine<OP>(to_f(pa[i]), to_f(pb[i])));
+  }
   return a;
 }
 
@@ -635,6 +655,16 @@ const void* kernel_for(int kind, int op) {
 
 bool quantized(int kind) { return kind == QHOP || kind == QALLREDUCE; }
 
+// Bytes per element of a dtype code (0 float32, 1 bfloat16, 2 float16,
+// 3 int32); 0 for an unknown code.
+int elem_bytes(int dtype) {
+  switch (dtype) {
+    case 0: case 3: return 4;
+    case 1: case 2: return 2;
+  }
+  return 0;
+}
+
 // Bytes of comm slots one rank needs for a call (see ring_slot_bytes).
 long long rank_slot_bytes(int kind, int elem, long long chunk_elems) {
   if (kind == PERMUTE) return 0;
@@ -678,7 +708,8 @@ cudaError_t resident_blocks(const void* fn, int dev, int* out) {
 //   kind: 0 permute (C1), 1 reduce-scatter (C2), 2 allgather (C3),
 //         3 allreduce (C4), 4 quantized hop (C5), 5 quantized allreduce
 //         (C6); op: 0 sum, 1 max, 2 min, 3 prod (C2, C4; C5, C6 sum only);
-//   dtype: 0 float32, 1 bfloat16 (C5, C6: float32 only).
+//   dtype: 0 float32, 1 bfloat16, 2 float16, 3 int32 (C5, C6: float32
+//   only).
 //   in / out: rank r's block at base + r * stride (strides in elements;
 //   C6 may run in place, in == out);
 //   chunk_elems: elements per chunk, the payload of one hop (C1, C5: the
@@ -696,14 +727,16 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   if (n < 2 || n > MAX_RANKS || chunk_elems < 1 || kind < 0 ||
       kind > QALLREDUCE)
     return int(cudaErrorInvalidValue);
-  const int elem = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
+  const int elem = elem_bytes(dtype);
   if (elem == 0) return int(cudaErrorInvalidValue);
   const int vec = 16 / elem;
   const int unit = quantized(kind) ? QGROUP : vec;
   if (chunk_elems % unit || in_stride % vec || out_stride % vec)
     return int(cudaErrorInvalidValue);
-  const void* fn = dtype == 0 ? kernel_for<float>(kind, op)
-                              : kernel_for<__nv_bfloat16>(kind, op);
+  const void* fn = dtype == 0   ? kernel_for<float>(kind, op)
+                   : dtype == 1 ? kernel_for<__nv_bfloat16>(kind, op)
+                   : dtype == 2 ? kernel_for<__half>(kind, op)
+                                : kernel_for<int>(kind, op);
   if (fn == nullptr) return int(cudaErrorInvalidValue);
 
   int dev = 0;
@@ -759,7 +792,7 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
 // MAX_BPR f32 scales per rank.
 extern "C" long long ring_slot_bytes(int kind, int dtype, int n,
                                      long long chunk_elems) {
-  const int elem = dtype == 0 ? 4 : 2;
+  const int elem = elem_bytes(dtype);
   return n * rank_slot_bytes(kind, elem, chunk_elems);
 }
 

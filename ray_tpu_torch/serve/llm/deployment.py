@@ -44,7 +44,7 @@ class LLMServer:
         if speculative:
             raise NotImplementedError(
                 "speculative decoding is not ported yet; it comes with "
-                "the paged-KV and disagg slices (ROADMAP A5)")
+                "the speculative-decoding and disagg slice")
         dev = resolve_device(device)
         if model_config is None:
             model_config = LlamaConfig.tiny()

@@ -28,8 +28,9 @@ params: bucket padding sits after the prompt, attention is causal, and the
 first token comes from the logits at row ``prompt_len - 1``.
 
 The paged layout, prefix cache, KV tiers, export/adopt, preemption,
-speculative decoding and the metrics, tracing and accounting hooks are
-later slices (ROADMAP A5).
+speculative decoding and the metrics, tracing and accounting hooks come
+with later slices of the port: paged KV, speculative decoding and disagg,
+and the engine's observability.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ class EngineConfig:
         if self.kv_layout == "paged":
             raise NotImplementedError(
                 "kv_layout='paged' is not ported yet; it comes with the "
-                "paged-KV slice (serve/llm/kv_cache.py, ROADMAP A5)")
+                "paged-KV slice (serve/llm/kv_cache.py)")
         if self.kv_layout != "dense":
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
                              f"{self.kv_layout!r}")
@@ -188,7 +189,7 @@ class LLMEngine:
         if draft_params is not None or draft_config is not None:
             raise NotImplementedError(
                 "speculative decoding (draft_params) is not ported yet; "
-                "it comes with the paged-KV and disagg slices (ROADMAP A5)")
+                "it comes with the speculative-decoding and disagg slice")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "

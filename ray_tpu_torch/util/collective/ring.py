@@ -71,7 +71,10 @@ FLAG_SECTIONS = 3
 KINDS = ("permute", "reduce_scatter", "allgather", "allreduce", "qhop",
          "qallreduce")
 _OPS = {"sum": 0, "max": 1, "min": 2, "prod": 3}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The block types C1-C4 take, in ring.cu's numbering: the reference's
+# float and int blocks.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                torch.int32: 3}
 _COMBINE = {
     "sum": lambda a, b: a + b,
     "max": torch.maximum,
@@ -268,12 +271,12 @@ def _group_for(x: torch.Tensor, group):
 
 def _check_block(name: str, x: torch.Tensor, divisible: bool = False
                  ) -> None:
-    """Raise unless x is what the kernels take: f32 or bf16, [n, rows,
-    LANES] with 2 <= n <= MAX_RANKS, on a CUDA device, each rank's block
-    contiguous and 16-byte aligned, ranks not overlapping."""
+    """Raise unless x is what the kernels take: f32, bf16, f16 or int32,
+    [n, rows, LANES] with 2 <= n <= MAX_RANKS, on a CUDA device, each
+    rank's block contiguous and 16-byte aligned, ranks not overlapping."""
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: unsupported dtype {x.dtype} (float32 "
-                        f"and bfloat16 only)")
+        raise TypeError(f"{name}: unsupported dtype {x.dtype} (float32, "
+                        f"bfloat16, float16 and int32 only)")
     if x.dim() != 3 or x.shape[2] != LANES or x.shape[1] < 1:
         raise ValueError(f"{name} takes [n, rows, {LANES}], got "
                          f"{tuple(x.shape)}")

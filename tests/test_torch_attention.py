@@ -97,3 +97,30 @@ def test_cpu_tensors_never_launch_the_kernel():
     before = tattn.flash_fwd_cuda.launches
     _torch_fwd(arrs, True, torch.float32)
     assert tattn.flash_fwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dim_equals_unpadded(D, causal):
+    """What the kernel wrappers do with a head dim below 128: q, k, v
+    padded with zeros along D (``pad_head``), scaled by the unpadded
+    1/sqrt(D), O sliced back. On the plain version that equals the
+    unpadded function (f32, 1e-6), and the padded columns of O are 0."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(D, 1, 256, 2, D))
+    want_o, want_lse = tattn.flash_attention_plain(q, k, v, causal)
+    got_o, got_lse = tattn.flash_attention_plain(
+        *(tattn.pad_head(t) for t in (q, k, v)), causal,
+        scale=tattn.default_scale(q))
+    assert got_o.shape == (1, 256, 2, tattn.KERNEL_HEAD_DIM)
+    np.testing.assert_allclose(got_o[..., :D].numpy(), want_o.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert not got_o[..., D:].any()
+
+
+def test_head_dim_above_128_raises():
+    q = torch.zeros((1, 128, 2, 256))
+    with pytest.raises(ValueError, match="head dim 256"):
+        tattn.flash_fwd_cuda(q, q, q)
+

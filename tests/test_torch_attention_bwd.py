@@ -167,3 +167,24 @@ def test_cpu_tensors_never_launch_the_backward_kernels():
     assert (tattn.flash_fwd_cuda.launches,
             tattn.flash_bwd_dkv_cuda.launches,
             tattn.flash_bwd_dq_cuda.launches) == before
+
+
+@pytest.mark.parametrize("D", [16, 64])
+def test_padded_head_dim_grads_equal_unpadded(D):
+    """The backward wrappers' padding: q, k, v, O and dO padded with zeros
+    along D, the unpadded scale, dQ, dK, dV sliced back. On the plain
+    version that equals the unpadded gradients (f32, 1e-6), a ragged
+    causal length included, and the padded columns are 0."""
+    (q, k, v), w = _inputs(D, 200, D=D)
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, w))
+    o, lse = tattn.flash_attention_plain(q, k, v)
+    want = tattn.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    padded = [tattn.pad_head(t) for t in (q, k, v, o)]
+    got = tattn.flash_attention_bwd_plain(*padded, lse, tattn.pad_head(do),
+                                          scale=tattn.default_scale(q))
+    for g, r, name in zip(got, want, "qkv"):
+        assert g.shape[-1] == tattn.KERNEL_HEAD_DIM
+        np.testing.assert_allclose(g[..., :D].numpy(), r.numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg=f"d{name}")
+        assert not g[..., D:].any()
+

@@ -61,6 +61,42 @@ def test_allreduce_matches_reference(n, op):
     np.testing.assert_array_equal(_port(got), want)
 
 
+def _int_host(seed, *shape, op="sum"):
+    # prod: factors in [-3, 3] (small products); the rest span int32 so
+    # sums wrap around 2**32 on both sides.
+    rng = np.random.RandomState(seed)
+    if op == "prod":
+        return rng.randint(-3, 4, shape).astype(np.int32)
+    return rng.randint(-2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", ["sum", "max", "min", "prod"])
+def test_int32_allreduce_matches_reference(n, op):
+    """int32 blocks (the reference's ring takes int blocks): exact in any
+    order, so bit for bit, with wrap-around sums."""
+    host = _int_host(60 + n, n, 5, 7, op=op)
+    want = _jax(lambda x: J.ring_allreduce(x, "x", n=n, op=op, impl=IMPL),
+                host, n)
+    got = T.ring_allreduce(torch.from_numpy(host), op)
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(_port(got), want)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_int32_allgather_and_reduce_scatter_match_reference(n):
+    host = _int_host(70 + n, n, n * 3, 50)
+    want = _jax(lambda x: J.ring_allgather(x, "x", n=n, impl=IMPL), host, n)
+    np.testing.assert_array_equal(
+        _port(T.ring_allgather(torch.from_numpy(host))), want)
+    want = _jax(lambda x: J.ring_reduce_scatter(x, "x", n=n, op="sum",
+                                                impl=IMPL), host, n)
+    got = T.ring_reduce_scatter(torch.from_numpy(host), "sum")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_port(got), want)
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_allgather_matches_reference(n):
     host = _host(20 + n, n, 3, 50)
@@ -177,13 +213,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     good = torch.zeros((n, n * 2, 128))
     for wrapper in R.KERNELS:
         with pytest.raises(TypeError, match="dtype"):
-            wrapper(good.to(torch.int32))
+            wrapper(good.double())
         with pytest.raises(TypeError, match="dtype"):
-            wrapper(good.half())
+            wrapper(good.to(torch.int64))
         with pytest.raises(ValueError, match="takes"):
             wrapper(torch.zeros((n, 8, 64)))
         with pytest.raises(ValueError, match="ranks"):
             wrapper(torch.zeros((1, 8, 128)))
+        with pytest.raises(ValueError, match="ranks"):
+            wrapper(torch.zeros((R.MAX_RANKS + 1, 2 * (R.MAX_RANKS + 1),
+                                 128)))
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(good)
     with pytest.raises(ValueError, match="split"):
