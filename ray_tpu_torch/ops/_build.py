@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` into ``ray_tpu_torch/_build/`` (listed
-in ``.gitignore``) under a name keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+in ``.gitignore``) under a name keyed by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.
 Nothing here runs at import time: the CPU tests import every module of
 the port on a host without ``nvcc``.
 """
@@ -43,9 +44,13 @@ def _nvcc() -> str:
 
 
 def _artifact(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of the source, every shared
+    header (``csrc/*.cuh``, which any source may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
@@ -89,6 +94,7 @@ def build_log(name: str) -> str:
 
 
 def all_kernels() -> List[str]:
+    """The kernel sources (``csrc/*.cu``); headers are not built alone."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 

@@ -8,12 +8,12 @@ It computes the same function: causal or full attention with an online
 softmax in f32, P rounded to the input type before P.V, causally dead key
 tiles skipped, O and the per-row f32 log-sum-exp written (O = 0 and
 LSE = -1e30 where a row has no visible key). On the H100 its bound at the
-serving shapes (S <= 512, D = 128, bf16) is bytes, not operations: about
-5 us at S = 512 (16.8 MB at 3.35 TB/s, against 2.2 us of products at the
-tensor cores' 989 TFLOP/s). This first version runs the products as
-register-tiled scalar f32 FMAs on the CUDA cores, which is simple and exact
-for f32 inputs, and so sits 60-70 times above that bound; tensor cores are
-a later version's. It takes f32 and bf16. The design notes are in the
+serving shapes (S <= 512, D = 128, bf16) is bytes: about 5 us at S = 512
+(16.8 MB at 3.35 TB/s, against 2.2 us of products at the tensor cores'
+989 TFLOP/s); at the training shape (B = 4, S = 1024) bytes and products
+are close (0.040 and 0.035 ms). In bf16 it runs both products on the
+tensor cores (mma.sync, P kept in registers as the A fragment of P.V); in
+f32 as scalar FMAs, which keeps it exact. The design notes are in the
 source.
 
 Kernels B2 and B3 (``csrc/flash_bwd.cu``) replace the TPU backward kernels
@@ -22,8 +22,9 @@ dK and dV per key tile over the query tiles that see it, and dQ per query
 tile over its key tiles, from O's saved LSE and delta = rowsum(dO * O)
 (computed here in f32, as the reference does). They round where the TPU
 kernels round (P before P^T dO, dS before dS^T Q and dS K) and take the
-same two types: bf16 on the tensor cores (mma.sync), f32 as scalar FMAs,
-which keeps it exact. ``flash_attention`` is a
+same two types: bf16 on the tensor cores (mma.sync, from the helpers
+they share with B1 in ``csrc/hopper.cuh``), f32 as scalar FMAs, which
+keeps it exact. ``flash_attention`` is a
 ``torch.autograd.Function`` whose forward launches B1 and whose backward
 launches B2 and B3, the counterpart of the reference's ``custom_vjp``.
 

@@ -19,8 +19,9 @@
 //
 // Design.
 //   - Grid (blocks_per_rank, n): block (b, r) plays rank r and owns the
-//     fixed range b of every chunk, so a block only ever talks to block
-//     (b, r +- 1); no barrier spans the grid.
+//     fixed range b of every chunk, so a block only ever talks to blocks b
+//     of other ranks (in the ring kinds only to (b, r +- 1)); no barrier
+//     spans the grid.
 //   - One hop t, per block (the reference's _send_recv / _cap_wait /
 //     _cap_signal, ring.py:78-104):
 //       1. t >= 2: acquire-wait on the capacity flag of slot t % 2 (the
@@ -57,13 +58,29 @@
 //   - C2 accumulates in place in its input (the caller's buffer, or a copy
 //     the wrapper makes), not in the reference's separate acc scratch; its
 //     last hop writes the rank's own reduced chunk straight to the output.
+//   - C3 is no ring of hops: a copy needs no combine order, so block (b, r)
+//     reads its range of rank r's input once and stores it at r * chunk of
+//     every rank's output, its own included (a peer store through the
+//     pointer table, as C1's). Completion stays explicit, as it must once
+//     ranks are processes: after its stores the block fences and arrives on
+//     the receive word of block b of each other rank, then waits (bounded)
+//     until all n - 1 have arrived on its own. n - 1 senders share one
+//     word, so it counts arrivals under the call's epoch tag, (tag << 32) |
+//     arrivals (see arrive). One flag round per call: its epoch is base + 1.
 //
 // Bound on the H100: bytes. Each kernel moves (reads + writes) its input
 // once and its output once at least, at 3.35 TB/s; the ring's n - 1 (C1:
 // 1, C4: 2(n - 1)) hops through the slots move more than that, so a
-// monolithic kernel on one card sits several times above the bound. The
-// copies are 16-byte vectors, neighbouring threads on neighbouring
-// addresses.
+// monolithic kernel on one card sits several times above the bound. C3's
+// loads and stores touch exactly the bound's bytes: each input element is
+// read once and each output element written once, n (1 + n) chunks in
+// all; at 4 ranks of 3,756,104 rows of 128 bf16 that counts 3.846 GB read
+// and 15.386 GB written, 19.23 GB, where n - 1 copy hops through the
+// slots count 53.85 GB (counts from the code; the card's DRAM traffic is
+// not measured). Across cards on
+// NVLink a push costs each rank the same (n - 1) chunks of link bytes as
+// a ring, in one round instead of n - 1. The copies are 16-byte vectors,
+// neighbouring threads on neighbouring addresses.
 //
 // Types: float32, bfloat16, float16 and int32, the reference's float and
 // int blocks (C5, C6: float32 only, as the reference feeds them). The
@@ -129,7 +146,8 @@ enum Kind {
   QALLREDUCE = 5
 };
 enum Op { SUM = 0, MAX = 1, MIN = 2, PROD = 3 };
-enum Wait { WAIT_RECV = 0, WAIT_CAP = 1, WAIT_BARRIER = 2 };
+// What a timed-out block waited for (RingGroup's _WAITS names them).
+enum Wait { WAIT_RECV, WAIT_CAP, WAIT_BARRIER, WAIT_ARRIVALS };
 
 typedef unsigned long long u64;
 
@@ -137,7 +155,8 @@ struct RingArgs {
   char* in[MAX_RANKS];        // per-rank input (C2: accumulated in place)
   char* out[MAX_RANKS];       // per-rank output
   char* slot[MAX_RANKS];      // per-rank comm slots: 2 x chunk bytes
-  u64* recv[MAX_RANKS];       // per-rank receive flags [MAX_BPR][2]
+  u64* recv[MAX_RANKS];       // per-rank receive flags [MAX_BPR][2] (C3:
+                              // [b][0] counts arrivals under the epoch tag)
   u64* cap[MAX_RANKS];        // per-rank capacity flags [MAX_BPR][2]
   u64* bar[MAX_RANKS];        // per-rank barrier words (C5, C6): arrivals,
                               // then the max word of each hop parity
@@ -152,6 +171,10 @@ struct RingArgs {
 };
 
 __device__ __forceinline__ int mod(int a, int n) { return ((a % n) + n) % n; }
+// The rank after r on a ring of n.
+__device__ __forceinline__ int succ(int r, int n) {
+  return r + 1 == n ? 0 : r + 1;
+}
 
 __device__ __forceinline__ void st_release(u64* p, u64 v) {
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
@@ -235,6 +258,8 @@ __device__ void report(const RingArgs& a, int r, int b, int t, int what,
 
 // Thread 0 acquire-spins until *flag >= want, bounded by the timeout; the
 // whole block learns the outcome at the barrier. False: the block exits.
+// A WAIT_ARRIVALS flag is a tagged counter (see arrive): a timeout reports
+// the arrivals wanted and those of this call seen, not the raw words.
 __device__ bool wait_flag(const RingArgs& a, const u64* flag, u64 want, int r,
                           int b, int t, int what) {
   int ok = 1;
@@ -243,7 +268,11 @@ __device__ bool wait_flag(const RingArgs& a, const u64* flag, u64 want, int r,
     u64 seen;
     while ((seen = ld_acquire(flag)) < want) {
       if (clock64() - t0 > SPIN_TIMEOUT_CYCLES) {
-        report(a, r, b, t, what, want, seen);
+        if (what == WAIT_ARRIVALS)
+          report(a, r, b, t, what, want & 0xffffffffull,
+                 (seen >> 32) == (want >> 32) ? seen & 0xffffffffull : 0);
+        else
+          report(a, r, b, t, what, want, seen);
         ok = 0;
         break;
       }
@@ -392,22 +421,42 @@ ring_reduce_scatter_kernel(const __grid_constant__ RingArgs a) {
   }
 }
 
-// C3: n - 1 copy hops; out[r] = (in[0], ..., in[n-1]).
+// An arrival on a counter word tagged with the call's epoch, (tag << 32) |
+// arrivals: the max moves a word of an older call to (tag << 32) and is a
+// no-op once the word carries this tag, so the word counts this call's
+// arrivals however many calls had a block b. Never reset. The fence
+// orders the block's stores, seen at the barrier before it, ahead of the
+// arrival.
+__device__ __forceinline__ void arrive(u64* word, u64 tag) {
+  __threadfence();
+  atomicMax(reinterpret_cast<unsigned long long*>(word), tag << 32);
+  atomicAdd(reinterpret_cast<unsigned long long*>(word), 1ull);
+}
+
+// C3: one read, n writes. Block (b, r) reads its range of in[r] once and
+// stores each vector at r * chunk of every rank's output, its own
+// included (peer stores through the pointer table, as C1's); then it
+// fences, arrives on the receive word of block b of each of the n - 1
+// other ranks, and waits until all n - 1 have arrived on its own. One
+// flag round per call: out[r] = (in[0], ..., in[n-1]).
 template <typename T>
 __global__ void __launch_bounds__(NT)
 ring_allgather_kernel(const __grid_constant__ RingArgs a) {
   const Block k = block_of(a);
   const uint4* in = reinterpret_cast<const uint4*>(a.in[k.r]);
-  uint4* out = reinterpret_cast<uint4*>(a.out[k.r]);
-  const long long cv = a.chunk_vecs;
-  const int total = k.n - 1;
-  uint4* mine = out + k.r * cv;
+  const long long at = k.r * a.chunk_vecs;
   each_vec(k.lo, k.hi, [&](long long i) { return in[i]; },
-           [&](long long i, uint4 v) { mine[i] = v; });
-  for (int t = 0; t < total; ++t) {
-    const int send = mod(k.r - t, k.n), recv = mod(k.r - t - 1, k.n);
-    if (!hop_copy(a, k, t, total, out + send * cv, out + recv * cv)) return;
-  }
+           [&](long long i, uint4 v) {
+             for (int j = 0, p = k.r; j < k.n; ++j, p = succ(p, k.n))
+               __stcs(reinterpret_cast<uint4*>(a.out[p]) + at + i, v);
+           });
+  const u64 tag = (a.base + 1) & 0xffffffffull;
+  __threadfence();
+  __syncthreads();
+  const int p = threadIdx.x;
+  if (p < k.n && p != k.r) arrive(a.recv[p] + flag_index(k.b, 0), tag);
+  wait_flag(a, a.recv[k.r] + flag_index(k.b, 0), (tag << 32) | (k.n - 1),
+            k.r, k.b, 0, WAIT_ARRIVALS);
 }
 
 // C4: a reduce-scatter sweep, then an allgather sweep: 2(n - 1) hops.
@@ -667,7 +716,7 @@ int elem_bytes(int dtype) {
 
 // Bytes of comm slots one rank needs for a call (see ring_slot_bytes).
 long long rank_slot_bytes(int kind, int elem, long long chunk_elems) {
-  if (kind == PERMUTE) return 0;
+  if (kind == PERMUTE || kind == ALLGATHER) return 0;
   if (quantized(kind))
     return 2 * chunk_elems + 2 * MAX_BPR * (long long)sizeof(float);
   return 2 * chunk_elems * elem;
@@ -778,7 +827,7 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
     a.cap[r] = live ? rf + MAX_BPR * 2 : nullptr;
     a.bar[r] = live ? rf + 2 * MAX_BPR * 2 : nullptr;
   }
-  if (kind != PERMUTE && slots == nullptr) return int(cudaErrorInvalidValue);
+  if (slot_bytes && slots == nullptr) return int(cudaErrorInvalidValue);
 
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(fn, dim3(a.bpr, n), dim3(NT), args, 0,
@@ -787,8 +836,8 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   return int(cudaGetLastError());
 }
 
-// Bytes of comm slots a call needs for all n ranks: C1 none; C2-C4 two
-// chunks of the element type per rank; C5, C6 two int8 chunks and 2 x
+// Bytes of comm slots a call needs for all n ranks: C1, C3 none; C2, C4
+// two chunks of the element type per rank; C5, C6 two int8 chunks and 2 x
 // MAX_BPR f32 scales per rank.
 extern "C" long long ring_slot_bytes(int kind, int dtype, int n,
                                      long long chunk_elems) {

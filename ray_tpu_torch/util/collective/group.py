@@ -35,7 +35,10 @@ from ray_tpu_torch.util.collective.ring import (
     FLAG_SECTIONS, KINDS, MAX_BLOCKS_PER_RANK, MAX_RANKS, hops,
 )
 
-_WAITS = ("receive", "capacity", "barrier")
+# What a timed-out kernel waited for, by ring.cu's Wait code.
+_WAITS = ("receive flag to reach epoch", "capacity flag to reach epoch",
+          "barrier flag to reach epoch",
+          "count of this call's peer arrivals to reach")
 
 
 class _Workspace(NamedTuple):
@@ -112,7 +115,7 @@ class RingGroup:
         raise RuntimeError(
             f"ring {KINDS[kind]} kernel timed out on {self}: rank {rank}, "
             f"block {block}, hop {hop}, waiting for the "
-            f"{_WAITS[what]} flag to reach epoch {want} (saw {seen}); the "
+            f"{_WAITS[what]} {want} (saw {seen}); the "
             f"group cannot be used again")
 
     def check(self) -> None:

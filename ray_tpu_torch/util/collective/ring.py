@@ -17,7 +17,9 @@ ranks at once, each rank played by its own thread blocks):
 - C1 ``ring_permute_cuda``: one hop (``_permute_kernel``);
 - C2 ``ring_reduce_scatter_cuda``: n - 1 accumulate hops
   (``_reduce_scatter_kernel``);
-- C3 ``ring_allgather_cuda``: n - 1 copy hops (``_allgather_kernel``);
+- C3 ``ring_allgather_cuda``: one read of each shard and a push of it to
+  every rank, one flag round (``_allgather_kernel``'s function; its n - 1
+  copy hops are not needed, since a copy has no combine order);
 - C4 ``ring_allreduce_cuda``: 2(n - 1) hops (``_allreduce_kernel``).
 
 Each takes the canonical block, ``[n, rows, 128]`` with each rank's block
@@ -87,8 +89,9 @@ _REDUCE_OPS = {ReduceOp.SUM: "sum", ReduceOp.AVERAGE: "avg",
 
 
 def hops(kind: str, n: int) -> int:
-    """Ring hops of one call of ``kind`` over n ranks."""
-    return {"permute": 1, "reduce_scatter": n - 1, "allgather": n - 1,
+    """Flag rounds (epochs) of one call of ``kind`` over n ranks: its ring
+    hops, and one for C3's push."""
+    return {"permute": 1, "reduce_scatter": n - 1, "allgather": 1,
             "allreduce": 2 * (n - 1), "qhop": 1,
             "qallreduce": 2 * (n - 1)}[kind]
 

@@ -251,6 +251,33 @@ def test_reduce_op_enum_and_group_on_cpu():
     g.check()
 
 
+@pytest.mark.parametrize("n", [2, 4, 8, R.MAX_RANKS])
+def test_flag_rounds_per_call_and_monotonic_epochs(n, monkeypatch):
+    """C3 pushes each shard to every rank in one flag round; the ring
+    kinds take one round per hop. The epoch bases ``RingGroup._begin``
+    gives a kind's launches grow across calls so that each call's rounds
+    (base + 1 .. base + hops) lie above every earlier call's: the kernels
+    never reset their flags."""
+    assert R.hops("allgather", n) == 1
+    assert R.hops("permute", n) == R.hops("qhop", n) == 1
+    assert R.hops("reduce_scatter", n) == n - 1
+    assert R.hops("allreduce", n) == R.hops("qallreduce", n) == 2 * (n - 1)
+    # _begin on the CPU: no stream to order, no timeout record to map.
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
+    g = T.RingGroup(n, device="cpu")
+    g._err_dev, g._err_host_ptr = torch.zeros(1, dtype=torch.int32), 0
+    for kind in R.KINDS:
+        top = 0
+        for _ in range(5):
+            base = g._begin(kind, 0).base
+            assert base + 1 > top
+            top = base + R.hops(kind, n)
+    # Kinds count their calls apart: each has its own flag table.
+    assert g._begin("allgather", 0).base == 5
+    assert g._begin("allreduce", 0).base == 5 * 2 * (n - 1)
+
+
 @pytest.mark.parametrize("name", [
     "quantized_ring_allreduce", "start_quantized_ring_reduce_scatter",
     "wait_quantized_ring_reduce_scatter", "local_quantization_residual"])
