@@ -12,7 +12,9 @@ Phases, one line each; any failure raises and exits non-zero:
               source, all started together); the compiler's register and
               spill report is printed per kernel, and the bf16 B1, B2 and
               B3 (tensor cores) must not spill and must fit two blocks on
-              an SM.
+              an SM. Every instantiation of C4, C5 and C6 is printed with
+              its registers, spills and resident blocks, and must not
+              spill.
 3. kernels -- each kernel against its plain PyTorch version on the card,
               in bf16 and f32, at the shapes the serving and training
               paths give it, with its time, the plain version's, the
@@ -52,7 +54,8 @@ Phases, one line each; any failure raises and exits non-zero:
               ragged and large per-rank blocks, and the split-phase forms
               (C1 per hop) against C2 and C3; C3 also at 16 ranks, into a
               caller's ``out`` and with each shard already lying in its
-              place of ``out``; the same at the ZeRO path's
+              place of ``out``; C4 at 16 ranks with every op (sum, max,
+              min, prod) and type; the same at the ZeRO path's
               size (the 4-layer flat parameter vector, 4 ranks, bf16),
               and the four kernels' times beside their plain versions',
               bounds and one library call's.
@@ -318,7 +321,8 @@ def phase_build():
     for name in names:
         found = ptxas_kernels(_build.build_log(name))
         kernels.update(found)
-        regs = sorted({k["registers"] for k in found.values()})
+        regs = sorted({k["registers"] for k in found.values()
+                       if k["registers"] is not None})
         spills = {n: k["spill_bytes"] for n, k in found.items()
                   if k["spill_bytes"]}
         log("build", f"{name}: {len(found)} kernels, registers {regs}, "
@@ -364,6 +368,82 @@ def blocks_per_sm(kernel: str, dtype) -> int:
     err = fn(*args)
     check(err == 0, f"occupancy query failed ({err})")
     return n.value
+
+
+# The ring kernels whose every instantiation the build phase reports
+# (registers, spills, resident blocks) and holds free of spills: (ID,
+# name in the compiler's report, ring.cu's kind code).
+RING_REPORTED = (("C4", "ring_allreduce_kernel", 3),
+                 ("C5", "ring_qhop_kernel", 4),
+                 ("C6", "ring_qallreduce_kernel", 5))
+# Template arguments in a mangled ring kernel name: element type (as the
+# compiler mangles it) -> (label, ring.cu's dtype code); op digit -> op.
+_MANGLED_TYPES = {"f": ("f32", 0), "13__nv_bfloat16": ("bf16", 1),
+                  "6__half": ("f16", 2), "i": ("int32", 3)}
+_RING_OP_NAMES = ("sum", "max", "min", "prod")
+
+
+def ring_instances(kernels: dict) -> dict:
+    """{ID: [{"dtype", "op", "registers", "spill_bytes", "blocks_per_sm",
+    "resident_blocks"}, ...]} for every instantiation of the kernels of
+    RING_REPORTED in the compiler's report; resident blocks are blocks per
+    SM (the runtime's occupancy calculator, as ring_launch asks it) times
+    the SMs, the most blocks one cooperative launch of n ranks may hold."""
+    import ctypes
+
+    from ray_tpu_torch.util.collective import ring as R
+
+    lib = R._lib()
+    lib.ring_blocks_per_sm.restype = ctypes.c_int
+    lib.ring_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for key, name, kind in RING_REPORTED:
+        rows = []
+        for mangled, rep in kernels.items():
+            if name not in mangled or rep["registers"] is None:
+                continue      # another kernel, or a device function
+            m = re.search(name + r"I(\w+?)Li(\d)E", mangled)
+            dtype, code = _MANGLED_TYPES[m.group(1)] if m else ("f32", 0)
+            op = int(m.group(2)) if m else 0
+            per_sm = ctypes.c_int(0)
+            err = lib.ring_blocks_per_sm(kind, op, code, ctypes.byref(per_sm))
+            check(err == 0, f"{key} occupancy query failed ({err})")
+            rows.append({"dtype": dtype, "op": _RING_OP_NAMES[op],
+                         "registers": rep["registers"],
+                         "spill_bytes": rep["spill_bytes"],
+                         "blocks_per_sm": per_sm.value,
+                         "resident_blocks": per_sm.value * sms})
+        out[key] = sorted(rows, key=lambda r: (r["dtype"], r["op"]))
+    return out
+
+
+def phase_ring_build(kernels: dict) -> dict:
+    """Print the registers, spills and resident blocks of every C4, C5 and
+    C6 instantiation; fail if one spills, or if C4 has not one per element
+    type and op (16) or C5 or C6 not exactly one."""
+    found = ring_instances(kernels)
+    for key, rows in found.items():
+        for r in rows:
+            log("build", f"{key} {r['dtype']} {r['op']}: {r['registers']} "
+                f"registers, {r['spill_bytes']} spill bytes, "
+                f"{r['blocks_per_sm']} blocks per SM, {r['resident_blocks']} "
+                f"resident blocks")
+        spills = [r for r in rows if r["spill_bytes"]]
+        check(not spills, f"{key} spills: {spills}")
+        check(len(rows) == (16 if key == "C4" else 1),
+              f"{len(rows)} instantiations of {key} in the compiler's report")
+    return found
+
+
+def ring_build_fields(rows: list) -> dict:
+    """The build numbers of a ring kernel's row of the kernels line."""
+    return {"registers": max(r["registers"] for r in rows),
+            "spills": max(r["spill_bytes"] for r in rows),
+            "blocks_per_sm": min(r["blocks_per_sm"] for r in rows),
+            "resident_blocks": min(r["resident_blocks"] for r in rows),
+            "instances": rows}
 
 
 def phase_kernels(dev):
@@ -1152,6 +1232,42 @@ def _allgather_cases(gen, dev):
     return checked
 
 
+# C4 at the kernels' largest ring, every op: sixteen loads a vector, and
+# the min and prod instantiations that RING_OPS leaves out. prod takes
+# factors near 1 (int32: -3 .. 3), so products of 16 stay finite.
+RING_ALL_OPS = ("sum", "max", "min", "prod")
+
+
+def _allreduce_cases(gen, dev):
+    """C4 against its plain version, bit for bit, at RING_MAX_N ranks, every
+    type and op of RING_DTYPES and RING_ALL_OPS, per-rank blocks
+    RING_SHAPES[:2]. Returns the number of cases."""
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import ring as R
+
+    n, checked = RING_MAX_N, 0
+    group = RingGroup(n, dev)
+    for dtype in RING_DTYPES:
+        for shape in RING_SHAPES[:2]:
+            for op in RING_ALL_OPS:
+                if op != "prod":
+                    x = _ring_input(n, shape, dtype, gen, dev)
+                elif dtype == torch.int32:
+                    x = torch.randint(-3, 4, (n,) + shape, generator=gen,
+                                      device=dev, dtype=dtype)
+                else:
+                    x = (1 + 0.1 * torch.randn((n,) + shape, generator=gen,
+                                               device=dev)).to(dtype)
+                want = R.ring_allreduce(x, op, impl="plain")
+                got = R.ring_allreduce(x, op, impl="cuda", group=group)
+                check(got.shape == want.shape and torch.equal(got, want),
+                      f"C4 allreduce n={n} {dtype} {shape} op={op}: differs "
+                      f"from its plain version")
+                checked += 1
+    group.check()
+    return checked
+
+
 def ring_bound(in_bytes, out_bytes):
     """(bound_ms, "bytes"): each input read once, each output written
     once, at the card's memory rate; a ring does no arithmetic to speak
@@ -1287,6 +1403,10 @@ def phase_ring_kernels(dev, card, zero_rows=None):
         f"cases: n {RING_NS + (RING_MAX_N,)} (n {RING_MAX_N} at per-rank "
         f"blocks {RING_SHAPES[:2]}), every type; into a caller's out and "
         f"with each shard already in its place of out")
+    checked = _allreduce_cases(gen, dev)
+    log("ring", f"C4 bitwise equal to its plain version in {checked} more "
+        f"cases: n {RING_MAX_N}, every type, ops {RING_ALL_OPS}, per-rank "
+        f"blocks {RING_SHAPES[:2]}")
     timings = []
     group = RingGroup(ZERO_N, dev)
     if zero_rows:
@@ -2035,6 +2155,7 @@ def main() -> int:
     log("env", f"{card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     built = phase_build()
+    ring_built = phase_ring_build(built)
     rows = phase_kernels(dev)
     bwd_rows = phase_bwd_kernels(dev)
     head_dims = phase_head_dims(dev)
@@ -2110,6 +2231,8 @@ def main() -> int:
 
     def ring_kernel(key, name, line, by_path):
         main = ring_rows[0][key]
+        build = ring_build_fields(ring_built[key]) if key in ring_built \
+            else {}
         return {
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/ring.cu",
@@ -2122,7 +2245,7 @@ def main() -> int:
             "library_ms": main["library_ms"],
             "library_computes": main["library_computes"],
             "shape": f"n={main['n']} ranks x {main['rows']} x 128 bf16 sum",
-            "per_shape": [t[key] for t in ring_rows]}
+            "per_shape": [t[key] for t in ring_rows], **build}
 
     def qring_kernel(key, name, line, by_path):
         main = qring_rows[0][key]
@@ -2139,7 +2262,8 @@ def main() -> int:
             "yardstick_ms": main["yardstick_ms"],
             "yardstick_computes": main["yardstick_computes"],
             "shape": f"n={main['n']} ranks x {main['rows']} x 128 f32",
-            "per_shape": [t[key] for t in qring_rows]}
+            "per_shape": [t[key] for t in qring_rows],
+            **ring_build_fields(ring_built[key])}
 
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",

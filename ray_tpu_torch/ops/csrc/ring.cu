@@ -67,20 +67,33 @@
 //     until all n - 1 have arrived on its own. n - 1 senders share one
 //     word, so it counts arrivals under the call's epoch tag, (tag << 32) |
 //     arrivals (see arrive). One flag round per call: its epoch is base + 1.
+//   - C4 is no ring of hops either: one ordered reduce, pushed to every
+//     rank. The reference's two sweeps leave chunk c on every rank as the
+//     fold acc = x_c[c], then acc = T(combine(x_{c+j}[c], acc)) for j = 1
+//     .. n - 1 (the receiving rank's own element first, as _rs_hop
+//     combines), rounded to T after every step, and the allgather sweep
+//     copies it exactly. Block (b, r) loads range b of chunk r from in[r],
+//     in[r + 1], .., in[r - 1] through the pointer table, folds in that
+//     order in registers, and stores the result at chunk r of every rank's
+//     output; completion as C3's, one flag round, no comm slots.
 //
 // Bound on the H100: bytes. Each kernel moves (reads + writes) its input
 // once and its output once at least, at 3.35 TB/s; the ring's n - 1 (C1:
-// 1, C4: 2(n - 1)) hops through the slots move more than that, so a
-// monolithic kernel on one card sits several times above the bound. C3's
+// 1) hops through the slots move more than that, so a monolithic ring
+// kernel on one card sits several times above the bound. C3's and C4's
 // loads and stores touch exactly the bound's bytes: each input element is
-// read once and each output element written once, n (1 + n) chunks in
+// read once and each output element written once. C3: n (1 + n) chunks in
 // all; at 4 ranks of 3,756,104 rows of 128 bf16 that counts 3.846 GB read
-// and 15.386 GB written, 19.23 GB, where n - 1 copy hops through the
-// slots count 53.85 GB (counts from the code; the card's DRAM traffic is
-// not measured). Across cards on
-// NVLink a push costs each rank the same (n - 1) chunks of link bytes as
-// a ring, in one round instead of n - 1. The copies are 16-byte vectors,
-// neighbouring threads on neighbouring addresses.
+// and 15.386 GB written, 19.23 GB, where n - 1 copy hops through the slots
+// count 53.85 GB. C4: 2n chunks a rank; at 4 ranks of 15,024,416 rows of
+// 128 bf16 (chunk C = 961.6 MB) that counts 8C a rank, 30.77 GB, where
+// the two sweeps through the slots counted 35C a rank (the copy of in to
+// out 8C, a reduce-scatter hop 5C, an allgather hop 4C), 134.6 GB. (Counts
+// from the code; the card's DRAM traffic is not measured.) Across cards
+// on NVLink a push costs each rank the same link bytes as a ring: C3 n - 1
+// chunks, C4 2(n - 1) (n - 1 chunks of peer loads, n - 1 of peer stores),
+// in one round instead of n - 1 or 2(n - 1). The copies are 16-byte
+// vectors, neighbouring threads on neighbouring addresses.
 //
 // Types: float32, bfloat16, float16 and int32, the reference's float and
 // int blocks (C5, C6: float32 only, as the reference feeds them). The
@@ -112,10 +125,28 @@
 // the receiving block (b, right) needs no second barrier. Quantize as
 // _quantize: IEEE x / scale (__fdiv_rn), rintf (half to even), clamp to
 // +-127. Slots per rank: 2 x chunk int8 payloads, then 2 x MAX_BPR f32
-// scales. A range is counted in groups of 16 elements (64 bytes of f32 in,
-// 16 bytes of int8 out). C5 and C6 read each send chunk twice (max, then
-// quantize); that and the second pass over the chunk are what a faster
-// version would fold together.
+// scales. A block's range is counted in groups of 16 elements; each thread
+// turns one float4 into one 32-bit word of four codes, so a warp reads 512
+// contiguous bytes of f32 and writes 128 of int8 (the dequantize mirrors
+// it), with four float4 in flight per thread.
+// C6 reads each send chunk once. In C6's schedule the send chunk of every
+// hop but the first is the chunk this block received into at the hop
+// before (reduce-scatter: send r - s - 1 = recv r - (s - 1) - 1; the first
+// allgather send r + 1 is the last reduce-scatter recv; allgather: send
+// r - s = recv r - (s - 1)), so the block takes the next hop's max of its
+// range while it dequantizes, in registers, and publishes it at the next
+// hop's barrier, as before, without reading the chunk again. Only hop 0
+// has a max pass of its own. out needs no copy of in: the reduce-scatter
+// sweep accumulates into each received chunk once, reading it from in and
+// writing it to out, and every chunk of out is written by the end (chunk
+// r + 1 by the last reduce-scatter hop, the others by the allgather
+// sweep). Per rank, in f32 chunks C: hop 0 reads C (max) + C (quantize),
+// writes C / 4 and reads C / 4 (payload), reads C and writes C (the
+// accumulate): 4.5C; each later reduce-scatter hop 3.5C; each allgather
+// hop 2.5C. At n = 4: 19C a rank, where reading each send chunk twice
+// counted 24C in place, and the copy of in to out 8C more (counts from
+// the code). C5 is one hop with no hop before it: a max pass, then the
+// hop, 3.5C.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ray_tpu_torch/ops/_build.py does this).
@@ -311,15 +342,16 @@ __device__ __forceinline__ int flag_index(int b, int slot) {
   return b * 2 + slot;
 }
 
-// st(i, ld(i)) for this thread's share of [lo, hi): four vectors loaded
-// before any is stored, so each thread keeps 64 bytes in flight.
+// st(i, ld(i)) for this thread's share of [lo, hi), in units of what ld
+// returns (a 16-byte vector, a float4, ...): four loaded before any is
+// stored, so each thread keeps four loads in flight.
 template <typename Ld, typename St>
 __device__ __forceinline__ void each_vec(long long lo, long long hi, Ld ld,
                                          St st) {
   long long i = lo + threadIdx.x;
   for (; i + 3 * NT < hi; i += 4 * NT) {
-    const uint4 v0 = ld(i), v1 = ld(i + NT), v2 = ld(i + 2 * NT),
-                v3 = ld(i + 3 * NT);
+    const auto v0 = ld(i), v1 = ld(i + NT), v2 = ld(i + 2 * NT),
+               v3 = ld(i + 3 * NT);
     st(i, v0);
     st(i + NT, v1);
     st(i + 2 * NT, v2);
@@ -376,17 +408,6 @@ __device__ bool hop_reduce(const RingArgs& a, const Block& k, int t, int total,
   return true;
 }
 
-// One copy hop: dst = slot over this block's range.
-__device__ bool hop_copy(const RingArgs& a, const Block& k, int t, int total,
-                         const uint4* send, uint4* dst) {
-  if (!hop_send(a, k, t, send) || !hop_recv(a, k, t)) return false;
-  const uint4* in = my_slot(a, k, t);
-  each_vec(k.lo, k.hi, [&](long long i) { return __ldcg(in + i); },
-           [&](long long i, uint4 v) { dst[i] = v; });
-  hop_release(a, k, t, total);
-  return true;
-}
-
 // C1: one hop of the whole block, straight into the right neighbour's
 // output (no slots): out[right] = in[r].
 template <typename T>
@@ -433,12 +454,23 @@ __device__ __forceinline__ void arrive(u64* word, u64 tag) {
   atomicAdd(reinterpret_cast<unsigned long long*>(word), 1ull);
 }
 
+// After a push: fence the block's stores, arrive on the receive word of
+// block b of each of the n - 1 other ranks, and wait until all n - 1 have
+// arrived on its own. One flag round per call, epoch base + 1.
+__device__ void push_done(const RingArgs& a, const Block& k) {
+  const u64 tag = (a.base + 1) & 0xffffffffull;
+  __threadfence();
+  __syncthreads();
+  const int p = threadIdx.x;
+  if (p < k.n && p != k.r) arrive(a.recv[p] + flag_index(k.b, 0), tag);
+  wait_flag(a, a.recv[k.r] + flag_index(k.b, 0), (tag << 32) | (k.n - 1),
+            k.r, k.b, 0, WAIT_ARRIVALS);
+}
+
 // C3: one read, n writes. Block (b, r) reads its range of in[r] once and
 // stores each vector at r * chunk of every rank's output, its own
-// included (peer stores through the pointer table, as C1's); then it
-// fences, arrives on the receive word of block b of each of the n - 1
-// other ranks, and waits until all n - 1 have arrived on its own. One
-// flag round per call: out[r] = (in[0], ..., in[n-1]).
+// included (peer stores through the pointer table, as C1's), then
+// push_done: out[r] = (in[0], ..., in[n-1]).
 template <typename T>
 __global__ void __launch_bounds__(NT)
 ring_allgather_kernel(const __grid_constant__ RingArgs a) {
@@ -450,77 +482,100 @@ ring_allgather_kernel(const __grid_constant__ RingArgs a) {
              for (int j = 0, p = k.r; j < k.n; ++j, p = succ(p, k.n))
                __stcs(reinterpret_cast<uint4*>(a.out[p]) + at + i, v);
            });
-  const u64 tag = (a.base + 1) & 0xffffffffull;
-  __threadfence();
-  __syncthreads();
-  const int p = threadIdx.x;
-  if (p < k.n && p != k.r) arrive(a.recv[p] + flag_index(k.b, 0), tag);
-  wait_flag(a, a.recv[k.r] + flag_index(k.b, 0), (tag << 32) | (k.n - 1),
-            k.r, k.b, 0, WAIT_ARRIVALS);
+  push_done(a, k);
 }
 
-// C4: a reduce-scatter sweep, then an allgather sweep: 2(n - 1) hops.
+// C4's fold of U vectors i, i + NT, ... of chunk r (at: its offset): acc
+// = in[r], then acc = T(combine(in[p], acc)) for p = r + 1, .., r - 1;
+// then acc stored at chunk r of every rank's output. The next rank's U
+// loads are issued before the current rank's combines, so 2U loads are in
+// flight a thread (64-80 registers, 3-4 blocks a SM; U loads in flight
+// and 40 registers left the f32 instantiations spilling).
+template <typename T, int OP, int U>
+__device__ __forceinline__ void fold_push(const RingArgs& a, const Block& k,
+                                          long long at, long long i) {
+  const auto from = [&](int p) {
+    return reinterpret_cast<const uint4*>(a.in[p]) + at + i;
+  };
+  uint4 acc[U], v[U];
+  int p = succ(k.r, k.n);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    acc[u] = from(k.r)[u * NT];
+    v[u] = from(p)[u * NT];
+  }
+  for (;;) {
+    const int q = succ(p, k.n);
+    uint4 w[U];
+    if (q != k.r) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) w[u] = from(q)[u * NT];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = combine_vec<T, OP>(v[u], acc[u]);
+    if (q == k.r) break;
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = w[u];
+    p = q;
+  }
+  for (int j = 0, o = k.r; j < k.n; ++j, o = succ(o, k.n)) {
+    uint4* y = reinterpret_cast<uint4*>(a.out[o]) + at + i;
+#pragma unroll
+    for (int u = 0; u < U; ++u) __stcs(y + u * NT, acc[u]);
+  }
+}
+
+// C4: one ordered reduce, pushed to every rank (see the header): block
+// (b, r) folds range b of chunk r over the n inputs in the reference's
+// order and stores it at chunk r of every output, then push_done.
 template <typename T, int OP>
 __global__ void __launch_bounds__(NT)
 ring_allreduce_kernel(const __grid_constant__ RingArgs a) {
   const Block k = block_of(a);
-  const uint4* in = reinterpret_cast<const uint4*>(a.in[k.r]);
-  uint4* out = reinterpret_cast<uint4*>(a.out[k.r]);
-  const long long cv = a.chunk_vecs;
-  const int total = 2 * (k.n - 1);
-  for (int c = 0; c < k.n; ++c)
-    each_vec(k.lo, k.hi, [&](long long i) { return in[c * cv + i]; },
-             [&](long long i, uint4 v) { out[c * cv + i] = v; });
-  int t = 0;
-  for (int s = 0; s < k.n - 1; ++s, ++t) {
-    const int send = mod(k.r - s, k.n), recv = mod(k.r - s - 1, k.n);
-    if (!hop_reduce<T, OP>(a, k, t, total, out + send * cv, out + recv * cv,
-                           out + recv * cv))
-      return;
-  }
-  for (int s = 0; s < k.n - 1; ++s, ++t) {
-    const int send = mod(k.r - s + 1, k.n), recv = mod(k.r - s, k.n);
-    if (!hop_copy(a, k, t, total, out + send * cv, out + recv * cv)) return;
-  }
+  const long long at = k.r * a.chunk_vecs;
+  long long i = k.lo + threadIdx.x;
+  for (; i + 3 * NT < k.hi; i += 4 * NT) fold_push<T, OP, 4>(a, k, at, i);
+  for (; i < k.hi; i += NT) fold_push<T, OP, 1>(a, k, at, i);
+  push_done(a, k);
 }
 
 // ---------------------------------------------------------------------------
 // The int8 ring: C5 and C6 (float32 only).
 // ---------------------------------------------------------------------------
 
-// max |x| over this block's groups [lo, hi) of src, as the bits of |x|
-// (valid in thread 0).
-__device__ unsigned block_absmax_bits(const float4* src, long long lo,
-                                      long long hi) {
-  __shared__ unsigned warp_max[NT / 32];
+constexpr int F4 = QGROUP / 4;         // float4 (and int8 words) per group
+
+// max |x| over the four lanes of v, as the bits of |x| (they order like
+// the floats, and a NaN's exceed every number's).
+__device__ __forceinline__ unsigned abs_bits(float4 v) {
+  return max(max(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y))),
+             max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w))));
+}
+
+// max |x| over this thread's float4s of [lo, hi) of src, as bits.
+__device__ unsigned thread_absmax_bits(const float4* src, long long lo,
+                                       long long hi) {
   unsigned m = 0;
-  for (long long g = lo + threadIdx.x; g < hi; g += NT) {
-#pragma unroll
-    for (int j = 0; j < QGROUP / 4; ++j) {
-      const float4 v = src[g * (QGROUP / 4) + j];
-      m = max(m, max(max(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y))),
-                     max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w)))));
-    }
-  }
-  m = __reduce_max_sync(0xffffffffu, m);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    m = threadIdx.x < NT / 32 ? warp_max[threadIdx.x] : 0u;
-    m = __reduce_max_sync(0xffffffffu, m);
-  }
+  each_vec(lo, hi, [&](long long i) { return src[i]; },
+           [&](long long, float4 v) { m = max(m, abs_bits(v)); });
   return m;
 }
 
-// The per-rank barrier of hop t: publish this block's max, wait for every
-// block of the rank, read the rank's max and turn it into the scale
-// (max / 127 floored at 1e-30; a NaN max stays NaN, as jnp.maximum keeps
-// it). False: the block exits.
+// The per-rank barrier of hop t: reduce the threads' maxes m over the
+// block, publish it, wait for every block of the rank, read the rank's max
+// and turn it into the scale (max / 127 floored at 1e-30; a NaN max stays
+// NaN, as jnp.maximum keeps it). False: the block exits.
 __device__ bool rank_scale(const RingArgs& a, const Block& k, int t,
-                           unsigned bits, float* scale) {
+                           unsigned m, float* scale) {
+  __shared__ unsigned warp_max[NT / 32];
   __shared__ float s_scale;
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
   int ok = 1;
   if (threadIdx.x == 0) {
+    unsigned bits = 0;
+    for (int w = 0; w < NT / 32; ++w) bits = max(bits, warp_max[w]);
     u64* bar = a.bar[k.r];
     u64* word = bar + 1 + (t & 1);
     const u64 epoch = a.base + t + 1;
@@ -556,118 +611,126 @@ __device__ bool rank_scale(const RingArgs& a, const Block& k, int t,
   return true;
 }
 
-__device__ __forceinline__ int quantize1(float x, float scale) {
+__device__ __forceinline__ unsigned quantize1(float x, float scale) {
   const float r = rintf(__fdiv_rn(x, scale));
-  return static_cast<int>(fminf(fmaxf(r, -QMAX), QMAX));
+  return static_cast<unsigned>(static_cast<int>(fminf(fmaxf(r, -QMAX), QMAX))) &
+         0xffu;
 }
 
-// 16 f32 elements -> 16 int8 codes in one 16-byte vector.
-__device__ __forceinline__ uint4 quantize16(const float4* src, float scale) {
-  uint4 out;
-  unsigned* w = reinterpret_cast<unsigned*>(&out);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 v = src[j];
-    w[j] = (quantize1(v.x, scale) & 0xff) |
-           ((quantize1(v.y, scale) & 0xff) << 8) |
-           ((quantize1(v.z, scale) & 0xff) << 16) |
-           (static_cast<unsigned>(quantize1(v.w, scale) & 0xff) << 24);
-  }
-  return out;
+// Four f32 elements -> four int8 codes in one 32-bit word, lane i in byte i.
+__device__ __forceinline__ unsigned quantize4(float4 v, float scale) {
+  return quantize1(v.x, scale) | (quantize1(v.y, scale) << 8) |
+         (quantize1(v.z, scale) << 16) | (quantize1(v.w, scale) << 24);
 }
 
 __device__ __forceinline__ float code(unsigned w, int i) {
   return static_cast<float>(static_cast<signed char>((w >> (8 * i)) & 0xff));
 }
 
-// dst = q * scale (ACC: dst = fma(q, scale, dst), one rounding) for the 16
-// codes of q.
+// The four codes of w times scale; ACC: fma(q, scale, acc), one rounding.
 template <bool ACC>
-__device__ __forceinline__ void dequantize16(uint4 q, float scale,
-                                             float4* dst) {
-  const unsigned* w = reinterpret_cast<const unsigned*>(&q);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float4 v = ACC ? dst[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ACC) {
-      v.x = __fmaf_rn(code(w[j], 0), scale, v.x);
-      v.y = __fmaf_rn(code(w[j], 1), scale, v.y);
-      v.z = __fmaf_rn(code(w[j], 2), scale, v.z);
-      v.w = __fmaf_rn(code(w[j], 3), scale, v.w);
-    } else {
-      v.x = __fmul_rn(code(w[j], 0), scale);
-      v.y = __fmul_rn(code(w[j], 1), scale);
-      v.z = __fmul_rn(code(w[j], 2), scale);
-      v.w = __fmul_rn(code(w[j], 3), scale);
-    }
-    dst[j] = v;
-  }
+__device__ __forceinline__ float4 dequantize4(unsigned w, float scale,
+                                              float4 acc) {
+  if constexpr (ACC)
+    return make_float4(__fmaf_rn(code(w, 0), scale, acc.x),
+                       __fmaf_rn(code(w, 1), scale, acc.y),
+                       __fmaf_rn(code(w, 2), scale, acc.z),
+                       __fmaf_rn(code(w, 3), scale, acc.w));
+  return make_float4(__fmul_rn(code(w, 0), scale), __fmul_rn(code(w, 1), scale),
+                     __fmul_rn(code(w, 2), scale), __fmul_rn(code(w, 3), scale));
 }
 
-// One quantized hop t: the rank's scale of the send chunk, the int8 range
-// and this block's copy of the scale into the right neighbour's slot t % 2,
-// then the left neighbour's payload dequantized into dst (ACC: accumulated).
+// A payload word and the accumulator it lands on.
+struct WordAcc {
+  unsigned q;
+  float4 acc;
+};
+
+// One quantized hop t, over this block's float4s [lo, hi) of a chunk:
+// the rank's scale of the send chunk (m: this thread's max |send|, as
+// bits), the int8 range and this block's copy of the scale into the right
+// neighbour's slot t % 2, then the left neighbour's payload dequantized
+// into dst (ACC: accumulated onto cur, which may be dst). On return m is
+// this thread's max |dst| written: the next hop's m, when the next hop
+// sends dst.
 template <bool ACC>
 __device__ bool qhop(const RingArgs& a, const Block& k, int t, int total,
-                     const float4* send, float4* dst) {
-  constexpr int F4 = QGROUP / 4;
+                     const float4* send, const float4* cur, float4* dst,
+                     unsigned& m) {
   float scale;
-  if (!rank_scale(a, k, t, block_absmax_bits(send, k.lo, k.hi), &scale))
-    return false;
+  if (!rank_scale(a, k, t, m, &scale)) return false;
   const int slot = t & 1;
   const int f = flag_index(k.b, slot);
   if (t >= 2 && !wait_flag(a, a.cap[k.r] + f, a.base + t - 1, k.r, k.b, t,
                            WAIT_CAP))
     return false;
-  uint4* out = reinterpret_cast<uint4*>(a.slot[k.right]) + slot * a.chunk_vecs;
-  for (long long g = k.lo + threadIdx.x; g < k.hi; g += NT)
-    __stcg(out + g, quantize16(send + g * F4, scale));
+  const long long lo = k.lo * F4, hi = k.hi * F4, words = a.chunk_vecs * F4;
+  unsigned* out = reinterpret_cast<unsigned*>(a.slot[k.right]) + slot * words;
+  each_vec(lo, hi, [&](long long i) { return send[i]; },
+           [&](long long i, float4 v) { __stcg(out + i, quantize4(v, scale)); });
   if (threadIdx.x == 0) __stcg(a.scale[k.right] + slot * MAX_BPR + k.b, scale);
   signal_flag(a.recv[k.right] + f, a.base + t + 1);
   if (!hop_recv(a, k, t)) return false;
-  const uint4* in = my_slot(a, k, t);
+  const unsigned* in = reinterpret_cast<const unsigned*>(a.slot[k.r]) +
+                       slot * words;
   const float s = __ldcg(a.scale[k.r] + slot * MAX_BPR + k.b);
-  for (long long g = k.lo + threadIdx.x; g < k.hi; g += NT)
-    dequantize16<ACC>(__ldcg(in + g), s, dst + g * F4);
+  m = 0;
+  const auto put = [&](long long i, float4 v) {
+    dst[i] = v;
+    m = max(m, abs_bits(v));
+  };
+  if constexpr (ACC)
+    each_vec(lo, hi, [&](long long i) { return WordAcc{__ldcg(in + i), cur[i]}; },
+             [&](long long i, WordAcc w) {
+               put(i, dequantize4<true>(w.q, s, w.acc));
+             });
+  else
+    each_vec(lo, hi, [&](long long i) { return __ldcg(in + i); },
+             [&](long long i, unsigned w) {
+               put(i, dequantize4<false>(w, s, float4{}));
+             });
   hop_release(a, k, t, total);
   return true;
 }
 
 // C5: one fused hop of the whole block: out[right] = dequant(quant(in[r]))
-// with one scale over rank r's block.
+// with one scale over rank r's block; a max pass, then the hop.
 __global__ void __launch_bounds__(NT)
 ring_qhop_kernel(const __grid_constant__ RingArgs a) {
   const Block k = block_of(a);
-  qhop<false>(a, k, 0, 1, reinterpret_cast<const float4*>(a.in[k.r]),
-              reinterpret_cast<float4*>(a.out[k.r]));
+  const float4* in = reinterpret_cast<const float4*>(a.in[k.r]);
+  unsigned m = thread_absmax_bits(in, k.lo * F4, k.hi * F4);
+  qhop<false>(a, k, 0, 1, in, nullptr, reinterpret_cast<float4*>(a.out[k.r]),
+              m);
 }
 
 // C6: the reference's schedule (quantized.py:83-94): a reduce-scatter sweep
 // that accumulates, then an allgather sweep that overwrites, 2(n - 1) hops,
-// each requantizing its send chunk with a fresh scale. out starts as a copy
-// of in (no copy when the two are one buffer: in place).
+// each requantizing its send chunk with a fresh scale. Hop 0 reads its send
+// chunk from in after a max pass; every later hop sends the chunk the hop
+// before wrote, with the max taken as it was written (see the header). The
+// reduce-scatter hops accumulate in[recv] into out[recv] (one buffer when
+// in place), so out needs no copy of in.
 __global__ void __launch_bounds__(NT)
 ring_qallreduce_kernel(const __grid_constant__ RingArgs a) {
-  constexpr int F4 = QGROUP / 4;
   const Block k = block_of(a);
   const float4* in = reinterpret_cast<const float4*>(a.in[k.r]);
   float4* out = reinterpret_cast<float4*>(a.out[k.r]);
   const long long cf = a.chunk_vecs * F4;     // float4 per chunk
   const int total = 2 * (k.n - 1);
-  if (in != out)
-    for (int c = 0; c < k.n; ++c)
-      for (long long g = k.lo + threadIdx.x; g < k.hi; g += NT)
-#pragma unroll
-        for (int j = 0; j < F4; ++j)
-          out[c * cf + g * F4 + j] = in[c * cf + g * F4 + j];
+  unsigned m = thread_absmax_bits(in + k.r * cf, k.lo * F4, k.hi * F4);
   int t = 0;
   for (int s = 0; s < k.n - 1; ++s, ++t) {
     const int send = mod(k.r - s, k.n), recv = mod(k.r - s - 1, k.n);
-    if (!qhop<true>(a, k, t, total, out + send * cf, out + recv * cf)) return;
+    if (!qhop<true>(a, k, t, total, (s == 0 ? in : out) + send * cf,
+                    in + recv * cf, out + recv * cf, m))
+      return;
   }
   for (int s = 0; s < k.n - 1; ++s, ++t) {
     const int send = mod(k.r - s + 1, k.n), recv = mod(k.r - s, k.n);
-    if (!qhop<false>(a, k, t, total, out + send * cf, out + recv * cf)) return;
+    if (!qhop<false>(a, k, t, total, out + send * cf, nullptr,
+                     out + recv * cf, m))
+      return;
   }
 }
 
@@ -702,6 +765,18 @@ const void* kernel_for(int kind, int op) {
   return nullptr;
 }
 
+// The kernel for a dtype code (0 float32, 1 bfloat16, 2 float16, 3 int32);
+// nullptr for a combination there is none for.
+const void* kernel_of(int kind, int op, int dtype) {
+  switch (dtype) {
+    case 0: return kernel_for<float>(kind, op);
+    case 1: return kernel_for<__nv_bfloat16>(kind, op);
+    case 2: return kernel_for<__half>(kind, op);
+    case 3: return kernel_for<int>(kind, op);
+  }
+  return nullptr;
+}
+
 bool quantized(int kind) { return kind == QHOP || kind == QALLREDUCE; }
 
 // Bytes per element of a dtype code (0 float32, 1 bfloat16, 2 float16,
@@ -716,7 +791,7 @@ int elem_bytes(int dtype) {
 
 // Bytes of comm slots one rank needs for a call (see ring_slot_bytes).
 long long rank_slot_bytes(int kind, int elem, long long chunk_elems) {
-  if (kind == PERMUTE || kind == ALLGATHER) return 0;
+  if (kind == PERMUTE || kind == ALLGATHER || kind == ALLREDUCE) return 0;
   if (quantized(kind))
     return 2 * chunk_elems + 2 * MAX_BPR * (long long)sizeof(float);
   return 2 * chunk_elems * elem;
@@ -782,10 +857,7 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   const int unit = quantized(kind) ? QGROUP : vec;
   if (chunk_elems % unit || in_stride % vec || out_stride % vec)
     return int(cudaErrorInvalidValue);
-  const void* fn = dtype == 0   ? kernel_for<float>(kind, op)
-                   : dtype == 1 ? kernel_for<__nv_bfloat16>(kind, op)
-                   : dtype == 2 ? kernel_for<__half>(kind, op)
-                                : kernel_for<int>(kind, op);
+  const void* fn = kernel_of(kind, op, dtype);
   if (fn == nullptr) return int(cudaErrorInvalidValue);
 
   int dev = 0;
@@ -836,13 +908,22 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   return int(cudaGetLastError());
 }
 
-// Bytes of comm slots a call needs for all n ranks: C1, C3 none; C2, C4
+// Bytes of comm slots a call needs for all n ranks: C1, C3, C4 none; C2
 // two chunks of the element type per rank; C5, C6 two int8 chunks and 2 x
 // MAX_BPR f32 scales per rank.
 extern "C" long long ring_slot_bytes(int kind, int dtype, int n,
                                      long long chunk_elems) {
   const int elem = elem_bytes(dtype);
   return n * rank_slot_bytes(kind, elem, chunk_elems);
+}
+
+// Blocks of the kernel for (kind, op, dtype) resident on one SM at once,
+// from the runtime's occupancy calculator: the launch caps n * bpr at this
+// times the SMs. Returns a cudaError_t.
+extern "C" int ring_blocks_per_sm(int kind, int op, int dtype, int* out) {
+  const void* fn = kernel_of(kind, op, dtype);
+  if (fn == nullptr) return int(cudaErrorInvalidValue);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, NT, 0));
 }
 
 // The device address of pinned host memory (the timeout record).

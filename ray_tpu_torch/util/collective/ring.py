@@ -20,7 +20,11 @@ ranks at once, each rank played by its own thread blocks):
 - C3 ``ring_allgather_cuda``: one read of each shard and a push of it to
   every rank, one flag round (``_allgather_kernel``'s function; its n - 1
   copy hops are not needed, since a copy has no combine order);
-- C4 ``ring_allreduce_cuda``: 2(n - 1) hops (``_allreduce_kernel``).
+- C4 ``ring_allreduce_cuda``: one ordered reduce of each chunk over the
+  n ranks, pushed to every rank, one flag round (``_allreduce_kernel``'s
+  function: its two sweeps leave every rank chunk c folded as
+  ``acc = x_c[c]``, then ``acc = combine(x_{c+j}[c], acc)`` for j = 1 ..
+  n - 1, rounded each step; one pass computes that on one card).
 
 Each takes the canonical block, ``[n, rows, 128]`` with each rank's block
 contiguous (ranks may sit at any 16-byte aligned stride), and has a plain
@@ -90,10 +94,9 @@ _REDUCE_OPS = {ReduceOp.SUM: "sum", ReduceOp.AVERAGE: "avg",
 
 def hops(kind: str, n: int) -> int:
     """Flag rounds (epochs) of one call of ``kind`` over n ranks: its ring
-    hops, and one for C3's push."""
+    hops, and one for C3's and C4's pushes."""
     return {"permute": 1, "reduce_scatter": n - 1, "allgather": 1,
-            "allreduce": 2 * (n - 1), "qhop": 1,
-            "qallreduce": 2 * (n - 1)}[kind]
+            "allreduce": 1, "qhop": 1, "qallreduce": 2 * (n - 1)}[kind]
 
 
 def select_impl(requested: str = "auto",

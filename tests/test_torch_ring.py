@@ -193,6 +193,64 @@ def test_bf16_plain_ring_rounds_once_per_hop():
     assert all(torch.equal(got[r], got[0]) for r in range(n))
 
 
+_FOLD_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                "f16": torch.float16, "int32": torch.int32}
+_FOLD_COMBINE = {"sum": lambda a, b: a + b, "prod": lambda a, b: a * b,
+                 "max": torch.maximum, "min": torch.minimum}
+
+
+def _fold_input(seed, n, c, dtype, op):
+    """[n, n * c, 128] of ``dtype`` where the order of a fold shows: for
+    floats, magnitudes 1e-3, 1 and 1e3 mixed element by element (prod:
+    factors in about [0.4, 2.5] of either sign, so products of up to 8 stay
+    finite in f16); int32 as ``_int_host``."""
+    shape = (n, n * c, 128)
+    if dtype == torch.int32:
+        return torch.from_numpy(_int_host(seed, *shape, op=op))
+    rng = np.random.RandomState(seed)
+    if op == "prod":
+        x = np.exp(0.3 * rng.randn(*shape)) * rng.choice([-1.0, 1.0], shape)
+    else:
+        x = rng.randn(*shape) * 10.0 ** rng.choice([-3, 0, 3], shape)
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+def _fold(x, op, order):
+    """Every rank's chunk c = the fold of chunk c over the ranks in
+    ``order(c)``: acc = x[first][c], then acc = T(combine(x[p][c], acc))."""
+    n, c = x.shape[0], x.shape[1] // x.shape[0]
+    out = torch.empty_like(x)
+    for k in range(n):
+        ranks = order(k)
+        sl = slice(k * c, (k + 1) * c)
+        acc = x[ranks[0], sl]
+        for p in ranks[1:]:
+            acc = _FOLD_COMBINE[op](x[p, sl], acc)
+        out[:, sl] = acc
+    return out
+
+
+@pytest.mark.parametrize("dtype", list(_FOLD_DTYPES))
+@pytest.mark.parametrize("op", ["sum", "prod", "max", "min"])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_allreduce_is_the_ordered_fold_c4_pushes(n, op, dtype):
+    """C4's contract: ``ring_allreduce_plain`` (the reference's two sweeps,
+    hop by hop) leaves chunk c on every rank as acc = x_c[c], then acc =
+    T(combine(x_{c+j}[c], acc)) for j = 1 .. n - 1, rounded to the element
+    type after every step; C4 computes exactly that fold in one pass. Bit
+    for bit. Where order can matter (a float sum or product over 3 or more
+    ranks) the fold in the other direction differs, so the inputs pin the
+    order."""
+    dt = _FOLD_DTYPES[dtype]
+    x = _fold_input(1000 + 17 * n, n, 4, dt, op)
+    got = R.ring_allreduce_plain(x, op)
+    want = _fold(x, op, lambda k: [(k + j) % n for j in range(n)])
+    assert torch.equal(got, want)
+    if dt != torch.int32 and op in ("sum", "prod") and n >= 3:
+        other = _fold(x, op, lambda k: [(k - j) % n for j in range(n)])
+        assert not torch.equal(got, other)
+
+
 def test_auto_on_cpu_takes_the_plain_version():
     assert T.select_impl("auto", torch.device("cpu")) == "plain"
     assert T.select_impl("auto", torch.device("cuda", 0)) == "cuda"
@@ -253,15 +311,15 @@ def test_reduce_op_enum_and_group_on_cpu():
 
 @pytest.mark.parametrize("n", [2, 4, 8, R.MAX_RANKS])
 def test_flag_rounds_per_call_and_monotonic_epochs(n, monkeypatch):
-    """C3 pushes each shard to every rank in one flag round; the ring
-    kinds take one round per hop. The epoch bases ``RingGroup._begin``
+    """C3 and C4 push to every rank in one flag round; the ring kinds
+    take one round per hop. The epoch bases ``RingGroup._begin``
     gives a kind's launches grow across calls so that each call's rounds
     (base + 1 .. base + hops) lie above every earlier call's: the kernels
     never reset their flags."""
-    assert R.hops("allgather", n) == 1
+    assert R.hops("allgather", n) == R.hops("allreduce", n) == 1
     assert R.hops("permute", n) == R.hops("qhop", n) == 1
     assert R.hops("reduce_scatter", n) == n - 1
-    assert R.hops("allreduce", n) == R.hops("qallreduce", n) == 2 * (n - 1)
+    assert R.hops("qallreduce", n) == 2 * (n - 1)
     # _begin on the CPU: no stream to order, no timeout record to map.
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
     monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
@@ -275,7 +333,8 @@ def test_flag_rounds_per_call_and_monotonic_epochs(n, monkeypatch):
             top = base + R.hops(kind, n)
     # Kinds count their calls apart: each has its own flag table.
     assert g._begin("allgather", 0).base == 5
-    assert g._begin("allreduce", 0).base == 5 * 2 * (n - 1)
+    assert g._begin("allreduce", 0).base == 5
+    assert g._begin("qallreduce", 0).base == 5 * 2 * (n - 1)
 
 
 @pytest.mark.parametrize("name", [
