@@ -12,8 +12,8 @@ Phases, one line each; any failure raises and exits non-zero:
               source, all started together); the compiler's register and
               spill report is printed per kernel, and the bf16 B1, B2 and
               B3 (tensor cores) must not spill and must fit two blocks on
-              an SM. Every instantiation of C4, C5 and C6 is printed with
-              its registers, spills and resident blocks, and must not
+              an SM. Every instantiation of C2, C4, C5 and C6 is printed
+              with its registers, spills and resident blocks, and must not
               spill.
 3. kernels -- each kernel against its plain PyTorch version on the card,
               in bf16 and f32, at the shapes the serving and training
@@ -58,7 +58,8 @@ Phases, one line each; any failure raises and exits non-zero:
               min, prod) and type; the same at the ZeRO path's
               size (the 4-layer flat parameter vector, 4 ranks, bf16),
               and the four kernels' times beside their plain versions',
-              bounds and one library call's.
+              bounds and one library call's; C2 must leave its input as
+              it was.
 9. zero    -- f32 at dim 256: ZeRO at 2 ranks bitwise equal to plain
               data parallelism through C4, ZeRO at 4 ranks against the
               one-device step. Then Llama-3-8B widths at 4 layers through
@@ -77,12 +78,19 @@ Phases, one line each; any failure raises and exits non-zero:
               (the 1e-30 scale floor) and a chunk whose max sits in one
               block (the per-rank barrier): C6 through
               ``quantized_ring_allreduce``, C5 alone and through the
-              split-phase int8 reduce-scatter. The fallback ladder (f64,
-              a small call, ``precision="bf16"``) takes C4, not C6. At the
-              quantized ZeRO size (the 1-layer flat vector, 4 ranks, f32)
-              C6 in place and C5 on one overlap hop bitwise, and both
-              kernels' times beside their plain versions', bounds and
-              yardsticks (``x.sum(0)``, ``torch.roll``).
+              split-phase int8 reduce-scatter. C5's in-place form (the
+              split-phase hop, its scale carried from the hop before)
+              hop by hop against its plain version, buffer and carry
+              table, at ring sizes 2, 3, 4, 8 and 16; two reduce-scatters
+              interleaved as the overlap path issues them; a missing carry
+              stops the kernel and the group raises. The fallback ladder
+              (f64, a small call, ``precision="bf16"``) takes C4, not C6.
+              At the quantized ZeRO size (the 1-layer flat vector, 4
+              ranks, f32) C6 in place, C5 on one overlap hop and C5 in
+              place on one overlap chunk bitwise, and the kernels' times
+              beside their plain versions', bounds and yardsticks
+              (``x.sum(0)``, ``torch.roll``, and for the in-place form
+              the split-phase hop as tensor ops around C5).
 11. zero quantized -- f32 at dim 256, 2 and 4 ranks: the int8 ZeRO step
               (monolithic, overlap, error feedback) through C5 / C6 equal
               to the same steps through the plain versions bit for bit.
@@ -372,8 +380,10 @@ def blocks_per_sm(kernel: str, dtype) -> int:
 
 # The ring kernels whose every instantiation the build phase reports
 # (registers, spills, resident blocks) and holds free of spills: (ID,
-# name in the compiler's report, ring.cu's kind code).
-RING_REPORTED = (("C4", "ring_allreduce_kernel", 3),
+# name in the compiler's report, ring.cu's kind code). C2 and C4 have one
+# per element type and op (16), C5 and C6 one each.
+RING_REPORTED = (("C2", "ring_reduce_scatter_kernel", 1),
+                 ("C4", "ring_allreduce_kernel", 3),
                  ("C5", "ring_qhop_kernel", 4),
                  ("C6", "ring_qallreduce_kernel", 5))
 # Template arguments in a mangled ring kernel name: element type (as the
@@ -420,9 +430,24 @@ def ring_instances(kernels: dict) -> dict:
 
 
 def phase_ring_build(kernels: dict) -> dict:
-    """Print the registers, spills and resident blocks of every C4, C5 and
-    C6 instantiation; fail if one spills, or if C4 has not one per element
-    type and op (16) or C5 or C6 not exactly one."""
+    """Print the registers, spills and resident blocks of every C2, C4, C5
+    and C6 instantiation; fail if one spills, or if C2 or C4 has not one
+    per element type and op (16) or C5 or C6 not exactly one. Also fail
+    unless C1-C4 ask for no comm slots and the int8 ring (C5 in both
+    forms, C6) for two int8 chunks and two f32 scales a block, per rank
+    (``ring.cu``'s ``ring_slot_bytes``)."""
+    from ray_tpu_torch.util.collective import ring as R
+
+    lib, chunk = R._lib(), 4096
+    for n in (2, ZERO_N, R.MAX_RANKS):
+        for code, kind in enumerate(R.KINDS):
+            want = (n * (2 * chunk + 2 * R.MAX_BLOCKS_PER_RANK * 4)
+                    if kind in ("qhop", "qallreduce", "qrs_hop") else 0)
+            got = lib.ring_slot_bytes(code, n, chunk)
+            check(got == want, f"{kind} asks for {got} bytes of comm slots "
+                  f"at n={n}, {chunk} elements a chunk; want {want}")
+    log("build", f"comm slots: C1-C4 ask for none; the int8 ring for two "
+        f"int8 chunks and {2 * R.MAX_BLOCKS_PER_RANK} f32 scales a rank")
     found = ring_instances(kernels)
     for key, rows in found.items():
         for r in rows:
@@ -432,7 +457,7 @@ def phase_ring_build(kernels: dict) -> dict:
                 f"resident blocks")
         spills = [r for r in rows if r["spill_bytes"]]
         check(not spills, f"{key} spills: {spills}")
-        check(len(rows) == (16 if key == "C4" else 1),
+        check(len(rows) == (16 if key in ("C2", "C4") else 1),
               f"{len(rows)} instantiations of {key} in the compiler's report")
     return found
 
@@ -1157,6 +1182,13 @@ RING_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32)
 # f32 checks' config (the train phase's narrow one) and steps.
 ZERO_N, ZERO_STEPS, ZERO_CHUNKS = 4, 3, 4
 ZERO_F32_STEPS = 3
+# Peak memory (GiB) two routes read on an NVIDIA H100 80GB HBM3 at 700 W
+# while C2 still ran its hops through two chunks of comm slots a rank,
+# which the group keeps for its life (ZeRO monolithic), and the int8
+# overlap hop was tensor ops around C5's standalone form (its gathers and
+# sum as whole tensors). Earlier runs' readings: logged in the text beside
+# this run's peaks, never put in the kernels line.
+PEAK_GIB_BEFORE = {"monolithic": 54.13, "int8 overlap": 42.4}
 # ZeRO against the one-device step in f32: the summed gradients differ only
 # in summation order, and each param is held to TOL_ZERO_F32 after the
 # steps. Except where a gradient element sums to almost nothing (below
@@ -1328,11 +1360,16 @@ def _ring_times(group, n, rows, gen, dev):
         plain_ms=time_ms(lambda: R.ring_allreduce_plain(x), iters),
         library_ms=time_ms(lambda: x.sum(0), iters),
         library_computes="x.sum(0)", bound=ring_bound(full, full))
-    # From here x is scratch: the reduce-scatter accumulates in it, as the
-    # ZeRO path's does in its gradient buffer.
+    # C2 with donate=True, as the ZeRO path calls it: the kernel reads x
+    # and writes only its result, so x must come out as it went in. Then x
+    # is scratch: the plain version accumulates in it.
+    before = x.clone()
+    c2_ms = time_ms(lambda: R.ring_reduce_scatter_cuda(
+        x, group=group, donate=True), iters)
+    check(torch.equal(x, before), "C2 changed its input")
+    del before
     out["C2"] = dict(
-        ms=time_ms(lambda: R.ring_reduce_scatter_cuda(
-            x, group=group, donate=True), iters),
+        ms=c2_ms, input_unchanged=True,
         plain_ms=time_ms(lambda: R.ring_reduce_scatter_plain(
             x, donate=True), iters),
         library_ms=time_ms(lambda: x.view(n, n, c, 128).sum(0), iters),
@@ -1643,6 +1680,7 @@ def phase_zero_train(dev, card):
                   for r in range(ZERO_N)),
               f"{name}: a rank's parameter copy differs from rank 0's")
         peak = torch.cuda.max_memory_allocated()
+        before = PEAK_GIB_BEFORE.get(name)
         step_s = float(np.median(times[1:]))
         log("zero", f"{name}: losses " + ", ".join(f"{x:.4f}" for x in losses)
             + "; grad norms " + ", ".join(f"{x:.3f}" for x in norms))
@@ -1650,7 +1688,9 @@ def phase_zero_train(dev, card):
             f"{TRAIN_SEQ} tokens: step times "
             + ", ".join(f"{x:.3f}" for x in times) + f" s; median after the "
             f"first {step_s:.4f} s = {tokens / step_s:.0f} tokens/s; peak "
-            f"memory {peak / 2**30:.2f} GiB; launches C1-C4 {ring} (expected "
+            f"memory {peak / 2**30:.2f} GiB"
+            + (f" (before C2 dropped its slots: {before} GiB)" if before
+               else "") + f"; launches C1-C4 {ring} (expected "
             f"{want}), B1-B3 {b}; every rank's copy equal to rank 0's; {card}")
         rec = {"losses": losses, "grad_norms": norms, "step_times_s": times,
                "step_s": step_s, "tokens_per_s": tokens / step_s,
@@ -1718,6 +1758,11 @@ def phase_zero_train(dev, card):
 # scales, codes and roundings.
 QRING_SHAPES = ((1000, 125), (1024,), (65536, 128))
 QRING_VARIANTS = ("randn", "zero_chunk", "one_block_max")
+# C5's in-place form hop by hop: ring sizes (3 and 16 beside RING_NS: an
+# odd ring and the kernels' largest), on the same shapes and variants;
+# and QRS_INTERLEAVED reduce-scatters of ZERO_N ranks in flight together.
+QRS_NS = (2, 3, 4, 8, 16)
+QRS_INTERLEAVED = 3
 # The quantized ZeRO phase: Llama-3-8B widths at QZERO_LAYERS layers (the
 # f32 carry and the error-feedback buffer are 4 bytes per param per rank
 # each: 66 GiB before activations at 1 layer, 100 GiB at 4), ZERO_N ranks,
@@ -1759,13 +1804,114 @@ def _qring_cases(x, group):
                Q.start_quantized_ring_reduce_scatter(block, impl="plain")))
 
 
+def _qrs_hops(got, want, group):
+    """C5's in-place form against its plain version over a whole int8
+    reduce-scatter, hop by hop: got and want [n, n * c, 128] f32 hold the
+    same values (got may be a view with a wider rank stride, as the ZeRO
+    path's chunk of its gradient buffer); after each hop t the two buffers
+    and the two carry tables must be equal bit for bit. The kernel's table
+    starts as one an earlier reduce-scatter left, every word tagged with
+    its row's hop and holding the largest finite max: hop 0 must clear it,
+    or atomicMax keeps those maxes. Returns the hops checked."""
+    from ray_tpu_torch.util.collective import quantized as Q
+
+    n = got.shape[0]
+    carry_want = torch.zeros((n - 1, n), dtype=torch.int64, device=got.device)
+    carry_got = (torch.arange(n - 1, device=got.device) << 32).view(-1, 1) \
+        + torch.full_like(carry_want, 0x7f7fffff)
+    for t in range(n - 1):
+        Q.ring_qrs_hop_cuda(got, t, carry_got, group=group)
+        Q.ring_qrs_hop_plain(want, t, carry_want)
+        check(torch.equal(got, want) and torch.equal(carry_got, carry_want),
+              f"C5 in place n={n} rows={got.shape[1]} hop {t}: the buffer "
+              f"or the carried max differs from the plain version's")
+    return n - 1
+
+
+def _qrs_interleaved(xs, **kw):
+    """Int8 reduce-scatters of xs, issued as the overlap path issues them
+    (``parallel/zero.py``): chunk c + 1's first hop before chunk c's wait.
+    Returns the results in order."""
+    from ray_tpu_torch.util.collective import quantized as Q
+
+    hs = [Q.start_quantized_ring_reduce_scatter(xs[0], **kw)]
+    out = []
+    for c in range(len(xs)):
+        if c + 1 < len(xs):
+            hs.append(Q.start_quantized_ring_reduce_scatter(xs[c + 1], **kw))
+        out.append(Q.wait_quantized_ring_reduce_scatter(hs[c]))
+    return out
+
+
+def _qrs_cases(gen, dev):
+    """C5's in-place form bit for bit against its plain version: hop by
+    hop (_qrs_hops) at every ring size of QRS_NS, shape of QRING_SHAPES and
+    variant of QRING_VARIANTS; QRS_INTERLEAVED reduce-scatters interleaved
+    against the same through the plain version and through the kernel one
+    after another; and a hop whose carry no hop before filled stops the
+    kernel and the group raises. Returns (hops checked, interleaved
+    reduce-scatters checked)."""
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import quantized as Q
+    from ray_tpu_torch.util.collective import ring as R
+
+    hops = 0
+    for n in QRS_NS:
+        group = RingGroup(n, dev)
+        for shape in QRING_SHAPES:
+            for variant in QRING_VARIANTS:
+                block = R._to_block(_qring_input(n, shape, variant, gen, dev),
+                                    n)[0]
+                hops += _qrs_hops(block.clone(), block, group)
+        group.check()
+        del group
+    group = RingGroup(ZERO_N, dev)
+    xs = [torch.randn((ZERO_N, ZERO_N * rows, 128), generator=gen, device=dev)
+          for rows in (4096, 2048, 1000)]
+    got = _qrs_interleaved(xs, impl="cuda", group=group)
+    want = _qrs_interleaved(xs, impl="plain")
+    alone = [Q.wait_quantized_ring_reduce_scatter(
+        Q.start_quantized_ring_reduce_scatter(x, impl="cuda", group=group))
+        for x in xs]
+    group.check()
+    for c, (g, w, a) in enumerate(zip(got, want, alone)):
+        check(torch.equal(g, w) and torch.equal(g, a),
+              f"C5 in place, interleaved reduce-scatter {c}: differs from "
+              f"the plain version's or from the same alone")
+    del group
+    # A carry that no hop before filled: the kernel stops, the group
+    # raises, and no max pass stands in.
+    group = RingGroup(ZERO_N, dev)
+    x = torch.randn((ZERO_N, ZERO_N * 8, 128), generator=gen, device=dev)
+    Q.ring_qrs_hop_cuda(x, 1, torch.zeros((ZERO_N - 1, ZERO_N),
+                                          dtype=torch.int64, device=dev),
+                        group=group)
+    try:
+        group.check()
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    check("carried" in raised, f"C5 in place with an empty carry did not "
+          f"raise ({raised!r})")
+    del group
+    return hops, len(xs)
+
+
 def _qring_times(group, n, elems, gen, dev, x=None):
     """Kernel, plain, bound and yardstick times of C6 (in place on the
-    rank-major f32 block of ``elems`` per rank) and C5 (one overlap hop:
-    elems / (n * ZERO_CHUNKS) per rank). Yardsticks, not the same
-    function (no library call requantizes per hop): x.sum(0) (C6) and
-    torch.roll (C5)."""
+    rank-major f32 block of ``elems`` per rank) and C5 (one overlap
+    chunk: elems / ZERO_CHUNKS per rank). No library call requantizes per
+    hop, so each has a yardstick, not the same function: x.sum(0) for C6.
+    C5's row is its in-place form, the one the overlap path launches: hop
+    1 (``ms``, scale carried from hop 0) and hop 0 (``hop0_ms``, max pass
+    and barrier), its plain version, its bound (read the send and the
+    receiving chunk, write the latter) and, as the yardstick, the
+    split-phase hop as tensor ops around the standalone form, the route
+    it replaces. The standalone form (one hop of a ring chunk, n of which
+    make the overlap chunk) sits under ``standalone``, with torch.roll as
+    its yardstick."""
     from ray_tpu_torch.util.collective import quantized as Q
+    from ray_tpu_torch.util.collective import ring as R
 
     if x is None:
         x = torch.randn((n, elems), generator=gen, device=dev)
@@ -1783,13 +1929,34 @@ def _qring_times(group, n, elems, gen, dev, x=None):
     h = elems // (n * ZERO_CHUNKS * 128) * 128
     hop = torch.randn((n, h // 128, 128), generator=gen, device=dev)
     del x, xb
-    out["C5"] = dict(
+    standalone = dict(
         ms=time_ms(lambda: Q.ring_qhop_cuda(hop, group=group), 20),
         plain_ms=time_ms(lambda: Q.ring_qhop_plain(hop), 5),
         yardstick_ms=time_ms(lambda: torch.roll(hop, 1, 0), 20),
         yardstick_computes="torch.roll(x, 1, 0), the exact hop (yardstick)",
-        bound=ring_bound(n * h * 4, n * h * 4), rows=h // 128)
+        rows=h // 128)
+    standalone["bound_ms"], standalone["bound_by"] = ring_bound(
+        n * h * 4, n * h * 4)
     del hop
+    b = torch.randn((n, n * h // 128, 128), generator=gen, device=dev)
+    carry = torch.zeros((n - 1, n), dtype=torch.int64, device=dev)
+    b4 = b.view(n, n, -1, 128)
+    # Each run of hop 0 clears the carry and fills row 1, which every run
+    # of hop 1 reads.
+    out["C5"] = dict(
+        form="in place (qrs_hop): ms is hop 1, its scale carried from hop 0",
+        hop0_ms=time_ms(lambda: Q.ring_qrs_hop_cuda(b, 0, carry, group=group),
+                        20),
+        ms=time_ms(lambda: Q.ring_qrs_hop_cuda(b, 1, carry, group=group), 20),
+        plain_ms=time_ms(lambda: Q.ring_qrs_hop_plain(b, 1), 3),
+        yardstick_ms=time_ms(lambda: R._rs_hop(
+            b4, 1, "sum", lambda v: Q.ring_qhop_cuda(v, group=group)), 5),
+        yardstick_computes="gather of the send chunks, C5 standalone, gather"
+                           " of the receiving chunks, add, index-put: the "
+                           "route the in-place form replaced (yardstick)",
+        bound=ring_bound(2 * n * h * 4, n * h * 4), rows=n * h // 128,
+        standalone=standalone)
+    del b, b4, carry
     gc.collect()
     torch.cuda.empty_cache()
     for row in out.values():
@@ -1829,6 +1996,13 @@ def phase_qring_kernels(dev, card, zero_elems=None):
     log("ring", f"C5, C6 bitwise equal to their plain versions in {checked} "
         f"cases: n {RING_NS}, f32, per-rank shapes {QRING_SHAPES}, "
         f"{QRING_VARIANTS}")
+    hops, interleaved = _qrs_cases(gen, dev)
+    log("ring", f"C5 in place bitwise equal to its plain version (buffer and "
+        f"carried max) in {hops} hops: n {QRS_NS}, per-rank shapes "
+        f"{QRING_SHAPES}, {QRING_VARIANTS}; {interleaved} reduce-scatters "
+        f"interleaved as the overlap path issues them equal the plain "
+        f"version's and the same alone; an empty carry stops the kernel "
+        f"and the group raises")
 
     group = RingGroup(ZERO_N, dev)
     kernels = (R.KERNELS[3], Q.KERNELS[1])     # C4, C6
@@ -1869,8 +2043,15 @@ def phase_qring_kernels(dev, card, zero_elems=None):
                           Q.ring_qhop_plain(hop)),
               "C5 at the quantized ZeRO hop differs from its plain version")
         del hop
+        # C5 in place on one overlap chunk (n ring chunks of h a rank), in
+        # x itself (a view with x's rank stride, as the ZeRO path's chunk
+        # of its gradient buffer) against a contiguous copy.
+        got = x[:, :ZERO_N * h].view(ZERO_N, -1, 128)
+        _qrs_hops(got, got.clone(), group)
+        del got
         log("ring", f"quantized ZeRO size ({ZERO_N} ranks x {zero_elems} f32,"
-            f" C6 in place; C5 on one overlap hop of {h}): bitwise equal to "
+            f" C6 in place; C5 on one overlap hop of {h}; C5 in place on one "
+            f"overlap chunk of {ZERO_N * h}, hop by hop): bitwise equal to "
             f"the plain versions")
         timings.append(_qring_times(group, ZERO_N, zero_elems, gen, dev, x))
         del x
@@ -1886,6 +2067,12 @@ def phase_qring_kernels(dev, card, zero_elems=None):
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
                 f"{row['yardstick_computes']} {row['yardstick_ms']:.4f} ms; "
                 f"{card}")
+        c5, sa = t["C5"], t["C5"]["standalone"]
+        log("ring", f"C5 in place, hop 0 (max pass) {c5['hop0_ms']:.4f} ms; "
+            f"C5 standalone n={c5['n']} {sa['rows']} rows f32: kernel "
+            f"{sa['ms']:.4f} ms, plain {sa['plain_ms']:.4f} ms, bound "
+            f"{sa['bound_ms']:.4f} ms ({sa['bound_by']}), "
+            f"{sa['yardstick_computes']} {sa['yardstick_ms']:.4f} ms; {card}")
     return timings
 
 
@@ -2106,6 +2293,7 @@ def phase_zero_quant(dev, card):
                   f"int8 {name}: ef is not finite, f32 and non-zero")
             rec["ef_abs_max"] = ef_max
         peak = torch.cuda.max_memory_allocated()
+        before = PEAK_GIB_BEFORE.get(f"int8 {name}")
         step_s = float(np.median(times[1:]))
         log("zero", f"int8 {name}: losses "
             + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
@@ -2114,7 +2302,9 @@ def phase_zero_quant(dev, card):
             f"{TRAIN_SEQ} tokens: step times "
             + ", ".join(f"{x:.3f}" for x in times) + f" s; median after the "
             f"first {step_s:.4f} s = {tokens / step_s:.0f} tokens/s; peak "
-            f"memory {peak / 2**30:.2f} GiB; launches C1-C6 {ring} (expected "
+            f"memory {peak / 2**30:.2f} GiB"
+            + (f" (before the hop ran in place: {before} GiB)" if before
+               else "") + f"; launches C1-C6 {ring} (expected "
             f"{want}), B1-B3 {b}; every rank's copy equal; {card}")
         log("zero", f"int8 {name}: one profiled step")
         prof = _profile_step("zero", step, state, batches[ZERO_STEPS], card)
@@ -2263,6 +2453,8 @@ def main() -> int:
             "yardstick_computes": main["yardstick_computes"],
             "shape": f"n={main['n']} ranks x {main['rows']} x 128 f32",
             "per_shape": [t[key] for t in qring_rows],
+            **{k: main[k] for k in ("form", "hop0_ms", "standalone")
+               if k in main},
             **ring_build_fields(ring_built[key])}
 
     print(json.dumps({"kernels": [{

@@ -22,8 +22,8 @@
 //     fixed range b of every chunk, so a block only ever talks to blocks b
 //     of other ranks (in the ring kinds only to (b, r +- 1)); no barrier
 //     spans the grid.
-//   - One hop t, per block (the reference's _send_recv / _cap_wait /
-//     _cap_signal, ring.py:78-104):
+//   - One hop t of the int8 ring (C5, C6), per block (the reference's
+//     _send_recv / _cap_wait / _cap_signal, ring.py:78-104):
 //       1. t >= 2: acquire-wait on the capacity flag of slot t % 2 (the
 //          right neighbour drained that slot at hop t - 2);
 //       2. store its range of the send chunk into the right neighbour's
@@ -38,13 +38,14 @@
 //          this call; the next call is ordered after this one on the
 //          stream).
 //     The reference compiles the capacity handshake out in interpret mode;
-//     here it always runs.
+//     here it always runs. C1 is one hop with no slots: it stores straight
+//     into the right neighbour's output and runs steps 3-4.
 //   - Flags are epochs: hop t of a call with base B writes B + t + 1, with
 //     B = seq * total_hops from the group's per-kind call counter, so flags
 //     grow monotonically and are never reset between calls.
 //   - The schedule is the reference's index arithmetic (my +- t mod n), so
 //     every element is combined in the plain version's order. Combine is
-//     sum / max / min / prod in f32, rounded once per hop to the element
+//     sum / max / min / prod in f32, rounded once per step to the element
 //     type: bit for bit what torch does for `a + b` on two bf16 or f16
 //     tensors. int32 combines in 32-bit integer arithmetic, sum and prod
 //     wrapping as torch's do, so it is exact in any order.
@@ -55,42 +56,53 @@
 //     resident. Every spin is bounded (about one second of clock64); on
 //     timeout the block writes an error record to pinned host memory and
 //     exits, its neighbours then time out in turn, and the wrapper raises.
-//   - C2 accumulates in place in its input (the caller's buffer, or a copy
-//     the wrapper makes), not in the reference's separate acc scratch; its
-//     last hop writes the rank's own reduced chunk straight to the output.
-//   - C3 is no ring of hops: a copy needs no combine order, so block (b, r)
-//     reads its range of rank r's input once and stores it at r * chunk of
-//     every rank's output, its own included (a peer store through the
-//     pointer table, as C1's). Completion stays explicit, as it must once
-//     ranks are processes: after its stores the block fences and arrives on
-//     the receive word of block b of each other rank, then waits (bounded)
-//     until all n - 1 have arrived on its own. n - 1 senders share one
-//     word, so it counts arrivals under the call's epoch tag, (tag << 32) |
-//     arrivals (see arrive). One flag round per call: its epoch is base + 1.
-//   - C4 is no ring of hops either: one ordered reduce, pushed to every
-//     rank. The reference's two sweeps leave chunk c on every rank as the
-//     fold acc = x_c[c], then acc = T(combine(x_{c+j}[c], acc)) for j = 1
-//     .. n - 1 (the receiving rank's own element first, as _rs_hop
-//     combines), rounded to T after every step, and the allgather sweep
-//     copies it exactly. Block (b, r) loads range b of chunk r from in[r],
-//     in[r + 1], .., in[r - 1] through the pointer table, folds in that
-//     order in registers, and stores the result at chunk r of every rank's
-//     output; completion as C3's, one flag round, no comm slots.
+//   - C2, C3 and C4 are no rings of hops: one card needs no ring to get
+//     the ring's bits. Each is one pass and one flag round, with no comm
+//     slots. Completion stays explicit, as it must once ranks are
+//     processes (it tells a rank that its peers have stored into its
+//     output and read its input): after its stores the block fences and
+//     arrives on the receive word of block b of each other rank, then
+//     waits (bounded) until all n - 1 have arrived on its own. n - 1
+//     senders share one word, so it counts arrivals under the call's epoch
+//     tag, (tag << 32) | arrivals (see arrive). The epoch is base + 1.
+//   - C3: a copy needs no combine order, so block (b, r) reads its range
+//     of rank r's input once and stores it at r * chunk of every rank's
+//     output, its own included (a peer store through the pointer table, as
+//     C1's).
+//   - C4: one ordered reduce, pushed to every rank. The reference's two
+//     sweeps leave chunk c on every rank as the fold acc = x_c[c], then
+//     acc = T(combine(x_{c+j}[c], acc)) for j = 1 .. n - 1 (the receiving
+//     rank's own element first, as _rs_hop combines), rounded to T after
+//     every step, and the allgather sweep copies it exactly. Block (b, r)
+//     loads range b of chunk r from in[r], in[r + 1], .., in[r - 1]
+//     through the pointer table, folds in that order in registers, and
+//     stores the result at chunk r of every rank's output.
+//   - C2: one ordered reduce, stored once. The reference's shifted
+//     schedule (hop t: rank r sends chunk r - t - 1 and combines into
+//     chunk r - t - 2, ring.py:183-195) leaves chunk c on rank c as C4's
+//     fold started one rank later: acc = x_{c+1}[c], then acc =
+//     T(combine(x_{c+j}[c], acc)) for j = 2 .. n, ending with the owner's
+//     own element. Block (b, r) loads range b of chunk r from in[r + 1],
+//     in[r + 2], .., in[r], folds in that order in registers, and stores
+//     the result once, at out[r]. The input is read, never written.
 //
 // Bound on the H100: bytes. Each kernel moves (reads + writes) its input
 // once and its output once at least, at 3.35 TB/s; the ring's n - 1 (C1:
-// 1) hops through the slots move more than that, so a monolithic ring
-// kernel on one card sits several times above the bound. C3's and C4's
-// loads and stores touch exactly the bound's bytes: each input element is
-// read once and each output element written once. C3: n (1 + n) chunks in
-// all; at 4 ranks of 3,756,104 rows of 128 bf16 that counts 3.846 GB read
-// and 15.386 GB written, 19.23 GB, where n - 1 copy hops through the slots
-// count 53.85 GB. C4: 2n chunks a rank; at 4 ranks of 15,024,416 rows of
-// 128 bf16 (chunk C = 961.6 MB) that counts 8C a rank, 30.77 GB, where
-// the two sweeps through the slots counted 35C a rank (the copy of in to
-// out 8C, a reduce-scatter hop 5C, an allgather hop 4C), 134.6 GB. (Counts
-// from the code; the card's DRAM traffic is not measured.) Across cards
-// on NVLink a push costs each rank the same link bytes as a ring: C3 n - 1
+// 1) hops through the slots move more than that. C2's, C3's and C4's loads
+// and stores touch exactly the bound's bytes: each input element is read
+// once and each output element written once. With C one bf16 chunk at the
+// ZeRO size (4 ranks of 15,024,416 rows of 128, C = 961.6 MB a chunk):
+// C2 n + 1 chunks a rank, 5C, 19.23 GB a call, where the n - 1 accumulate
+// hops through the slots counted 15C a rank (each hop read the send
+// range, wrote it to the neighbour's slot, read cur and the slot and
+// wrote dst: 5C), 57.7 GB. C3: n (1 + n) chunks in all; at 4 ranks of
+// 3,756,104 rows of 128 bf16 that counts 3.846 GB read and 15.386 GB
+// written, 19.23 GB, where n - 1 copy hops through the slots count 53.85
+// GB. C4: 2n chunks a rank, 8C, 30.77 GB, where the two sweeps through
+// the slots counted 35C a rank (the copy of in to out 8C, a
+// reduce-scatter hop 5C, an allgather hop 4C), 134.6 GB. (Counts from the
+// code; the card's DRAM traffic is not measured.) Across cards on NVLink
+// a push costs each rank the same link bytes as a ring: C2 and C3 n - 1
 // chunks, C4 2(n - 1) (n - 1 chunks of peer loads, n - 1 of peer stores),
 // in one round instead of n - 1 or 2(n - 1). The copies are 16-byte
 // vectors, neighbouring threads on neighbouring addresses.
@@ -104,9 +116,13 @@
 // chunk (quantized.py:43-46), sends the payload and the scale, and the
 // receiver dequantizes: C6's reduce-scatter sweep accumulates
 // (__fmaf_rn(q, scale, acc): one rounding, what the reference computes),
-// its allgather sweep and C5 overwrite (q * scale). The scale is a max
-// over a chunk that bpr blocks share, so each quantizing hop starts with
-// a per-rank barrier inside the cooperative launch:
+// its allgather sweep and C5's standalone form overwrite (q * scale), and
+// C5's in-place form adds (cur + q * scale rounded twice, __fmul_rn then
+// __fadd_rn: the port's plain split-phase hop is C5's function followed by
+// a tensor add, and a contracted FMA would give other bits). The scale is
+// a max over a chunk that bpr blocks share, so a quantizing hop whose max
+// no hop before took starts with a per-rank barrier inside the
+// cooperative launch:
 //   - each block reduces max|x| over its range (as the bits of |x|, which
 //     order like the floats and carry a NaN through);
 //   - thread 0 publishes it with a 64-bit atomicMax on the rank's word of
@@ -145,8 +161,34 @@
 // accumulate): 4.5C; each later reduce-scatter hop 3.5C; each allgather
 // hop 2.5C. At n = 4: 19C a rank, where reading each send chunk twice
 // counted 24C in place, and the copy of in to out 8C more (counts from
-// the code). C5 is one hop with no hop before it: a max pass, then the
-// hop, 3.5C.
+// the code).
+// C5 has two forms, each one hop and one launch. The standalone form (the
+// reference's _qhop_kernel) has no hop before it: a max pass, then the
+// hop, out[right] = dequant(quant(in[r])), 3.5C. The in-place form is hop
+// t of the split-phase int8 reduce-scatter (the reference's _qrs_hop) on
+// the rank-major buffer of n chunks a rank: rank r quantizes its chunk
+// r - t - 1 and adds what arrives onto its chunk r - t - 2, reading both
+// where they lie (the chunk indices come from t and r, as C2's and C6's).
+// Hop t + 1 sends r - t - 2, the chunk hop t wrote, so hop t takes the max
+// of what it writes, in registers, and folds it with a 64-bit atomicMax
+// into the rank's word of a carry table [n - 1][n] that the wrapper zeroes
+// on the stream before each reduce-scatter's hop 0 (two in flight on one
+// stream keep two tables): row t + 1, tagged t + 1 in the high half. Hop
+// t + 1 is the next launch of that reduce-scatter on the same stream, so
+// the word is complete when it starts, and it takes its scale from the
+// word with no max pass and no wait at the barrier (it still arrives
+// there, which keeps the kind's arrival count in step with its epochs). A
+// word not tagged t + 1 (not filled since hop 0 zeroed the table, or
+// another hop's) is reported as a fault, never replaced by a max pass.
+// Only hop 0 takes a max pass and waits at the barrier. Per
+// rank: hop 0 reads C (max) + C (send),
+// writes C / 4 and reads C / 4 (payload), reads C and writes C (cur, dst):
+// 4.5C; each later hop 3.5C, where the bound is 3C (send, cur, dst; the
+// int8 slot's 0.5C is the wire format's price). The split-phase hop it
+// replaces, tensor ops around the standalone form, moved about 12.5C: a
+// gather of the send chunks (2C), the standalone form (3.5C), a gather of
+// cur (2C), the add (3C) and the index-put back (2C) (counts from the
+// code).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (ray_tpu_torch/ops/_build.py does this).
@@ -174,27 +216,31 @@ constexpr float SCALE_FLOOR = 1e-30f;
 
 enum Kind {
   PERMUTE = 0, REDUCE_SCATTER = 1, ALLGATHER = 2, ALLREDUCE = 3, QHOP = 4,
-  QALLREDUCE = 5
+  QALLREDUCE = 5, QRS_HOP = 6           // QRS_HOP: C5's in-place form
 };
 enum Op { SUM = 0, MAX = 1, MIN = 2, PROD = 3 };
-// What a timed-out block waited for (RingGroup's _WAITS names them).
-enum Wait { WAIT_RECV, WAIT_CAP, WAIT_BARRIER, WAIT_ARRIVALS };
+// What a stopped block waited for (RingGroup's _WAITS names them):
+// WAIT_CARRY is no wait but a carried max that is missing (not tagged
+// with the reading hop).
+enum Wait { WAIT_RECV, WAIT_CAP, WAIT_BARRIER, WAIT_ARRIVALS, WAIT_CARRY };
 
 typedef unsigned long long u64;
 
 struct RingArgs {
-  char* in[MAX_RANKS];        // per-rank input (C2: accumulated in place)
+  char* in[MAX_RANKS];        // per-rank input (C5 in place: the buffer)
   char* out[MAX_RANKS];       // per-rank output
-  char* slot[MAX_RANKS];      // per-rank comm slots: 2 x chunk bytes
+  char* slot[MAX_RANKS];      // per-rank comm slots (C5, C6)
   u64* recv[MAX_RANKS];       // per-rank receive flags [MAX_BPR][2] (C3:
                               // [b][0] counts arrivals under the epoch tag)
   u64* cap[MAX_RANKS];        // per-rank capacity flags [MAX_BPR][2]
   u64* bar[MAX_RANKS];        // per-rank barrier words (C5, C6): arrivals,
                               // then the max word of each hop parity
   float* scale[MAX_RANKS];    // per-rank scale slots [2][MAX_BPR] (C5, C6)
+  u64* carry;                 // C5 in place: the carried maxes [n - 1][n]
   long long chunk_vecs;       // 16-byte vectors per chunk (one hop's payload;
                               // C5, C6: groups of 16 elements)
   u64 base;                   // hop t's epoch is base + t + 1
+  int hop;                    // C5 in place: the reduce-scatter's hop t
   int* err_dev;               // elects the first block to report
   long long* err_host;        // pinned host record: set, kind, rank, block,
                               // hop, what, wanted, seen
@@ -360,22 +406,6 @@ __device__ __forceinline__ void each_vec(long long lo, long long hi, Ld ld,
   for (; i < hi; i += NT) st(i, ld(i));
 }
 
-// Steps 1-3 of hop t: wait for capacity, store the send range into the
-// right neighbour's slot, release its receive flag.
-__device__ bool hop_send(const RingArgs& a, const Block& k, int t,
-                         const uint4* src) {
-  const int slot = t & 1;
-  const int f = flag_index(k.b, slot);
-  if (t >= 2 && !wait_flag(a, a.cap[k.r] + f, a.base + t - 1, k.r, k.b, t,
-                           WAIT_CAP))
-    return false;
-  uint4* dst = reinterpret_cast<uint4*>(a.slot[k.right]) + slot * a.chunk_vecs;
-  each_vec(k.lo, k.hi, [&](long long i) { return src[i]; },
-           [&](long long i, uint4 v) { __stcg(dst + i, v); });
-  signal_flag(a.recv[k.right] + f, a.base + t + 1);
-  return true;
-}
-
 // Step 4: wait until the left neighbour's hop-t payload is in our slot.
 __device__ __forceinline__ bool hop_recv(const RingArgs& a, const Block& k,
                                          int t) {
@@ -383,29 +413,11 @@ __device__ __forceinline__ bool hop_recv(const RingArgs& a, const Block& k,
                    k.r, k.b, t, WAIT_RECV);
 }
 
-__device__ __forceinline__ const uint4* my_slot(const RingArgs& a,
-                                                const Block& k, int t) {
-  return reinterpret_cast<const uint4*>(a.slot[k.r]) + (t & 1) * a.chunk_vecs;
-}
-
 // Step 6: the slot is drained; the left neighbour may refill it at t + 2.
 __device__ __forceinline__ void hop_release(const RingArgs& a, const Block& k,
                                             int t, int total) {
   if (t < total - 2)
     signal_flag(a.cap[k.left] + flag_index(k.b, t & 1), a.base + t + 1);
-}
-
-// One accumulate hop: dst = combine(cur, slot) over this block's range.
-template <typename T, int OP>
-__device__ bool hop_reduce(const RingArgs& a, const Block& k, int t, int total,
-                           const uint4* send, const uint4* cur, uint4* dst) {
-  if (!hop_send(a, k, t, send) || !hop_recv(a, k, t)) return false;
-  const uint4* in = my_slot(a, k, t);
-  each_vec(k.lo, k.hi,
-           [&](long long i) { return combine_vec<T, OP>(cur[i], __ldcg(in + i)); },
-           [&](long long i, uint4 v) { dst[i] = v; });
-  hop_release(a, k, t, total);
-  return true;
 }
 
 // C1: one hop of the whole block, straight into the right neighbour's
@@ -420,26 +432,6 @@ ring_permute_kernel(const __grid_constant__ RingArgs a) {
            [&](long long i, uint4 v) { __stcg(dst + i, v); });
   signal_flag(a.recv[k.right] + flag_index(k.b, 0), a.base + 1);
   hop_recv(a, k, 0);
-}
-
-// C2: n - 1 accumulate hops; rank r ends with chunk r, written to out[r].
-template <typename T, int OP>
-__global__ void __launch_bounds__(NT)
-ring_reduce_scatter_kernel(const __grid_constant__ RingArgs a) {
-  const Block k = block_of(a);
-  uint4* acc = reinterpret_cast<uint4*>(a.in[k.r]);
-  uint4* out = reinterpret_cast<uint4*>(a.out[k.r]);
-  const long long cv = a.chunk_vecs;
-  const int total = k.n - 1;
-  // Shifted by -1 against the allreduce sweep, so the last chunk a rank
-  // reduces is its own (ring.py:186-189).
-  for (int t = 0; t < total; ++t) {
-    const int send = mod(k.r - t - 1, k.n), recv = mod(k.r - t - 2, k.n);
-    uint4* dst = t == total - 1 ? out : acc + recv * cv;
-    if (!hop_reduce<T, OP>(a, k, t, total, acc + send * cv, acc + recv * cv,
-                           dst))
-      return;
-  }
 }
 
 // An arrival on a counter word tagged with the call's epoch, (tag << 32) |
@@ -485,58 +477,83 @@ ring_allgather_kernel(const __grid_constant__ RingArgs a) {
   push_done(a, k);
 }
 
-// C4's fold of U vectors i, i + NT, ... of chunk r (at: its offset): acc
-// = in[r], then acc = T(combine(in[p], acc)) for p = r + 1, .., r - 1;
-// then acc stored at chunk r of every rank's output. The next rank's U
-// loads are issued before the current rank's combines, so 2U loads are in
-// flight a thread (64-80 registers, 3-4 blocks a SM; U loads in flight
-// and 40 registers left the f32 instantiations spilling).
-template <typename T, int OP, int U>
-__device__ __forceinline__ void fold_push(const RingArgs& a, const Block& k,
-                                          long long at, long long i) {
+// Fold U vectors i, i + NT, ... of chunk r (at: its offset) over the n
+// inputs from rank `first` on: acc = in[first], then acc =
+// T(combine(in[p], acc)) for p = first + 1, .., first - 1 (C4: first = r;
+// C2: first = r + 1, so the fold ends with the owner's own element). Then
+// C4 stores acc at chunk r of every rank's output, C2 once at out[r]. The
+// next rank's U loads are issued before the current rank's combines, so
+// 2U loads are in flight a thread (64-80 registers, 3-4 blocks a SM; U
+// loads in flight and 40 registers left C4's f32 instantiations spilling).
+template <typename T, int OP, bool PUSH, int U>
+__device__ __forceinline__ void fold_store(const RingArgs& a, const Block& k,
+                                           long long at, long long i) {
   const auto from = [&](int p) {
     return reinterpret_cast<const uint4*>(a.in[p]) + at + i;
   };
+  const int first = PUSH ? k.r : succ(k.r, k.n);
   uint4 acc[U], v[U];
-  int p = succ(k.r, k.n);
+  int p = succ(first, k.n);
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    acc[u] = from(k.r)[u * NT];
+    acc[u] = from(first)[u * NT];
     v[u] = from(p)[u * NT];
   }
   for (;;) {
     const int q = succ(p, k.n);
     uint4 w[U];
-    if (q != k.r) {
+    if (q != first) {
 #pragma unroll
       for (int u = 0; u < U; ++u) w[u] = from(q)[u * NT];
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) acc[u] = combine_vec<T, OP>(v[u], acc[u]);
-    if (q == k.r) break;
+    if (q == first) break;
 #pragma unroll
     for (int u = 0; u < U; ++u) v[u] = w[u];
     p = q;
   }
-  for (int j = 0, o = k.r; j < k.n; ++j, o = succ(o, k.n)) {
-    uint4* y = reinterpret_cast<uint4*>(a.out[o]) + at + i;
+  if constexpr (PUSH) {
+    for (int j = 0, o = k.r; j < k.n; ++j, o = succ(o, k.n)) {
+      uint4* y = reinterpret_cast<uint4*>(a.out[o]) + at + i;
+#pragma unroll
+      for (int u = 0; u < U; ++u) __stcs(y + u * NT, acc[u]);
+    }
+  } else {
+    uint4* y = reinterpret_cast<uint4*>(a.out[k.r]) + i;
 #pragma unroll
     for (int u = 0; u < U; ++u) __stcs(y + u * NT, acc[u]);
   }
 }
 
-// C4: one ordered reduce, pushed to every rank (see the header): block
-// (b, r) folds range b of chunk r over the n inputs in the reference's
-// order and stores it at chunk r of every output, then push_done.
-template <typename T, int OP>
-__global__ void __launch_bounds__(NT)
-ring_allreduce_kernel(const __grid_constant__ RingArgs a) {
+// Block (b, r) folds range b of chunk r over the n inputs in the
+// reference's order (see the header) and stores it (fold_store), then
+// push_done.
+template <typename T, int OP, bool PUSH>
+__device__ __forceinline__ void fold_range(const RingArgs& a) {
   const Block k = block_of(a);
   const long long at = k.r * a.chunk_vecs;
   long long i = k.lo + threadIdx.x;
-  for (; i + 3 * NT < k.hi; i += 4 * NT) fold_push<T, OP, 4>(a, k, at, i);
-  for (; i < k.hi; i += NT) fold_push<T, OP, 1>(a, k, at, i);
+  for (; i + 3 * NT < k.hi; i += 4 * NT)
+    fold_store<T, OP, PUSH, 4>(a, k, at, i);
+  for (; i < k.hi; i += NT) fold_store<T, OP, PUSH, 1>(a, k, at, i);
   push_done(a, k);
+}
+
+// C2: one ordered reduce, stored once: out[r] = chunk r reduced in the
+// reference's shifted order, from in[r + 1] to in[r].
+template <typename T, int OP>
+__global__ void __launch_bounds__(NT)
+ring_reduce_scatter_kernel(const __grid_constant__ RingArgs a) {
+  fold_range<T, OP, false>(a);
+}
+
+// C4: one ordered reduce, pushed to every rank: chunk r of every output =
+// chunk r reduced from in[r] to in[r - 1].
+template <typename T, int OP>
+__global__ void __launch_bounds__(NT)
+ring_allreduce_kernel(const __grid_constant__ RingArgs a) {
+  fold_range<T, OP, true>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -561,30 +578,54 @@ __device__ unsigned thread_absmax_bits(const float4* src, long long lo,
   return m;
 }
 
-// The per-rank barrier of hop t: reduce the threads' maxes m over the
-// block, publish it, wait for every block of the rank, read the rank's max
-// and turn it into the scale (max / 127 floored at 1e-30; a NaN max stays
-// NaN, as jnp.maximum keeps it). False: the block exits.
-__device__ bool rank_scale(const RingArgs& a, const Block& k, int t,
-                           unsigned m, float* scale) {
+// The scale of a chunk whose max |x| has the bits m: max / 127 floored at
+// 1e-30; a NaN max stays NaN, as jnp.maximum keeps it.
+__device__ __forceinline__ float scale_of(unsigned m) {
+  const float s = __fdiv_rn(__uint_as_float(m), QMAX);
+  return s < SCALE_FLOOR ? SCALE_FLOOR : s;
+}
+
+// The threads' maxes m reduced over the block, in thread 0 (the other
+// threads get their warp's).
+__device__ __forceinline__ unsigned block_max(unsigned m) {
   __shared__ unsigned warp_max[NT / 32];
-  __shared__ float s_scale;
   m = __reduce_max_sync(0xffffffffu, m);
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < NT / 32; ++w) m = max(m, warp_max[w]);
+  return m;
+}
+
+// Thread 0's arrival at its rank's barrier counter for one flag round:
+// every block adds 1 and block 0 MAX_BPR - bpr more, so round e of the
+// kind's table is complete at e * MAX_BPR whatever bpr each launch had.
+// The count stays in step with the epochs only if every launch of the
+// kind arrives once per round, so C5's carried hops arrive too, without
+// waiting.
+__device__ __forceinline__ void arrive_barrier(const RingArgs& a,
+                                               const Block& k) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(a.bar[k.r]),
+            static_cast<unsigned long long>(k.b == 0 ? MAX_BPR - a.bpr + 1
+                                                     : 1));
+}
+
+// The per-rank barrier of hop t: reduce the threads' maxes m over the
+// block, publish it, wait for every block of the rank, read the rank's max
+// and turn it into the scale. False: the block exits.
+__device__ bool rank_scale(const RingArgs& a, const Block& k, int t,
+                           unsigned m, float* scale) {
+  __shared__ float s_scale;
+  const unsigned bits = block_max(m);
   int ok = 1;
   if (threadIdx.x == 0) {
-    unsigned bits = 0;
-    for (int w = 0; w < NT / 32; ++w) bits = max(bits, warp_max[w]);
     u64* bar = a.bar[k.r];
     u64* word = bar + 1 + (t & 1);
     const u64 epoch = a.base + t + 1;
     const u64 tag = epoch & 0xffffffffull;
     atomicMax(reinterpret_cast<unsigned long long*>(word), (tag << 32) | bits);
     __threadfence();
-    atomicAdd(reinterpret_cast<unsigned long long*>(bar),
-              static_cast<unsigned long long>(k.b == 0 ? MAX_BPR - a.bpr + 1
-                                                       : 1));
+    arrive_barrier(a, k);
     const u64 want = epoch * MAX_BPR;
     const long long t0 = clock64();
     u64 seen;
@@ -602,13 +643,41 @@ __device__ bool rank_scale(const RingArgs& a, const Block& k, int t,
         report(a, k.r, k.b, t, WAIT_BARRIER, tag, w >> 32);
         ok = 0;
       }
-      const float s = __fdiv_rn(__uint_as_float(static_cast<unsigned>(w)), QMAX);
-      s_scale = s < SCALE_FLOOR ? SCALE_FLOOR : s;
+      s_scale = scale_of(static_cast<unsigned>(w));
     }
   }
   if (!__syncthreads_and(ok)) return false;
   *scale = s_scale;
   return true;
+}
+
+// C5 in place, hop t > 0: the scale from the max that hop t - 1 folded
+// into carry[t][r] as it wrote this hop's send chunk (the launch before on
+// this stream, so the word is complete): no max pass, and an arrival at
+// the barrier with no wait. Every thread reads the word; one not tagged t
+// (not filled since hop 0's wrapper zeroed the table, or another hop's) is
+// reported and the block exits.
+__device__ bool carried_scale(const RingArgs& a, const Block& k, int t,
+                              float* scale) {
+  if (threadIdx.x == 0) arrive_barrier(a, k);
+  const u64 w = __ldcg(a.carry + size_t(t) * k.n + k.r);
+  if ((w >> 32) != u64(t)) {
+    if (threadIdx.x == 0) report(a, k.r, k.b, t, WAIT_CARRY, t, w >> 32);
+    return false;
+  }
+  *scale = scale_of(static_cast<unsigned>(w));
+  return true;
+}
+
+// C5 in place: fold the block's max of what hop t - 1 wrote (the threads'
+// m) into carry[t][r], tagged t, for hop t.
+__device__ void carry_max(const RingArgs& a, const Block& k, int t,
+                          unsigned m) {
+  m = block_max(m);
+  if (threadIdx.x == 0)
+    atomicMax(reinterpret_cast<unsigned long long*>(a.carry) +
+                  size_t(t) * k.n + k.r,
+              (u64(t) << 32) | m);
 }
 
 __device__ __forceinline__ unsigned quantize1(float x, float scale) {
@@ -627,17 +696,28 @@ __device__ __forceinline__ float code(unsigned w, int i) {
   return static_cast<float>(static_cast<signed char>((w >> (8 * i)) & 0xff));
 }
 
-// The four codes of w times scale; ACC: fma(q, scale, acc), one rounding.
-template <bool ACC>
+// What a quantized hop does with what arrives: overwrite with q * scale
+// (C6's allgather sweep, C5 standalone), accumulate fma(q, scale, acc),
+// one rounding (C6's reduce-scatter sweep), or add acc + q * scale with the
+// product and the sum rounded apart (C5 in place, as the plain tensor add).
+enum Land { LAND_SET, LAND_FMA, LAND_ADD };
+
+// The four codes of w landed on acc as LAND says.
+template <int LAND>
 __device__ __forceinline__ float4 dequantize4(unsigned w, float scale,
                                               float4 acc) {
-  if constexpr (ACC)
+  if constexpr (LAND == LAND_FMA)
     return make_float4(__fmaf_rn(code(w, 0), scale, acc.x),
                        __fmaf_rn(code(w, 1), scale, acc.y),
                        __fmaf_rn(code(w, 2), scale, acc.z),
                        __fmaf_rn(code(w, 3), scale, acc.w));
-  return make_float4(__fmul_rn(code(w, 0), scale), __fmul_rn(code(w, 1), scale),
-                     __fmul_rn(code(w, 2), scale), __fmul_rn(code(w, 3), scale));
+  const float4 d =
+      make_float4(__fmul_rn(code(w, 0), scale), __fmul_rn(code(w, 1), scale),
+                  __fmul_rn(code(w, 2), scale), __fmul_rn(code(w, 3), scale));
+  if constexpr (LAND == LAND_ADD)
+    return make_float4(__fadd_rn(acc.x, d.x), __fadd_rn(acc.y, d.y),
+                       __fadd_rn(acc.z, d.z), __fadd_rn(acc.w, d.w));
+  return d;
 }
 
 // A payload word and the accumulator it lands on.
@@ -646,19 +726,16 @@ struct WordAcc {
   float4 acc;
 };
 
-// One quantized hop t, over this block's float4s [lo, hi) of a chunk:
-// the rank's scale of the send chunk (m: this thread's max |send|, as
-// bits), the int8 range and this block's copy of the scale into the right
-// neighbour's slot t % 2, then the left neighbour's payload dequantized
-// into dst (ACC: accumulated onto cur, which may be dst). On return m is
-// this thread's max |dst| written: the next hop's m, when the next hop
-// sends dst.
-template <bool ACC>
+// One quantized hop t, over this block's float4s [lo, hi) of a chunk,
+// with the rank's scale of the send chunk: the int8 range and this
+// block's copy of the scale into the right neighbour's slot t % 2, then
+// the left neighbour's payload dequantized into dst (landed on cur, which
+// may be dst, as LAND says). Sets m to this thread's max |dst| written:
+// the next hop's max, when the next hop sends dst.
+template <int LAND>
 __device__ bool qhop(const RingArgs& a, const Block& k, int t, int total,
-                     const float4* send, const float4* cur, float4* dst,
-                     unsigned& m) {
-  float scale;
-  if (!rank_scale(a, k, t, m, &scale)) return false;
+                     float scale, const float4* send, const float4* cur,
+                     float4* dst, unsigned& m) {
   const int slot = t & 1;
   const int f = flag_index(k.b, slot);
   if (t >= 2 && !wait_flag(a, a.cap[k.r] + f, a.base + t - 1, k.r, k.b, t,
@@ -679,29 +756,53 @@ __device__ bool qhop(const RingArgs& a, const Block& k, int t, int total,
     dst[i] = v;
     m = max(m, abs_bits(v));
   };
-  if constexpr (ACC)
-    each_vec(lo, hi, [&](long long i) { return WordAcc{__ldcg(in + i), cur[i]}; },
-             [&](long long i, WordAcc w) {
-               put(i, dequantize4<true>(w.q, s, w.acc));
-             });
-  else
+  if constexpr (LAND == LAND_SET)
     each_vec(lo, hi, [&](long long i) { return __ldcg(in + i); },
              [&](long long i, unsigned w) {
-               put(i, dequantize4<false>(w, s, float4{}));
+               put(i, dequantize4<LAND_SET>(w, s, float4{}));
+             });
+  else
+    each_vec(lo, hi, [&](long long i) { return WordAcc{__ldcg(in + i), cur[i]}; },
+             [&](long long i, WordAcc w) {
+               put(i, dequantize4<LAND>(w.q, s, w.acc));
              });
   hop_release(a, k, t, total);
   return true;
 }
 
-// C5: one fused hop of the whole block: out[right] = dequant(quant(in[r]))
-// with one scale over rank r's block; a max pass, then the hop.
+// C5, one hop in either form (see the header). QHOP: out[right] =
+// dequant(quant(in[r])) with one scale over rank r's block, after a max
+// pass. QRS_HOP: hop t = a.hop of the split-phase int8 reduce-scatter on
+// in, n chunks a rank: chunk r - t - 1 goes right and what arrives is added
+// onto chunk r - t - 2; the scale from a max pass at hop 0 and from the
+// carried max after; the max of what it writes carried to hop t + 1.
 __global__ void __launch_bounds__(NT)
 ring_qhop_kernel(const __grid_constant__ RingArgs a) {
   const Block k = block_of(a);
-  const float4* in = reinterpret_cast<const float4*>(a.in[k.r]);
-  unsigned m = thread_absmax_bits(in, k.lo * F4, k.hi * F4);
-  qhop<false>(a, k, 0, 1, in, nullptr, reinterpret_cast<float4*>(a.out[k.r]),
-              m);
+  const long long lo = k.lo * F4, hi = k.hi * F4;
+  float scale;
+  unsigned m = 0;
+  if (a.kind == QHOP) {
+    const float4* in = reinterpret_cast<const float4*>(a.in[k.r]);
+    m = thread_absmax_bits(in, lo, hi);
+    if (rank_scale(a, k, 0, m, &scale))
+      qhop<LAND_SET>(a, k, 0, 1, scale, in, nullptr,
+                reinterpret_cast<float4*>(a.out[k.r]), m);
+    return;
+  }
+  const int t = a.hop;
+  float4* b = reinterpret_cast<float4*>(a.in[k.r]);
+  const long long cf = a.chunk_vecs * F4;     // float4 per chunk
+  const float4* send = b + mod(k.r - t - 1, k.n) * cf;
+  float4* dst = b + mod(k.r - t - 2, k.n) * cf;
+  if (t == 0) {
+    if (!rank_scale(a, k, 0, thread_absmax_bits(send, lo, hi), &scale))
+      return;
+  } else if (!carried_scale(a, k, t, &scale)) {
+    return;
+  }
+  if (qhop<LAND_ADD>(a, k, 0, 1, scale, send, dst, dst, m) && t + 2 < k.n)
+    carry_max(a, k, t + 1, m);
 }
 
 // C6: the reference's schedule (quantized.py:83-94): a reduce-scatter sweep
@@ -719,17 +820,21 @@ ring_qallreduce_kernel(const __grid_constant__ RingArgs a) {
   const long long cf = a.chunk_vecs * F4;     // float4 per chunk
   const int total = 2 * (k.n - 1);
   unsigned m = thread_absmax_bits(in + k.r * cf, k.lo * F4, k.hi * F4);
+  float scale;
   int t = 0;
   for (int s = 0; s < k.n - 1; ++s, ++t) {
     const int send = mod(k.r - s, k.n), recv = mod(k.r - s - 1, k.n);
-    if (!qhop<true>(a, k, t, total, (s == 0 ? in : out) + send * cf,
-                    in + recv * cf, out + recv * cf, m))
+    if (!rank_scale(a, k, t, m, &scale) ||
+        !qhop<LAND_FMA>(a, k, t, total, scale,
+                        (s == 0 ? in : out) + send * cf, in + recv * cf,
+                        out + recv * cf, m))
       return;
   }
   for (int s = 0; s < k.n - 1; ++s, ++t) {
     const int send = mod(k.r - s + 1, k.n), recv = mod(k.r - s, k.n);
-    if (!qhop<false>(a, k, t, total, out + send * cf, nullptr,
-                     out + recv * cf, m))
+    if (!rank_scale(a, k, t, m, &scale) ||
+        !qhop<LAND_SET>(a, k, t, total, scale, out + send * cf, nullptr,
+                        out + recv * cf, m))
       return;
   }
 }
@@ -738,10 +843,12 @@ template <typename T>
 const void* kernel_for(int kind, int op) {
   switch (kind) {
     case QHOP:
+    case QRS_HOP:
     case QALLREDUCE:
       if (!std::is_same<T, float>::value || op != SUM) return nullptr;
-      return kind == QHOP ? reinterpret_cast<const void*>(ring_qhop_kernel)
-                          : reinterpret_cast<const void*>(ring_qallreduce_kernel);
+      return kind == QALLREDUCE
+                 ? reinterpret_cast<const void*>(ring_qallreduce_kernel)
+                 : reinterpret_cast<const void*>(ring_qhop_kernel);
     case PERMUTE: return reinterpret_cast<const void*>(ring_permute_kernel<T>);
     case ALLGATHER:
       return reinterpret_cast<const void*>(ring_allgather_kernel<T>);
@@ -777,7 +884,9 @@ const void* kernel_of(int kind, int op, int dtype) {
   return nullptr;
 }
 
-bool quantized(int kind) { return kind == QHOP || kind == QALLREDUCE; }
+bool quantized(int kind) {
+  return kind == QHOP || kind == QALLREDUCE || kind == QRS_HOP;
+}
 
 // Bytes per element of a dtype code (0 float32, 1 bfloat16, 2 float16,
 // 3 int32); 0 for an unknown code.
@@ -790,11 +899,9 @@ int elem_bytes(int dtype) {
 }
 
 // Bytes of comm slots one rank needs for a call (see ring_slot_bytes).
-long long rank_slot_bytes(int kind, int elem, long long chunk_elems) {
-  if (kind == PERMUTE || kind == ALLGATHER || kind == ALLREDUCE) return 0;
-  if (quantized(kind))
-    return 2 * chunk_elems + 2 * MAX_BPR * (long long)sizeof(float);
-  return 2 * chunk_elems * elem;
+long long rank_slot_bytes(int kind, long long chunk_elems) {
+  if (!quantized(kind)) return 0;
+  return 2 * chunk_elems + 2 * MAX_BPR * (long long)sizeof(float);
 }
 
 // How many blocks of `fn` the device holds at once (occupancy per SM times
@@ -831,25 +938,34 @@ cudaError_t resident_blocks(const void* fn, int dev, int* out) {
 // Launch one ring collective on `stream`.
 //   kind: 0 permute (C1), 1 reduce-scatter (C2), 2 allgather (C3),
 //         3 allreduce (C4), 4 quantized hop (C5), 5 quantized allreduce
-//         (C6); op: 0 sum, 1 max, 2 min, 3 prod (C2, C4; C5, C6 sum only);
+//         (C6), 6 in-place quantized reduce-scatter hop (C5's other form);
+//   op: 0 sum, 1 max, 2 min, 3 prod (C2, C4; C5, C6 sum only);
 //   dtype: 0 float32, 1 bfloat16, 2 float16, 3 int32 (C5, C6: float32
 //   only).
 //   in / out: rank r's block at base + r * stride (strides in elements;
-//   C6 may run in place, in == out);
+//   C6 may run in place, in == out; C5 in place: in == out, the buffer);
 //   chunk_elems: elements per chunk, the payload of one hop (C1, C5: the
-//   whole block; C2, C4, C6: a block of n chunks; C3: the input block);
-//   slots: n x ring_slot_bytes(kind, ...) / n bytes; flags: n x 3 x
+//   whole block; C2, C4, C6, C5 in place: a block of n chunks; C3: the
+//   input block);
+//   slots: ring_slot_bytes(kind, n, chunk_elems) bytes; flags: n x 3 x
 //   MAX_BPR x 2 u64 (receive flags, capacity flags, barrier words, per
 //   rank); base: epoch base; err_dev: an int in device memory; err_host:
-//   the device address of 8 int64 in pinned host memory.
+//   the device address of 8 int64 in pinned host memory;
+//   hop, carry: C5 in place: the reduce-scatter's hop t (0 .. n - 2) and
+//   its carry table, [n - 1][n] u64 zeroed before its hop 0 (other kinds:
+//   0, null).
 // Returns a cudaError_t; 0 when the launch was accepted.
 extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
                            long long in_stride, void* out,
                            long long out_stride, long long chunk_elems,
                            void* slots, void* flags, unsigned long long base,
-                           void* err_dev, void* err_host, void* stream) {
+                           void* err_dev, void* err_host, void* stream,
+                           int hop, void* carry) {
   if (n < 2 || n > MAX_RANKS || chunk_elems < 1 || kind < 0 ||
-      kind > QALLREDUCE)
+      kind > QRS_HOP)
+    return int(cudaErrorInvalidValue);
+  if (kind == QRS_HOP &&
+      (carry == nullptr || in != out || hop < 0 || hop > n - 2))
     return int(cudaErrorInvalidValue);
   const int elem = elem_bytes(dtype);
   if (elem == 0) return int(cudaErrorInvalidValue);
@@ -872,6 +988,8 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   a.kind = kind;
   a.chunk_vecs = chunk_elems / unit;
   a.base = base;
+  a.hop = hop;
+  a.carry = static_cast<u64*>(carry);
   a.err_dev = static_cast<int*>(err_dev);
   a.err_host = static_cast<long long*>(err_host);
   // As many blocks per rank as the payload wants, capped so that all
@@ -882,7 +1000,7 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
       (a.chunk_vecs + MIN_VECS_PER_BLOCK - 1) / MIN_VECS_PER_BLOCK;
   a.bpr = int(std::max(1LL, std::min(cap, want)));
 
-  const long long slot_bytes = rank_slot_bytes(kind, elem, chunk_elems);
+  const long long slot_bytes = rank_slot_bytes(kind, chunk_elems);
   u64* f = static_cast<u64*>(flags);
   for (int r = 0; r < MAX_RANKS; ++r) {
     const bool live = r < n;
@@ -908,13 +1026,10 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   return int(cudaGetLastError());
 }
 
-// Bytes of comm slots a call needs for all n ranks: C1, C3, C4 none; C2
-// two chunks of the element type per rank; C5, C6 two int8 chunks and 2 x
-// MAX_BPR f32 scales per rank.
-extern "C" long long ring_slot_bytes(int kind, int dtype, int n,
-                                     long long chunk_elems) {
-  const int elem = elem_bytes(dtype);
-  return n * rank_slot_bytes(kind, elem, chunk_elems);
+// Bytes of comm slots a call needs for all n ranks: C1-C4 none; C5, C6
+// two int8 chunks and 2 x MAX_BPR f32 scales per rank.
+extern "C" long long ring_slot_bytes(int kind, int n, long long chunk_elems) {
+  return n * rank_slot_bytes(kind, chunk_elems);
 }
 
 // Blocks of the kernel for (kind, op, dtype) resident on one SM at once,

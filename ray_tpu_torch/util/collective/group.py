@@ -9,10 +9,10 @@ through the ring kernels C2-C4 and C6 on a CUDA device and their plain
 versions on the CPU. Unlike ``PallasGroup`` there
 is no fallback: on the card the group launches the kernel or raises.
 
-The group owns the kernels' workspace: the comm slots (grown to the
-largest call, reused; for C5 and C6 int8 payloads and per-block scales),
-one flag table per kernel kind (receive, capacity and, for C5 and C6, the
-per-rank barrier words), a per-kind call
+The group owns the kernels' workspace: the comm slots of the int8 ring
+(C5, C6: int8 payloads and per-block scales, grown to the largest call and
+reused; C1-C4 need none), one flag table per kernel kind (receive,
+capacity and, for C5 and C6, the per-rank barrier words), a per-kind call
 counter that sets each call's flag epochs, a comm stream for the
 split-phase forms, and the timeout record (pinned host memory the kernels
 write when a spin times out). Its ring launches are ordered: a launch on
@@ -35,10 +35,14 @@ from ray_tpu_torch.util.collective.ring import (
     FLAG_SECTIONS, KINDS, MAX_BLOCKS_PER_RANK, MAX_RANKS, hops,
 )
 
-# What a timed-out kernel waited for, by ring.cu's Wait code.
-_WAITS = ("receive flag to reach epoch", "capacity flag to reach epoch",
-          "barrier flag to reach epoch",
-          "count of this call's peer arrivals to reach")
+# What a stopped kernel waited for, by ring.cu's Wait code (the last: a
+# carried max of C5's in-place form that its hop before did not leave).
+_WAITS = ("timed out waiting for the receive flag to reach epoch",
+          "timed out waiting for the capacity flag to reach epoch",
+          "timed out waiting for the barrier flag to reach epoch",
+          "timed out waiting for the count of this call's peer arrivals "
+          "to reach",
+          "found no max carried from the hop before, tagged")
 
 
 class _Workspace(NamedTuple):
@@ -106,20 +110,20 @@ class RingGroup:
 
     # --------------------------------------------------------------- health
     def raise_if_failed(self) -> None:
-        """Raise if a ring kernel of this group has timed out (reads the
-        pinned record; does not wait for the device)."""
+        """Raise if a ring kernel of this group has stopped on a timeout or
+        a missing carry (reads the pinned record; does not wait for the
+        device)."""
         if self._err_host is None or int(self._err_host[0]) == 0:
             return
         _, kind, rank, block, hop, what, want, seen = (
             int(v) for v in self._err_host.tolist())
         raise RuntimeError(
-            f"ring {KINDS[kind]} kernel timed out on {self}: rank {rank}, "
-            f"block {block}, hop {hop}, waiting for the "
-            f"{_WAITS[what]} {want} (saw {seen}); the "
-            f"group cannot be used again")
+            f"ring {KINDS[kind]} kernel stopped on {self}: rank {rank}, "
+            f"block {block}, hop {hop} {_WAITS[what]} {want} (saw {seen}); "
+            f"the group cannot be used again")
 
     def check(self) -> None:
-        """Wait for the device, then raise if a ring kernel timed out."""
+        """Wait for the device, then raise if a ring kernel stopped."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.raise_if_failed()

@@ -17,26 +17,35 @@ Kernels (``ops/csrc/ring.cu``):
   rows are NOT equal: rank r keeps its reduced chunk r + 1 unquantized and
   gets every other chunk through at least one more int8 hop (its own
   chunk r comes back from its left neighbour requantized).
-- C5 ``ring_qhop_cuda`` (``_qhop_kernel``): one fused hop on
-  x [n, rows, LANES] f32: ``out[r + 1] = dequant(quant(x[r]))`` with one
-  scale over rank r's block.
+- C5, one kernel in two forms, one hop a launch:
+  - ``ring_qhop_cuda`` (``_qhop_kernel``): one fused hop on
+    x [n, rows, LANES] f32: ``out[r + 1] = dequant(quant(x[r]))`` with
+    one scale over rank r's block;
+  - ``ring_qrs_hop_cuda`` (the reference's ``_qrs_hop``): hop t of the
+    split-phase int8 reduce-scatter in place on x [n, n * c, LANES] f32:
+    rank r sends its chunk r - t - 1 and adds what arrives onto its chunk
+    r - t - 2 (``cur + q * scale``, rounded twice, as the tensor add).
+    Hop t + 1 sends the chunk hop t wrote, so hop t carries the max of
+    what it writes to hop t + 1 in a table the reduce-scatter owns, and
+    only hop 0 takes a max pass.
+  Both count their launches on ``ring_qhop_cuda.launches``.
 
 Beside each, a plain PyTorch version (``ring_qallreduce_plain``,
-``ring_qhop_plain``) that follows the kernel's schedule element for
-element: the same scales (max is exact), the same codes (IEEE division,
-half-to-even rounding), and C6's accumulate computed in f64 and rounded
-once to f32 (the product of an int8 code and an f32 scale is exact in
-f64; an inexact f64 sum is rounded to odd, so the f32 rounding is the
-FMA's). So the two agree bit for bit. The plain versions work a rank and
-a piece of a chunk at a time, so their f64 temporaries stay small beside
-a large input.
+``ring_qhop_plain``, ``ring_qrs_hop_plain``) that follows the kernel's
+schedule element for element: the same scales (max is exact), the same
+codes (IEEE division, half-to-even rounding), and C6's accumulate
+computed in f64 and rounded once to f32 (the product of an int8 code and
+an f32 scale is exact in f64; an inexact f64 sum is rounded to odd, so
+the f32 rounding is the FMA's). So the two agree bit for bit. The plain
+versions work a rank and a piece of a chunk at a time, so their f64
+temporaries stay small beside a large input.
 
 Public functions (the reference's, with its fallback ladder):
 
 - ``quantized_ring_allreduce(x, op, precision=, impl=, group=)``;
 - ``start_quantized_ring_reduce_scatter`` / ``wait_quantized_ring_reduce_scatter``:
-  the split-phase int8 reduce-scatter, one C5 launch per hop with the add
-  a plain tensor op (``_qrs_hop``: two roundings);
+  the split-phase int8 reduce-scatter, one launch of C5's in-place form
+  per hop (``_qrs_hop``: two roundings);
 - ``local_quantization_residual(block, n)``: what a rank's data loses to
   its first int8 compression, for error feedback (plain tensor math).
 
@@ -83,14 +92,24 @@ def _pieces(t: torch.Tensor):
         yield t[i:i + step]
 
 
-def _scale(chunk: torch.Tensor) -> torch.Tensor:
-    """The kernels' scale of a [rows, LANES] f32 chunk, a 0-dim f32 tensor:
-    ``max(max|chunk| / 127, 1e-30)``. The divisor is a tensor on the
-    chunk's device: torch divides by a host scalar on the card as a
-    product with its reciprocal, which is not IEEE division."""
-    m = torch.stack([p.abs().amax() for p in _pieces(chunk)]).amax()
-    qmax = torch.tensor(_QMAX, dtype=torch.float32, device=chunk.device)
+def _absmax(chunk: torch.Tensor) -> torch.Tensor:
+    """max|chunk| of a [rows, LANES] f32 chunk, a 0-dim f32 tensor."""
+    return torch.stack([p.abs().amax() for p in _pieces(chunk)]).amax()
+
+
+def _scale_of(m: torch.Tensor) -> torch.Tensor:
+    """The kernels' scale of a chunk whose max|x| is m: ``max(m / 127,
+    1e-30)``. The divisor is a tensor on m's device: torch divides by a
+    host scalar on the card as a product with its reciprocal, which is not
+    IEEE division."""
+    qmax = torch.tensor(_QMAX, dtype=torch.float32, device=m.device)
     return (m / qmax).clamp_min(_FLOOR)
+
+
+def _scale(chunk: torch.Tensor) -> torch.Tensor:
+    """The kernels' scale of a [rows, LANES] f32 chunk, a 0-dim f32
+    tensor."""
+    return _scale_of(_absmax(chunk))
 
 
 def _codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -163,6 +182,28 @@ def ring_qhop_plain(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ring_qrs_hop_plain(x: torch.Tensor, t: int,
+                       carry: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """C5's in-place form's function, on x [n, n * c, LANES] f32 in place
+    (returned): hop t of the split-phase int8 reduce-scatter, ``_rs_hop``
+    with C5's standalone function as the hop (the reference's
+    ``_qrs_hop``): rank r quantizes its chunk r - t - 1 with one scale and
+    sends it; its right neighbour adds the dequantized chunk onto its own
+    chunk of that index, the product and the sum rounded apart. With
+    ``carry`` ([n - 1, n] int64) it also writes what the kernel carries to
+    hop t + 1 (t + 2 < n): row t + 1, rank r's word ``(t + 1) << 32 |``
+    the bits of max|chunk r - t - 2| after the hop, hop t + 1's send
+    chunk."""
+    n = x.shape[0]
+    x4 = x.view(n, n, -1, LANES)
+    _rs_hop(x4, t, "sum", ring_qhop_plain)
+    if carry is not None and t + 2 < n:
+        m = torch.stack([_absmax(x4[r, (r - t - 2) % n]) for r in range(n)])
+        carry[t + 1] = ((t + 1) << 32) | m.view(torch.int32).to(torch.int64)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Kernels C5 and C6: launch wrappers with launch counters.
 # ---------------------------------------------------------------------------
@@ -200,7 +241,7 @@ ring_qallreduce_cuda.launches = 0
 def ring_qhop_cuda(x: torch.Tensor, *, group=None) -> torch.Tensor:
     """Launch C5 on x [n, rows, LANES] f32: returns out with
     ``out[(r + 1) % n] = dequant(quant(x[r]))``. ``.launches`` counts
-    launches."""
+    launches of C5 in either form."""
     _check_f32("ring_qhop_cuda", x)
     _check_block("ring_qhop_cuda", x)
     group = _group_for(x, group)
@@ -212,6 +253,38 @@ def ring_qhop_cuda(x: torch.Tensor, *, group=None) -> torch.Tensor:
 
 
 ring_qhop_cuda.launches = 0
+
+
+def ring_qrs_hop_cuda(x: torch.Tensor, t: int, carry: torch.Tensor, *,
+                      group=None) -> torch.Tensor:
+    """Launch C5's in-place form: hop t of the split-phase int8
+    reduce-scatter on x [n, n * c, LANES] f32, in place (returned;
+    ``ring_qrs_hop_plain``'s function). ``carry`` is the reduce-scatter's
+    own table, [n - 1, n] int64 on x's device, which hop 0 zeroes
+    (``_launch``, after the group's ordering), so a table may be reused:
+    hop 0 takes its scale from a max pass, hop t > 0 from row t, which hop
+    t - 1 filled; each hop but the last fills row t + 1. A carry that no
+    hop t - 1 filled since the last hop 0 stops the kernel, and the group
+    raises (``RingGroup.check``); there is no max pass in its place.
+    Counts on ``ring_qhop_cuda.launches``: one kernel."""
+    _check_f32("ring_qrs_hop_cuda", x)
+    n = x.shape[0]
+    if not 0 <= t < n - 1:
+        raise ValueError(f"ring_qrs_hop_cuda: hop {t} of a reduce-scatter "
+                         f"of {n - 1} hops")
+    if carry is None or carry.shape != (n - 1, n) \
+            or carry.dtype != torch.int64 or carry.device != x.device \
+            or not carry.is_contiguous():
+        raise ValueError(f"ring_qrs_hop_cuda needs the reduce-scatter's "
+                         f"carry table, a contiguous [{n - 1}, {n}] int64 "
+                         f"tensor on {x.device}")
+    _check_block("ring_qrs_hop_cuda", x, divisible=True)
+    group = _group_for(x, group)
+    _launch(group, "qrs_hop", "sum", x, x, x.shape[1] // n * LANES, hop=t,
+            carry=carry)
+    ring_qhop_cuda.launches += 1
+    return x
+
 
 KERNELS = (ring_qhop_cuda, ring_qallreduce_cuda)
 
@@ -264,10 +337,13 @@ def quantized_ring_allreduce(x: torch.Tensor, op: Any = "sum", *,
     return result / n if op == "avg" else result
 
 
-def _qhop_fn(h: SplitPhaseHandle):
+def _qrs_hop(h: SplitPhaseHandle, t: int) -> None:
+    """Hop t of an int8 reduce-scatter in flight: C5 in place on the card
+    (the handle's carry table in meta), its plain version on the CPU."""
     if h.impl == "cuda":
-        return lambda t: ring_qhop_cuda(t, group=h.group)
-    return ring_qhop_plain
+        ring_qrs_hop_cuda(h.buf, t, h.meta[-1], group=h.group)
+    else:
+        ring_qrs_hop_plain(h.buf, t)
 
 
 def start_quantized_ring_reduce_scatter(x: torch.Tensor, op: Any = "sum",
@@ -275,9 +351,11 @@ def start_quantized_ring_reduce_scatter(x: torch.Tensor, op: Any = "sum",
                                         donate: bool = False
                                         ) -> SplitPhaseHandle:
     """Issue an int8 reduce-scatter of x [n, n * k, ...] (the contract of
-    ``ring_reduce_scatter``, sum or avg): hop 0's fused quantize -> send ->
-    dequantize (one C5 launch) now, the rest at the wait; each hop adds
-    what it received to the rank's chunk as a tensor op. With ``donate``
+    ``ring_reduce_scatter``, sum or avg): hop 0 (quantize, send,
+    dequantize and add onto the receiving rank's chunk: one launch of C5's
+    in-place form) now, the rest at the wait. On the card the handle owns
+    the table that carries each hop's max to the next, so reduce-scatters
+    in flight together on one stream keep theirs apart. With ``donate``
     an f32 x is clobbered. The bf16 rung only casts here; its ring runs
     at the wait."""
     op = _check_args(x, op, "reduce-scatter", "ring_reduce_scatter")
@@ -298,8 +376,10 @@ def start_quantized_ring_reduce_scatter(x: torch.Tensor, op: Any = "sum",
         if not (donate or _own(block, x)):
             block = block.clone()
         h.buf = block
-        _rs_hop(block.view(n, n, -1, LANES), 0, "sum", _qhop_fn(h))
-    h.meta = ("int8", x.dtype, shape, per_shard)
+        carry = (torch.empty((n - 1, n), dtype=torch.int64, device=x.device)
+                 if h.impl == "cuda" else None)     # hop 0 zeroes it
+        h.meta = ("int8", x.dtype, shape, per_shard, carry)
+        _qrs_hop(h, 0)
     h.hops_done = 1
     return h
 
@@ -318,12 +398,12 @@ def wait_quantized_ring_reduce_scatter(h: SplitPhaseHandle) -> torch.Tensor:
     b4 = h.buf.view(n, n, -1, LANES)
     with _resume(h):
         for t in range(h.hops_done, n - 1):
-            _rs_hop(b4, t, "sum", _qhop_fn(h))
+            _qrs_hop(h, t)
         ranks = _rot(n, 0, b4.device)
         mine = b4[ranks, ranks]
     h.hops_done = n - 1
     _join(h, mine)
-    _, dtype, shape, per_shard = h.meta
+    _, dtype, shape, per_shard, _ = h.meta
     out = _from_block(mine, (n,), shape, per_shard)
     if h.op == "avg":
         out = out / n

@@ -15,8 +15,12 @@ Kernels (``ops/csrc/ring.cu``, one launch runs the ring protocol for all n
 ranks at once, each rank played by its own thread blocks):
 
 - C1 ``ring_permute_cuda``: one hop (``_permute_kernel``);
-- C2 ``ring_reduce_scatter_cuda``: n - 1 accumulate hops
-  (``_reduce_scatter_kernel``);
+- C2 ``ring_reduce_scatter_cuda``: one ordered reduce of each rank's own
+  chunk over the n ranks, stored once, one flag round
+  (``_reduce_scatter_kernel``'s function: its n - 1 shifted hops leave
+  chunk c on rank c folded as ``acc = x_{c+1}[c]``, then ``acc =
+  combine(x_{c+j}[c], acc)`` for j = 2 .. n, rounded each step; the
+  input is read, not written);
 - C3 ``ring_allgather_cuda``: one read of each shard and a push of it to
   every rank, one flag round (``_allgather_kernel``'s function; its n - 1
   copy hops are not needed, since a copy has no combine order);
@@ -72,10 +76,11 @@ MAX_BLOCKS_PER_RANK = 1024
 # per-rank barrier words of the int8 ring (C5, C6).
 FLAG_SECTIONS = 3
 
-# Kernel kinds, in ring.cu's numbering: C1-C4 here, C5 and C6 (the int8
-# ring) in quantized.py.
+# Kernel kinds, in ring.cu's numbering: C1-C4 here, C5 (two forms: qhop
+# and the in-place reduce-scatter hop qrs_hop) and C6 (the int8 ring) in
+# quantized.py.
 KINDS = ("permute", "reduce_scatter", "allgather", "allreduce", "qhop",
-         "qallreduce")
+         "qallreduce", "qrs_hop")
 _OPS = {"sum": 0, "max": 1, "min": 2, "prod": 3}
 # The block types C1-C4 take, in ring.cu's numbering: the reference's
 # float and int blocks.
@@ -94,9 +99,10 @@ _REDUCE_OPS = {ReduceOp.SUM: "sum", ReduceOp.AVERAGE: "avg",
 
 def hops(kind: str, n: int) -> int:
     """Flag rounds (epochs) of one call of ``kind`` over n ranks: its ring
-    hops, and one for C3's and C4's pushes."""
-    return {"permute": 1, "reduce_scatter": n - 1, "allgather": 1,
-            "allreduce": 1, "qhop": 1, "qallreduce": 2 * (n - 1)}[kind]
+    hops, and one for C2's, C3's and C4's single passes."""
+    return {"permute": 1, "reduce_scatter": 1, "allgather": 1,
+            "allreduce": 1, "qhop": 1, "qallreduce": 2 * (n - 1),
+            "qrs_hop": 1}[kind]
 
 
 def select_impl(requested: str = "auto",
@@ -245,14 +251,14 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
            ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
-           ctypes.c_void_p, ctypes.c_void_p])
+           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     lib.ring_host_device_ptr.restype = ctypes.c_int
     lib.ring_host_device_ptr.argtypes = [ctypes.c_void_p,
                                          ctypes.POINTER(ctypes.c_void_p)]
     lib.ring_error_string.restype = ctypes.c_char_p
     lib.ring_error_string.argtypes = [ctypes.c_int]
     lib.ring_slot_bytes.restype = ctypes.c_longlong
-    lib.ring_slot_bytes.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+    lib.ring_slot_bytes.argtypes = [ctypes.c_int] * 2 + [ctypes.c_longlong]
     if (lib.ring_max_ranks(), lib.ring_max_blocks_per_rank(),
             lib.ring_flag_sections()) != (MAX_RANKS, MAX_BLOCKS_PER_RANK,
                                           FLAG_SECTIONS):
@@ -303,18 +309,24 @@ def _check_block(name: str, x: torch.Tensor, divisible: bool = False
 
 
 def _launch(group, kind: str, op: str, x: torch.Tensor, out: torch.Tensor,
-            chunk_elems: int) -> None:
+            chunk_elems: int, hop: int = 0,
+            carry: Optional[torch.Tensor] = None) -> None:
+    """Launch ``kind`` on the group's workspace; ``hop`` and ``carry`` are
+    C5's in-place form's (the reduce-scatter's hop and carry table, which
+    hop 0 zeroes on the launch's stream, after the group's ordering)."""
     lib = _lib()
     kind_code, dtype_code = KINDS.index(kind), _DTYPE_CODES[x.dtype]
-    slot_bytes = lib.ring_slot_bytes(kind_code, dtype_code, x.shape[0],
-                                     chunk_elems)
-    ws = group._begin(kind, slot_bytes)
+    ws = group._begin(kind, lib.ring_slot_bytes(kind_code, x.shape[0],
+                                                chunk_elems))
+    if carry is not None and hop == 0:
+        carry.zero_()
     with torch.cuda.device(x.device.index):
         err = lib.ring_launch(
             kind_code, _OPS[op], dtype_code, x.shape[0],
             x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
             chunk_elems, ws.slots_ptr, ws.flags_ptr, ws.base,
-            ws.err_dev_ptr, ws.err_host_ptr, ws.stream.cuda_stream)
+            ws.err_dev_ptr, ws.err_host_ptr, ws.stream.cuda_stream, hop,
+            None if carry is None else carry.data_ptr())
     group._end(ws)
     if err != 0:
         raise RuntimeError(f"ring {kind} launch failed: "
@@ -340,16 +352,15 @@ def ring_reduce_scatter_cuda(x: torch.Tensor, op: str = "sum", *,
                              group=None, donate: bool = False
                              ) -> torch.Tensor:
     """Launch C2 on x [n, n * c, LANES] (op sum, max, min or prod):
-    returns [n, c, LANES], rank r's reduced chunk r. The hops accumulate
-    in place: in x itself with ``donate`` (x is clobbered), else in a
-    copy of x; the reference keeps a separate ``acc`` scratch instead.
+    returns [n, c, LANES], rank r's reduced chunk r. The kernel reads x
+    and writes only the result, so ``donate`` (which lets the plain
+    version and the split-phase forms run in x) changes nothing here.
     ``.launches`` counts launches."""
     _check_block("ring_reduce_scatter_cuda", x, divisible=True)
     group = _group_for(x, group)
     n, c = x.shape[0], x.shape[1] // x.shape[0]
-    acc = x if donate else x.clone()
     out = torch.empty((n, c, LANES), dtype=x.dtype, device=x.device)
-    _launch(group, "reduce_scatter", op, acc, out, c * LANES)
+    _launch(group, "reduce_scatter", op, x, out, c * LANES)
     ring_reduce_scatter_cuda.launches += 1
     return out
 

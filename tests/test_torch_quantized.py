@@ -191,6 +191,106 @@ def test_split_phase_reduce_scatter_matches_reference(n, op):
                                    + np.abs(want).max()), err.max()
 
 
+def _rs_input(seed, n, rows, variant="randn"):
+    """[n, n * rows, 128] f32 for the in-place hop: randn, or with rank 1's
+    chunk 0 all zero (every hop of it at the 1e-30 scale floor)."""
+    x = _host(seed, n, n * rows, 128)
+    if variant == "zero_chunk":
+        x[1 % n, :rows] = 0.0
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("variant", ["randn", "zero_chunk"])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_inplace_hop_is_the_split_phase_hop(n, variant):
+    """C5's in-place form's plain version, at every hop t, equals the
+    split-phase hop it replaces, ``_rs_hop`` around C5's standalone form
+    (gather, hop, add, index-put), bit for bit; and each rank's received
+    chunk equals ``cur + q * scale`` written out per rank: the sender's
+    chunk quantized with the sender's one scale, the product and the sum
+    each rounded to f32 (two roundings, as the tensor add)."""
+    rows = 3
+    x = _rs_input(130 + n, n, rows, variant)
+    route = x.clone()
+    for t in range(n - 1):
+        before = x.clone()
+        assert TQ.ring_qrs_hop_plain(x, t) is x
+        R._rs_hop(route.view(n, n, rows, 128), t, "sum", TQ.ring_qhop_plain)
+        assert torch.equal(x, route)
+        for p in range(n):
+            j = (p - t - 2) % n
+            sent = before[(p - 1) % n, j * rows:(j + 1) * rows]
+            scale = TQ._scale(sent)
+            deq = TQ._codes(sent, scale) * scale
+            want = before[p, j * rows:(j + 1) * rows] + deq
+            assert torch.equal(x[p, j * rows:(j + 1) * rows], want)
+
+
+@pytest.mark.parametrize("variant", ["randn", "zero_chunk"])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_inplace_hop_carries_the_next_hops_max(n, variant):
+    """What hop t carries (row t + 1 of the carry table, rank r's word
+    tagged t + 1) is the max that ``_scale`` takes of hop t + 1's send
+    chunk, r - t - 2, the chunk hop t wrote: so the scale hop t + 1 makes
+    from it is ``_scale``'s of that chunk, bit for bit. Row 0 stays zero
+    (hop 0 takes a max pass) and the last hop carries nothing."""
+    rows = 3
+    x = _rs_input(140 + n, n, rows, variant)
+    carry = torch.zeros((n - 1, n), dtype=torch.int64)
+    for t in range(n - 1):
+        TQ.ring_qrs_hop_plain(x, t, carry)
+        if t + 2 >= n:
+            continue
+        for r in range(n):
+            word = int(carry[t + 1, r])
+            assert word >> 32 == t + 1
+            m = torch.tensor([word & 0xffffffff], dtype=torch.int64).to(
+                torch.int32).view(torch.float32)[0]
+            j = (r - (t + 1) - 1) % n          # hop t + 1's send chunk
+            nxt = x[r, j * rows:(j + 1) * rows]
+            assert torch.equal(m, TQ._absmax(nxt))
+            assert torch.equal(TQ._scale_of(m), TQ._scale(nxt))
+    assert not carry[0].any()
+    assert carry.count_nonzero() == n * max(n - 2, 0)
+
+
+def test_interleaved_handles_match_sequential():
+    """The overlap path issues chunk c + 1's first hop before it waits for
+    chunk c (``parallel/zero.py``): reduce-scatters in flight together,
+    each with its own carry, give what they give one after another."""
+    n = 4
+    xs = [_rs_input(150 + i, n, 2 + i) for i in range(3)]
+    seq = [TQ.wait_quantized_ring_reduce_scatter(
+        TQ.start_quantized_ring_reduce_scatter(x)) for x in xs]
+    hs = [TQ.start_quantized_ring_reduce_scatter(xs[0])]
+    got = []
+    for c in range(len(xs)):
+        if c + 1 < len(xs):
+            hs.append(TQ.start_quantized_ring_reduce_scatter(xs[c + 1]))
+        got.append(TQ.wait_quantized_ring_reduce_scatter(hs[c]))
+    for a, b in zip(got, seq):
+        assert torch.equal(a, b)
+
+
+def test_inplace_hop_wrapper_refuses_without_its_carry():
+    """The in-place form's wrapper raises on a hop outside the
+    reduce-scatter, without the reduce-scatter's carry table, and on a CPU
+    tensor; it never takes a max pass in place of a missing carry."""
+    n = 4
+    x = torch.zeros((n, n * 2, 128))
+    carry = torch.zeros((n - 1, n), dtype=torch.int64)
+    with pytest.raises(ValueError, match="hop"):
+        TQ.ring_qrs_hop_cuda(x, n - 1, carry)
+    with pytest.raises(ValueError, match="carry"):
+        TQ.ring_qrs_hop_cuda(x, 1, None)
+    with pytest.raises(ValueError, match="carry"):
+        TQ.ring_qrs_hop_cuda(x, 1, carry[:, :2])
+    with pytest.raises(ValueError, match="CUDA"):
+        TQ.ring_qrs_hop_cuda(x, 1, carry)
+    with pytest.raises(TypeError, match="float32"):
+        TQ.ring_qrs_hop_cuda(x.double(), 1, carry)
+
+
 def test_split_phase_bf16_rung_matches_reference():
     n = 4
     host = _host(80, n, n * 2, 50)      # 100 elements per rank

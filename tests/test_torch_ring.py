@@ -215,19 +215,26 @@ def _fold_input(seed, n, c, dtype, op):
     return torch.from_numpy(x.astype(np.float32)).to(dtype)
 
 
-def _fold(x, op, order):
-    """Every rank's chunk c = the fold of chunk c over the ranks in
-    ``order(c)``: acc = x[first][c], then acc = T(combine(x[p][c], acc))."""
+def _fold_chunks(x, op, order):
+    """[n, c, 128]: row k is chunk k folded over the ranks in ``order(k)``:
+    acc = x[first][k], then acc = T(combine(x[p][k], acc))."""
     n, c = x.shape[0], x.shape[1] // x.shape[0]
-    out = torch.empty_like(x)
+    rows = []
     for k in range(n):
         ranks = order(k)
         sl = slice(k * c, (k + 1) * c)
         acc = x[ranks[0], sl]
         for p in ranks[1:]:
             acc = _FOLD_COMBINE[op](x[p, sl], acc)
-        out[:, sl] = acc
-    return out
+        rows.append(acc)
+    return torch.stack(rows)
+
+
+def _fold(x, op, order):
+    """Every rank's chunk c = the fold of chunk c over the ranks in
+    ``order(c)`` (``_fold_chunks``)."""
+    n = x.shape[0]
+    return _fold_chunks(x, op, order).reshape(1, -1, 128).expand(n, -1, -1)
 
 
 @pytest.mark.parametrize("dtype", list(_FOLD_DTYPES))
@@ -248,6 +255,29 @@ def test_allreduce_is_the_ordered_fold_c4_pushes(n, op, dtype):
     assert torch.equal(got, want)
     if dt != torch.int32 and op in ("sum", "prod") and n >= 3:
         other = _fold(x, op, lambda k: [(k - j) % n for j in range(n)])
+        assert not torch.equal(got, other)
+
+
+@pytest.mark.parametrize("dtype", list(_FOLD_DTYPES))
+@pytest.mark.parametrize("op", ["sum", "prod", "max", "min"])
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 16])
+def test_reduce_scatter_is_the_ordered_fold_c2_computes(n, op, dtype):
+    """C2's contract: ``ring_reduce_scatter_plain`` (the reference's n - 1
+    shifted hops, hop by hop) leaves rank c with chunk c folded as acc =
+    x_{c+1}[c], then acc = T(combine(x_{c+j}[c], acc)) for j = 2 .. n,
+    rounded to the element type after every step: C4's fold started one
+    rank later, ending with the owner's own element. C2 computes exactly
+    that fold in one pass. Bit for bit; where order can matter (a float sum
+    or product over 3 or more ranks) the fold started at x_c, as C4's,
+    differs, so the inputs pin the start."""
+    dt = _FOLD_DTYPES[dtype]
+    x = _fold_input(2000 + 17 * n, n, 4, dt, op)
+    got = R.ring_reduce_scatter_plain(x, op)
+    want = _fold_chunks(x, op, lambda k: [(k + j) % n
+                                          for j in range(1, n + 1)])
+    assert torch.equal(got, want)
+    if dt != torch.int32 and op in ("sum", "prod") and n >= 3:
+        other = _fold_chunks(x, op, lambda k: [(k + j) % n for j in range(n)])
         assert not torch.equal(got, other)
 
 
@@ -311,14 +341,15 @@ def test_reduce_op_enum_and_group_on_cpu():
 
 @pytest.mark.parametrize("n", [2, 4, 8, R.MAX_RANKS])
 def test_flag_rounds_per_call_and_monotonic_epochs(n, monkeypatch):
-    """C3 and C4 push to every rank in one flag round; the ring kinds
-    take one round per hop. The epoch bases ``RingGroup._begin``
+    """C2, C3 and C4 run one pass in one flag round, and each launch of
+    C5 (either form) is one hop; C6 takes one round per hop. The epoch
+    bases ``RingGroup._begin``
     gives a kind's launches grow across calls so that each call's rounds
     (base + 1 .. base + hops) lie above every earlier call's: the kernels
     never reset their flags."""
     assert R.hops("allgather", n) == R.hops("allreduce", n) == 1
     assert R.hops("permute", n) == R.hops("qhop", n) == 1
-    assert R.hops("reduce_scatter", n) == n - 1
+    assert R.hops("reduce_scatter", n) == R.hops("qrs_hop", n) == 1
     assert R.hops("qallreduce", n) == 2 * (n - 1)
     # _begin on the CPU: no stream to order, no timeout record to map.
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
@@ -335,6 +366,27 @@ def test_flag_rounds_per_call_and_monotonic_epochs(n, monkeypatch):
     assert g._begin("allgather", 0).base == 5
     assert g._begin("allreduce", 0).base == 5
     assert g._begin("qallreduce", 0).base == 5 * 2 * (n - 1)
+
+
+@pytest.mark.parametrize("n", [2, 4, R.MAX_RANKS])
+def test_group_holds_comm_slots_only_when_a_call_asks(n, monkeypatch):
+    """C1-C4 ask for no comm slots (``ring.cu``'s ``ring_slot_bytes``,
+    checked on the card by chip_smoke's ring build phase), and a group
+    whose calls ask for none holds none. A call that asks (C5, C6) gets
+    the slots, which the group keeps and grows to the largest call."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
+    g = T.RingGroup(n, device="cpu")
+    g._err_dev, g._err_host_ptr = torch.zeros(1, dtype=torch.int32), 0
+    for kind in ("permute", "reduce_scatter", "allgather", "allreduce"):
+        assert g._begin(kind, 0).slots_ptr is None and g._slots is None
+    small = g._begin("qhop", n * 4096).slots_ptr
+    assert small is not None and g._slots.numel() == n * 4096
+    assert g._begin("qallreduce", n * 1024).slots_ptr == small
+    assert g._begin("allgather", 0).slots_ptr is None
+    assert g._slots.numel() == n * 4096
+    g._begin("qrs_hop", n * 8192)
+    assert g._slots.numel() == n * 8192
 
 
 @pytest.mark.parametrize("name", [
