@@ -25,7 +25,8 @@ Phases, one line each; any failure raises and exits non-zero:
               backward dK/dV) and B3 (flash backward dQ), each with its
               TFLOP/s; then B1-B3 at head dims 64 and 16
               (padded to 128 by the wrappers) and with the full mask at
-              S=256.
+              S=256; then B1 at the draft prefill's shapes (4 heads of 16,
+              S 128, 256 and 512, f32 and bf16).
 4. serve   -- Llama-3-8B at full width and depth (random weights from a
               seed, int8 weight-only, ``attn_impl="flash"``) answers 12
               requests from 4 client threads through ``LLMServer``; every
@@ -33,7 +34,42 @@ Phases, one line each; any failure raises and exits non-zero:
 5. parity  -- for 3 of those prompts the engine's greedy tokens equal the
               port's own ``generate`` on the same params.
 6. profile -- device time by kernel over 8 more requests (torch.profiler),
-              and the device's idle share of that window.
+              and the device's idle share of that window. Then the dense
+              server takes the paged serve's traffic mix (below) without
+              its prompts over 512 tokens, for figures beside the paged
+              run's. One weight tree (seed 0) serves phases 4-6a, one
+              server at a time, each quantizing it to int8.
+6a. paged  -- the paged server at the same width and depth (block 16, a
+              pool of 96 blocks against the dense equivalent's 512, prefix
+              cache, host KV tier, preemption with no hold): 8 requests on
+              a 256-token shared prefix, then two batch decodes and two
+              chunked prompts of 700-900 tokens, then 8 more on the
+              prefix, from four client threads. stats() must show prefix
+              hits on every repeat, a prompt prefilled in two or more
+              chunks, an admission queued for blocks, a spill to and a
+              promote from the host tier, and a preemption; tok/s, TTFT
+              and TPOT p50 beside the dense run's; the agreement with the
+              dense run's tokens (and the top-2 logit gap at a first
+              divergence); a profile window, with the indexing kernels'
+              share of it (the pool gather's upper bound).
+6b. spec   -- the mix's third-phase requests on a fresh paged server
+              without a draft, then on a fresh one with the default
+              random draft (2 layers, dim 64, head dim 16), spec_k 4, each
+              after the same warm-up: tok/s of both, acceptance, B1
+              launches = draft layers x draft prefills (none without the
+              draft), also inside a profile window; then B1 on the q, k
+              and v of real draft prefills at every bucket against its
+              plain version.
+6c. paged bitwise -- 4 layers at Llama-3-8B widths, bf16: paged decode =
+              dense decode on the same contents at batch 8 (logits and
+              rows), export -> adopt, preempt -> resume and tier promote
+              -> in-pool history and tokens, each bit for bit.
+6d. paged tokens -- the same widths in f32: the paged engine's greedy
+              tokens equal the dense engine's and generate's (prefix
+              hits, a chunked prompt, preempted and promoted requests),
+              and the speculative server's equal the plain paged one's;
+              B1 on that f32 draft's real prefills against its plain
+              version.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -666,6 +702,19 @@ def phase_bwd_kernels(dev):
     return rows
 
 
+def b1_used(o, lse, po, plse, dtype):
+    """The shares of B1's limits that O and LSE use against the plain
+    version's: O to TOL_O_F32 in f32, to TOL_O_BF16_ABS + TOL_O_BF16_REL
+    |plain| in bf16; LSE to TOL_LSE."""
+    diff = (o.float() - po.float()).abs()
+    if dtype == torch.float32:
+        used_o = diff.max().item() / TOL_O_F32
+    else:
+        used_o = (diff / (TOL_O_BF16_ABS + TOL_O_BF16_REL
+                          * po.float().abs())).max().item()
+    return used_o, (lse - plse).abs().max().item() / TOL_LSE
+
+
 def phase_head_dims(dev):
     """B1, B2 and B3 at head dims below 128 (the wrappers pad them with
     zeros and scale by the unpadded 1/sqrt(D)), causal, and at 128 with
@@ -697,15 +746,9 @@ def phase_head_dims(dev):
             check(o.shape == q.shape and dq.shape == q.shape
                   and dk.shape == k.shape and dv.shape == v.shape,
                   f"head dim {D}: outputs not sliced back to D")
-            diff = (o.float() - po.float()).abs()
-            if dtype == torch.float32:
-                used_o = diff.max().item() / TOL_O_F32
-            else:
-                used_o = (diff / (TOL_O_BF16_ABS + TOL_O_BF16_REL
-                                  * po.float().abs())).max().item()
-            used_lse = (lse - plse).abs().max().item() / TOL_LSE
-            used = [used_o, used_lse] + [held(g, w, dtype)[1] for g, w in (
-                (dq, pdq), (dk, pdk), (dv, pdv))]
+            used = list(b1_used(o, lse, po, plse, dtype)) + [
+                held(g, w, dtype)[1]
+                for g, w in ((dq, pdq), (dk, pdk), (dv, pdv))]
             mask = "causal" if causal else "full"
             check(max(used) <= 1.0, f"head dim {D} {mask} {dtype}: shares "
                   f"of the limits (O, LSE, dQ, dK, dV) {used}")
@@ -719,16 +762,59 @@ def phase_head_dims(dev):
     return used_by_dim
 
 
-def phase_serve(dev):
+def phase_draft_b1(dev):
+    """B1 at the draft prefill's shapes, [1, Pb, heads, head dim] of the
+    default draft (``draft_config_for`` of the served model: 4 heads of
+    16, padded to 128), causal, at every prefill bucket Pb, in f32 (the
+    f32 token gate's draft) and bf16 (the full-width draft), against the
+    plain version to the limits of the full-width checks. Returns
+    {case: the larger share of its limit O or LSE used}."""
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.serve.llm.disagg.spec import draft_config_for
+
+    dc = draft_config_for(serve_config())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    used = {}
+    for Pb in ENGINE["prefill_buckets"]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = [torch.randn((1, Pb, dc.n_heads, dc.head_dim),
+                                   generator=gen, device=dev, dtype=dtype)
+                       for _ in range(3)]
+            o, lse = attention.flash_fwd_cuda(q, k, v, True)
+            po, plse = attention.flash_attention_plain(q, k, v, True)
+            torch.cuda.synchronize()
+            case = f"{Pb} {str(dtype).rsplit('.', 1)[-1]}"
+            shares = b1_used(o, lse, po, plse, dtype)
+            check(o.shape == q.shape and max(shares) <= 1.0,
+                  f"B1 at the draft's shape, S {case}: shares of the "
+                  f"limits (O, LSE) {shares}")
+            used[case] = max(shares)
+    log("kernels", f"B1 at the draft prefill's shapes (B=1 H={dc.n_heads} "
+        f"D={dc.head_dim} padded to 128, causal, S "
+        f"{ENGINE['prefill_buckets']}, f32 and bf16): O and LSE within "
+        f"their limits (at most {max(used.values()):.2f} of one)")
+    return used
+
+
+def serve_config():
     from ray_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_8b(attn_impl="flash",
+                                 param_dtype=torch.bfloat16)
+
+
+def phase_serve(dev, cfg, loader, mix, card):
+    """The dense server: 12 requests with B1's launch count, parity with
+    ``generate`` and a profile window, then the paged serve's traffic mix
+    without its prompts over 512 tokens (the dense layout cannot take
+    them), for its figures beside the paged run's."""
     from ray_tpu_torch.ops import attention
     from ray_tpu_torch.serve.llm import LLMServer
 
-    cfg = LlamaConfig.llama3_8b(attn_impl="flash",
-                                param_dtype=torch.bfloat16)
     t0 = time.perf_counter()
     server = LLMServer(model_config=cfg, engine_config=dict(ENGINE),
-                       init_seed=0, device=dev)
+                       params_loader=loader, device=dev)
     torch.cuda.synchronize()
     log("serve", f"Llama-3-8B (L={cfg.n_layers}, kv heads "
         f"{cfg.n_kv_heads}, vocab {cfg.vocab_size}) int8 built in "
@@ -783,7 +869,9 @@ def phase_serve(dev):
               and launches == cfg.n_layers * prefills,
               f"flash launches {launches} != {cfg.n_layers} x {prefills}")
         phase_parity(server, cfg, reqs, results, dev)
-        return launches, phase_profile(server, cfg)
+        profile = phase_profile(server, cfg)
+        dense_mix = run_mix(server, mix, "serve", card, long_prompts=False)
+        return launches, profile, dense_mix
     finally:
         server.shutdown()
 
@@ -839,6 +927,15 @@ def _kernel_group(name: str) -> str:
                               "splitk")):
         return "matmul"
     return "elementwise/other"
+
+
+def _is_index(name: str) -> bool:
+    """An indexing kernel of elementwise/other (gather, index, index-put,
+    index_add; not ``elementwise_kernel_with_index``, arange's), reported
+    as a part of that group."""
+    low = name.lower()
+    return (_kernel_group(name) == "elementwise/other"
+            and any(k in low for k in ("gather", "index_", "indexfunc")))
 
 
 def _traced_kernels():
@@ -908,6 +1005,9 @@ def profile_window(phase: str, fn, card: str = ""):
     for e in events:
         g = _kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + e.device_time_total / 1e3
+    index = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                    for e in events if _is_index(e.key)), reverse=True)
+    index_ms = sum(ms for ms, _, _ in index)
     top = sorted(((e.device_time_total / 1e3, e.count, e.key)
                   for e in events), reverse=True)
     log(phase, f"profiled: {wall_ms:.1f} ms wall, device busy {busy:.1f} "
@@ -915,15 +1015,18 @@ def profile_window(phase: str, fn, card: str = ""):
         + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
                     for g, ms in sorted(groups.items(),
                                         key=lambda kv: -kv[1]))
+        + f"; of elementwise/other, indexing kernels {index_ms:.1f} ms "
+        f"({100 * index_ms / busy:.1f}%)"
         + "; every hand-written kernel's launches in the trace"
         + (f"; {card}" if card else ""))
     for ms, count, name in top[:8]:
         log(phase, f"  {ms:8.2f} ms {count:6d}x  {name[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "groups": groups,
+            "index_ms": index_ms, "index_top": [list(t) for t in index[:4]],
             "top": [list(t) for t in top[:8]]}
 
 
-def phase_profile(server, cfg):
+def phase_profile(server, cfg, phase="profile", card=""):
     """Where the serving time goes: device time by kernel over 8 requests
     (prompts of 100-500 tokens, 32 new tokens each) under torch.profiler,
     against the host's wall time for the same window."""
@@ -941,7 +1044,634 @@ def phase_profile(server, cfg):
             t.join(600)
         check(all(not t.is_alive() for t in threads), "requests hung")
 
-    return profile_window("profile", run)
+    return profile_window(phase, run, card)
+
+
+# ---------------------------------------------------------------------------
+# The paged serving slice: paged KV, prefix cache, chunked prefill, the host
+# KV tier, preemption and speculative decoding.
+# ---------------------------------------------------------------------------
+
+# The paged server: the dense server's geometry at block size 16, with a
+# pool of PAGED_BLOCKS blocks, 19% of the dense equivalent (8 x 1024 / 16 =
+# 512). Four shared-prefix requests in flight (16 shared blocks, up to 18
+# own each) fit; in phase 2 two batch decodes (up to 29 blocks each) and a
+# long prompt (58 blocks) do not, so the long prompts' admissions queue
+# for blocks and preempt the batch decodes, and every entry phase 1 left
+# in the prefix cache, the shared prefix included, is evicted into the
+# host tier. The tier is sized (1 GiB, 512 blocks of 2 MiB) to keep every
+# spilled block, so phase 3's first shared-prefix request finds the
+# prefix there and promotes it (16 blocks: 3.6 ms by the cost model's
+# defaults against 12.8 ms of recompute), and the others hit the pool.
+PAGED_BLOCKS = 96
+PAGED_ENGINE = {**ENGINE, "kv_layout": "paged", "kv_block_size": 16,
+                "num_kv_blocks": PAGED_BLOCKS, "prefix_cache": True,
+                "kv_spill": True, "kv_host_tier_bytes": 1 << 30,
+                "preempt_hold_s": 0.0, "preempt_cooldown_s": 0.0}
+SYS_PREFIX, SPEC_K, GATE_LAYERS = 256, 4, 4
+
+
+def paged_mix(vocab):
+    """The paged serve's traffic, from numpy seed 0, in three phases:
+    (1) 8 interactive requests sharing a 256-token system prefix with
+    50-250 tokens of their own (16-32 new); (2) two batch requests
+    (150-250 prompt tokens, 200 new), then two interactive prompts of
+    700-900 tokens with chunked_prefill (16 new); (3) 8 more requests on
+    the shared prefix, after phase 2 evicted it from the pool."""
+    rng = np.random.RandomState(0)
+
+    def toks(n):
+        return rng.randint(0, vocab, int(n)).tolist()
+
+    sys_prefix = toks(SYS_PREFIX)
+
+    def shared():
+        return {"prompt": sys_prefix + toks(rng.randint(50, 251)),
+                "max_tokens": int(rng.randint(16, 33))}
+
+    batch = [{"prompt": toks(rng.randint(150, 251)), "max_tokens": 200,
+              "slo": "batch"} for _ in range(2)]
+    first = [shared() for _ in range(8)]
+    long = [{"prompt": toks(rng.randint(700, 901)), "max_tokens": 16,
+             "chunked_prefill": True} for _ in range(2)]
+    second = [shared() for _ in range(8)]
+    return {"batch": batch, "first": first, "long": long, "second": second,
+            "sys_prefix": sys_prefix}
+
+
+def warm(server, cfg):
+    """One request per prefill bucket through the server (its scheduler
+    thread owns the engine), distinct random prompts, outside any
+    measured window."""
+    rng = np.random.RandomState(99)
+    for b in ENGINE["prefill_buckets"]:
+        server({"prompt": rng.randint(0, cfg.vocab_size, b).tolist(),
+                "max_tokens": 2})
+
+
+def _clients(server, reqs, errors, n=N_CLIENTS):
+    """Start n client threads that send ``reqs`` round-robin; returns
+    (threads, results)."""
+    results = [None] * len(reqs)
+
+    def client(i):
+        try:
+            for j in range(i, len(reqs), n):
+                results[j] = server(reqs[j])
+        except BaseException as e:           # relayed to the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(min(n, len(reqs)))]
+    for t in threads:
+        t.start()
+    return threads, results
+
+
+def _join(threads, errors):
+    for t in threads:
+        t.join(600)
+    if errors:
+        raise errors[0]
+    check(all(not t.is_alive() for t in threads), "clients hung")
+
+
+def run_mix(server, mix, phase, card, long_prompts=True):
+    """Send the mix through ``server`` with four client threads, phase by
+    phase: (1) the first shared-prefix requests; (2) two clients start
+    the batch requests and, once both decode, the two others the long
+    prompts (skipped on the dense server); (3) the second shared-prefix
+    requests. Every request must end at its max_tokens. Returns
+    {"results": [(request, result)], tok/s, TTFT and TPOT p50 over all
+    requests}."""
+    errors = []
+    t0 = time.perf_counter()
+    threads, res = _clients(server, mix["first"], errors)
+    _join(threads, errors)
+    done = list(zip(mix["first"], res))
+    threads, res = _clients(server, mix["batch"], errors)
+    deadline = time.monotonic() + 120
+    while server.load()["active_slots"] < len(mix["batch"]) and not errors:
+        check(time.monotonic() < deadline, "batch requests never admitted")
+        time.sleep(0.005)
+    if long_prompts:
+        more, res2 = _clients(server, mix["long"], errors)
+        _join(more, errors)
+        done += list(zip(mix["long"], res2))
+    _join(threads, errors)
+    done += list(zip(mix["batch"], res))
+    threads, res = _clients(server, mix["second"], errors)
+    _join(threads, errors)
+    done += list(zip(mix["second"], res))
+    wall = time.perf_counter() - t0
+    for r, res in done:
+        check(res is not None and res["finish_reason"] == "length"
+              and res["num_tokens"] == r["max_tokens"],
+              f"{phase}: a request for {r['max_tokens']} tokens ended "
+              f"{res and (res['finish_reason'], res['num_tokens'])}")
+    n_tok = sum(res["num_tokens"] for _, res in done)
+    out = {"requests": len(done), "tokens": n_tok, "wall_s": wall,
+           "tok_s": n_tok / wall,
+           "ttft_p50_ms": 1e3 * float(np.median([res["ttft_s"]
+                                                 for _, res in done])),
+           "tpot_p50_ms": 1e3 * float(np.median([res["tpot_s"]
+                                                 for _, res in done])),
+           "results": done}
+    log(phase, f"mix{'' if long_prompts else ' without prompts over 512'}: "
+        f"{len(done)} requests, {n_tok} tokens in {wall:.2f} s = "
+        f"{out['tok_s']:.1f} tok/s, TTFT p50 {out['ttft_p50_ms']:.1f} ms, "
+        f"TPOT p50 {out['tpot_p50_ms']:.2f} ms; {card}")
+    return out
+
+
+def _top2_gap(params, cfg, prompt, tokens, i, dev):
+    """The top-2 logit gap of the port's forward at generated token i."""
+    from ray_tpu_torch.models.llama import forward
+
+    with torch.no_grad():
+        logits = forward(params, torch.tensor([prompt + tokens[:i]],
+                                              device=dev), cfg)[0, -1]
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def _agreement(phase, paged, dense, params, cfg, dev):
+    """Requests of the paged run whose tokens equal the dense run's, and
+    for the others the first divergence and the top-2 logit gap there
+    (printed, not required: bf16/int8 at full depth, other shapes)."""
+    by_prompt = {tuple(r["prompt"]): res["tokens"] for r, res in dense}
+    same, diffs = 0, []
+    for r, res in paged:
+        want = by_prompt.get(tuple(r["prompt"]))
+        if want is None:
+            continue
+        if res["tokens"] == want:
+            same += 1
+            continue
+        i = next(k for k, (a, b) in enumerate(zip(res["tokens"], want))
+                 if a != b)
+        diffs.append((len(r["prompt"]), i, _top2_gap(
+            params, cfg, list(r["prompt"]), res["tokens"], i, dev)))
+    log(phase, f"paged == dense tokens for {same} of {same + len(diffs)} "
+        f"requests" + "".join(
+            f"; prompt {p}: first differs at token {i}, top-2 gap there "
+            f"{g:.4g}" for p, i, g in diffs))
+    return {"equal": same, "compared": same + len(diffs),
+            "first_divergence": [{"prompt_len": p, "token": i,
+                                  "top2_gap": g} for p, i, g in diffs]}
+
+
+def phase_paged_serve(dev, cfg, loader, mix, dense_mix, card):
+    """The paged server at full width and depth (int8, flash): the mix,
+    every stats() event it must cause, its figures beside the dense
+    server's, the agreement with the dense server's tokens, a profile
+    window, with the indexing kernels' share of it (the pool gather's
+    upper bound)."""
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    server = LLMServer(model_config=cfg, engine_config=dict(PAGED_ENGINE),
+                       params_loader=loader, device=dev)
+    try:
+        warm(server, cfg)
+        log("paged", f"pool of {PAGED_BLOCKS} blocks of 16 rows (dense "
+            f"equivalent {ENGINE['num_slots'] * ENGINE['max_seq_len'] // 16}"
+            f"), {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        s0 = server.stats()
+        attention.flash_fwd_cuda.launches = 0
+        out = run_mix(server, mix, "paged", card)
+        launches = attention.flash_fwd_cuda.launches
+        st = server.stats()
+        pc, tiers = st["prefix_cache"], st["kv_tiers"]
+        hits = pc["hits"] - s0["prefix_cache"]["hits"]
+        hit_tokens = pc["hit_tokens"] - s0["prefix_cache"]["hit_tokens"]
+        events = {
+            "prefix_hits": hits, "prefix_hit_tokens": hit_tokens,
+            "chunked_prompts": st["chunked_prefill"]["prompts"],
+            "chunks": st["chunked_prefill"]["chunks"],
+            "admission_waits": st["kv"]["admission_waits"],
+            "evictions": pc["evictions"], "spilled": pc["spilled"],
+            "promoted_blocks": tiers["promoted_blocks"],
+            "promote_skips": tiers["promote_skips"],
+            "preempted": st["preempted"],
+            "adopted_blocks": st["migration"]["blocks"],
+            "dropped_blocks": tiers["dropped_blocks"]}
+        log("paged", "stats: " + ", ".join(f"{k} {v}"
+                                           for k, v in events.items()))
+        # Every shared-prefix request but the first of each round hits
+        # the pool (the first of round 2 promotes the prefix from the
+        # tier).
+        repeats = len(mix["first"]) + len(mix["second"]) - 2
+        check(hits >= repeats and hit_tokens >= repeats * SYS_PREFIX,
+              f"prefix hits {hits} / hit tokens {hit_tokens}: fewer than "
+              f"the shared prefix's {repeats} repeats")
+        check(events["chunked_prompts"] >= 1 and events["chunks"] >= 2,
+              "no prompt was prefilled in two chunks")
+        check(events["admission_waits"] >= 1, "no admission queued for "
+              "blocks")
+        check(events["spilled"] >= 1 and events["promoted_blocks"] >= 1,
+              "no spill to the host tier, or no promote from it")
+        check(events["preempted"] >= 1, "no preemption")
+        check(st["kv"]["used_blocks"] == pc["entries"],
+              "blocks held outside the prefix cache after the run")
+        check(launches == 0, f"the paged path launched B1 {launches} times "
+              f"(its prefill is plain attention)")
+        log("paged", f"paged {out['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{out['ttft_p50_ms']:.1f} ms, TPOT p50 "
+            f"{out['tpot_p50_ms']:.2f} ms; dense (same mix without the two "
+            f"long prompts) {dense_mix['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{dense_mix['ttft_p50_ms']:.1f} ms, TPOT p50 "
+            f"{dense_mix['tpot_p50_ms']:.2f} ms; {card}")
+        agree = _agreement("paged", out["results"], dense_mix["results"],
+                           server._engine.params, cfg, dev)
+        profile = phase_profile(server, cfg, "paged profile", card)
+        log("paged", f"indexing kernels (the pool gather, the KV writes, "
+            f"the embedding lookup): {profile['index_ms']:.1f} of "
+            f"{profile['busy_ms']:.1f} ms busy in the paged profile window "
+            f"({100 * profile['index_ms'] / profile['busy_ms']:.1f}%); "
+            + "; ".join(f"{ms:.1f} ms {n}x {name[:60]}"
+                        for ms, n, name in profile["index_top"])
+            + f"; {card}")
+        return {"events": events, "agreement": agree, "profile": profile,
+                **{k: v for k, v in out.items() if k != "results"},
+                "dense": {k: v for k, v in dense_mix.items()
+                          if k != "results"}}
+    finally:
+        server.shutdown()
+
+
+def phase_spec_serve(dev, cfg, loader, mix, card):
+    """Speculative decoding at full width: the default draft
+    (``draft_config_for``: 2 layers, dim 64, head dim 16, random weights
+    from seed 0) on the paged server, spec_k 4. The third phase's
+    shared-prefix requests go through a fresh paged server without a
+    draft and then a fresh speculative one, each after the same warm-up,
+    so both start from the same state; then four more requests on the
+    speculative server in a profile window. B1 launches = draft layers x
+    draft prefills, all at buckets of 128 and more (none without the
+    draft). Last, B1 on the q, k and v of real draft prefills at every
+    bucket, against its plain version."""
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    reqs = mix["second"]
+
+    def serve(server):
+        warm(server, cfg)
+        s0 = server.stats()
+        attention.flash_fwd_cuda.launches = 0
+        errors = []
+        t0 = time.perf_counter()
+        threads, res = _clients(server, reqs, errors)
+        _join(threads, errors)
+        wall = time.perf_counter() - t0
+        for r, x in zip(reqs, res):
+            check(x["finish_reason"] == "length"
+                  and x["num_tokens"] == r["max_tokens"], f"bad result {x}")
+        return res, wall, s0, attention.flash_fwd_cuda.launches
+
+    server = LLMServer(model_config=cfg, engine_config=dict(PAGED_ENGINE),
+                       params_loader=loader, device=dev)
+    try:
+        plain, plain_wall, _, plain_launches = serve(server)
+    finally:
+        server.shutdown()
+    check(plain_launches == 0, f"the paged server without a draft "
+          f"launched B1 {plain_launches} times")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    server = LLMServer(model_config=cfg, engine_config=dict(
+        PAGED_ENGINE, spec_k=SPEC_K), params_loader=loader,
+        speculative={"draft_seed": 0}, device=dev)
+    try:
+        eng = server._engine
+        dc = eng.draft_config
+        check((dc.n_layers, dc.dim, dc.head_dim, dc.vocab_size)
+              == (2, 64, 16, cfg.vocab_size), f"draft config {dc}")
+        res, wall, s0, launches = serve(server)
+        s0 = s0["spec"]
+        spec = server.stats()["spec"]
+        prefills = spec["draft_prefills"] - s0["draft_prefills"]
+        check(prefills == len(reqs) and launches == dc.n_layers * prefills,
+              f"B1 launches {launches} != {dc.n_layers} draft layers x "
+              f"{prefills} draft prefills ({len(reqs)} requests)")
+        n_tok = sum(x["num_tokens"] for x in res)
+        same = sum(x["tokens"] == y["tokens"] for x, y in zip(res, plain))
+        accepted = spec["accepted"] - s0["accepted"]
+        proposed = spec["proposed"] - s0["proposed"]
+        out = {"requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+               "tok_s": n_tok / wall, "paged_wall_s": plain_wall,
+               "paged_tok_s": n_tok / plain_wall,
+               "accept_ratio": accepted / max(proposed, 1),
+               "accepted": accepted, "proposed": proposed,
+               "rounds": spec["rounds"] - s0["rounds"],
+               "draft_prefills": prefills, "b1_launches": launches,
+               "equal_to_paged": same}
+        log("spec", f"{len(reqs)} requests, {n_tok} tokens in {wall:.2f} s "
+            f"= {out['tok_s']:.1f} tok/s; the same requests on a fresh "
+            f"paged server without a draft, after the same warm-up: "
+            f"{plain_wall:.2f} s = {out['paged_tok_s']:.1f} tok/s "
+            f"({out['tok_s'] / out['paged_tok_s']:.3f}x); "
+            f"acceptance {accepted}/{proposed} = "
+            f"{100 * out['accept_ratio']:.2f}% (a random draft: near zero "
+            f"by construction), {out['rounds']} rounds; B1 launches "
+            f"{launches} = {dc.n_layers} x {prefills} draft prefills; "
+            f"tokens equal to the server's without a draft for {same} of "
+            f"{len(reqs)} (bf16/int8, printed, not required); {card}")
+        more = [dict(r, max_tokens=16) for r in mix["first"][:4]]
+        before = attention.flash_fwd_cuda.launches
+        p0 = server.stats()["spec"]["draft_prefills"]
+
+        def run():
+            errs = []
+            th, _ = _clients(server, more, errs)
+            _join(th, errs)
+
+        out["profile"] = profile_window("spec profile", run, card)
+        n = server.stats()["spec"]["draft_prefills"] - p0
+        check(attention.flash_fwd_cuda.launches - before
+              == dc.n_layers * n == dc.n_layers * len(more),
+              "profiled B1 launches != draft layers x draft prefills")
+        out["b1_launches"] += attention.flash_fwd_cuda.launches - before
+    finally:
+        server.shutdown()
+    # Comparison launches, after every count of the path was read.
+    out["draft_b1_tol_used"] = check_draft_b1(eng, reqs[0]["prompt"],
+                                              "spec")
+    return out
+
+
+def check_draft_b1(eng, prompt, phase):
+    """B1 on the q, k and v of real draft prefills: the engine's draft
+    prefills ``prompt`` cut to fill each prefill bucket that launches B1
+    (the whole prompt in the largest), zero-padded as the engine pads it;
+    every layer's attention call is captured on its way to B1, and B1's O
+    and LSE on those inputs (made contiguous, as the path makes them) are held against the plain version's to the
+    limits of the full-width checks. Returns the largest share of a limit
+    used."""
+    from ray_tpu_torch.models.llama import prefill_kv
+    from ray_tpu_torch.ops import attention
+
+    dc = eng.draft_config
+    check(dc.attn_impl == "flash", f"the draft's attention is "
+          f"{dc.attn_impl!r}, not B1")
+    lens = sorted({min(len(prompt), b) for b in eng.config.prefill_buckets
+                   if b >= attention.MIN_KERNEL_SEQ})
+    worst, shapes = 0.0, []
+    for n in lens:
+        calls = []
+
+        def capture(q, k, v, causal=True):
+            calls.append((q, k, v, causal))
+            return attention.flash_attention(q, k, v, causal=causal)
+
+        padded = np.zeros((eng._bucket_for(n),), np.int64)
+        padded[:n] = prompt[:n]
+        tokens = torch.from_numpy(padded).to(eng.device)[None]
+        with torch.no_grad():
+            prefill_kv(eng._draft, tokens, dc, attn_impl=capture)
+            for i, (q, k, v, causal) in enumerate(calls):
+                check(q.shape == (1, padded.shape[0], dc.n_heads,
+                                  dc.head_dim) and causal,
+                      f"{phase}: draft layer {i} attends {tuple(q.shape)}")
+                q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+                o, lse = attention.flash_fwd_cuda(q, k, v, causal)
+                po, plse = attention.flash_attention_plain(q, k, v, causal)
+                used = b1_used(o, lse, po, plse, q.dtype)
+                check(max(used) <= 1.0, f"{phase}: B1 on draft layer {i}'s "
+                      f"prefill of {n} tokens (bucket {padded.shape[0]}, "
+                      f"{q.dtype}): shares of the limits (O, LSE) {used}")
+                worst = max(worst, max(used))
+        check(len(calls) == dc.n_layers, f"{phase}: {len(calls)} draft "
+              f"attention calls for {dc.n_layers} layers")
+        shapes.append(f"{n} tokens in bucket {padded.shape[0]}")
+    log(phase, f"B1 on the q, k and v of real draft prefills "
+        f"({', '.join(shapes)}; {dc.n_layers} layers, {dc.n_heads} heads of "
+        f"{dc.head_dim}, {dc.dtype}): O and LSE within their limits against "
+        f"the plain version (at most {worst:.2f} of one)")
+    return worst
+
+
+def _gate_cfg(dtype):
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_8b(n_layers=GATE_LAYERS, attn_impl="flash",
+                                 dtype=dtype, param_dtype=dtype)
+
+
+def phase_paged_bitwise(dev, card):
+    """Bitwise gates at Llama-3-8B widths, 4 layers, bf16: (1)
+    decode_step_paged against decode_step on the same KV contents at
+    batch 8 (logits and written rows); (2) export -> adopt round trip;
+    (3) a preempted request's tokens equal its tokens without preemption;
+    (4) a tier-promoted request's tokens equal the same prompt's with its
+    prefix still in the pool."""
+    from ray_tpu_torch.models.llama import (_paged_view, decode_step,
+                                            decode_step_paged,
+                                            init_paged_kv_cache,
+                                            init_params)
+    from ray_tpu_torch.serve.llm.engine import (EngineConfig, LLMEngine,
+                                                Request)
+
+    cfg = _gate_cfg(torch.bfloat16)
+    params = init_params(cfg, 3, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    B, bs, mb = 8, 16, 64
+    pools = init_paged_kv_cache(cfg, B * mb, bs, device=dev)
+    for t in pools.values():
+        t.normal_(generator=gen)
+    tables = torch.randperm(B * mb, generator=gen, device=dev).reshape(B, mb)
+    dense = {n: torch.stack([_paged_view(pools[n][i], tables)
+                             for i in range(cfg.n_layers)])
+             for n in ("k", "v")}
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev)
+    pos = torch.randint(0, mb * bs, (B,), generator=gen, device=dev)
+    with torch.no_grad():
+        pl, pools = decode_step_paged(params, pools, tables, tok, pos, cfg)
+        dl, dense = decode_step(params, dense, tok, pos, cfg)
+    rows_equal = all(torch.equal(torch.stack(
+        [_paged_view(pools[n][i], tables) for i in range(cfg.n_layers)]),
+        dense[n]) for n in ("k", "v"))
+    check(torch.equal(pl, dl) and rows_equal,
+          "decode_step_paged != decode_step on the same contents")
+    del pools, dense
+
+    rng = np.random.RandomState(11)
+    sys_p = rng.randint(0, cfg.vocab_size, 160).tolist()
+    prompt = sys_p + rng.randint(0, cfg.vocab_size, 60).tolist()
+    geo = dict(num_slots=8, max_seq_len=1024,
+               prefill_buckets=(128, 256, 512), kv_layout="paged",
+               kv_block_size=bs, kv_prefill_cost_per_token_ms=50.0)
+
+    def engine():
+        return LLMEngine(params, cfg, EngineConfig(**geo), device=dev)
+
+    def run(eng, p, n):
+        h = eng.submit(Request(prompt=p, max_tokens=n))
+        eng.drain()
+        return h.tokens
+
+    with torch.no_grad():
+        plain = run(engine(), prompt, 24)
+        eng = engine()
+        h = eng.submit(Request(prompt=prompt, max_tokens=24, slo="batch"))
+        for _ in range(6):
+            eng.step()
+        slot = next(s for s in range(8) if eng._slots[s].handle is h)
+        n_valid = -(-int(eng._pos[slot]) // bs)
+        ids = eng._tables[slot, :n_valid].tolist()
+        rows = (eng._cache["k"][:, ids].cpu(), eng._cache["v"][:, ids].cpu())
+        eng.preempt(slot)
+        st = h.kv_state
+        exported = (torch.equal(st.k_blocks, rows[0])
+                    and torch.equal(st.v_blocks, rows[1]))
+        eng._admit()
+        slot = next(s for s in range(8) if eng._slots[s].handle is h)
+        ids = eng._tables[slot, :n_valid].tolist()
+        adopted = (torch.equal(eng._cache["k"][:, ids].cpu(), st.k_blocks)
+                   and torch.equal(eng._cache["v"][:, ids].cpu(),
+                                   st.v_blocks))
+        eng.drain()
+        check(exported and adopted, f"export -> adopt not bitwise "
+              f"(export {exported}, adopt {adopted})")
+        check(h.tokens == plain, "preempted tokens differ from the run "
+              "without preemption")
+
+        eng = engine()
+        other = sys_p + rng.randint(0, cfg.vocab_size, 40).tolist()
+        run(eng, prompt, 4)                 # the shared blocks in the pool
+        run(eng, other, 4)                  # other's own full blocks too
+        hit = eng._prefix.match(other)
+        rows = (eng._cache["k"][:, hit].cpu(), eng._cache["v"][:, hit].cpu())
+        eng._allocator.free(hit)
+        in_pool = run(eng, other, 16)       # every full block a pool hit
+        n = len(eng._prefix)
+        check(eng._prefix.evict(n) == n, "evict")
+        promoted = run(eng, other, 16)      # the same blocks promoted
+        st = eng.stats()["kv_tiers"]
+        check(st["promoted_blocks"] == len(hit), f"promote: {st}")
+        back = eng._prefix.match(other)
+        check(torch.equal(eng._cache["k"][:, back].cpu(), rows[0])
+              and torch.equal(eng._cache["v"][:, back].cpu(), rows[1]),
+              "the promoted history differs from the pool history")
+        eng._allocator.free(back)
+        check(promoted == in_pool, "promoted tokens differ from the "
+              "in-pool prefix's")
+    log("paged bitwise", f"Llama-3-8B widths, {GATE_LAYERS} layers, bf16: "
+        f"decode_step_paged == decode_step at batch {B} (logits and "
+        f"rows); export -> adopt bitwise ({n_valid} blocks); preempted "
+        f"tokens == unpreempted ({len(plain)}); promoted "
+        f"({st['promoted_blocks']} blocks) tokens == in-pool ({len(in_pool)}"
+        f"); {card}")
+    del params
+    return {"decode_batch": B, "round_trip_blocks": n_valid,
+            "promoted_blocks": st["promoted_blocks"]}
+
+
+def phase_paged_tokens(dev, card):
+    """Token gates in f32 at Llama-3-8B widths, 4 layers: the paged
+    engine's greedy tokens equal the dense engine's and generate's for
+    every request (prefix hits, a chunked prompt, preempted and promoted
+    requests), and LLMServer(speculative=True) at spec_k 4 equals the
+    same paged server without a draft; then B1 on the q, k and v of that
+    f32 draft's real prefills."""
+    from ray_tpu_torch.models.llama import generate, init_params
+    from ray_tpu_torch.serve.llm import LLMServer
+    from ray_tpu_torch.serve.llm.engine import (EngineConfig, LLMEngine,
+                                                Request)
+
+    cfg = _gate_cfg(torch.float32)
+    params = init_params(cfg, 4, dev)
+    rng = np.random.RandomState(12)
+
+    def toks(n):
+        return rng.randint(0, cfg.vocab_size, n).tolist()
+
+    sys_p = toks(SYS_PREFIX)
+    geo = dict(num_slots=4, max_seq_len=1024,
+               prefill_buckets=(128, 256, 512))
+    paged = LLMEngine(params, cfg, EngineConfig(
+        **geo, kv_layout="paged", kv_block_size=16,
+        kv_prefill_cost_per_token_ms=50.0, preempt_hold_s=0.0,
+        preempt_cooldown_s=0.0), device=dev)
+    dense = LLMEngine(params, cfg, EngineConfig(**geo), device=dev)
+    n_new = 8
+    cases = []
+    with torch.no_grad():
+        # Prefix miss, then hits; a chunked prompt (paged only).
+        for p in (sys_p + toks(40), sys_p + toks(90)):
+            cases.append(("prefix", p, paged.submit(Request(
+                prompt=p, max_tokens=n_new))))
+            paged.drain()
+        p = toks(700)
+        cases.append(("chunked", p, paged.submit(Request(
+            prompt=p, max_tokens=n_new, chunked_prefill=True))))
+        paged.drain()
+        # Batch decodes in every slot; an interactive arrival preempts.
+        batch = [toks(150) for _ in range(4)]
+        hb = [paged.submit(Request(prompt=p, max_tokens=n_new, slo="batch"))
+              for p in batch]
+        paged.step()
+        p = sys_p + toks(30)
+        cases.append(("interactive", p, paged.submit(Request(
+            prompt=p, max_tokens=n_new))))
+        paged.drain()
+        cases += [("batch", p, h) for p, h in zip(batch, hb)]
+        # Spill the cache, then a prompt on the spilled prefix.
+        paged._prefix.evict(len(paged._prefix))
+        p = sys_p + toks(50)
+        cases.append(("promoted", p, paged.submit(Request(
+            prompt=p, max_tokens=n_new))))
+        paged.drain()
+        st = paged.stats()
+        check(st["preempted"] >= 1 and st["kv_tiers"]["promoted_blocks"]
+              >= SYS_PREFIX // 16 and st["prefix_cache"]["hits"] >= 2
+              and st["chunked_prefill"]["prompts"] == 1,
+              f"f32 gate: events missing {st}")
+        bad = []
+        for kind, p, h in cases:
+            ref = generate(params, torch.tensor([p], device=dev), cfg,
+                           max_new_tokens=n_new)[0].tolist()
+            want = [ref]
+            if len(p) <= geo["prefill_buckets"][-1]:
+                hd = dense.submit(Request(prompt=p, max_tokens=n_new))
+                dense.drain()
+                want.append(hd.tokens)
+            if any(h.tokens != w for w in want):
+                bad.append((kind, len(p)))
+        check(not bad, f"f32: paged tokens differ from dense/generate: "
+              f"{bad}")
+        del paged, dense
+        reqs = [{"prompt": sys_p + toks(int(rng.randint(20, 200))),
+                 "max_tokens": 12} for _ in range(4)]
+        outs = []
+        for spec in (None, True):
+            server = LLMServer(model_config=cfg, engine_config=dict(
+                geo, kv_layout="paged", kv_block_size=16, spec_k=SPEC_K),
+                params_loader=lambda: params, quantize="bf16",
+                speculative=spec, device=dev)
+            try:
+                outs.append([server(r)["tokens"] for r in reqs])
+                rounds = server.stats().get("spec", {}).get("rounds", 0)
+            finally:
+                server.shutdown()
+        check(rounds > 0, "the speculative server ran no round")
+        check(outs[0] == outs[1], "speculative tokens differ from the "
+              "paged server's without a draft")
+    draft_used = check_draft_b1(server._engine, reqs[0]["prompt"],
+                                "paged tokens")
+    log("paged tokens", f"Llama-3-8B widths, {GATE_LAYERS} layers, f32: "
+        f"paged == dense == generate for {len(cases)} requests (prefix "
+        f"hits, a chunked 700-token prompt, a preempting interactive and "
+        f"4 batch requests, {st['preempted']} preempted, a promoted "
+        f"prefix); speculative (spec_k {SPEC_K}, {rounds} rounds) == plain "
+        f"paged for {len(reqs)} requests; {card}")
+    del params
+    return {"requests": len(cases), "preempted": st["preempted"],
+            "spec_rounds": rounds, "draft_b1_tol_used": draft_used}
 
 
 def _grads(cfg, params, batch, impl):
@@ -2349,6 +3079,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     bwd_rows = phase_bwd_kernels(dev)
     head_dims = phase_head_dims(dev)
+    draft_b1 = phase_draft_b1(dev)
     n_params = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS).num_params()
     group = ZERO_N * 128
     ring_rows = phase_ring_kernels(dev, card,
@@ -2356,7 +3087,29 @@ def main() -> int:
     q_params = LlamaConfig.llama3_8b(n_layers=QZERO_LAYERS).num_params()
     qring_rows = phase_qring_kernels(dev, card,
                                      -(-q_params // group) * group)
-    serve_launches, serve_profile = phase_serve(dev)
+    from ray_tpu_torch.models.llama import init_params
+
+    # One weight tree (bf16, seed 0) behind the dense, paged and
+    # speculative servers, one server at a time; each quantizes it to int8.
+    serve_cfg = serve_config()
+    serve_params = init_params(serve_cfg, 0, dev)
+    mix = paged_mix(serve_cfg.vocab_size)
+    serve_launches, serve_profile, dense_mix = phase_serve(
+        dev, serve_cfg, lambda: serve_params, mix, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = phase_paged_serve(dev, serve_cfg, lambda: serve_params, mix,
+                              dense_mix, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = phase_spec_serve(dev, serve_cfg, lambda: serve_params, mix, card)
+    del serve_params, dense_mix
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged_bitwise = phase_paged_bitwise(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged_tokens = phase_paged_tokens(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(dev, card)
@@ -2462,9 +3215,10 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:47",
-        "launches": (serve_launches + train["launches"][0] + zero_b[0]
-                     + zq_b[0]),
-        "launches_by_path": {"serve": serve_launches,
+        "launches": (serve_launches + spec["b1_launches"]
+                     + train["launches"][0] + zero_b[0] + zq_b[0]),
+        "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
+                             "spec_serve_draft": spec["b1_launches"],
                              "train": train["launches"][0],
                              "zero_train": zero_b[0], "zero_quant": zq_b[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2478,6 +3232,10 @@ def main() -> int:
         "tflops": main_row["tflops"],
         "f32_max_abs_err": max(r["f32_max_abs_err"] for r in rows),
         "tol_used_max": max(r["tol_used"] for r in rows),
+        "draft_shapes_tol_used": draft_b1,
+        "draft_prefill_tol_used": {
+            "bf16 full width": spec["draft_b1_tol_used"],
+            "f32 gate": paged_tokens["draft_b1_tol_used"]},
         "registers": fwd_report["registers"],
         "spills": fwd_report["spill_bytes"],
         "blocks_per_sm": blocks_per_sm("fwd", torch.bfloat16),
@@ -2509,7 +3267,9 @@ def main() -> int:
                      {"zero_quant_monolithic": qmono["launches_c1_c6"][5],
                       "zero_quant_error_feedback":
                           qef["launches_c1_c6"][5]})],
-        "serve_profile": serve_profile,
+        "serve_profile": serve_profile, "paged_serve": paged,
+        "spec_serve": spec, "paged_bitwise": paged_bitwise,
+        "paged_tokens": paged_tokens,
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
         "zero_quant": zq}),

@@ -1,5 +1,5 @@
 """Llama-2/3 decoder for serving and training, in PyTorch: the counterpart
-of ``ray_tpu/models/llama.py`` (its dense serving and training halves).
+of ``ray_tpu/models/llama.py`` (its serving and training halves).
 
 Params are the JAX package's tree, as tensors: ``embed`` [V, D],
 ``layers`` (a dict of weights stacked on a leading [n_layers] axis, stored
@@ -40,8 +40,14 @@ Numerics against the JAX package (the tests hold each of these):
   counterpart of ``dots_with_no_batch_dims_saveable``); neither changes a
   value.
 
-``n_experts > 0`` (MoE), ``attn_impl="ring"`` and the paged-KV functions
-belong to later slices and raise ``NotImplementedError``.
+- paged KV (``init_paged_kv_cache``, ``decode_step_paged``,
+  ``verify_kv_paged``, ``prefill_kv_paged``): the reference's functions
+  on the same pools and tables, to the same tolerances
+  (``tests/test_torch_paged.py``). The pool carries one sink block past
+  the reference's (``init_paged_kv_cache``) where inactive rows write.
+
+``n_experts > 0`` (MoE) and ``attn_impl="ring"`` belong to later slices
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -530,6 +536,39 @@ def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, D)
 
 
+def _rope_rows(t: torch.Tensor, pc: torch.Tensor,
+               ps: torch.Tensor) -> torch.Tensor:
+    """t [B, K, H, D] rotated at per-row positions (pc/ps [B, K, 1, D/2]),
+    half-split, in f32."""
+    t1, t2 = t.float().chunk(2, dim=-1)
+    return torch.cat([t1 * pc - t2 * ps, t2 * pc + t1 * ps],
+                     dim=-1).to(t.dtype)
+
+
+def _decode_trunk(params: Params, tokens: torch.Tensor, qpos: torch.Tensor,
+                  config: LlamaConfig, rope_len: int,
+                  attend: Callable) -> torch.Tensor:
+    """The incremental trunk shared by ``decode_step``,
+    ``decode_step_paged`` and ``verify_kv_paged``: tokens [B, K] at
+    absolute positions ``qpos`` [B, K] (each < ``rope_len``) -> normed
+    hidden [B, K, D]. ``attend(i, q, k, v)`` writes layer i's new k/v
+    into its cache and returns the attention output [B, K, H, D]."""
+    c = config
+    B, K = tokens.shape
+    cos, sin = rope_freqs(c.head_dim, rope_len, c.rope_theta,
+                          tokens.device)
+    pc = cos[qpos][:, :, None, :]                     # [B, K, 1, D/2]
+    ps = sin[qpos][:, :, None, :]
+    x = _embed(params, tokens, c.dtype)
+    for i, p in enumerate(_layer_views(params)):
+        q, k, v = _qkv(x, p, c)
+        q, k = _rope_rows(q, pc, ps), _rope_rows(k, pc, ps)
+        attn = attend(i, q, k, v)
+        x = x + attn.reshape(B, K, -1) @ _weight(p, "wo", c.dtype)
+        x = _ffn(x, p, c)
+    return rms_norm(x, params["norm_f"], c.norm_eps)
+
+
 def decode_step(params: Params, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, positions: torch.Tensor,
                 config: LlamaConfig,
@@ -542,40 +581,228 @@ def decode_step(params: Params, cache: Dict[str, torch.Tensor],
     masks the KV write: an inactive row writes back the value already at
     its position, so its cache rows stay bit-for-bit untouched (the
     reference pushes the write index out of bounds, where XLA's scatter
-    drops it; PyTorch indexing would raise). Logits of inactive rows are
-    garbage by construction and ignored by callers."""
+    drops it; PyTorch indexing would raise). That is safe here because
+    every row owns its own cache stripe; the paged layout, where rows
+    share one pool, uses a sink block instead. Logits of inactive rows
+    are garbage by construction and ignored by callers."""
     _dense_only(config)
-    c = config
     S = cache["k"].shape[2]
-    dev = tokens.device
-    cos, sin = rope_freqs(c.head_dim, S, c.rope_theta, dev)
     B = tokens.shape[0]
-    x = _embed(params, tokens[:, None], c.dtype)
-    pc = cos[positions][:, None, None, :]             # [B, 1, 1, D/2]
-    ps = sin[positions][:, None, None, :]
+    bidx = torch.arange(B, device=tokens.device)
+    keep = None if active is None else active.to(tokens.device)[:, None,
+                                                               None]
 
-    def rope1(t):                                     # [B, 1, H, D]
-        t1, t2 = t.float().chunk(2, dim=-1)
-        return torch.cat([t1 * pc - t2 * ps, t2 * pc + t1 * ps],
-                         dim=-1).to(t.dtype)
-
-    bidx = torch.arange(B, device=dev)
-    keep = None if active is None else active.to(dev)[:, None, None]
-    for i, p in enumerate(_layer_views(params)):
+    def attend(i, q, k, v):
         k_cache, v_cache = cache["k"][i], cache["v"][i]
-        q, k, v = _qkv(x, p, c)
-        q, k = rope1(q), rope1(k)
         k_new, v_new = k[:, 0], v[:, 0]
         if keep is not None:
             k_new = torch.where(keep, k_new, k_cache[bidx, positions])
             v_new = torch.where(keep, v_new, v_cache[bidx, positions])
         k_cache[bidx, positions] = k_new
         v_cache[bidx, positions] = v_new
-        attn = _decode_attention(q, k_cache, v_cache, positions)
-        x = x + attn.reshape(B, 1, -1) @ _weight(p, "wo", c.dtype)
+        return _decode_attention(q, k_cache, v_cache, positions)
+
+    x = _decode_trunk(params, tokens[:, None], positions[:, None], config,
+                      S, attend)
+    return _logits(x[:, 0], params, config), cache
+
+
+# ---------------------------------------------------------------------------
+# Inference: the paged KV layout
+# ---------------------------------------------------------------------------
+
+def init_paged_kv_cache(config: LlamaConfig, num_blocks: int,
+                        block_size: int,
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Paged cache: one pool of KV blocks shared by all sequences,
+    ``[L, num_blocks + 1, block_size, n_kv, head_dim]`` in the compute
+    dtype, zeroed, on ``device`` (default: the card). A sequence owns a
+    *block table*, the physical block ids covering its logical positions
+    (PagedAttention, arXiv:2309.06180).
+
+    The pool has one block more than the reference's: the last,
+    ``num_blocks`` (``sink_block``), is never allocated. Rows a step must
+    not write (inactive slots) write there instead: the reference pushes
+    their block id out of bounds, where XLA's scatter drops the write,
+    and PyTorch would raise. Writing such a row's old value back, as the
+    dense ``decode_step`` does, is not safe here: an inactive slot's
+    stale table can name a block a live slot writes in the same call,
+    and duplicate indices leave either value on the card."""
+    c = config
+    shape = (c.n_layers, num_blocks + 1, block_size, c.n_kv_heads,
+             c.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=c.dtype, device=dev)}
+
+
+def sink_block(pools: Dict[str, torch.Tensor]) -> int:
+    """The pool's write-only sink block id (its last)."""
+    return pools["k"].shape[1] - 1
+
+
+def _paged_targets(pools: Dict[str, torch.Tensor], tables: torch.Tensor,
+                   qpos: torch.Tensor, active: Optional[torch.Tensor]):
+    """(block id, row in block) [B, K] where each query's k/v lands:
+    ``(table[pos // bs], pos % bs)``, and the sink block for inactive
+    rows. Built on the device: no host sync."""
+    bs = pools["k"].shape[2]
+    phys = torch.gather(tables, 1, qpos // bs)
+    if active is not None:
+        phys = torch.where(active.to(phys.device)[:, None], phys,
+                           torch.full_like(phys, sink_block(pools)))
+    return phys, qpos % bs
+
+
+def _paged_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Each sequence's dense [B, S_pad, n_kv, hd] view of one layer's
+    pool [NB + 1, bs, n_kv, hd] through its block table [B, max_blocks]."""
+    B, mb = tables.shape
+    return pool[tables].reshape(B, mb * pool.shape[1], *pool.shape[2:])
+
+
+def decode_step_paged(params: Params, pools: Dict[str, torch.Tensor],
+                      block_tables: torch.Tensor, tokens: torch.Tensor,
+                      positions: torch.Tensor, config: LlamaConfig,
+                      active: Optional[torch.Tensor] = None):
+    """One incremental token against the paged pool: tokens [B] at
+    ``positions`` [B], ``block_tables`` [B, max_blocks] mapping each
+    sequence's logical block to a pool block. Returns (f32 logits [B, V],
+    pools), the pools updated IN PLACE.
+
+    Per layer: the write lands at ``(table[pos // bs], pos % bs)`` (the
+    sink block for inactive rows), then each sequence's dense
+    ``[S_pad]`` view is gathered (S_pad = max_blocks * bs; after the
+    write, so the token attends to itself), then the same
+    ``_decode_attention`` as ``decode_step``. On the same contents as a
+    dense cache of length S_pad it is that step's arithmetic on an equal
+    contiguous tensor, so the same bits."""
+    if config.n_experts:
+        raise NotImplementedError(
+            "paged KV-cache decode for MoE configs is not implemented")
+    tables = block_tables.to(tokens.device).long()
+    S_pad = tables.shape[1] * pools["k"].shape[2]
+    phys, off = _paged_targets(pools, tables, positions[:, None], active)
+
+    def attend(i, q, k, v):
+        k_pool, v_pool = pools["k"][i], pools["v"][i]
+        k_pool[phys, off] = k.to(k_pool.dtype)
+        v_pool[phys, off] = v.to(v_pool.dtype)
+        return _decode_attention(q, _paged_view(k_pool, tables),
+                                 _paged_view(v_pool, tables), positions)
+
+    x = _decode_trunk(params, tokens[:, None], positions[:, None], config,
+                      S_pad, attend)
+    return _logits(x[:, 0], params, config), pools
+
+
+def _verify_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      qpos: torch.Tensor) -> torch.Tensor:
+    """q [B, K, H, D] at positions qpos [B, K]; k, v [B, S, kvH, D].
+    Query j attends to keys at positions <= qpos[:, j]: scores in the
+    input dtype, softmax in f32, probabilities rounded back before P.V,
+    query heads grouped over their kv head (the reference repeats the
+    kv heads; the products are the same)."""
+    B, S, KVH, D = k.shape
+    K, H = q.shape[1], q.shape[2]
+    qg = q.reshape(B, K, KVH, H // KVH, D)
+    scale = 1.0 / math.sqrt(D)
+    scores = torch.einsum("bqgrd,bsgd->bgrqs", qg, k).float() * scale
+    mask = (qpos[:, None, None, :, None]
+            >= torch.arange(S, device=q.device)[None, None, None, None, :])
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrqs,bsgd->bqgrd", probs, v)
+    return out.reshape(B, K, H, D)
+
+
+def verify_kv_paged(params: Params, pools: Dict[str, torch.Tensor],
+                    block_tables: torch.Tensor, tokens: torch.Tensor,
+                    positions: torch.Tensor, config: LlamaConfig,
+                    active: Optional[torch.Tensor] = None):
+    """K-token verify step for speculative decoding: tokens [B, K], token
+    j of row b at absolute position ``positions[b] + j`` (clamped at
+    S_pad - 1, as in the reference). Returns (f32 logits [B, K, V],
+    pools), the pools updated IN PLACE.
+
+    Row j's logits are the target's distribution for the token after
+    input j, what ``decode_step_paged`` gives after consuming inputs
+    0..j one at a time: every op is row-independent, so K queries in one
+    call change batching, not the function. All K writes land before the
+    gather, so input j sees inputs i < j through the position mask and
+    never i > j. Rejected inputs leave stale rows past the accepted
+    position, overwritten before they are ever attended. Inactive rows
+    write to the sink block."""
+    if config.n_experts:
+        raise NotImplementedError(
+            "paged KV-cache verify for MoE configs is not implemented")
+    tables = block_tables.to(tokens.device).long()
+    S_pad = tables.shape[1] * pools["k"].shape[2]
+    K = tokens.shape[1]
+    qpos = torch.clamp(positions[:, None] + torch.arange(
+        K, device=tokens.device)[None, :], max=S_pad - 1)      # [B, K]
+    phys, off = _paged_targets(pools, tables, qpos, active)
+
+    def attend(i, q, k, v):
+        k_pool, v_pool = pools["k"][i], pools["v"][i]
+        k_pool[phys, off] = k.to(k_pool.dtype)
+        v_pool[phys, off] = v.to(v_pool.dtype)
+        return _verify_attention(q, _paged_view(k_pool, tables),
+                                 _paged_view(v_pool, tables), qpos)
+
+    x = _decode_trunk(params, tokens, qpos, config, S_pad, attend)
+    return _logits(x, params, config), pools
+
+
+def prefill_kv_paged(params: Params, tokens: torch.Tensor, start: int,
+                     hist_k: torch.Tensor, hist_v: torch.Tensor,
+                     config: LlamaConfig):
+    """Suffix prefill over a history: the prefix-cache hit path. tokens
+    [1, Pb] sit at absolute positions start..start+Pb-1; hist_k/hist_v
+    [L, S_pad, n_kv, head_dim] hold the cached prefix KV (rows >= start
+    are don't-care: masked, then overwritten by the suffix). Returns
+    (normed hidden [1, Pb, D], suffix ks/vs [L, 1, Pb, n_kv, head_dim]).
+
+    Plain attention (``xla_attention`` over all S_pad keys with
+    ``positions``), as in the reference: with start = 0 it is the same
+    function as ``prefill_kv`` over a padded bucket, though not the same
+    arithmetic as the flash kernel there. The reference's
+    ``dynamic_update_slice`` clamps a suffix that runs past S_pad; the
+    engine never asks for one (``hist_len + bucket <= max_seq_len``),
+    and here it raises."""
+    _dense_only(config)
+    c = config
+    B, Pb = tokens.shape
+    S_pad = hist_k.shape[1]
+    start = int(start)
+    if B != 1:
+        raise ValueError(f"prefill_kv_paged takes one sequence, got {B}")
+    if start < 0 or start + Pb > S_pad:
+        raise ValueError(f"suffix [{start}, {start + Pb}) runs past the "
+                         f"history's {S_pad} rows")
+    cos, sin = rope_freqs(c.head_dim, S_pad, c.rope_theta, tokens.device)
+    qpos = torch.arange(start, start + Pb, device=tokens.device)
+    cq, sq = cos[qpos], sin[qpos]
+    rep = c.n_heads // c.n_kv_heads
+    x = _embed(params, tokens, c.dtype)
+    ks, vs = [], []
+    for i, p in enumerate(_layer_views(params)):
+        q, k, v = _qkv(x, p, c)
+        q, k = apply_rope(q, cq, sq), apply_rope(k, cq, sq)
+        keys, vals = hist_k[i].clone(), hist_v[i].clone()
+        keys[start:start + Pb] = k[0].to(keys.dtype)
+        vals[start:start + Pb] = v[0].to(vals.dtype)
+        attn = xla_attention(
+            q, _repeat_kv(keys[None].to(c.dtype), rep),
+            _repeat_kv(vals[None].to(c.dtype), rep), causal=True,
+            positions=qpos)
+        x = x + attn.reshape(B, Pb, -1) @ _weight(p, "wo", c.dtype)
         x = _ffn(x, p, c)
+        ks.append(k)
+        vs.append(v)
     x = rms_norm(x, params["norm_f"], c.norm_eps)
-    return _logits(x[:, 0], params, c), cache
+    return x, torch.stack(ks), torch.stack(vs)
 
 
 def prefill(params: Params, tokens: torch.Tensor, config: LlamaConfig,

@@ -1,4 +1,5 @@
-"""Continuous-batching LLM serving, dense KV layout."""
+"""Continuous-batching LLM serving: dense and paged KV layouts, the prefix
+cache and host KV tier, preemption and speculative decoding."""
 
 from ray_tpu_torch.serve.llm.deployment import LLMServer
 from ray_tpu_torch.serve.llm.engine import (

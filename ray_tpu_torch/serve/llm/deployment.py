@@ -4,8 +4,9 @@ PyTorch counterpart of ``ray_tpu/serve/llm/deployment.py``.
 The server owns one ``LLMEngine`` and one scheduler thread driving it;
 ``__call__`` (from any number of threads) submits into the engine's queue
 and blocks on its handle, so concurrent requests share the one decode
-batch. Binding it as a Serve application (``build_llm_app``) needs the
-port's own runtime and is a later slice.
+batch. Binding it as a Serve application (``build_llm_app``) and the
+prefix-index publisher need the port's own runtime and are a later
+slice.
 """
 
 from __future__ import annotations
@@ -26,6 +27,13 @@ class LLMServer:
     ``quantize`` defaults to ``"int8"`` (weight-only, as in the reference's
     serve default); ``"bf16"`` opts out. ``device`` defaults to the card
     and raises where there is none.
+
+    ``speculative`` arms speculative decoding (paged layout): True for
+    the default draft (``disagg.spec.draft_config_for``, random weights
+    from seed 0), or a dict with any of ``draft_seed``, ``draft_config``
+    (a ``LlamaConfig`` or its kwargs) and ``params_loader`` (a zero-arg
+    callable returning the draft's params on the device). The draft is
+    not quantized, as in the reference.
     """
 
     def __init__(self, model_config: Any = None,
@@ -41,10 +49,6 @@ class LLMServer:
         )
         from ray_tpu_torch.serve.llm.engine import EngineConfig, LLMEngine
 
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet; it comes with "
-                "the speculative-decoding and disagg slice")
         dev = resolve_device(device)
         if model_config is None:
             model_config = LlamaConfig.tiny()
@@ -69,8 +73,28 @@ class LLMServer:
         if quantize == "int8":
             params = quantize_weights_int8(params)
 
+        draft_params = draft_config = None
+        if speculative:
+            from ray_tpu_torch.serve.llm.disagg.spec import (
+                build_draft, draft_config_for,
+            )
+
+            spec = speculative if isinstance(speculative, dict) else {}
+            dc = spec.get("draft_config")
+            if isinstance(dc, dict):
+                dc = LlamaConfig(**dc)
+            draft_config = dc or draft_config_for(model_config)
+            loader = spec.get("params_loader")
+            if loader is not None:
+                draft_params = loader()
+            else:
+                draft_params, draft_config = build_draft(
+                    model_config, seed=int(spec.get("draft_seed", 0)),
+                    draft_config=draft_config, device=dev)
+
         self._engine = LLMEngine(params, model_config, engine_config,
-                                 device=dev)
+                                 draft_params=draft_params,
+                                 draft_config=draft_config, device=dev)
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._engine.run, args=(self._stop,),
@@ -79,7 +103,8 @@ class LLMServer:
 
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """request: {"prompt": [token ids], "max_tokens": int,
-        "temperature": float, "stop": [token ids], "slo": lane} ->
+        "temperature": float, "stop": [token ids], "slo": lane,
+        "chunked_prefill": bool} ->
         completed tokens plus latency detail. Blocks the calling thread;
         the scheduler thread interleaves all concurrent requests."""
         from ray_tpu_torch.serve.llm.engine import Request
@@ -89,7 +114,8 @@ class LLMServer:
             max_tokens=int(request.get("max_tokens", 64)),
             temperature=float(request.get("temperature", 0.0)),
             stop=tuple(request.get("stop", ())),
-            slo=str(request.get("slo", "interactive"))))
+            slo=str(request.get("slo", "interactive")),
+            chunked_prefill=bool(request.get("chunked_prefill", False))))
         tokens = handle.result(timeout=float(request.get("timeout_s", 300.0)))
         return {
             "tokens": tokens,

@@ -245,17 +245,47 @@ def test_server_rejects_unknown_quantize():
         LLMServer(quantize="fp4", device="cpu")
 
 
-def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="paged"):
-        E.EngineConfig(kv_layout="paged")
+def _later_slice_cases():
+    """(case, callable that must raise NotImplementedError, match)."""
     _, _, tc, tp = _model()
-    with pytest.raises(NotImplementedError, match="speculative"):
-        E.LLMEngine(tp, tc, E.EngineConfig(), draft_params=tp,
-                    draft_config=tc, device="cpu")
-    from ray_tpu_torch.serve.llm import LLMServer
 
-    with pytest.raises(NotImplementedError, match="speculative"):
-        LLMServer(speculative=True, device="cpu")
+    def paged():
+        return _engine(kv_layout="paged", kv_block_size=16)
+
+    def state():
+        return None
+
+    return {
+        "submit_adopted": (lambda: paged().submit_adopted(
+            E.Request(prompt=[1, 2], max_tokens=2), state()), "disagg"),
+        "prefill_only": (lambda: paged().submit(E.Request(
+            prompt=[1, 2], max_tokens=2, prefill_only=True)), "disagg"),
+        "export_prefix": (lambda: paged().export_prefix([1] * 32),
+                          "disagg"),
+        "paged_moe": (lambda: T.decode_step_paged(
+            tp, {}, torch.zeros((1, 1), dtype=torch.long),
+            torch.zeros((1,), dtype=torch.long),
+            torch.zeros((1,), dtype=torch.long),
+            T.LlamaConfig.tiny(n_experts=4)), "MoE"),
+    }
+
+
+@pytest.mark.parametrize("case", ["submit_adopted", "prefill_only",
+                                  "export_prefix", "paged_moe"])
+def test_later_slices_raise_not_implemented(case):
+    """Paged KV and speculative decoding are ported (their own tests are
+    ``tests/test_torch_paged.py``): a paged engine and a speculative one
+    build. The disaggregated tier's entry points raise naming that slice,
+    and paged MoE raises as in the reference."""
+    _, _, tc, tp = _model()
+    E.EngineConfig(kv_layout="paged")
+    E.LLMEngine(tp, tc, E.EngineConfig(kv_layout="paged",
+                                       max_seq_len=160,
+                                       prefill_buckets=BUCKETS),
+                draft_params=tp, draft_config=tc, device="cpu")
+    fn, match = _later_slice_cases()[case]
+    with pytest.raises(NotImplementedError, match=match):
+        fn()
 
 
 def test_submit_validation():

@@ -41,7 +41,8 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"llama.py", "attention.py", "engine.py", "deployment.py",
             "fused_loss.py", "train_step.py", "ring.py", "group.py",
-            "zero.py", "chip_smoke.py"} <= names
+            "zero.py", "chip_smoke.py", "kv_cache.py", "spec.py",
+            "config.py", "control.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
