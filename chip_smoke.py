@@ -4,6 +4,10 @@ card and check it. Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --serve-ab DIR`` instead serves the dense and
+paged mixes of phases 6 and 6a with the port imported from DIR, a
+checkout of another commit, and prints one JSON line: see ``serve_ab``.)
+
 Phases, one line each; any failure raises and exits non-zero:
 
 1. env     -- the card's name and power limit, torch and CUDA versions.
@@ -70,6 +74,36 @@ Phases, one line each; any failure raises and exits non-zero:
               and the speculative server's equal the plain paged one's;
               B1 on that f32 draft's real prefills against its plain
               version.
+6e. disagg -- a PrefillServer and a DecodeServer at full width and depth
+              (int8, the paged server's engine config each) sharing the
+              card in one process. Bitwise: 12 requests (8 on a 256-token
+              shared prefix, 2 chunked prompts of 700-900 tokens, 2 short
+              ones of 64-128), one at a time, all two-hop (prefill, export,
+              adopt, decode), give the greedy tokens of a fresh monolithic
+              paged server. Then the same mix from four client threads on
+              a fresh pair, prompts of 256 tokens or more two-hop (each
+              under its own trace_root), the rest to the decode server:
+              tok/s, TTFT and TPOT p50, export and adopt ms and bytes per
+              migration; gated: the token counter against the cost meters
+              (each migrated first token counted on both hops, as in the
+              reference), one tenant-ledger row per request, the importer's
+              blocks and bytes, every two-hop span tree. A profile window
+              over each server (a second mix, split by hop). A speculative
+              decode server adopting from the prefill server: B1 launches
+              = draft layers x draft prefills, then B1 on an adopted
+              request's real draft q/k/v. A fresh monolithic server on the
+              same mix (tok/s, TTFT, TPOT, token agreement), which then
+              donates a prompt's prefix chain to a fresh receiver: every
+              exported block promoted, only the suffix prefilled, the
+              donor's tokens. Last, the hooks' cost: 4 pairs of fresh
+              servers with the cost meters on and off
+              (serve_accounting_instrumentation), alternating which runs
+              first, on the same mix: tok/s of each and their ratios.
+6f. disagg gates -- 4 layers at Llama-3-8B widths: two-hop equal to one
+              paged engine bit for bit in bf16, and in f32 also equal to
+              generate; a speculative decode server adopting the prefill
+              server's f32 checkpoints gives the paged engine's tokens; B1
+              on that draft's real prefills.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -160,6 +194,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1069,6 +1104,8 @@ PAGED_ENGINE = {**ENGINE, "kv_layout": "paged", "kv_block_size": 16,
                 "kv_spill": True, "kv_host_tier_bytes": 1 << 30,
                 "preempt_hold_s": 0.0, "preempt_cooldown_s": 0.0}
 SYS_PREFIX, SPEC_K, GATE_LAYERS = 256, 4, 4
+# Pairs of fresh servers, accounting on and off, that price the hooks.
+HOOK_PAIRS = 4
 
 
 def paged_mix(vocab):
@@ -1672,6 +1709,511 @@ def phase_paged_tokens(dev, card):
     del params
     return {"requests": len(cases), "preempted": st["preempted"],
             "spec_rounds": rounds, "draft_b1_tol_used": draft_used}
+
+
+# ---------------------------------------------------------------------------
+# The disaggregated serving slice: a prefill server and a decode server
+# sharing the card in one process, KV migration between them, the peer
+# prefix pull, and the engine's metrics, spans and cost meters.
+# ---------------------------------------------------------------------------
+
+# Prompts of at least this many tokens take the two-hop path (prefill, then
+# adopt), the reference's prefill_threshold default (disagg/app.py); the
+# others go straight to the decode server.
+PREFILL_THRESHOLD = 256
+
+
+def disagg_mix(vocab, seed=0):
+    """The disagg phase's traffic, from numpy ``seed``: 8 requests on a
+    256-token shared prefix with 50-250 own tokens (16-32 new), 2
+    interactive prompts of 700-900 tokens with chunked_prefill (16 new),
+    2 short prompts of 64-128 tokens (16-32 new). In submission order,
+    each with a tenant of three."""
+    rng = np.random.RandomState(seed)
+
+    def toks(n):
+        return rng.randint(0, vocab, int(n)).tolist()
+
+    sys_prefix = toks(SYS_PREFIX)
+    shared = [{"prompt": sys_prefix + toks(rng.randint(50, 251)),
+               "max_tokens": int(rng.randint(16, 33))} for _ in range(8)]
+    long = [{"prompt": toks(rng.randint(700, 901)), "max_tokens": 16,
+             "chunked_prefill": True} for _ in range(2)]
+    short = [{"prompt": toks(rng.randint(64, 129)),
+              "max_tokens": int(rng.randint(16, 33))} for _ in range(2)]
+    reqs = shared[:4] + long[:1] + short[:1] + shared[4:] + long[1:] + \
+        short[1:]
+    return [dict(r, tenant=f"tenant-{i % 3}") for i, r in enumerate(reqs)]
+
+
+def _two_hop(pre, dec, r):
+    """Prefill on ``pre``, adopt on ``dec``; (response, prefill result)."""
+    res = pre.prefill(r)
+    return dec.adopt(res, r), res
+
+
+class _DisaggClient:
+    """Routes requests as the reference's router does: two hops for
+    prompts of PREFILL_THRESHOLD tokens or more, each under its own
+    trace_root, the rest to the decode server. Keeps every two-hop
+    request's trace id and exported state."""
+
+    def __init__(self, pre, dec):
+        self.pre, self.dec = pre, dec
+        self.traces, self.states = [], []
+
+    def __call__(self, r):
+        from ray_tpu_torch.util import tracing
+
+        if len(r["prompt"]) < PREFILL_THRESHOLD:
+            return self.dec(r)
+        with tracing.trace_root("disagg.request") as tc:
+            out, res = _two_hop(self.pre, self.dec, r)
+        self.traces.append(tc.trace_id)
+        self.states.append(res["kv_state"])
+        return out
+
+
+def _concurrent(route, reqs, phase, card):
+    """Send ``reqs`` through ``route`` from N_CLIENTS threads; every
+    request must end at its max_tokens. Returns tok/s, TTFT and TPOT p50
+    and the results in request order."""
+    errors = []
+    t0 = time.perf_counter()
+    threads, res = _clients(route, reqs, errors)
+    _join(threads, errors)
+    wall = time.perf_counter() - t0
+    for r, x in zip(reqs, res):
+        check(x is not None and x["finish_reason"] == "length"
+              and x["num_tokens"] == r["max_tokens"],
+              f"{phase}: a request for {r['max_tokens']} tokens ended "
+              f"{x and (x['finish_reason'], x['num_tokens'])}")
+    n_tok = sum(x["num_tokens"] for x in res)
+    out = {"requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+           "tok_s": n_tok / wall,
+           "ttft_p50_ms": 1e3 * float(np.median([x["ttft_s"] for x in res])),
+           "tpot_p50_ms": 1e3 * float(np.median([x["tpot_s"] for x in res])),
+           "results": res}
+    log(phase, f"{len(reqs)} requests from {N_CLIENTS} clients, {n_tok} "
+        f"tokens in {wall:.2f} s = {out['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms, TPOT p50 {out['tpot_p50_ms']:.2f} "
+        f"ms; {card}")
+    return out
+
+
+def _free(*servers):
+    for s in servers:
+        s.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ledger_requests():
+    from ray_tpu_torch.observability.accounting import tenant_ledger
+
+    return sum(t["requests"] for t in tenant_ledger().snapshot().values())
+
+
+def _tree_ok(trace_id):
+    """The span tree of one two-hop request: llm.disagg_prefill and
+    llm.disagg_decode under the root, each over its engine's llm.request,
+    kv.migrate under the decode side's, nothing orphaned."""
+    from ray_tpu_torch.util import tracing
+
+    tree = tracing.build_trace_tree(tracing.span_events(trace_id))
+    root = tree["root"]
+    if root is None or tree["orphans"]:
+        return False
+    kids = {c["name"]: c for c in root["children"]}
+    if set(kids) != {"llm.disagg_prefill", "llm.disagg_decode"}:
+        return False
+    reqs = [c for c in kids["llm.disagg_decode"]["children"]
+            if c["name"] == "llm.request"]
+    pre = [c for c in kids["llm.disagg_prefill"]["children"]
+           if c["name"] == "llm.request"]
+    return (len(reqs) == 1 and len(pre) == 1
+            and "kv.migrate" in {c["name"] for c in reqs[0]["children"]}
+            and pre[0]["attrs"].get("finish_reason") == "prefill")
+
+
+def phase_disagg(dev, cfg, loader, card):
+    """The disaggregated tier at Llama-3-8B full width and depth (int8,
+    the paged phase's engine config on every server), two servers on the
+    one card in one process.
+
+    (1) Bitwise: the mix one request at a time, all two-hop, through a
+    fresh PrefillServer/DecodeServer pair, then in the same order through
+    a fresh monolithic paged server: equal greedy tokens for every
+    request. (2) The mix from four client threads on a fresh warmed pair,
+    the reference router's split: tok/s, TTFT and TPOT p50, migration
+    cost per two-hop request (export: the gather and device-to-host copy;
+    adopt: the kv.migrate span; bytes); gates: the token counter against
+    the meters, one ledger row per request, KVImporter's blocks and bytes
+    against the adopted states', every two-hop span tree. Then one
+    profile window over the prefill server and one over the decode
+    server, on a second mix (seed 1) split by hop. (3) A speculative
+    decode server (the default random draft) adopting from the prefill
+    server: B1 launches = draft layers x draft prefills, then B1 on an
+    adopted request's real draft q/k/v. (4) A fresh monolithic server on
+    the same mix from the same state (tok/s, TTFT, TPOT, agreement), then
+    the peer pull: it donates a 256-token-prefix prompt's chain to a
+    fresh receiver, which promotes every exported block, prefills only
+    the suffix and decodes what the donor does on a pool hit of the same
+    depth. (5) The hooks' host cost: HOOK_PAIRS pairs of fresh servers
+    with serve_accounting_instrumentation on and off, alternating which
+    runs first, each on the same mix after the same warm-up."""
+    from ray_tpu_torch.observability.accounting import TokenReconciler
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.serve.llm import (DecodeServer, KVImporter,
+                                         LLMServer, PrefillServer)
+    from ray_tpu_torch.serve.llm.engine import Request
+    from ray_tpu_torch.util import tracing
+
+    reqs = disagg_mix(cfg.vocab_size)
+    two = [r for r in reqs if len(r["prompt"]) >= PREFILL_THRESHOLD]
+
+    def server(cls, **kw):
+        return cls(model_config=cfg, engine_config=dict(PAGED_ENGINE),
+                   params_loader=loader, device=dev, **kw)
+
+    # (1) Bitwise, one request at a time.
+    pre, dec = server(PrefillServer), server(DecodeServer)
+    hop = [_two_hop(pre, dec, r)[0]["tokens"] for r in reqs]
+    _free(pre, dec)
+    del pre, dec
+    mono = server(LLMServer)
+    whole = [mono(r)["tokens"] for r in reqs]
+    _free(mono)
+    del mono
+    same = sum(a == b for a, b in zip(hop, whole))
+    log("disagg", f"bitwise: two-hop == monolithic greedy tokens for "
+        f"{same} of {len(reqs)} requests, one at a time (int8, "
+        f"{cfg.n_layers} layers); {card}")
+    check(same == len(reqs), "two-hop tokens differ from the monolithic "
+          "server's")
+
+    # (2) The concurrent mix on a fresh warmed pair.
+    pre, dec = server(PrefillServer), server(DecodeServer)
+    warm(pre, cfg)
+    warm(dec, cfg)
+    exports = []
+    export_state = pre._engine._export_state
+
+    def timed_export(slot):
+        t0 = time.perf_counter()
+        st = export_state(slot)
+        exports.append(time.perf_counter() - t0)
+        return st
+
+    pre._engine._export_state = timed_export
+    importer = KVImporter(dec._engine)
+    route = _DisaggClient(pre, dec)
+    rows0, mig0 = _ledger_requests(), importer.stats()
+    with TokenReconciler() as rec:
+        pair = _concurrent(route, reqs, "disagg", card)
+    rows = _ledger_requests() - rows0
+    mig = {k: v - mig0[k] for k, v in importer.stats().items()}
+    states = route.states
+    check(len(states) == len(two) and len(route.traces) == len(two),
+          f"{len(states)} two-hop requests, expected {len(two)}")
+    check(rec.meter_sum == sum(x["num_tokens"] for x in pair["results"])
+          and rec.counter_delta - rec.meter_sum == len(two),
+          f"token counter against the meters: {rec.detail()} (expected "
+          f"the counter {len(two)} ahead: each two-hop request's first "
+          f"token is counted on both hops)")
+    check(rows == len(reqs) and len(rec._rows) == len(reqs),
+          f"{rows} ledger rows ({len(rec._rows)} folded) for "
+          f"{len(reqs)} requests")
+    want = {"blocks": sum(s.n_blocks for s in states),
+            "bytes": sum(s.payload_bytes for s in states)}
+    check(mig == want, f"KVImporter {mig} != the adopted states' {want}")
+    bad = [t for t in route.traces if not _tree_ok(t)]
+    check(not bad, f"{len(bad)} two-hop span trees malformed")
+    spans = {t: tracing.span_events(t) for t in route.traces}
+    adopt_ms = [1e3 * e["dur"] for ev in spans.values() for e in ev
+                if e["name"] == "kv.migrate"]
+    migration = {
+        "export_ms_p50": 1e3 * float(np.median(exports)),
+        "export_ms_max": 1e3 * max(exports),
+        "adopt_ms_p50": float(np.median(adopt_ms)),
+        "adopt_ms_max": max(adopt_ms),
+        "mib_p50": float(np.median([s.payload_bytes for s in states]))
+        / 2**20,
+        "blocks": want["blocks"], "bytes": want["bytes"],
+        "requests": len(states)}
+    log("disagg", f"migration per two-hop request ({len(states)}): export "
+        f"(gather + pageable device-to-host copy) p50 "
+        f"{migration['export_ms_p50']:.2f} ms, max "
+        f"{migration['export_ms_max']:.2f}; adopt (kv.migrate) p50 "
+        f"{migration['adopt_ms_p50']:.2f} ms, max "
+        f"{migration['adopt_ms_max']:.2f}; payload p50 "
+        f"{migration['mib_p50']:.1f} MiB ({want['blocks']} blocks, "
+        f"{want['bytes'] / 2**20:.0f} MiB in all); token counter "
+        f"{rec.counter_delta:.0f} = meters {rec.meter_sum:.0f} + "
+        f"{len(two)} migrated first tokens; {rows} ledger rows; "
+        f"{len(route.traces)} span trees whole; {card}")
+
+    # Profiles: a second mix, each hop in a window of its own.
+    prof = disagg_mix(cfg.vocab_size, seed=1)
+    ptwo = [r for r in prof if len(r["prompt"]) >= PREFILL_THRESHOLD]
+    pshort = [r for r in prof if len(r["prompt"]) < PREFILL_THRESHOLD]
+    results = [None] * len(ptwo)
+
+    def prefill_all():
+        errs = []
+        th, res = _clients(pre.prefill, ptwo, errs)
+        _join(th, errs)
+        results[:] = res
+
+    def decode_all():
+        errs = []
+        jobs = [("adopt", x, r) for x, r in zip(results, ptwo)] + \
+            [("call", None, r) for r in pshort]
+
+        def run(job):
+            kind, res, r = job
+            return dec.adopt(res, r) if kind == "adopt" else dec(r)
+
+        th, _ = _clients(run, jobs, errs)
+        _join(th, errs)
+
+    profiles = {"prefill": profile_window("disagg prefill profile",
+                                          prefill_all, card),
+                "decode": profile_window("disagg decode profile",
+                                         decode_all, card)}
+    _free(dec)
+    del dec
+
+    # (3) A speculative decode server adopting from the prefill server.
+    spec = server(DecodeServer, speculative={"draft_seed": 0})
+    eng = spec._engine
+    dc = eng.draft_config
+    warm(spec, cfg)
+    p0 = eng.stats()["spec"]["draft_prefills"]
+    attention.flash_fwd_cuda.launches = 0
+    spec_route = _DisaggClient(pre, spec)
+    spec_out = _concurrent(spec_route, two, "disagg spec", card)
+    b1 = attention.flash_fwd_cuda.launches
+    prefills = eng.stats()["spec"]["draft_prefills"] - p0
+    fits = sum(len(r["prompt"]) <= ENGINE["prefill_buckets"][-1]
+               for r in two)
+    check(prefills == fits and b1 == dc.n_layers * prefills and b1 > 0,
+          f"B1 launches {b1} != {dc.n_layers} draft layers x {prefills} "
+          f"draft prefills ({fits} adopted prompts fit a bucket)")
+    agree = sum(a["tokens"] == b["tokens"] for a, b in
+                zip(spec_out["results"],
+                    [x for r, x in zip(reqs, pair["results"])
+                     if len(r["prompt"]) >= PREFILL_THRESHOLD]))
+    log("disagg spec", f"a speculative decode server (draft {dc.n_layers} "
+        f"layers, head dim {dc.head_dim}) adopted {len(two)} checkpoints: "
+        f"B1 launches {b1} = {dc.n_layers} x {prefills} draft prefills "
+        f"(the {len(two) - fits} longer than the largest bucket decode "
+        f"without a draft); tokens equal to the plain decode server's for "
+        f"{agree} of {len(two)} (bf16/int8, printed, not required); {card}")
+    _free(pre, spec)
+    del pre
+    draft_used = check_draft_b1(eng, next(
+        r["prompt"] for r in two
+        if len(r["prompt"]) <= ENGINE["prefill_buckets"][-1]), "disagg spec")
+    del spec, eng
+
+    # (4) The monolithic server on the same mix from the same state, then
+    # the peer pull from it to a fresh receiver.
+    mono = server(LLMServer)
+    warm(mono, cfg)
+    whole = _concurrent(mono, reqs, "disagg monolithic", card)
+    agree_mono = sum(a["tokens"] == b["tokens"]
+                     for a, b in zip(pair["results"], whole["results"]))
+    log("disagg", f"two-hop pair {pair['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{pair['ttft_p50_ms']:.1f} ms, TPOT p50 {pair['tpot_p50_ms']:.2f} "
+        f"ms; monolithic {whole['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{whole['ttft_p50_ms']:.1f} ms, TPOT p50 "
+        f"{whole['tpot_p50_ms']:.2f} ms ({pair['tok_s'] / whole['tok_s']:.3f}"
+        f"x); tokens equal for {agree_mono} of {len(reqs)} requests "
+        f"(concurrent: printed, not required); {card}")
+    rng = np.random.RandomState(5)
+    prompt = reqs[0]["prompt"][:SYS_PREFIX]
+    while len(prompt) % 16 == 0 or len(prompt) == SYS_PREFIX:
+        prompt = reqs[0]["prompt"][:SYS_PREFIX] + rng.randint(
+            0, cfg.vocab_size, int(rng.randint(60, 200))).tolist()
+
+    def serve(s):
+        h = s._engine.submit(Request(prompt=prompt, max_tokens=16))
+        h.result(timeout=300)
+        return h
+
+    serve(mono)
+    donor = serve(mono)
+    links = mono.export_prefix(prompt)
+    recv = server(LLMServer)
+    t0 = recv.stats()["kv_tiers"]
+    imported = recv.import_prefix(links)
+    got = serve(recv)
+    t1 = recv.stats()["kv_tiers"]
+    promoted = t1["promoted_blocks"] - t0["promoted_blocks"]
+    suffix = len(prompt) - len(links) * 16
+    check(imported == len(links) == len(prompt) // 16 and
+          promoted == len(links),
+          f"peer pull: {len(links)} links exported, {imported} imported, "
+          f"{promoted} promoted")
+    check(got.prefilled_tokens == suffix == donor.prefilled_tokens,
+          f"peer pull: the receiver prefilled {got.prefilled_tokens} "
+          f"tokens, the donor {donor.prefilled_tokens}, the suffix is "
+          f"{suffix}")
+    check(got.tokens == donor.tokens, "peer pull: the receiver's tokens "
+          "differ from the donor's pool hit")
+    log("disagg", f"peer pull: a {len(prompt)}-token prompt's {len(links)} "
+        f"blocks ({sum(x.payload_bytes for x in links) / 2**20:.0f} MiB) "
+        f"exported, imported and promoted; {suffix} suffix tokens "
+        f"prefilled; tokens == the donor's pool hit ({len(got.tokens)}); "
+        f"{card}")
+    _free(mono, recv)
+    del mono, recv
+
+    # (5) The hooks' host cost: HOOK_PAIRS pairs of fresh servers, the
+    # accounting knob (latched at engine init) on and off, alternating
+    # which side runs first, on the same mix from the same state.
+    hooks = {"on": [], "off": []}
+    for i in range(HOOK_PAIRS):
+        for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            os.environ["RAY_TPU_serve_accounting_instrumentation"] = \
+                "1" if side == "on" else "0"
+            try:
+                s = server(LLMServer)
+            finally:
+                os.environ.pop("RAY_TPU_serve_accounting_instrumentation")
+            check(s._engine._acct is (side == "on"),
+                  f"accounting not {side} on a server built with it {side}")
+            warm(s, cfg)
+            hooks[side].append(_concurrent(
+                s, reqs, f"disagg accounting {side} ({i + 1})", card))
+            _free(s)
+            del s
+    ratios = [a["tok_s"] / b["tok_s"]
+              for a, b in zip(hooks["on"], hooks["off"])]
+
+    def med(side, key):
+        return float(np.median([r[key] for r in hooks[side]]))
+
+    hooks_cost = {
+        "pairs": HOOK_PAIRS, "tok_s_ratio": ratios,
+        "tok_s_ratio_median": float(np.median(ratios)),
+        **{f"{side}_{key}": [r[key] for r in hooks[side]]
+           for side in hooks for key in ("tok_s", "ttft_p50_ms",
+                                         "tpot_p50_ms")}}
+    log("disagg", f"accounting on/off tok/s over {HOOK_PAIRS} alternating "
+        f"pairs: " + ", ".join(f"{r:.3f}x" for r in ratios)
+        + f" (median {hooks_cost['tok_s_ratio_median']:.3f}x); median on "
+        f"{med('on', 'tok_s'):.1f} tok/s, TTFT p50 "
+        f"{med('on', 'ttft_p50_ms'):.1f} ms, TPOT p50 "
+        f"{med('on', 'tpot_p50_ms'):.2f} ms; off {med('off', 'tok_s'):.1f}"
+        f" tok/s, TTFT p50 {med('off', 'ttft_p50_ms'):.1f} ms, TPOT p50 "
+        f"{med('off', 'tpot_p50_ms'):.2f} ms; {card}")
+
+    def strip(d):
+        return {k: v for k, v in d.items() if k != "results"}
+
+    return {"bitwise_requests": len(reqs), "pair": strip(pair),
+            "monolithic": strip(whole), "agreement": agree_mono,
+            "migration": migration, "profiles": profiles,
+            "spec": {"b1_launches": b1, "draft_prefills": prefills,
+                     "agreement": agree, "tok_s": spec_out["tok_s"],
+                     "draft_b1_tol_used": draft_used},
+            "peer_pull": {"blocks": len(links), "promoted": promoted,
+                          "suffix_tokens": suffix},
+            "hooks_cost": hooks_cost}
+
+
+def phase_disagg_gates(dev, card):
+    """At Llama-3-8B widths, 4 layers: two-hop (prefill engine, then
+    submit_adopted on a decode engine) equal to one paged engine, bit for
+    bit in bf16 and token for token in f32, where both also equal
+    ``generate``; then a PrefillServer feeding a
+    DecodeServer(speculative=True) in f32 gives the plain paged engine's
+    tokens for every request, and B1 on that draft's real prefills."""
+    from ray_tpu_torch.models.llama import generate, init_params
+    from ray_tpu_torch.serve.llm import DecodeServer, PrefillServer
+    from ray_tpu_torch.serve.llm.engine import (EngineConfig, LLMEngine,
+                                                Request)
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = _gate_cfg(dtype)
+        params = init_params(cfg, 6, dev)
+        rng = np.random.RandomState(13)
+
+        def toks(n):
+            return rng.randint(0, cfg.vocab_size, n).tolist()
+
+        sys_p = toks(SYS_PREFIX)
+        reqs = [(sys_p + toks(40), 10), (sys_p + toks(120), 10),
+                (toks(700), 8), (toks(100), 10)]
+        geo = dict(PAGED_ENGINE, num_slots=4)
+
+        def engine():
+            return LLMEngine(params, cfg, EngineConfig(**geo), device=dev)
+
+        pe, de, mono = engine(), engine(), engine()
+        hop, whole = [], []
+        with torch.no_grad():
+            for p, n in reqs:
+                chunk = len(p) > ENGINE["prefill_buckets"][-1]
+                h = pe.submit(Request(prompt=p, max_tokens=n,
+                                      prefill_only=True,
+                                      chunked_prefill=chunk))
+                pe.drain()
+                h2 = de.submit_adopted(Request(prompt=p, max_tokens=n),
+                                       h.kv_state)
+                de.drain()
+                hop.append(h2.tokens)
+                h3 = mono.submit(Request(prompt=p, max_tokens=n,
+                                         chunked_prefill=chunk))
+                mono.drain()
+                whole.append(h3.tokens)
+            check(hop == whole, f"{dtype}: two-hop tokens differ from the "
+                  f"paged engine's")
+            name = str(dtype).rsplit(".", 1)[-1]
+            if dtype == torch.float32:
+                ref = [generate(params, torch.tensor([p], device=dev), cfg,
+                                max_new_tokens=n)[0].tolist()
+                       for p, n in reqs]
+                check(hop == ref, "f32: two-hop tokens differ from "
+                      "generate")
+                servers = [PrefillServer(
+                    model_config=cfg, engine_config=geo,
+                    params_loader=lambda: params, quantize="bf16",
+                    device=dev), DecodeServer(
+                    model_config=cfg, engine_config=dict(geo, spec_k=SPEC_K),
+                    params_loader=lambda: params, quantize="bf16",
+                    speculative=True, device=dev)]
+                try:
+                    spec = [servers[1].adopt(servers[0].prefill(
+                        {"prompt": p, "max_tokens": n}),
+                        {"prompt": p, "max_tokens": n})["tokens"]
+                        for p, n in reqs]
+                    rounds = servers[1].stats()["spec"]["rounds"]
+                finally:
+                    for s in servers:
+                        s.shutdown()
+                check(rounds > 0, "the speculative decode server ran no "
+                      "round")
+                check(spec == whole, "f32: the speculative decode server's "
+                      "tokens differ from the paged engine's")
+                out["draft_b1_tol_used"] = check_draft_b1(
+                    servers[1]._engine, reqs[0][0], "disagg gates")
+                out["spec_rounds"] = rounds
+                del servers
+            out[name] = len(reqs)
+        del pe, de, mono, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("disagg gates", f"Llama-3-8B widths, {GATE_LAYERS} layers: two-hop "
+        f"== paged engine bit for bit in bf16 ({out['bfloat16']} requests: "
+        f"prefix hits, a chunked 700-token prompt, a short one); f32: "
+        f"two-hop == paged == generate, and a speculative decode server "
+        f"({out['spec_rounds']} rounds) adopting the prefill server's "
+        f"checkpoints == paged for {out['float32']}; {card}")
+    return out
 
 
 def _grads(cfg, params, batch, impl):
@@ -3063,11 +3605,50 @@ def phase_zero_quant(dev, card):
     return out
 
 
+def serve_ab(tree: str) -> int:
+    """``--serve-ab DIR``: the paged mix without its prompts over 512 on a
+    dense server, then the whole mix on a paged server, each fresh and
+    warmed, at Llama-3-8B full width and depth (int8, weights from seed
+    0), with ``ray_tpu_torch`` imported from DIR (a checkout of another
+    commit). Compares two commits on one card: run parent, change,
+    change, parent, one process each, in one call. Prints one JSON
+    line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import ray_tpu_torch
+    from ray_tpu_torch.models.llama import init_params
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi()
+    cfg = serve_config()
+    params = init_params(cfg, 0, dev)
+    mix = paged_mix(cfg.vocab_size)
+    out = {"package": os.path.dirname(os.path.abspath(
+        ray_tpu_torch.__file__)), "card": card}
+    for name, engine, long_prompts in (("dense", ENGINE, False),
+                                       ("paged", PAGED_ENGINE, True)):
+        server = LLMServer(model_config=cfg, engine_config=dict(engine),
+                           params_loader=lambda: params, device=dev)
+        try:
+            warm(server, cfg)
+            res = run_mix(server, mix, f"serve-ab {name}", card,
+                          long_prompts=long_prompts)
+        finally:
+            server.shutdown()
+        out[name] = {k: v for k, v in res.items() if k != "results"}
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--serve-ab"] and len(sys.argv) == 3:
+        return serve_ab(sys.argv[2])
     from ray_tpu_torch.models.llama import LlamaConfig
 
     dev = torch.device("cuda", 0)
@@ -3103,6 +3684,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     spec = phase_spec_serve(dev, serve_cfg, lambda: serve_params, mix, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg = phase_disagg(dev, serve_cfg, lambda: serve_params, card)
     del serve_params, dense_mix
     gc.collect()
     torch.cuda.empty_cache()
@@ -3110,6 +3694,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paged_tokens = phase_paged_tokens(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg_gates = phase_disagg_gates(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(dev, card)
@@ -3216,9 +3803,12 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:47",
         "launches": (serve_launches + spec["b1_launches"]
+                     + disagg["spec"]["b1_launches"]
                      + train["launches"][0] + zero_b[0] + zq_b[0]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
+                             "disagg_spec_decode_draft":
+                                 disagg["spec"]["b1_launches"],
                              "train": train["launches"][0],
                              "zero_train": zero_b[0], "zero_quant": zq_b[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3235,7 +3825,9 @@ def main() -> int:
         "draft_shapes_tol_used": draft_b1,
         "draft_prefill_tol_used": {
             "bf16 full width": spec["draft_b1_tol_used"],
-            "f32 gate": paged_tokens["draft_b1_tol_used"]},
+            "f32 gate": paged_tokens["draft_b1_tol_used"],
+            "bf16 disagg decode": disagg["spec"]["draft_b1_tol_used"],
+            "f32 disagg gate": disagg_gates["draft_b1_tol_used"]},
         "registers": fwd_report["registers"],
         "spills": fwd_report["spill_bytes"],
         "blocks_per_sm": blocks_per_sm("fwd", torch.bfloat16),
@@ -3269,7 +3861,8 @@ def main() -> int:
                           qef["launches_c1_c6"][5]})],
         "serve_profile": serve_profile, "paged_serve": paged,
         "spec_serve": spec, "paged_bitwise": paged_bitwise,
-        "paged_tokens": paged_tokens,
+        "paged_tokens": paged_tokens, "disagg": disagg,
+        "disagg_gates": disagg_gates,
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
         "zero_quant": zq}),

@@ -7,10 +7,14 @@ kernel on a ported path is a kernel written by hand for ``sm_90a`` under
 the caller passes ``device="cpu"`` (the tests do; the kernels' plain
 versions run there).
 
-Ported so far: the serving data plane on the dense KV layout
-(``models.llama``, ``ops.attention``, ``serve.llm``) and training on one
-device (``ops.fused_loss``, ``parallel.train_step``, the attention's
-backward kernels).
+Ported so far: the serving data plane on the dense and paged KV layouts
+with speculative decoding and the disaggregated prefill/decode tier
+(``models.llama``, ``ops.attention``, ``serve.llm``), the serving
+engine's metrics, spans and cost meters (``observability``,
+``util.metrics``, ``util.tracing``), training on one device
+(``ops.fused_loss``, ``parallel.train_step``, the attention's backward
+kernels) and ZeRO over ring collectives (``parallel.zero``,
+``util.collective``).
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,11 @@ PyTorch counterpart of ``ray_tpu/serve/llm/deployment.py``.
 
 The server owns one ``LLMEngine`` and one scheduler thread driving it;
 ``__call__`` (from any number of threads) submits into the engine's queue
-and blocks on its handle, so concurrent requests share the one decode
-batch. Binding it as a Serve application (``build_llm_app``) and the
-prefix-index publisher need the port's own runtime and are a later
-slice.
+inside an ``llm.server_call`` span and blocks on its handle, so
+concurrent requests share the one decode batch. ``export_prefix`` and
+``import_prefix`` are the two halves of a peer prefix pull. Binding it as
+a Serve application (``build_llm_app``) and the prefix-index publisher
+need the port's own runtime and are a later slice.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ class LLMServer:
     device (tests, smoke runs); ``params_loader``, a zero-arg callable
     returning the param tree on the device, is the production hook.
     ``quantize`` defaults to ``"int8"`` (weight-only, as in the reference's
-    serve default); ``"bf16"`` opts out. ``device`` defaults to the card
-    and raises where there is none.
+    serve default); ``"bf16"`` opts out. The legacy ``quantize_int8=True``
+    is honoured as a synonym for ``quantize="int8"``. ``device`` defaults
+    to the card and raises where there is none.
 
     ``speculative`` arms speculative decoding (paged layout): True for
     the default draft (``disagg.spec.draft_config_for``, random weights
@@ -41,6 +43,7 @@ class LLMServer:
                  init_seed: int = 0,
                  params_loader: Optional[Any] = None,
                  quantize: Optional[str] = None,
+                 quantize_int8: bool = False,
                  speculative: Any = None,
                  device: Optional[Union[str, torch.device]] = None):
         from ray_tpu_torch._private.device import resolve_device
@@ -60,6 +63,7 @@ class LLMServer:
             engine_config = EngineConfig(**engine_config)
 
         if quantize is None:
+            # The serve default, which quantize_int8=True also asks for.
             quantize = "int8"
         if quantize not in ("int8", "bf16"):
             raise ValueError(
@@ -104,19 +108,34 @@ class LLMServer:
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """request: {"prompt": [token ids], "max_tokens": int,
         "temperature": float, "stop": [token ids], "slo": lane,
-        "chunked_prefill": bool} ->
+        "chunked_prefill": bool, "tenant": str} ->
         completed tokens plus latency detail. Blocks the calling thread;
-        the scheduler thread interleaves all concurrent requests."""
+        the scheduler thread interleaves all concurrent requests. A wait
+        past ``timeout_s`` is counted in ``serve_request_timeouts_total``
+        and raises."""
+        from ray_tpu_torch.observability.serve import serve_metrics
         from ray_tpu_torch.serve.llm.engine import Request
+        from ray_tpu_torch.util.tracing import span
 
-        handle = self._engine.submit(Request(
-            prompt=list(request["prompt"]),
-            max_tokens=int(request.get("max_tokens", 64)),
-            temperature=float(request.get("temperature", 0.0)),
-            stop=tuple(request.get("stop", ())),
-            slo=str(request.get("slo", "interactive")),
-            chunked_prefill=bool(request.get("chunked_prefill", False))))
-        tokens = handle.result(timeout=float(request.get("timeout_s", 300.0)))
+        # Submit INSIDE the span: the engine captures the submitting
+        # thread's trace context, so llm.request parents under it.
+        with span("llm.server_call",
+                  attrs={"prompt_len": len(request["prompt"])}):
+            handle = self._engine.submit(Request(
+                prompt=list(request["prompt"]),
+                max_tokens=int(request.get("max_tokens", 64)),
+                temperature=float(request.get("temperature", 0.0)),
+                stop=tuple(request.get("stop", ())),
+                slo=str(request.get("slo", "interactive")),
+                chunked_prefill=bool(request.get("chunked_prefill",
+                                                 False)),
+                tenant=str(request.get("tenant", "default"))))
+            try:
+                tokens = handle.result(timeout=float(
+                    request.get("timeout_s", 300.0)))
+            except TimeoutError:
+                serve_metrics().request_timeouts.inc()
+                raise
         return {
             "tokens": tokens,
             "num_tokens": len(tokens),
@@ -124,6 +143,21 @@ class LLMServer:
             "ttft_s": handle.ttft_s,
             "tpot_s": handle.tpot_s,
         }
+
+    def export_prefix(self, tokens, max_blocks=None):
+        """Donor side of a peer prefix pull: the longest pool + tier chain
+        covering ``tokens`` as single-block KVPrefix links. Hops to the
+        scheduler thread, the only one that reads device state."""
+        return self._engine.call_on_scheduler(
+            lambda: self._engine.export_prefix(tokens,
+                                               max_blocks=max_blocks),
+            timeout_s=30.0)
+
+    def import_prefix(self, prefixes) -> int:
+        """Receiver side of a peer prefix pull: park pulled links in the
+        host tier; the pulling request's admission promotes them through
+        the cost model. Thread-safe, no scheduler hop."""
+        return self._engine.import_prefix(prefixes)
 
     def load(self) -> Dict[str, Any]:
         """Cheap load snapshot: engine queue and busy slots."""

@@ -1,0 +1,75 @@
+"""KV-block migration between engines — the disaggregation seam: the
+port's copy of ``ray_tpu/serve/llm/disagg/transfer.py``.
+
+Both halves are thin: the device work (a gather of the valid blocks and
+one device-to-host copy per tensor on export, the copy back into the
+pool on adopt) lives in the engine's ``_export_fn`` / ``_adopt_fn``, and
+the wire format is :class:`~ray_tpu_torch.serve.llm.kv_cache.KVState` —
+CPU tensors plus resume bookkeeping. In one process the state passes by
+reference; across processes it waits for the port's object store.
+
+Accounting lives on the IMPORT side only (`rtpu_serve_kv_migrated_*`
+count blocks/bytes adopted into a pool): a checkpoint can be exported
+once and adopted elsewhere or dropped, and counting both ends would
+double-book the panel.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+__all__ = ["KVExporter", "KVImporter"]
+
+
+class KVExporter:
+    """Prefill-side half: run a request to its first sampled token and
+    hand back the exported checkpoint.
+
+    ``run()`` is synchronous (the prefill server blocks one caller
+    thread per request, exactly like the monolithic ``__call__``); the
+    engine interleaves all concurrent prefills through its slot pool.
+    """
+
+    def __init__(self, engine: Any):
+        self._engine = engine
+
+    def run(self, request: Any, timeout_s: float = 300.0):
+        """Submit ``request`` (an engine Request; ``prefill_only`` is
+        forced on) and return its finished handle. ``handle.kv_state``
+        is the exported KVState — or None when the sequence already
+        terminated at its first token (stop/eos/length), in which case
+        the caller should skip the decode hop entirely."""
+        import dataclasses
+
+        if not request.prefill_only:
+            request = dataclasses.replace(request, prefill_only=True)
+        handle = self._engine.submit(request)
+        handle.result(timeout=timeout_s)
+        return handle
+
+
+class KVImporter:
+    """Decode-side half: adopt an exported checkpoint into this
+    engine's pool and resume decoding."""
+
+    def __init__(self, engine: Any):
+        self._engine = engine
+
+    def adopt(self, request: Any, state: Any, *,
+              front: bool = False,
+              meter_snapshot: Optional[dict] = None):
+        """All-or-nothing adoption via ``LLMEngine.submit_adopted``:
+        the request queues until the allocator can cover every block
+        the sequence may ever need (evicting cold prefix entries if
+        that closes the gap), then one scatter lands the blocks and
+        decoding continues token-for-token where the exporter
+        stopped. ``meter_snapshot`` is the prefill-side cost meter
+        (PrefillServer result key "meter") — absorbed into the
+        decode-side meter so the migration bills ONE ledger row."""
+        return self._engine.submit_adopted(
+            request, state, front=front,
+            meter_snapshot=meter_snapshot)
+
+    def stats(self) -> dict:
+        s = self._engine.stats()
+        return dict(s.get("migration", {"blocks": 0, "bytes": 0}))

@@ -53,12 +53,30 @@ Greedy decoding is token-identical to ``models.llama.generate`` on the
 same params: bucket padding sits after the prompt, attention is causal,
 and the first token comes from the logits at row ``prompt_len - 1``.
 
-Later slices: the disaggregated tier (``submit_adopted``,
-``Request.prefill_only``, ``export_prefix``/``import_prefix``,
-``call_on_scheduler``), the object-store KV tier and the prefix-index
-publisher (the port's runtime), and the metrics, tracing and accounting
-hooks (observability). Each raises ``NotImplementedError`` naming its
-slice.
+The disaggregated tier, from the reference: ``Request.prefill_only``
+finishes a request at its first token as ``"prefill"`` with its KV
+exported onto the handle (``handle.kv_state``), and ``submit_adopted``
+queues a request whose prefill ran elsewhere, which admission adopts as
+it adopts a preempted checkpoint (``_admit_adopted``). A peer prefix pull
+goes through ``export_prefix`` (on the scheduler thread, through
+``call_on_scheduler``) and ``import_prefix`` (into the host tier, whose
+promote path takes it from there); ``prefix_index_heads`` lists what a
+replica can serve without prefilling.
+
+The reference's observability hooks: serve metrics
+(``observability.serve``; ``_update_gauges`` reads host state only, so
+they add no device sync), request spans (``llm.queued``,
+``llm.prefill``, ``llm.decode``, ``llm.request``, ``kv.migrate``,
+``kv.promote``) parented under the submitting thread's trace, a cost
+meter per request folded into the tenant ledger at finish (a migrated
+request folds once, on the decode side), and the preemption's
+``observability.control.record_decision`` call, made as the reference
+makes it: the call does not bind, so, as in the reference, no decision
+is recorded. Telemetry never breaks a request: every hook is wrapped
+where the reference wraps it.
+
+Left for the port's runtime: the object-store KV tier below the host
+tier, the prefix-index publisher and ``build_llm_app``.
 """
 
 from __future__ import annotations
@@ -76,8 +94,6 @@ import torch
 from ray_tpu_torch._private.device import resolve_device
 
 _LANES = ("interactive", "batch")
-_DISAGG = ("it comes with the disaggregated-serving slice (prefill/decode "
-           "split and KV migration)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,12 +232,17 @@ class Request:
     # Admission lane: "interactive" drains before "batch" and, under
     # pressure, may preempt "batch" decodes (paged layout).
     slo: str = "interactive"
-    # The disaggregated prefill tier's mode; a later slice of the port.
+    # Stop after prefill + the first sampled token and export the KV
+    # state (handle.kv_state) instead of decoding: the disaggregated
+    # prefill tier's mode (serve/llm/disagg). Paged layout only.
     prefill_only: bool = False
     # Paged + prefix-cache engines: admit prompts longer than the largest
     # bucket by prefilling bucket-sized chunks through the prefix cache,
     # one chunk per scheduler step.
     chunked_prefill: bool = False
+    # Cost-accounting identity: whose ledger row this request bills to
+    # (observability/accounting.py).
+    tenant: str = "default"
 
 
 class RequestHandle:
@@ -235,19 +256,34 @@ class RequestHandle:
         self.admitted_at: Optional[float] = None
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
-        # "eos" | "stop" | "length" | "cancelled"
+        # Wall-clock mirror of submitted_at: spans need epoch timestamps,
+        # latency math stays monotonic.
+        self.submitted_wall = time.time()
+        # "eos" | "stop" | "length" | "prefill" | "cancelled"
         self.finish_reason: Optional[str] = None
-        # Exported KV checkpoint (kv_cache.KVState), set by preemption and
-        # consumed at readmission.
+        # Exported KV checkpoint (kv_cache.KVState): set by prefill_only
+        # completion and by preemption; consumed by submit_adopted /
+        # readmission.
         self.kv_state: Optional[Any] = None
         # Prompt positions this engine prefilled (the suffix after prefix
         # hits and tier promotes, summed over chunks).
         self.prefilled_tokens = 0
+        # Request-scoped tracing: the TraceContext active on the
+        # submitting thread, and a span id allocated up front for this
+        # request's llm.request span, under which the scheduler thread
+        # parents its phase and KV spans.
+        self.trace: Optional[Any] = None
+        self.trace_span_id: Optional[str] = None
+        # Cost meter (observability.accounting.RequestMeter): attached at
+        # submit when accounting is on, integrated by the scheduler
+        # thread, finalized and folded at finish. None when off.
+        self.meter: Optional[Any] = None
         self._done = threading.Event()
         self._engine: Optional["LLMEngine"] = None
         self._chunk_ends: List[int] = []   # chunked-prefill boundaries
         self._chunk_idx = 0
         self._chunk_inserts = 0
+        self._adopted_submit = False   # arrived through submit_adopted
 
     def done(self) -> bool:
         return self._done.is_set()
@@ -320,7 +356,10 @@ class LLMEngine:
                  device: Optional[Union[str, torch.device]] = None):
         from ray_tpu_torch.models.llama import (init_kv_cache,
                                                 init_paged_kv_cache)
+        from ray_tpu_torch.observability.accounting import (
+            accounting_enabled)
         from ray_tpu_torch.observability.control import Hysteresis
+        from ray_tpu_torch.observability.serve import serve_metrics
 
         self.device = resolve_device(device)
         for name, tree in (("params", params), ("draft_params",
@@ -358,6 +397,9 @@ class LLMEngine:
             # the device with each tick.
             self._tables = np.zeros((B, c.max_blocks_per_slot), np.int32)
             self._slot_blocks: List[List[int]] = [[] for _ in range(B)]
+            # Counter values already pushed to the serve metrics.
+            self._prefix_seen = {"hits": 0, "misses": 0, "hit_tokens": 0,
+                                 "evictions": 0}
             self._cost_model = PromoteCostModel(
                 adopt_fixed_s=c.kv_adopt_cost_fixed_ms * 1e-3,
                 adopt_per_block_s=c.kv_adopt_cost_per_block_ms * 1e-3,
@@ -400,6 +442,12 @@ class LLMEngine:
         self._migrated_bytes = 0
         self._promoted_blocks = 0       # tier blocks adopted back
         self._promote_skips = 0         # cost model chose recompute
+        self._tier_seen = {t: {"hits": 0, "misses": 0, "spills": 0,
+                               "promotes": 0}
+                           for t in ("host", "store")}
+        # Control calls from other threads, run by step() on the
+        # scheduler thread (the only one that touches device state).
+        self._ctrl_q: deque = deque()
         self._preempt_gate = Hysteresis(
             up_delay_s=c.preempt_hold_s, down_delay_s=0.0,
             cooldown_s=c.preempt_cooldown_s)
@@ -423,6 +471,15 @@ class LLMEngine:
             self._draft_cache = init_kv_cache(draft_config, B,
                                               c.max_seq_len,
                                               device=self.device)
+
+        self._metrics = serve_metrics()
+        # Per-request cost accounting. The gate is latched once per
+        # engine: meters attach at submit, so flipping the knob mid-flight
+        # would half-meter requests.
+        self._acct = accounting_enabled()
+        mc = model_config
+        self._model_label = (f"llama_d{getattr(mc, 'dim', 0)}"
+                             f"_l{getattr(mc, 'n_layers', 0)}")
 
     # ------------------------------------------------------ device programs
 
@@ -615,9 +672,10 @@ class LLMEngine:
             raise ValueError(
                 f"slo must be 'interactive' or 'batch', got "
                 f"{request.slo!r}")
-        if request.prefill_only:
-            raise NotImplementedError(
-                f"Request.prefill_only is not ported yet; {_DISAGG}")
+        if request.prefill_only and not self._paged:
+            raise ValueError(
+                "prefill_only requires kv_layout='paged' (the exported "
+                "checkpoint is a set of KV blocks)")
         handle = RequestHandle(next(self._ids), request)
         if request.chunked_prefill and P > top:
             if not (self._paged and self._prefix is not None):
@@ -647,15 +705,89 @@ class LLMEngine:
                     f"only has {c.pool_blocks}; raise num_kv_blocks or "
                     f"lower max_tokens")
         handle._engine = self
+        self._capture_trace(handle)
+        self._attach_meter(handle)
         with self._lock:
             self._queues[request.slo].append(handle)
         self._work.set()
         return handle
 
-    def submit_adopted(self, request: Request, state: Any, **kwargs):
-        raise NotImplementedError(
-            f"submit_adopted (admitting a KV checkpoint exported by "
-            f"another engine) is not ported yet; {_DISAGG}")
+    def _attach_meter(self, handle: RequestHandle) -> None:
+        """Attach a cost meter (after _capture_trace: the meter is stamped
+        with the captured trace id)."""
+        if not self._acct:
+            return
+        try:
+            from ray_tpu_torch.observability.accounting import RequestMeter
+
+            req = handle.request
+            handle.meter = RequestMeter(
+                tenant=req.tenant, model=self._model_label, lane=req.slo,
+                trace_id=(handle.trace.trace_id if handle.trace
+                          else None),
+                request_id=handle.request_id)
+        except Exception:
+            handle.meter = None   # accounting must never break submit
+
+    def submit_adopted(self, request: Request, state: Any, *,
+                       front: bool = False,
+                       meter_snapshot: Optional[Dict[str, Any]] = None
+                       ) -> RequestHandle:
+        """Submit a request whose prefill ran elsewhere: ``state`` is the
+        kv_cache.KVState exported by the prefill tier (or by preemption).
+        Admission adopts the blocks into this engine's pool through
+        ``_admit_adopted`` (the path preemption resumes by) and decoding
+        continues where the checkpoint stopped, token for token what one
+        engine would have produced. ``front=True`` queues at the lane's
+        head (resume order). ``meter_snapshot`` is the prefill side's cost
+        meter, absorbed so the migrated request bills one ledger row."""
+        from ray_tpu_torch.serve.llm.kv_cache import KVState
+
+        c = self.config
+        if not self._paged:
+            raise ValueError("submit_adopted requires kv_layout='paged'")
+        if not isinstance(state, KVState):
+            raise TypeError(f"expected KVState, got {type(state)!r}")
+        state.validate()
+        if state.block_size != c.kv_block_size:
+            raise ValueError(
+                f"KVState block_size {state.block_size} != engine "
+                f"kv_block_size {c.kv_block_size}")
+        if list(request.prompt) != list(state.prompt):
+            raise ValueError(
+                "request.prompt does not match the exported KVState "
+                "prompt (the checkpoint is prompt-specific)")
+        if request.max_tokens <= len(state.tokens):
+            raise ValueError(
+                f"max_tokens {request.max_tokens} already reached by the "
+                f"checkpoint ({len(state.tokens)} tokens)")
+        if request.slo not in _LANES:
+            raise ValueError(
+                f"slo must be 'interactive' or 'batch', got "
+                f"{request.slo!r}")
+        need = max(self._blocks_needed(len(request.prompt),
+                                       request.max_tokens), state.n_blocks)
+        if need > c.pool_blocks:
+            raise ValueError(
+                f"adopted request needs up to {need} KV blocks but the "
+                f"pool only has {c.pool_blocks}")
+        handle = RequestHandle(next(self._ids), request)
+        handle._engine = self
+        handle._adopted_submit = True
+        self._capture_trace(handle)
+        self._attach_meter(handle)
+        if handle.meter is not None and meter_snapshot:
+            handle.meter.absorb(meter_snapshot)
+        handle.tokens = list(state.tokens)
+        handle.kv_state = state
+        with self._lock:
+            q = self._queues[request.slo]
+            if front:
+                q.appendleft(handle)
+            else:
+                q.append(handle)
+        self._work.set()
+        return handle
 
     def cancel(self, handle: RequestHandle) -> bool:
         """Cancel a submitted request. Queued handles finish here; live
@@ -679,11 +811,12 @@ class LLMEngine:
         handle.finish_reason = "cancelled"
         handle.finished_at = time.monotonic()
         self._completed += 1
+        self._record_finished(handle)
         handle._done.set()
 
     def has_work(self) -> bool:
         return (any(self._queues.values()) or bool(self._active.any())
-                or bool(self._cancelled))
+                or bool(self._cancelled) or bool(self._ctrl_q))
 
     # ------------------------------------------------------------ scheduling
 
@@ -746,6 +879,7 @@ class LLMEngine:
                     self._requeue(handle)
                     break
                 end = handle._chunk_ends[handle._chunk_idx]
+                t_chunk = time.monotonic()
                 if not self._admit_paged(handle, self._free[0], upto=end,
                                          throwaway=True):
                     self._requeue(handle)
@@ -753,12 +887,16 @@ class LLMEngine:
                     if req.slo == "interactive":
                         self._admit_blocked = True
                     break
+                if handle.meter is not None:
+                    handle.meter.note_chip("prefill",
+                                           time.monotonic() - t_chunk)
                 chunk_budget -= 1
                 handle._chunk_idx += 1
                 self._requeue(handle)
                 continue
             slot = self._free.popleft()
             fresh = handle.kv_state is None
+            t_admit = time.monotonic()
             if not fresh:
                 ok = self._admit_adopted(handle, slot)
             elif self._paged:
@@ -782,11 +920,21 @@ class LLMEngine:
                 self._chunk_inserts += handle._chunk_inserts
             if self._draft is not None and fresh:
                 self._draft_admit(list(req.prompt), slot)
+            if handle.meter is not None:
+                # The admission (insert or adopt, and the draft's seed) is
+                # this request's prefill time, resumes included.
+                handle.meter.note_chip("prefill", time.monotonic() - t_admit)
             if handle.admitted_at is None:
                 handle.admitted_at = time.monotonic()
+                self._metrics.queue_wait.observe(
+                    handle.admitted_at - handle.submitted_at)
+                if handle.meter is not None:
+                    handle.meter.note_queue_wait(
+                        handle.admitted_at - handle.submitted_at)
             st = self._slots[slot]
             if st.uses:
                 self._slot_reuses += 1
+                self._metrics.slot_reuses.inc()
             st.uses += 1
             st.handle = handle
             self._active[slot] = True
@@ -887,10 +1035,16 @@ class LLMEngine:
         if not throwaway:
             self._tables[slot] = row
             self._slot_blocks[slot] = blocks
+            if handle.meter is not None:
+                # Block-seconds open here and close in _release_slot with
+                # the same count; throwaway chunks skip it (their KV is
+                # the prefix cache's once the insert returns).
+                handle.meter.blocks_acquired(len(blocks))
         if promote:
             # Land the tier links in new_blocks[:n_pro] BEFORE the insert
             # reads them as history.
-            self._promote_tier_hits(promote, new_blocks[:n_pro])
+            self._promote_tier_hits(promote, new_blocks[:n_pro],
+                                    handle=handle)
         padded = np.zeros((bucket,), np.int64)
         padded[:suffix_len] = np.asarray(prompt[hist_len:], np.int64)
         scatter_ids = np.asarray(new_blocks[n_pro:n_pro + bucket // bs],
@@ -918,6 +1072,7 @@ class LLMEngine:
         ever need is allocated (evicting cold prefix entries if that
         closes the gap) and the copy runs, or nothing changes and the
         request stays queued."""
+        t_mig = time.time()
         req = handle.request
         st = handle.kv_state
         c = self.config
@@ -931,6 +1086,8 @@ class LLMEngine:
         row[:need_total] = blocks
         self._tables[slot] = row
         self._slot_blocks[slot] = blocks
+        if handle.meter is not None:
+            handle.meter.blocks_acquired(len(blocks))
         self._adopt_fn(st.k_blocks, st.v_blocks, blocks[:n_valid])
         self._tok[slot] = st.next_tok
         self._pos[slot] = st.pos
@@ -941,6 +1098,17 @@ class LLMEngine:
                 self._prefix.insert(req.prompt, blocks[:full])
         self._migrated_blocks += n_valid
         self._migrated_bytes += st.payload_bytes
+        self._metrics.kv_migrated_blocks.inc(float(n_valid))
+        self._metrics.kv_migrated_bytes.inc(float(st.payload_bytes))
+        try:
+            from ray_tpu_torch.util.tracing import record_span
+
+            record_span("kv.migrate", t_mig, time.time() - t_mig,
+                        attrs={"blocks": int(n_valid),
+                               "bytes": int(st.payload_bytes)},
+                        trace=self._phase_trace(handle))
+        except Exception:
+            pass  # telemetry must never break admission
         handle.kv_state = None
         if self._draft is not None:
             # The draft cache was not checkpointed: re-prefill it with
@@ -968,12 +1136,17 @@ class LLMEngine:
         ``donate=True`` hands the blocks over after an export
         (``BlockAllocator.donate`` checks they are still live)."""
         st = self._slots[slot]
+        handle = st.handle
         st.handle = None
         self._active[slot] = False
         self._temp[slot] = 0.0
         self._spec_ok[slot] = False
         if self._paged and self._slot_blocks[slot]:
             # Blocks shared with the prefix cache stay resident.
+            if handle is not None and handle.meter is not None:
+                # Close the block-seconds interval with the count it
+                # opened with; a resume reopens it at re-admission.
+                handle.meter.blocks_released(len(self._slot_blocks[slot]))
             if donate:
                 self._allocator.donate(self._slot_blocks[slot])
             else:
@@ -1014,7 +1187,41 @@ class LLMEngine:
             handle.finished_at = now
             self._release_slot(slot)
             self._completed += 1
+            self._record_finished(handle)
             handle._done.set()
+
+    def _finish_prefill(self, slot: int, token: int) -> None:
+        """Prefill-only completion: record the first sampled token, export
+        the slot's KV blocks as the handle's checkpoint, and free the slot
+        (its blocks donated). A request that already ends at its first
+        token (stop, eos, length) finishes with that reason and exports
+        nothing: the decode tier has nothing left to do."""
+        handle = self._slots[slot].handle
+        req = handle.request
+        now = time.monotonic()
+        reason = None
+        if token in req.stop:
+            reason = "stop"
+        else:
+            handle.tokens.append(token)
+            handle.first_token_at = now
+            if (self.config.eos_id is not None
+                    and token == self.config.eos_id):
+                reason = "eos"
+            elif req.max_tokens <= 1 or \
+                    len(req.prompt) + 1 >= self.config.max_seq_len:
+                reason = "length"
+        donate = False
+        if reason is None:
+            handle.kv_state = self._export_state(slot)
+            reason = "prefill"
+            donate = True
+        handle.finish_reason = reason
+        handle.finished_at = now
+        self._release_slot(slot, donate=donate)
+        self._completed += 1
+        self._record_finished(handle)
+        handle._done.set()
 
     def _export_state(self, slot: int) -> Any:
         """Snapshot a live slot's sequence as a host-side KVState: copies
@@ -1057,38 +1264,131 @@ class LLMEngine:
                      v_blocks=vb[:, j:j + 1].clone())
             for j, e in enumerate(ents)])
 
-    def _promote_tier_hits(self, hits: List[Any],
-                           dst_blocks: List[int]) -> None:
+    def _promote_tier_hits(self, hits: List[Any], dst_blocks: List[int],
+                           handle: Optional[RequestHandle] = None) -> None:
         """Copy tier-resident chain links into fresh pool blocks through
         the adopt copy; the tier entries are popped only after it (the
         all-or-nothing contract)."""
+        t_pro = time.time()
         kb = torch.cat([h.prefix.k_blocks[:, -1:] for h in hits], dim=1)
         vb = torch.cat([h.prefix.v_blocks[:, -1:] for h in hits], dim=1)
         self._adopt_fn(kb, vb, dst_blocks)
         self._tiers.pop(hits)
         self._promoted_blocks += len(hits)
+        if handle is not None:
+            try:
+                from ray_tpu_torch.util.tracing import record_span
+
+                record_span("kv.promote", t_pro, time.time() - t_pro,
+                            attrs={"blocks": len(hits)},
+                            trace=self._phase_trace(handle))
+            except Exception:
+                pass  # telemetry must never break admission
 
     def call_on_scheduler(self, fn: Callable[[], Any],
                           timeout_s: float = 60.0) -> Any:
-        raise NotImplementedError(
-            f"call_on_scheduler is not ported yet; {_DISAGG}")
+        """Run ``fn()`` on the scheduler thread between steps and return
+        its result (or raise what it raised). Device state is touched only
+        on that thread: a reader on another could gather the pool while a
+        tick writes it. Deadlocks if called FROM the scheduler thread
+        (call the target directly there)."""
+        box: List[Any] = []
+        ev = threading.Event()
+        with self._lock:
+            self._ctrl_q.append((fn, box, ev))
+        self._work.set()
+        if not ev.wait(timeout_s):
+            raise TimeoutError("scheduler thread did not service the "
+                               "control call (is run() driving it?)")
+        if isinstance(box[0], BaseException):
+            raise box[0]
+        return box[0]
+
+    def _process_ctrl(self) -> bool:
+        with self._lock:
+            batch = list(self._ctrl_q)
+            self._ctrl_q.clear()
+        for fn, box, ev in batch:
+            try:
+                box.append(fn())
+            except BaseException as e:          # relayed to the caller
+                box.append(e)
+            ev.set()
+        return bool(batch)
 
     def export_prefix(self, tokens: Sequence[int],
                       max_blocks: Optional[int] = None) -> List[Any]:
-        raise NotImplementedError(
-            f"export_prefix (the donor side of a peer prefix pull) is not "
-            f"ported yet; {_DISAGG}")
+        """Donor side of a peer pull: the longest pool + tier chain
+        covering a prefix of ``tokens``, as one single-block KVPrefix per
+        link (CPU tensors). Non-destructive: the donor keeps its copies.
+        Must run on the scheduler thread; wrap it in
+        :meth:`call_on_scheduler` from anywhere else. The pool links are
+        gathered by their exact block ids (``_export_fn``), where the
+        reference gathers a full padded table row."""
+        from ray_tpu_torch.serve.llm.kv_cache import KVPrefix
+
+        if not self._paged or self._prefix is None:
+            return []
+        c = self.config
+        bs = c.kv_block_size
+        cap = len(tokens) // bs
+        if max_blocks is not None:
+            cap = min(cap, max_blocks)
+        if cap <= 0:
+            return []
+        out: List[Any] = []
+        hit = self._prefix.match(tokens, max_blocks=cap)
+        if hit:
+            n = min(len(hit), c.max_blocks_per_slot)
+            kb, vb = self._export_fn(hit[:n])
+            for j in range(n):
+                out.append(KVPrefix(
+                    tokens=tuple(tokens[: (j + 1) * bs]), block_size=bs,
+                    k_blocks=kb[:, j:j + 1].clone(),
+                    v_blocks=vb[:, j:j + 1].clone()))
+            self._allocator.free(hit)       # match increfed for us
+        if self._tiers is not None and len(out) < cap:
+            for h in self._tiers.lookup(tokens, bs, start_depth=len(out),
+                                        max_blocks=cap - len(out)):
+                out.append(h.prefix)
+        return out
 
     def import_prefix(self, prefixes: Sequence[Any]) -> int:
-        raise NotImplementedError(
-            f"import_prefix (the receiver side of a peer prefix pull) is "
-            f"not ported yet; {_DISAGG}")
+        """Receiver side of a peer pull: park pulled chain links in the
+        host tier; the pulling request's admission then promotes them
+        through the cost model. Thread-safe (the tier manager locks): no
+        scheduler hop needed."""
+        if self._tiers is None:
+            return 0
+        return self._tiers.spill(list(prefixes))
 
-    def prefix_index_heads(self, max_heads: Optional[int] = None):
-        raise NotImplementedError(
-            "prefix_index_heads (what a replica publishes to the "
-            "cluster-wide prefix index) is not ported yet; it comes with "
-            "the port's runtime slice (the GCS)")
+    def prefix_index_heads(self, max_heads: Optional[int] = None
+                           ) -> List[Tuple[int, int]]:
+        """What this replica can serve without prefilling, as
+        ``(stable_hash, depth)`` chain links: pool-resident first
+        (hottest), then tier residents, deduplicated and capped at
+        ``serve_prefix_index_max_heads``. The reference's replica
+        publishes this to the cluster-wide prefix index; that publisher
+        comes with the port's runtime."""
+        from ray_tpu_torch._private.config import GlobalConfig
+
+        if max_heads is None:
+            max_heads = int(GlobalConfig.serve_prefix_index_max_heads)
+        heads: List[Tuple[int, int]] = []
+        seen: set = set()
+        sources: List[List[Tuple[int, int]]] = []
+        if self._prefix is not None:
+            sources.append(self._prefix.snapshot_heads(max_heads))
+        if self._tiers is not None:
+            sources.append(self._tiers.stable_heads(max_heads))
+        for src in sources:
+            for h, d in src:
+                if len(heads) >= max_heads:
+                    return heads
+                if h not in seen:
+                    seen.add(h)
+                    heads.append((h, d))
+        return heads
 
     def preempt(self, slot: int) -> None:
         """Checkpoint a live slot and requeue it at its lane's head: its KV
@@ -1103,6 +1403,7 @@ class LLMEngine:
         handle.kv_state = self._export_state(slot)
         self._release_slot(slot, donate=True)
         self._preempted += 1
+        self._metrics.preemptions.inc(tags={"lane": handle.request.slo})
         self._requeue(handle, front=True)
 
     def _maybe_preempt(self) -> None:
@@ -1121,13 +1422,28 @@ class LLMEngine:
             return
         batch_slots = [s for s in range(self.config.num_slots)
                        if self._slots[s].handle is not None
-                       and self._slots[s].handle.request.slo == "batch"]
+                       and self._slots[s].handle.request.slo == "batch"
+                       and not self._slots[s].handle.request.prefill_only]
         pressure = bool(batch_slots) and (
             not self._free or self._admit_blocked)
         if self._preempt_gate.propose(0, 1 if pressure else 0) != 1:
             return
-        self.preempt(max(batch_slots,
-                         key=lambda s: self._slots[s].handle.admitted_at))
+        victim = max(batch_slots,
+                     key=lambda s: self._slots[s].handle.admitted_at)
+        try:
+            from ray_tpu_torch.observability.control import record_decision
+
+            # The reference's call, kept as it is: it passes the reading
+            # as a bare float and slot= as a keyword record_decision does
+            # not take, so it raises and the except below drops the
+            # decision, in both packages.
+            record_decision(
+                "llm_engine", "preempt",
+                "interactive lane starved; checkpointing newest batch "
+                "decode", float(waiting), slot=victim)
+        except Exception:
+            pass
+        self.preempt(victim)
 
     def _process_cancels(self) -> None:
         """Tear down cancelled requests on the scheduler thread: live
@@ -1151,12 +1467,183 @@ class LLMEngine:
                 self._release_slot(slot)
                 self._finish_cancelled(h)
 
+    # ----------------------------------------------------------- telemetry
+
+    @staticmethod
+    def _capture_trace(handle: RequestHandle) -> None:
+        """Stamp the submitting thread's TraceContext onto the handle and
+        allocate the llm.request span id, so the scheduler thread can
+        parent spans with no ambient context of its own."""
+        try:
+            from ray_tpu_torch.util.tracing import (current_trace,
+                                                    new_span_id)
+
+            tc = current_trace()
+            if tc is not None:
+                handle.trace = tc
+                handle.trace_span_id = new_span_id()
+        except Exception:
+            pass  # telemetry must never break submit
+
+    @staticmethod
+    def _phase_trace(handle: RequestHandle) -> Optional[Dict[str, Any]]:
+        """Explicit trace fields for a phase or KV span of this request: a
+        fresh span id parented under the handle's llm.request span."""
+        if handle.trace is None:
+            return None
+        from ray_tpu_torch.util.tracing import new_span_id
+
+        return {"trace_id": handle.trace.trace_id,
+                "span_id": new_span_id(),
+                "parent_span_id": handle.trace_span_id}
+
+    def _record_finished(self, handle: RequestHandle) -> None:
+        """Latency histograms and the request's lifecycle spans (queued ->
+        prefill -> decode, under llm.request), carrying its captured trace
+        identity explicitly (this runs on the scheduler thread). The TTFT
+        observation links the trace id as the histogram's exemplar."""
+        m = self._metrics
+        e2e = handle.finished_at - handle.submitted_at
+        trace_id = handle.trace.trace_id if handle.trace else None
+        m.e2e.observe(e2e, trace_id=trace_id)
+        if handle.ttft_s is not None:
+            m.ttft.observe(handle.ttft_s, trace_id=trace_id)
+        if handle.tpot_s is not None:
+            m.tpot.observe(handle.tpot_s)
+        m.tokens.inc(float(len(handle.tokens)))
+        m.requests.inc(tags={"finish_reason": handle.finish_reason})
+        try:
+            from ray_tpu_torch.util.tracing import record_span
+
+            # Monotonic offsets re-anchored on the wall-clock submit time.
+            wall0 = handle.submitted_wall
+            rid = handle.request_id
+            admit = handle.admitted_at or handle.finished_at
+            record_span("llm.queued", wall0, admit - handle.submitted_at,
+                        attrs={"rid": rid}, trace=self._phase_trace(handle))
+            if handle.first_token_at is not None:
+                record_span(
+                    "llm.prefill", wall0 + (admit - handle.submitted_at),
+                    handle.first_token_at - admit, attrs={"rid": rid},
+                    trace=self._phase_trace(handle))
+                record_span(
+                    "llm.decode",
+                    wall0 + (handle.first_token_at - handle.submitted_at),
+                    handle.finished_at - handle.first_token_at,
+                    attrs={"rid": rid, "tokens": len(handle.tokens)},
+                    trace=self._phase_trace(handle))
+            req_trace = None
+            if handle.trace is not None:
+                # llm.request parents under the span active at submit.
+                req_trace = {"trace_id": handle.trace.trace_id,
+                             "span_id": handle.trace_span_id,
+                             "parent_span_id": handle.trace.span_id}
+            record_span("llm.request", wall0, e2e, attrs={
+                "rid": rid, "tokens": len(handle.tokens),
+                "finish_reason": handle.finish_reason}, trace=req_trace)
+        except Exception:
+            pass  # telemetry must never break the scheduler
+        self._account_finished(handle, e2e)
+
+    def _account_finished(self, handle: RequestHandle, e2e: float) -> None:
+        """Close the request's cost meter. A "prefill" finish does not
+        fold: its snapshot rides the hand-off next to the KVState and the
+        decode side's meter absorbs it, so the migrated request lands on
+        one ledger row."""
+        meter = handle.meter
+        if meter is None:
+            return
+        try:
+            computed = handle.prefilled_tokens
+            avoided = 0
+            if not handle._adopted_submit:
+                # Prefix and tier hits: prompt positions this engine never
+                # prefilled. An adopted request's prompt was prefilled
+                # (and credited) by the exporting engine.
+                avoided = max(len(handle.request.prompt) - computed, 0)
+            meter.note_prefill(computed, avoided)
+            if handle.finish_reason == "prefill":
+                if handle.ttft_s is not None:
+                    meter.ttft_s = handle.ttft_s
+                return
+            from ray_tpu_torch.observability.accounting import fold_finished
+
+            row = meter.finalize(
+                handle.finish_reason or "unknown", len(handle.tokens),
+                ttft_s=handle.ttft_s, tpot_s=handle.tpot_s, e2e_s=e2e)
+            fold_finished(row)
+        except Exception:
+            pass  # accounting must never break the scheduler
+
+    def _credit_decode(self, live, dt: float) -> None:
+        """Split one decode/verify tick's wall time evenly across the
+        slots live in it (an attribution, not a hardware counter). Runs
+        before the emit loop, so a request finishing this tick is billed
+        for it."""
+        if not self._acct or dt <= 0 or len(live) == 0:
+            return
+        share = dt / len(live)
+        for slot in live:
+            h = self._slots[int(slot)].handle
+            if h is not None and h.meter is not None:
+                h.meter.note_chip("decode", share)
+
+    def _update_gauges(self) -> None:
+        """Refresh the gauges and push the prefix and tier counters'
+        growth; host state only (no device sync)."""
+        m = self._metrics
+        active = int(self._active.sum())
+        with self._lock:
+            depths = {lane: len(q) for lane, q in self._queues.items()}
+        m.queue_depth.set(float(sum(depths.values())))
+        for lane, d in depths.items():
+            m.lane_queue_depth.set(float(d), tags={"lane": lane})
+        if self._spec_proposed:
+            m.spec_accept_ratio.set(self._spec_accepted
+                                    / self._spec_proposed)
+        m.active_slots.set(float(active))
+        m.batch_utilization.set(active / self.config.num_slots)
+        if not self._paged:
+            return
+        m.kv_blocks_used.set(float(self._allocator.used_blocks))
+        m.kv_blocks_free.set(float(self._allocator.free_blocks))
+        if self._prefix is not None:
+            cur = self._prefix.stats()
+            seen = self._prefix_seen
+            for field, ctr in (("hits", m.prefix_hits),
+                               ("misses", m.prefix_misses),
+                               ("hit_tokens", m.prefix_hit_tokens),
+                               ("evictions", m.prefix_evictions)):
+                d = cur[field] - seen[field]
+                if d > 0:
+                    ctr.inc(float(d))
+                    seen[field] = cur[field]
+        if self._tiers is not None:
+            ts = self._tiers.stats()
+            for tier in ("host", "store"):
+                cur, seen = ts[tier], self._tier_seen[tier]
+                for field, ctr in (("hits", m.prefix_tier_hits),
+                                   ("misses", m.prefix_tier_misses),
+                                   ("spills", m.prefix_tier_spills),
+                                   ("promotes", m.prefix_tier_promotes)):
+                    d = cur[field] - seen[field]
+                    if d > 0:
+                        ctr.inc(float(d), tags={"tier": tier})
+                        seen[field] = cur[field]
+                m.kv_tier_bytes.set(float(cur["bytes"]), tags={"tier": tier})
+            m.kv_tier_bytes.set(float(self._allocator.used_bytes),
+                                tags={"tier": "hbm"})
+
+    # ------------------------------------------------------------ scheduling
+
     def step(self) -> bool:
-        """One scheduler iteration: cancellations, the preemption policy,
-        admission (prefill + first token per new slot), then one decode
-        tick for every live slot, speculative when every live slot
+        """One scheduler iteration: control calls, cancellations, the
+        preemption policy, admission (prefill + first token per new slot;
+        prefill_only requests finish here with their checkpoint), then one
+        decode tick for every live slot, speculative when every live slot
         qualifies. Returns True if any work was done."""
         did_cancel = bool(self._cancelled)
+        did_ctrl = self._process_ctrl()
         self._process_cancels()
         self._maybe_preempt()
         self._admit_blocked = False
@@ -1166,19 +1653,36 @@ class LLMEngine:
             # before the tick below overwrites it with the second.
             tok_host = self._tok.cpu().numpy()
             for slot, fresh in inserted:
-                if fresh:
+                if not fresh:
+                    continue
+                if self._slots[slot].handle.request.prefill_only:
+                    self._finish_prefill(slot, int(tok_host[slot]))
+                else:
                     self._emit(slot, int(tok_host[slot]))
         if not self._active.any():
-            return bool(inserted) or did_cancel
+            self._update_gauges()
+            return bool(inserted) or did_cancel or did_ctrl
         live = np.nonzero(self._active)[0]
+        t_tick = time.monotonic()
         if self._spec_ready(live):
             toks_host, n_emit = self._spec_tick()
-        elif self._paged:
-            toks_host = self._tick_fn_paged()             # [K, B]
-            n_emit = np.full((self.config.num_slots,), toks_host.shape[0])
+            self._credit_decode(live, time.monotonic() - t_tick)
+            if self._acct:
+                # A live slot's round proposed spec_k - 1 drafts and
+                # accepted n_emit - 1.
+                k_prop = self.config.spec_k - 1
+                for slot in live:
+                    h = self._slots[int(slot)].handle
+                    if h is not None and h.meter is not None \
+                            and int(n_emit[slot]) > 0:
+                        h.meter.note_spec(k_prop, int(n_emit[slot]) - 1)
         else:
-            toks_host = self._tick_fn()
+            if self._paged:
+                toks_host = self._tick_fn_paged()         # [K, B]
+            else:
+                toks_host = self._tick_fn()
             n_emit = np.full((self.config.num_slots,), toks_host.shape[0])
+            self._credit_decode(live, time.monotonic() - t_tick)
         for slot in live:
             s = int(slot)
             for k in range(int(n_emit[s])):
@@ -1186,6 +1690,7 @@ class LLMEngine:
                     break          # finished earlier in the block; the
                     #                remaining tokens were speculative
                 self._emit(s, int(toks_host[k, s]))
+        self._update_gauges()
         return True
 
     def _spec_ready(self, live) -> bool:
@@ -1212,6 +1717,9 @@ class LLMEngine:
         self._spec_rounds += 1
         self._spec_proposed += (self.config.spec_k - 1) * live
         self._spec_accepted += int(n_emit.sum()) - live
+        self._metrics.spec_proposed.inc(float((self.config.spec_k - 1)
+                                              * live))
+        self._metrics.spec_accepted.inc(float(int(n_emit.sum()) - live))
         return t, n_emit
 
     def run(self, stop_event: threading.Event,

@@ -1,1 +1,1 @@
-"""Utilities of the port (collectives so far)."""
+"""Utilities of the port: collectives, metrics and tracing."""

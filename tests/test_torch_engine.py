@@ -246,7 +246,8 @@ def test_server_rejects_unknown_quantize():
 
 
 def _later_slice_cases():
-    """(case, callable that must raise NotImplementedError, match)."""
+    """(case, callable, what it must do: (exception, match) to raise, or
+    a check of its return value)."""
     _, _, tc, tp = _model()
 
     def paged():
@@ -257,34 +258,43 @@ def _later_slice_cases():
 
     return {
         "submit_adopted": (lambda: paged().submit_adopted(
-            E.Request(prompt=[1, 2], max_tokens=2), state()), "disagg"),
-        "prefill_only": (lambda: paged().submit(E.Request(
-            prompt=[1, 2], max_tokens=2, prefill_only=True)), "disagg"),
+            E.Request(prompt=[1, 2], max_tokens=2), state()),
+            (TypeError, "KVState")),
+        "prefill_only": (lambda: _engine().submit(E.Request(
+            prompt=[1, 2], max_tokens=2, prefill_only=True)),
+            (ValueError, "paged")),
         "export_prefix": (lambda: paged().export_prefix([1] * 32),
-                          "disagg"),
+                          lambda out: out == []),
         "paged_moe": (lambda: T.decode_step_paged(
             tp, {}, torch.zeros((1, 1), dtype=torch.long),
             torch.zeros((1,), dtype=torch.long),
             torch.zeros((1,), dtype=torch.long),
-            T.LlamaConfig.tiny(n_experts=4)), "MoE"),
+            T.LlamaConfig.tiny(n_experts=4)), (NotImplementedError, "MoE")),
     }
 
 
 @pytest.mark.parametrize("case", ["submit_adopted", "prefill_only",
                                   "export_prefix", "paged_moe"])
 def test_later_slices_raise_not_implemented(case):
-    """Paged KV and speculative decoding are ported (their own tests are
-    ``tests/test_torch_paged.py``): a paged engine and a speculative one
-    build. The disaggregated tier's entry points raise naming that slice,
-    and paged MoE raises as in the reference."""
+    """Paged KV, speculative decoding and the disaggregated tier are
+    ported (their own tests are ``tests/test_torch_paged.py`` and
+    ``tests/test_torch_disagg.py``): a paged engine and a speculative one
+    build, and the disaggregated tier's entry points no longer raise
+    NotImplementedError: each refuses a bad call as the reference does (a
+    state that is no KVState, prefill_only on a dense engine) or runs (an
+    export from an empty prefix cache is empty). Paged MoE still raises
+    NotImplementedError, as in the reference."""
     _, _, tc, tp = _model()
     E.EngineConfig(kv_layout="paged")
     E.LLMEngine(tp, tc, E.EngineConfig(kv_layout="paged",
                                        max_seq_len=160,
                                        prefill_buckets=BUCKETS),
                 draft_params=tp, draft_config=tc, device="cpu")
-    fn, match = _later_slice_cases()[case]
-    with pytest.raises(NotImplementedError, match=match):
+    fn, want = _later_slice_cases()[case]
+    if callable(want):
+        assert want(fn())
+        return
+    with pytest.raises(want[0], match=want[1]):
         fn()
 
 

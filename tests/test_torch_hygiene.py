@@ -42,7 +42,9 @@ def test_port_files_found():
     assert {"llama.py", "attention.py", "engine.py", "deployment.py",
             "fused_loss.py", "train_step.py", "ring.py", "group.py",
             "zero.py", "chip_smoke.py", "kv_cache.py", "spec.py",
-            "config.py", "control.py"} <= names
+            "config.py", "control.py", "metrics.py", "tracing.py",
+            "accounting.py", "serve.py", "transfer.py", "prefill.py",
+            "decode.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
