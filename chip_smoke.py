@@ -104,6 +104,24 @@ Phases, one line each; any failure raises and exits non-zero:
               generate; a speculative decode server adopting the prefill
               server's f32 checkpoints gives the paged engine's tokens; B1
               on that draft's real prefills.
+6g. runtime -- the port's runtime: ``ray_tpu_torch.init()`` with no
+              resource arguments must detect the card (GPU: 1, GPU-H100);
+              the node must spawn only ``ray_tpu_torch.`` processes; a
+              ``num_gpus=1, max_concurrency=8`` actor builds the serve
+              phase's int8 server on its leased card (gpu ids [0],
+              CUDA_VISIBLE_DEVICES "0", an H100, neither JAX nor the JAX
+              package loaded) beside the same server in this process:
+              equal weight fingerprints, equal greedy tokens for the 12
+              serve requests one at a time; the 12-request mix from 4
+              client threads in-process, actor, actor, in-process (tok/s,
+              TTFT, TPOT, client latency; the actor's ratios); B1 in the
+              actor = 32 x 12 over one mix; a second num_gpus=1 actor
+              waits 3 s for the card and runs after the kill; a 64 MiB
+              bf16 CUDA tensor round-trips through a GPU actor bit for
+              bit; two num_gpus=0.5 tasks share id 0; a 1 GiB f32 CPU
+              tensor's get lies over the store's memory; after shutdown no
+              cluster process is left and the card's memory is back
+              within 1 GiB.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -179,9 +197,13 @@ Phases, one line each; any failure raises and exits non-zero:
 Every profiled window (serve, train, each ZeRO route) is one
 torch.profiler window with no schedule that must hold every event: it
 fails if the profiler warns that it cleared or dropped events, if the
-device was busy longer than the window's wall time, or if the trace holds
+device was occupied (the union of its kernels' intervals, which kernels
+on two streams overlap) longer than the window's wall time, or if the
+trace holds
 another number of launches of a hand-written kernel than its wrapper
-counted.
+counted. Each window opens with 2000 marker kernels that take the
+profiler's loss of a window's first device records (a number that grows
+over the run) and must not all be lost.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -839,6 +861,16 @@ def serve_config():
                                  param_dtype=torch.bfloat16)
 
 
+def serve_requests(cfg):
+    """The serve phase's 12 requests (numpy seed 0): 100-500 prompt
+    tokens, 16-48 new."""
+    rng = np.random.RandomState(0)
+    return [{"prompt": rng.randint(0, cfg.vocab_size,
+                                   int(rng.randint(100, 501))).tolist(),
+             "max_tokens": int(rng.randint(16, 49))}
+            for _ in range(N_REQUESTS)]
+
+
 def phase_serve(dev, cfg, loader, mix, card):
     """The dense server: 12 requests with B1's launch count, parity with
     ``generate`` and a profile window, then the paged serve's traffic mix
@@ -859,11 +891,7 @@ def phase_serve(dev, cfg, loader, mix, card):
         # One warm request (cuBLAS handles, first launches) outside the
         # measured window.
         server({"prompt": [1] * 128, "max_tokens": 2})
-        rng = np.random.RandomState(0)
-        reqs = [{"prompt": rng.randint(0, cfg.vocab_size,
-                                       int(rng.randint(100, 501))).tolist(),
-                 "max_tokens": int(rng.randint(16, 49))}
-                for _ in range(N_REQUESTS)]
+        reqs = serve_requests(cfg)
         results = [None] * N_REQUESTS
         errors = []
 
@@ -990,14 +1018,27 @@ def _traced_kernels():
                 zip(R.KERNELS + Q.KERNELS, names))
 
 
+# The profiler loses the first records of device activity in a window, a
+# number that grows over a process's life (tens, late in this script's
+# run), and the window's first kernels then fall out of its trace. So a
+# window opens with MARKER_LAUNCHES launches of torch.cuda._sleep's spin
+# kernel, which take that loss, and fails unless some of them reach the
+# trace: the loss is a prefix, so then every record of fn() is there.
+MARKER_LAUNCHES, MARKER_KERNEL = 2000, "spin_kernel"
+
+
 def profile_window(phase: str, fn, card: str = ""):
     """Run fn() once under one torch.profiler window that keeps every event
-    (no schedule; ``acc_events`` where this torch has it) and return
-    {wall_ms, busy_ms, groups: {group: device ms}, top: [(ms, count,
-    name)]}. Fails if the profiler warns that it cleared or dropped
-    events, if the device was busy longer than the wall time, or if the
-    trace holds another number of launches of a hand-written kernel than
-    its wrapper counted in the window."""
+    (no schedule; ``acc_events`` where this torch has it), after
+    MARKER_LAUNCHES marker kernels, and return {wall_ms, busy_ms (the sum
+    of kernel times), occupied_ms (the time at least one kernel ran: the
+    union of their intervals, which kernels on two streams overlap),
+    groups: {group: device ms}, top: [(ms, count, name)],
+    lead_records_lost}; the markers count in none of them but the last.
+    Fails if the profiler warns that it cleared or dropped events, if no
+    marker reached the trace, if the device was occupied longer than the
+    wall time, or if the trace holds another number of launches of a
+    hand-written kernel than its wrapper counted in the window."""
     import inspect
     import warnings
 
@@ -1012,23 +1053,42 @@ def profile_window(phase: str, fn, card: str = ""):
         warnings.simplefilter("always")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA], **kw) as prof:
+            for _ in range(MARKER_LAUNCHES):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
+        device = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and e.device_time_total > 0
                   # user annotations span kernels counted already
                   and not getattr(e, "is_user_annotation", False)]
+        spans = [(MARKER_KERNEL in e.name, e.time_range.start,
+                  e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+    markers = sum(e.count for e in device if MARKER_KERNEL in e.key)
+    events = [e for e in device if MARKER_KERNEL not in e.key]
+    # fn()'s kernels start after the markers end (a synchronize lies
+    # between), whatever start a record of them may carry.
+    end = max((hi for m, _, hi in spans if m), default=float("-inf"))
+    occupied = 0.0
+    for lo, hi in sorted((lo, hi) for m, lo, hi in spans if not m):
+        occupied += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    occupied /= 1e3
     lost = [str(w.message) for w in caught
             if re.search(r"clears? events|drop|lost|overflow",
                          str(w.message), re.I)]
     check(not lost, f"{phase}: the profiler warned {lost}")
+    check(markers > 0, f"{phase}: none of {MARKER_LAUNCHES} marker kernels "
+          f"reached the trace, so the window's first kernels may not have")
     check(bool(events), f"{phase}: the profiler recorded no device time")
     busy = sum(e.device_time_total for e in events) / 1e3
-    check(busy <= wall_ms, f"{phase}: device busy {busy:.1f} ms exceeds "
-          f"the window's wall time {wall_ms:.1f} ms")
+    check(occupied <= wall_ms, f"{phase}: device occupied {occupied:.1f} "
+          f"ms exceeds the window's wall time {wall_ms:.1f} ms")
     short = []
     for (w, name), b in zip(traced, before):
         seen = sum(e.count for e in events if name in e.key)
@@ -1046,19 +1106,23 @@ def profile_window(phase: str, fn, card: str = ""):
     top = sorted(((e.device_time_total / 1e3, e.count, e.key)
                   for e in events), reverse=True)
     log(phase, f"profiled: {wall_ms:.1f} ms wall, device busy {busy:.1f} "
-        f"ms (idle {100 * (1 - busy / wall_ms):.1f}%); "
+        f"ms of kernel time, occupied {occupied:.1f} ms (idle "
+        f"{100 * (1 - occupied / wall_ms):.1f}%); "
         + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
                     for g, ms in sorted(groups.items(),
                                         key=lambda kv: -kv[1]))
         + f"; of elementwise/other, indexing kernels {index_ms:.1f} ms "
         f"({100 * index_ms / busy:.1f}%)"
-        + "; every hand-written kernel's launches in the trace"
-        + (f"; {card}" if card else ""))
+        + "; every hand-written kernel's launches in the trace (the "
+        f"profiler lost the first {MARKER_LAUNCHES - markers} device records, "
+        "markers)" + (f"; {card}" if card else ""))
     for ms, count, name in top[:8]:
         log(phase, f"  {ms:8.2f} ms {count:6d}x  {name[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "groups": groups,
+    return {"wall_ms": wall_ms, "busy_ms": busy, "occupied_ms": occupied,
+            "groups": groups,
             "index_ms": index_ms, "index_top": [list(t) for t in index[:4]],
-            "top": [list(t) for t in top[:8]]}
+            "top": [list(t) for t in top[:8]],
+            "lead_records_lost": MARKER_LAUNCHES - markers}
 
 
 def phase_profile(server, cfg, phase="profile", card=""):
@@ -2213,6 +2277,463 @@ def phase_disagg_gates(dev, card):
         f"two-hop == paged == generate, and a speculative decode server "
         f"({out['spec_rounds']} rounds) adopting the prefill server's "
         f"checkpoints == paged for {out['float32']}; {card}")
+    return out
+
+
+RUNTIME_CONCURRENCY = 8          # covers every client thread
+RUNTIME_PEND_S = 3.0             # a second whole-GPU actor must wait this
+RUNTIME_CUDA_MIB, RUNTIME_HOST_MIB = 64, 1024
+# Per weight: the stacked layers the fingerprint reads (first and last).
+FINGERPRINT = ("wq", "wo", "w_down")
+
+
+def weight_fingerprint(params):
+    """Sum and hash of the int8 weights and scales of the first and last
+    layer and of the embedding: equal trees give equal fingerprints."""
+    import hashlib
+
+    layers, last = params["layers"], params["layers"]["wq_q"].shape[0] - 1
+    tensors = {"embed": params["embed"]}
+    for name in FINGERPRINT:
+        for part in ("_q", "_s"):
+            for i in (0, last):
+                tensors[f"{name}{part}[{i}]"] = layers[name + part][i]
+    out = {}
+    for key, t in sorted(tensors.items()):
+        host = t.detach().contiguous().cpu()
+        raw = host.view(torch.uint8).numpy().tobytes()
+        out[key] = (float(host.double().sum()),
+                    hashlib.blake2b(raw, digest_size=16).hexdigest())
+    return out
+
+
+def _cluster_pids():
+    """Every live process below this one, with its command line (the
+    runtime's GCS, raylet and workers)."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue
+        if fields[0] != "Z":
+            children.setdefault(int(fields[1]), []).append(int(entry))
+    out, todo = {}, [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    out[pid] = [a.decode() for a in f.read().split(b"\0")
+                                if a]
+            except OSError:
+                continue
+            todo.append(pid)
+    return out
+
+
+def _alive(pid, cmd):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            state = f.read().rsplit(")", 1)[1].split()[0]
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            now = [a.decode() for a in f.read().split(b"\0") if a]
+    except (OSError, IndexError):
+        return False
+    return state != "Z" and now == cmd
+
+
+def gpu_memory_used_mib() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def _actor_classes(rt):
+    """The runtime phase's actors (defined here so that the script's
+    import of the port is the workers' too)."""
+
+    @rt.remote(num_gpus=1, max_concurrency=RUNTIME_CONCURRENCY)
+    class ServeActor:
+        """``LLMServer`` at the serve phase's config on the leased card;
+        built without ``device=``, so it raises where there is none."""
+
+        def __init__(self, cfg, engine):
+            from ray_tpu_torch.serve.llm import LLMServer
+
+            t0 = time.perf_counter()
+            self.server = LLMServer(cfg, dict(engine),
+                                    init_seed=0, quantize="int8")
+            self.build_s = time.perf_counter() - t0
+            self._prefills0 = 0
+
+        def info(self):
+            import ray_tpu_torch
+
+            return {"gpu_ids": ray_tpu_torch.get_gpu_ids(),
+                    "cuda_visible_devices":
+                        os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device_name": torch.cuda.get_device_name(),
+                    "foreign_modules": sorted(
+                        m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "ray_tpu")),
+                    "build_s": self.build_s, "pid": os.getpid()}
+
+        def fingerprint(self):
+            return weight_fingerprint(self.server._engine.params)
+
+        def serve(self, request):
+            return self.server(request)
+
+        def reset_counts(self):
+            from ray_tpu_torch.ops import attention
+
+            self._prefills0 = self.server.stats()["prefills"]
+            attention.flash_fwd_cuda.launches = 0
+
+        def counts(self):
+            from ray_tpu_torch.ops import attention
+
+            return {"b1_launches": attention.flash_fwd_cuda.launches,
+                    "prefills": self.server.stats()["prefills"]
+                    - self._prefills0}
+
+    @rt.remote(num_gpus=1)
+    class CardProbe:
+        def devices(self):
+            """The lease; also makes this process's CUDA context, so that
+            the timed get below does not pay for it."""
+            import ray_tpu_torch
+
+            torch.zeros(1, device="cuda")
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    ray_tpu_torch.get_gpu_ids())
+
+        def roundtrip(self, refs):
+            """get() a tensor put by the driver (refs nested, so the get
+            is this actor's) and hand it back."""
+            import ray_tpu_torch
+
+            t0 = time.perf_counter()
+            t = ray_tpu_torch.get(refs[0], timeout=120)
+            torch.cuda.synchronize()
+            return {"tensor": t, "get_s": time.perf_counter() - t0,
+                    "device": str(t.device)}
+
+    @rt.remote(num_gpus=0.5)
+    def half_gpu():
+        import ray_tpu_torch
+
+        time.sleep(1.0)
+        return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                ray_tpu_torch.get_gpu_ids())
+
+    return ServeActor, CardProbe, half_gpu
+
+
+def _timed_mix(call, reqs, label, card):
+    """The 12 requests from 4 client threads through ``call``: tok/s,
+    TTFT and TPOT p50 (the engine's), and the client's latency p50."""
+    lat = {}
+
+    def timed(r):
+        t0 = time.perf_counter()
+        res = call(r)
+        lat[id(r)] = time.perf_counter() - t0
+        return res
+
+    errors = []
+    t0 = time.perf_counter()
+    threads, results = _clients(timed, reqs, errors)
+    _join(threads, errors)
+    wall = time.perf_counter() - t0
+    for r, res in zip(reqs, results):
+        check(res is not None and res["num_tokens"] == r["max_tokens"],
+              f"{label}: a request ended {res and res['finish_reason']}")
+    n_tok = sum(res["num_tokens"] for res in results)
+    out = {"tok_s": n_tok / wall, "wall_s": wall, "tokens": n_tok,
+           "ttft_p50_ms": 1e3 * float(np.median([r["ttft_s"]
+                                                 for r in results])),
+           "tpot_p50_ms": 1e3 * float(np.median([r["tpot_s"]
+                                                 for r in results])),
+           "latency_p50_ms": 1e3 * float(np.median(list(lat.values())))}
+    log("runtime", f"{label}: {len(reqs)} requests, {n_tok} tokens in "
+        f"{wall:.2f} s = {out['tok_s']:.1f} tok/s, TTFT p50 "
+        f"{out['ttft_p50_ms']:.1f} ms, TPOT p50 {out['tpot_p50_ms']:.2f} "
+        f"ms, client latency p50 {out['latency_p50_ms']:.0f} ms; {card}")
+    return out
+
+
+def _bits_equal(a, b):
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()])))
+
+
+def _put_stages(value):
+    """One put of ``value`` into the node's store, each stage of the
+    driver's ``_plasma_put`` timed on its own (ms): serialize (a CUDA
+    tensor's copy to the host included), the raylet's create, mapping
+    the extent into this process (its pages faulted in), the copy into
+    it, and the seal, with the extent's offset in the arena (MiB). It
+    first waits for room, so that no spill or eviction runs inside the
+    timed create; the object is deleted after."""
+    from ray_tpu_torch._private import worker as rt_worker
+    from ray_tpu_torch._private.ids import ObjectID
+    from ray_tpu_torch._private.object_store import WritableObject
+
+    w = rt_worker.global_worker()
+    need = value.numel() * value.element_size() + (1 << 20)
+    deadline = time.monotonic() + 60
+    while True:
+        gc.collect()
+        w.drain_releases()
+        st = w.raylet.call("store_stats")
+        if st["used"] + need <= st["capacity"]:
+            break
+        check(time.monotonic() < deadline, f"no room in the store for a "
+              f"{need >> 20} MiB put: {st}")
+        time.sleep(0.2)
+    oid = ObjectID.from_random().binary()
+    marks = [time.perf_counter()]
+    sobj = w.serialization.serialize(value)
+    marks.append(time.perf_counter())
+    reply = w.raylet.call("create_object", object_id=oid,
+                          size=sobj.total_size)
+    marks.append(time.perf_counter())
+    wobj = WritableObject(reply["path"], sobj.total_size,
+                          reply.get("offset", 0))
+    marks.append(time.perf_counter())
+    try:
+        sobj.write_into(wobj.view)
+    finally:
+        wobj.close()
+    marks.append(time.perf_counter())
+    w.raylet.call("seal_object", object_id=oid, pin=True)
+    marks.append(time.perf_counter())
+    w.raylet.call("delete_objects", object_ids=[oid])
+    after = w.raylet.call("store_stats")
+    check((after["num_spills"], after["num_evictions"])
+          == (st["num_spills"], st["num_evictions"]),
+          "the store spilled or evicted during a timed put")
+    stages = {stage: 1e3 * (b - a) for stage, a, b in zip(
+        ("serialize", "create", "map", "copy", "seal"), marks, marks[1:])}
+    return dict(stages, offset_mib=reply.get("offset", 0) / 2**20)
+
+
+def _stages_text(st):
+    return (", ".join(f"{k} {st[k]:.1f}" for k in
+                      ("serialize", "create", "map", "copy", "seal"))
+            + f" ms, at {st['offset_mib']:.1f} MiB in the arena")
+
+
+def phase_runtime(dev, card):
+    """Llama-3-8B served from a GPU actor of the port's runtime: start a
+    cluster with no resource arguments (the card detected as GPU: 1 and
+    GPU-H100), check that it spawned only the port's processes, build
+    the serve phase's int8 server in a num_gpus=1 actor and the same
+    server in this process, compare their weights and their greedy
+    tokens one request at a time, time the 12-request mix from 4 client
+    threads through each (in-process, actor, actor, in-process), count
+    B1 in the actor, check that a second GPU actor waits for the card,
+    move tensors through the object store, and tear down."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    cfg = serve_config()
+    mem0 = gpu_memory_used_mib()
+    out = {"card": card}
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    rt.init()
+    out["start_s"] = time.perf_counter() - t0
+    try:
+        res = rt.cluster_resources()
+        out["resources"] = res
+        log("runtime", f"cluster up in {out['start_s']:.2f} s: {res}")
+        check(res.get("GPU") == 1 and res.get("GPU-H100", 0) > 0,
+              f"the card was not detected as GPU 1 / GPU-H100: {res}")
+        ServeActor, CardProbe, half_gpu = _actor_classes(rt)
+
+        t0 = time.perf_counter()
+        actor = ServeActor.remote(cfg, ENGINE)
+        info = rt.get(actor.info.remote(), timeout=600)
+        out["actor_ready_s"] = time.perf_counter() - t0
+        out["actor_build_s"] = info["build_s"]
+        procs = _cluster_pids()
+        foreign = {p: c for p, c in procs.items()
+                   if "-m" not in c
+                   or not c[c.index("-m") + 1].startswith("ray_tpu_torch.")}
+        log("runtime", f"actor ready in {out['actor_ready_s']:.1f} s "
+            f"(server built in {info['build_s']:.1f} s); gpu ids "
+            f"{info['gpu_ids']}, CUDA_VISIBLE_DEVICES="
+            f"{info['cuda_visible_devices']!r}, {info['device_name']}; "
+            f"{len(procs)} cluster processes, all ray_tpu_torch.: "
+            f"{not foreign}")
+        check(len(procs) >= 3 and not foreign,
+              f"processes that are not the port's: {foreign}")
+        check(info["foreign_modules"] == [],
+              f"the actor loaded {info['foreign_modules']}")
+        check(info["gpu_ids"] == [0]
+              and info["cuda_visible_devices"] == "0",
+              f"the actor's lease: {info}")
+        check("H100" in info["device_name"],
+              f"the actor's card is {info['device_name']}")
+
+        t0 = time.perf_counter()
+        local = LLMServer(cfg, dict(ENGINE), init_seed=0, quantize="int8",
+                          device=dev)
+        out["local_build_s"] = time.perf_counter() - t0
+        try:
+            mine = weight_fingerprint(local._engine.params)
+            theirs = rt.get(actor.fingerprint.remote(), timeout=600)
+            check(mine == theirs, "the actor's weights differ from the "
+                  "in-process server's")
+            out["fingerprint_tensors"] = len(mine)
+            warm_req = {"prompt": [1] * 128, "max_tokens": 2}
+            local(warm_req)
+            rt.get(actor.serve.remote(warm_req), timeout=600)
+            reqs = serve_requests(cfg)
+            same = 0
+            for r in reqs:
+                a = rt.get(actor.serve.remote(r), timeout=600)["tokens"]
+                same += a == local(r)["tokens"]
+            out["tokens_equal"] = f"{same}/{len(reqs)}"
+            log("runtime", f"{len(mine)} weight tensors equal; greedy "
+                f"tokens one at a time, actor == in-process: "
+                f"{out['tokens_equal']}")
+            check(same == len(reqs), f"actor tokens differ: "
+                  f"{out['tokens_equal']}")
+
+            def through_actor(r):
+                return rt.get(actor.serve.remote(r), timeout=600)
+
+            runs = []
+            for i, side in enumerate(("in-process", "actor", "actor",
+                                      "in-process")):
+                if side == "actor" and i == 1:
+                    rt.get(actor.reset_counts.remote(), timeout=60)
+                call = through_actor if side == "actor" else local
+                runs.append((side, _timed_mix(call, reqs, f"mix {i + 1} "
+                                              f"({side})", card)))
+                if side == "actor" and i == 1:
+                    counts = rt.get(actor.counts.remote(), timeout=60)
+            del call                     # it may hold the in-process server
+            out["mix"] = runs
+            for key in ("tok_s", "ttft_p50_ms", "tpot_p50_ms",
+                        "latency_p50_ms"):
+                a = np.mean([m[key] for s, m in runs if s == "actor"])
+                b = np.mean([m[key] for s, m in runs if s == "in-process"])
+                out[f"actor_over_local_{key}"] = float(a / b)
+            out["b1_launches"] = counts["b1_launches"]
+            log("runtime", f"actor / in-process: tok/s "
+                f"{out['actor_over_local_tok_s']:.3f}, TTFT p50 "
+                f"{out['actor_over_local_ttft_p50_ms']:.3f}, TPOT p50 "
+                f"{out['actor_over_local_tpot_p50_ms']:.3f}; B1 launches "
+                f"in the actor {counts['b1_launches']} for "
+                f"{counts['prefills']} prefills")
+            check(counts["prefills"] == len(reqs)
+                  and counts["b1_launches"] == cfg.n_layers * len(reqs),
+                  f"B1 in the actor: {counts}, want {cfg.n_layers} x "
+                  f"{len(reqs)}")
+        finally:
+            local.shutdown()
+            del local
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        probe = CardProbe.remote()
+        pending = probe.devices.remote()
+        ready, _ = rt.wait([pending], timeout=RUNTIME_PEND_S)
+        check(ready == [], "a second num_gpus=1 actor started while the "
+              "serving actor held the card")
+        rt.kill(actor)
+        got = rt.get(pending, timeout=300)
+        log("runtime", f"second GPU actor pended {RUNTIME_PEND_S:.0f} s, "
+            f"then ran after the kill with {got}")
+        check(got == ("0", [0]), f"the second actor's lease: {got}")
+
+        n = RUNTIME_CUDA_MIB << 19                   # bf16 elements
+        x = torch.randn(n // 4096, 4096, device=dev).to(torch.bfloat16)
+        # Each tensor is put twice by stage before its timed put, so
+        # that the first lands on arena pages no put has touched.
+        out["cuda_put_stages"] = [_put_stages(x) for _ in range(2)]
+        t0 = time.perf_counter()
+        ref = rt.put(x)
+        out["cuda_put_ms"] = 1e3 * (time.perf_counter() - t0)
+        back = rt.get(probe.roundtrip.remote([ref]), timeout=300)
+        out["cuda_get_in_actor_ms"] = 1e3 * back["get_s"]
+        check(back["device"].startswith("cuda"), f"the tensor came back "
+              f"on {back['device']}")
+        check(_bits_equal(back["tensor"], x), "the CUDA tensor changed "
+              "on its way through the store")
+        rt.kill(probe)
+        del back, ref, x
+
+        deadline = time.monotonic() + 60
+        while rt.available_resources().get("GPU", 0) < 1:
+            check(time.monotonic() < deadline, "the GPU was not released")
+            time.sleep(0.1)
+        halves = rt.get([half_gpu.remote(), half_gpu.remote()], timeout=120)
+        check(halves == [("0", [0]), ("0", [0])],
+              f"two num_gpus=0.5 tasks: {halves}")
+
+        from ray_tpu_torch._private import object_store
+        import ctypes
+
+        y = torch.rand(RUNTIME_HOST_MIB << 18)        # f32 elements
+        out["host_put_stages"] = [_put_stages(y) for _ in range(2)]
+        t0 = time.perf_counter()
+        ref = rt.put(y)
+        out["host_put_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        z = rt.get(ref, timeout=300)
+        out["host_get_ms"] = 1e3 * (time.perf_counter() - t0)
+        spans = [(ctypes.addressof(ctypes.c_char.from_buffer(m)), len(m))
+                 for m in object_store._client_arenas.values()]
+        ptr, nbytes = z.data_ptr(), z.numel() * 4
+        check(any(lo <= ptr and ptr + nbytes <= lo + size
+                  for lo, size in spans), "the host tensor's get was copied")
+        check(_bits_equal(z, y), "the host tensor changed in the store")
+        del z, ref, y
+        log("runtime", f"objects: {RUNTIME_CUDA_MIB} MiB bf16 CUDA tensor "
+            f"put {out['cuda_put_ms']:.1f} ms, get in a GPU actor "
+            f"{out['cuda_get_in_actor_ms']:.1f} ms, back on CUDA bit for "
+            f"bit; {RUNTIME_HOST_MIB} MiB f32 CPU tensor put "
+            f"{out['host_put_ms']:.1f} ms, get {out['host_get_ms']:.2f} ms "
+            f"over the store's memory; two 0.5-GPU tasks on id 0")
+        for name in ("cuda", "host"):
+            for i, st in enumerate(out[f"{name}_put_stages"]):
+                log("runtime", f"{name} put by stage, put {i + 1}: "
+                    f"{_stages_text(st)}; {card}")
+    finally:
+        procs = _cluster_pids()
+        rt.shutdown()
+    # Workers live in sessions of their own: once the raylet is gone they
+    # are nobody's children here, so each recorded pid is looked up.
+    deadline = time.monotonic() + 30
+    while True:
+        left = {p: c for p, c in procs.items() if _alive(p, c)}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"processes left after shutdown: {left}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["memory_before_mib"] = mem0
+    out["memory_after_mib"] = gpu_memory_used_mib()
+    check(abs(out["memory_after_mib"] - mem0) < 1024,
+          f"card memory {mem0:.0f} MiB before the phase, "
+          f"{out['memory_after_mib']:.0f} MiB after")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("runtime", f"shut down: no cluster process left, card memory "
+        f"{mem0:.0f} -> {out['memory_after_mib']:.0f} MiB; the phase took "
+        f"{out['phase_s']:.1f} s; {card}")
     return out
 
 
@@ -3699,6 +4220,9 @@ def main() -> int:
     disagg_gates = phase_disagg_gates(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    runtime = phase_runtime(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3804,11 +4328,13 @@ def main() -> int:
         "replaces": "ray_tpu/ops/attention.py:47",
         "launches": (serve_launches + spec["b1_launches"]
                      + disagg["spec"]["b1_launches"]
+                     + runtime["b1_launches"]
                      + train["launches"][0] + zero_b[0] + zq_b[0]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
                                  disagg["spec"]["b1_launches"],
+                             "runtime_gpu_actor": runtime["b1_launches"],
                              "train": train["launches"][0],
                              "zero_train": zero_b[0], "zero_quant": zq_b[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -3862,7 +4388,7 @@ def main() -> int:
         "serve_profile": serve_profile, "paged_serve": paged,
         "spec_serve": spec, "paged_bitwise": paged_bitwise,
         "paged_tokens": paged_tokens, "disagg": disagg,
-        "disagg_gates": disagg_gates,
+        "disagg_gates": disagg_gates, "runtime": runtime,
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
         "zero_quant": zq}),

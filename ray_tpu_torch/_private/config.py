@@ -1,15 +1,22 @@
-"""The serve knobs the paged engine, its disaggregated tier and its
-observability hooks read, with the reference's names, defaults and
-``RAY_TPU_<name>`` environment overrides (``ray_tpu/_private/config.py``).
-Only these knobs are here: the rest of the reference's table, and its
-``_system_config`` propagation through the GCS, come with the port's
-runtime.
+"""Global runtime config registry, the port's copy of the reference's
+(``ray_tpu/_private/config.py``).
+
+Equivalent in role to the reference's `src/ray/common/ray_config_def.h` macro
+table: a single source of truth of typed, defaulted knobs, each overridable by
+an environment variable ``RAY_TPU_<name>`` on any process, or by a
+``_system_config`` dict passed to ``ray_tpu_torch.init`` on the head node and
+propagated to every other process through the GCS at registration time. The
+names and defaults are the reference's, the serve knobs included. Only the
+settings that a module of the port reads are defined: the rest of the
+reference's table comes with the module that reads it (ROADMAP A4, A5, A8).
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Callable, Dict, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict
 
 _ENV_PREFIX = "RAY_TPU_"
 
@@ -18,61 +25,259 @@ def _parse_bool(s: str) -> bool:
     return s.strip().lower() in ("1", "true", "yes", "on")
 
 
-_PARSERS: Dict[type, Callable[[str], Any]] = {bool: _parse_bool}
-
-# name -> (type, default)
-_KNOBS: Dict[str, Tuple[type, Any]] = {
-    # Rows per paged-KV block for engines built without kv_block_size.
-    "serve_kv_block_size": (int, 16),
-    # How long the interactive lane must stay starved before the
-    # Hysteresis gate lets the engine checkpoint a batch decode.
-    "serve_preempt_hold_s": (float, 0.25),
-    # Least spacing between two batch-decode preemptions on one engine.
-    "serve_preempt_cooldown_s": (float, 1.0),
-    # Speculative depth: spec_k - 1 draft proposals verified per round.
-    "serve_spec_k": (int, 4),
-    # Host-RAM budget of the KV tier below the device pool.
-    "serve_kv_host_tier_bytes": (int, 256 * 1024 * 1024),
-    # PromoteCostModel, milliseconds: fixed cost of one promote, cost per
-    # promoted block, and prefill cost per token (the recompute side).
-    "serve_kv_adopt_cost_fixed_ms": (float, 2.0),
-    "serve_kv_adopt_cost_per_block_ms": (float, 0.1),
-    "serve_kv_prefill_cost_per_token_ms": (float, 0.05),
-    # Cap on the (stable_hash, depth) heads one replica publishes to the
-    # cluster-wide prefix index (hottest first).
-    "serve_prefix_index_max_heads": (int, 512),
-    # Per-request cost accounting on LLM engines (RequestMeter, tenant
-    # ledger); off = the unmetered engine.
-    "serve_accounting_instrumentation": (bool, True),
-    # Distinct tenant rows a TenantLedger holds; overflow folds into
-    # "__other__".
-    "serve_accounting_max_tenants": (int, 64),
-    # Per-lane TTFT / TPOT targets in ms ("lane=ms,...", "*" the default
-    # lane; a bare number applies to every lane).
-    "serve_slo_ttft_ms": (str, "interactive=500,*=2000"),
-    "serve_slo_tpot_ms": (str, "interactive=200,*=1000"),
-    # Share of requests per lane that must meet their targets.
-    "serve_slo_objective": (float, 0.99),
-    # Fast and slow windows of the multi-window burn rate, the fast burn
-    # that fires (with the slow one >= 1), and the least fast-window
-    # samples trusted.
-    "serve_slo_burn_fast_window_s": (float, 60.0),
-    "serve_slo_burn_slow_window_s": (float, 3600.0),
-    "serve_slo_burn_threshold": (float, 10.0),
-    "serve_slo_min_samples": (int, 3),
+_PARSERS: Dict[type, Callable[[str], Any]] = {
+    bool: _parse_bool,
+    int: int,
+    float: float,
+    str: str,
 }
 
 
+@dataclass
+class _ConfigEntry:
+    name: str
+    type: type
+    default: Any
+    doc: str = ""
+
+
+_REGISTRY: Dict[str, _ConfigEntry] = {}
+
+
+def _define(name: str, type_: type, default: Any, doc: str = "") -> None:
+    _REGISTRY[name] = _ConfigEntry(name, type_, default, doc)
+
+
+# ---------------------------------------------------------------------------
+# Config table. Names intentionally parallel the reference's where the knob is
+# the same concept (e.g. max_direct_call_object_size ~ ray_config_def.h:206).
+# ---------------------------------------------------------------------------
+
+# --- object store / objects ---
+_define("max_direct_call_object_size", int, 100 * 1024,
+        "Objects <= this many bytes are inlined in task replies / the "
+        "in-process memory store instead of the shared-memory store.")
+_define("object_store_memory", int, 2 * 1024 * 1024 * 1024,
+        "Default per-node shared-memory object store capacity in bytes.")
+_define("object_manager_chunk_size", int, 5 * 1024 * 1024,
+        "Chunk size for node-to-node object transfer.")
+_define("rpc_put_max_bytes", int, 512 * 1024,
+        "Owner puts <= this many bytes travel inside a single pipelined "
+        "put_object RPC; larger ones are written into the shared arena "
+        "mapping directly (create + client memcpy + seal).")
+_define("async_put_max_inflight", int, 32,
+        "Max owner puts pipelined on the io loop before put() blocks.")
+
+# --- scheduling ---
+_define("scheduler_top_k_fraction", float, 0.2,
+        "Hybrid scheduling policy considers the top max(1, k*n_nodes) nodes.")
+_define("scheduler_spread_threshold", float, 0.5,
+        "Critical resource utilization below which the hybrid policy packs "
+        "onto the local/first node instead of spreading.")
+_define("worker_lease_timeout_ms", int, 30000, "")
+_define("actor_unreachable_timeout_s", float, 120.0,
+        "How long the actor delivery layer keeps resending the same "
+        "frames (same seqs — dedup'd by the worker) to an actor that is "
+        "ALIVE with an unchanged incarnation but unreachable, before "
+        "surfacing ActorUnavailableError. Oversubscribed hosts can "
+        "CPU-starve healthy workers past many connect timeouts.")
+_define("max_workers_per_node", int, 0,
+        "Cap on pooled workers per node; 0 means #CPUs.")
+_define("worker_pool_idle_ttl_s", float, 600.0,
+        "Idle pooled workers beyond the soft limit are reaped after this.")
+
+# --- fault tolerance ---
+_define("health_check_period_ms", int, 1000, "")
+_define("raylet_report_resources_period_ms", int, 100,
+        "How often a raylet pushes its resource view to the GCS. Drives how "
+        "fast spillback decisions see remote availability (reference: "
+        "raylet_report_resources_period_milliseconds).")
+_define("health_check_failure_threshold", int, 5,
+        "Consecutive missed health checks before a node is marked dead.")
+_define("task_max_retries_default", int, 3, "")
+_define("borrow_pending_ttl_s", float, 600.0,
+        "How long a serialized-out ref stays pinned waiting for its "
+        "recipient to register as a borrower. The backstop that turns "
+        "lost-message races into a bounded delay instead of a leak.")
+_define("actor_max_restarts_default", int, 0, "")
+
+# --- workers ---
+_define("worker_startup_batch", int, 4, "Prestarted workers per node.")
+_define("object_store_backend", str, "native",
+        "Per-node store backend: 'native' (C++ arena allocator, "
+        "native/arena_store.cpp) or 'files' (file-per-object fallback).")
+_define("worker_pool_min_idle", int, 2,
+        "Keep at least this many warm workers per active job so actor "
+        "creation after kills never pays a Python cold start "
+        "(reference: worker_pool.cc prestart).")
+
+# --- memory monitor / OOM (reference: memory_monitor.h:52,
+# worker_killing_policy.h:34; threshold default mirrors
+# RAY_memory_usage_threshold) ---
+_define("memory_usage_threshold", float, 0.95,
+        "Node memory fraction above which the raylet OOM-kills a leased "
+        "task worker (retriable-newest-first policy).")
+_define("memory_monitor_refresh_ms", int, 250,
+        "Memory monitor poll period; 0 disables OOM killing.")
+_define("memory_monitor_test_usage_path", str, "",
+        "Test hook: read the usage fraction from this file instead of "
+        "psutil/cgroup.")
+_define("memory_preempt_threshold", float, 0.85,
+        "Node memory fraction above which the raylet preemptively "
+        "retires the largest leased task worker (PREEMPT_RESCHEDULE; "
+        "the task retries via the normal lease-return path) before the "
+        "kill threshold is reached. Must sit below "
+        "memory_usage_threshold; 0 disables preemption.")
+_define("memory_preempt_cooldown_s", float, 5.0,
+        "Minimum spacing between memory preemptions on one node — one "
+        "retirement must get a chance to free memory before the next "
+        "verdict.")
+
+# --- control plane and serve ---
+_define("ctrl_decisions_buffer_size", int, 2_000,
+        "Ring buffer capacity of the GCS control-decision log "
+        "(GET /api/controller).")
+_define("serve_kv_block_size", int, 16,
+        "Default paged-KV block size (rows per HBM block) for serve "
+        "LLM engines built without an explicit kv_block_size.")
+_define("serve_preempt_hold_s", float, 0.25,
+        "How long the interactive lane must stay starved (queued "
+        "request + no admissible slot) before the engine's Hysteresis "
+        "gate lets it checkpoint a batch decode — transient pressure "
+        "from one full tick never thrashes checkpoints.")
+_define("serve_preempt_cooldown_s", float, 1.0,
+        "Minimum spacing between batch-decode preemptions on one "
+        "engine (each checkpoint costs an export + a later re-adopt).")
+_define("serve_spec_k", int, 4,
+        "Speculative decoding depth for serve LLM engines built with a "
+        "draft model: spec_k - 1 draft proposals verified per round, "
+        "so each verify step emits 1..spec_k tokens.")
+_define("serve_kv_host_tier_bytes", int, 256 * 1024 * 1024,
+        "Host-RAM budget of the KV memory hierarchy's middle tier "
+        "(serve/llm/kv_cache.KVTierManager): evicted prefix blocks "
+        "spill here instead of vanishing; overflow demotes to the "
+        "object store (or is dropped, counted, when no cluster is "
+        "attached).")
+_define("serve_kv_adopt_cost_fixed_ms", float, 2.0,
+        "PromoteCostModel: fixed cost of one tier->HBM promote "
+        "dispatch (host staging + the adopt scatter launch), "
+        "independent of block count.")
+_define("serve_kv_adopt_cost_per_block_ms", float, 0.1,
+        "PromoteCostModel: marginal cost per promoted KV block "
+        "(host->device transfer of one block's rows).")
+_define("serve_kv_prefill_cost_per_token_ms", float, 0.05,
+        "PromoteCostModel: prefill cost per prompt token — the "
+        "recompute side of the promote-vs-recompute crossover. Short "
+        "suffixes recompute; long ones re-adopt.")
+_define("serve_prefix_index_max_heads", int, 512,
+        "Cap on hash-chain heads one replica publishes per index "
+        "report (hottest first; the index is a routing hint, not a "
+        "directory).")
+_define("serve_accounting_instrumentation", bool, True,
+        "Per-request cost accounting on serve LLM engines "
+        "(observability.accounting.RequestMeter): prefill tokens "
+        "computed vs avoided, decode tokens, KV block-seconds, "
+        "chip-seconds per phase, folded into the tenant ledger and "
+        "published to the GCS accounting ring. Off = the unmetered "
+        "engine; the serve_accounting_overhead bench prices the delta.")
+_define("serve_accounting_max_tenants", int, 64,
+        "Bound on distinct tenant rows a TenantLedger holds; overflow "
+        "tenants fold into the '__other__' rollup row, which also caps "
+        "the cardinality of the rtpu_serve_tenant_* counter label.")
+_define("serve_slo_ttft_ms", str, "interactive=500,*=2000",
+        "Per-lane TTFT targets (ms) for SLO attainment: "
+        "'lane=ms,...' with '*' as the default lane. A bare number "
+        "applies to every lane.")
+_define("serve_slo_tpot_ms", str, "interactive=200,*=1000",
+        "Per-lane TPOT (per-output-token) targets in ms; same format "
+        "as serve_slo_ttft_ms.")
+_define("serve_slo_objective", float, 0.99,
+        "Fraction of requests per lane that must meet their TTFT/TPOT "
+        "targets; 1 - objective is the error budget the burn rate is "
+        "measured against.")
+_define("serve_slo_burn_fast_window_s", float, 60.0,
+        "Fast window of the multi-window SLO burn-rate evaluation "
+        "(catches sharp regressions within about a minute).")
+_define("serve_slo_burn_slow_window_s", float, 3600.0,
+        "Slow window of the SLO burn-rate evaluation (the fast window "
+        "only fires when the slow window is also consuming budget, so "
+        "a one-blip spike never pages).")
+_define("serve_slo_burn_threshold", float, 10.0,
+        "Fast-window burn rate at or above which (with the slow "
+        "window also >= 1.0) an SLO_BURN cluster event fires; the "
+        "episode clears when the fast burn drops below half this.")
+_define("serve_slo_min_samples", int, 3,
+        "Minimum fast-window observations before a lane's burn rate "
+        "is trusted enough to fire SLO_BURN.")
+
+# --- logging / events ---
+_define("task_events_buffer_size", int, 100_000,
+        "Ring buffer capacity of task lifecycle events kept on the head "
+        "(reference: gcs task manager ring buffer).")
+_define("cluster_events_buffer_size", int, 10_000,
+        "Ring buffer capacity of the GCS ClusterEventLog (typed "
+        "failure-forensics events; reference: gcs event export).")
+_define("worker_exit_tail_lines", int, 20,
+        "How many trailing log lines the raylet captures from a dead "
+        "worker's stdout/stderr files for death-error enrichment.")
+_define("metrics_report_interval_s", float, 2.0,
+        "Flush cadence of user-defined ray_tpu_torch.util.metrics to the GCS "
+        "(reference: metrics_report_interval_ms).")
+_define("trace_sample_rate", float, 0.01,
+        "Tail-sampling keep probability for fast, clean traces in the "
+        "GCS TraceStore. Slow (>= trace_keep_threshold_s) and errored "
+        "traces are always kept — the decision runs at trace "
+        "completion, when the whole trace is visible.")
+_define("trace_keep_threshold_s", float, 0.5,
+        "Root-span duration at or above which a completed trace is "
+        "always kept regardless of trace_sample_rate.")
+_define("trace_store_maxlen", int, 512,
+        "LRU capacity of kept traces in the GCS TraceStore.")
+_define("trace_pending_max", int, 2048,
+        "Bound on in-flight (rootless) traces accumulating in the "
+        "TraceStore; oldest-first eviction, so a crashed hop that "
+        "never sends its root span cannot leak memory.")
+_define("sched_phase_instrumentation", bool, True,
+        "Record per-task scheduling-phase timestamps (PENDING -> "
+        "LEASE_GRANTED -> WORKER_STARTED -> ARGS_READY -> RUNNING) "
+        "through the lease protocol: task-event ring entries, segmented "
+        "timeline submit arrows, and the rtpu_sched_phase_seconds{phase} "
+        "histogram. Off = only the PENDING/RUNNING/FINISHED skeleton.")
+_define("profiler_default_hz", int, 100,
+        "Default sampling rate of the wall-clock stack profiler "
+        "(observability.profiling.StackSampler / util.state.profile).")
+_define("profiler_max_unique_stacks", int, 10_000,
+        "Bound on distinct (thread, stack) keys one StackSampler run "
+        "retains; overflowing samples are counted as dropped instead of "
+        "allocated, so profiling can never OOM the target.")
+_define("profiler_max_duration_s", float, 60.0,
+        "Cap on a single worker-side profile RPC window (long profiles "
+        "are chunked by the util.state.profile client).")
+
+
+
 class _Config:
-    """Resolved view: ``RAY_TPU_<name>`` in the environment, else the
-    default. Read at each access, as the reference does."""
+    """Resolved view: env var > system_config > default."""
+
+    def __init__(self):
+        self._system_config: Dict[str, Any] = {}
+
+    def initialize(self, system_config: Dict[str, Any] | None) -> None:
+        if not system_config:
+            return
+        for key, value in system_config.items():
+            if key not in _REGISTRY:
+                raise ValueError(f"Unknown system config key: {key}")
+            self._system_config[key] = value
 
     def get(self, name: str) -> Any:
-        type_, default = _KNOBS[name]
+        entry = _REGISTRY[name]
         env_val = os.environ.get(_ENV_PREFIX + name)
         if env_val is not None:
-            return _PARSERS.get(type_, type_)(env_val)
-        return default
+            return _PARSERS[entry.type](env_val)
+        if name in self._system_config:
+            return entry.type(self._system_config[name])
+        return entry.default
 
     def __getattr__(self, name: str) -> Any:
         if name.startswith("_"):
@@ -81,6 +286,12 @@ class _Config:
             return self.get(name)
         except KeyError:
             raise AttributeError(name) from None
+
+    def dump_system_config(self) -> str:
+        return json.dumps(self._system_config)
+
+    def load_system_config(self, payload: str) -> None:
+        self._system_config.update(json.loads(payload))
 
 
 GlobalConfig = _Config()

@@ -13,15 +13,17 @@ Metrics live in one process-local registry: re-declaring a name aliases
 the first instance's storage. ``snapshot_records`` and ``local_summary``
 read it (the serving engine's token reconciliation reads the latter).
 
-Not here yet, because they need the port's runtime (the GCS and a
-worker): the flusher thread that pushes snapshots to the GCS every
-``metrics_report_interval_s`` (``_flush_once``, ``flush``,
-``metric_source``), and the ``MetricsHub``/``query`` read path over the
-cluster aggregate. Until then nothing leaves the process.
+The runtime's worker and raylet call ``metric_source`` (a worker's
+cluster-unique push key: a killed worker pushes its last snapshot under
+it) and ``flush``. Not here yet (ROADMAP A4): the flusher thread that
+pushes snapshots to the GCS every ``metrics_report_interval_s``, so
+``flush`` pushes nothing, and the ``MetricsHub``/``query`` read path over
+the cluster aggregate.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -221,6 +223,20 @@ def snapshot_records() -> List[Dict[str, object]]:
     _run_samplers()
     with _registry_lock:
         return [m._snapshot() for m in _registry.values()]
+
+
+def metric_source(worker) -> str:
+    """Cluster-unique push key: bare pid collides across nodes."""
+    wid = getattr(worker, "worker_id", None)
+    suffix = wid.binary().hex()[:8] if wid is not None else "local"
+    return f"{os.getpid()}@{suffix}"
+
+
+def flush() -> bool:
+    """The reference pushes a snapshot to the GCS here (worker shutdown
+    and kill call it). The periodic push is ROADMAP A4's: until then this
+    pushes nothing and returns False."""
+    return False
 
 
 def local_summary(prefixes: Optional[List[str]] = None) -> Dict[str, Any]:

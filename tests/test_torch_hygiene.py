@@ -4,11 +4,17 @@
   of the JAX package ``ray_tpu`` (the port keeps its own copy of what it
   needs). Note that ``ray_tpu_torch`` itself starts with ``ray_tpu``: the
   check is on the module name ``ray_tpu`` and the prefix ``ray_tpu.``.
+- No string in them names a JAX-package module (``"ray_tpu._private.…"``),
+  as a ``-m`` entry point would; and a live port cluster starts only
+  ``ray_tpu_torch.`` processes.
 - Entry points called without a device run on the card; on a host without
   one they raise instead of running on the CPU.
 """
 
 import ast
+import os
+import re
+import sys
 from pathlib import Path
 
 import pytest
@@ -44,7 +50,132 @@ def test_port_files_found():
             "zero.py", "chip_smoke.py", "kv_cache.py", "spec.py",
             "config.py", "control.py", "metrics.py", "tracing.py",
             "accounting.py", "serve.py", "transfer.py", "prefill.py",
-            "decode.py"} <= names
+            "decode.py", "ids.py", "resources.py", "gpu.py",
+            "accelerator.py", "exceptions.py", "serialization.py",
+            "object_ref.py", "task_spec.py", "rpc.py", "object_store.py",
+            "native_store.py", "reference_count.py",
+            "scheduling_policy.py", "gcs_server.py", "raylet.py",
+            "node.py", "worker_main.py", "fate_share.py",
+            "memory_monitor.py", "log_monitor.py", "usage_stats.py",
+            "worker.py", "remote_function.py", "actor.py",
+            "runtime_context.py", "scheduling_strategies.py",
+            "placement_group.py"} <= names
+    assert (ROOT / "ray_tpu_torch/_private/csrc/arena_store.cpp").exists()
+
+
+def test_every_config_setting_has_a_reader():
+    """A setting is defined only where a module of the port reads it (an
+    attribute ``GlobalConfig.<name>`` or the name as a string, or, for the
+    engine's ``"serve_" + name`` lookups, the rest of the name)."""
+    from ray_tpu_torch._private.config import _REGISTRY
+
+    attrs, strings = set(), set()
+    for path in PORT_FILES:
+        if path.name == "config.py" and path.parent.name == "_private":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Attribute):
+                attrs.add(node.attr)
+            elif isinstance(node, ast.Constant) and isinstance(node.value,
+                                                               str):
+                strings.add(node.value)
+    unread = [name for name in _REGISTRY
+              if name not in attrs and name not in strings
+              and name.removeprefix("serve_") not in strings]
+    assert not unread, f"settings no module reads: {unread}"
+
+
+# A dotted module path of the JAX package: what ``-m`` would run.
+_JAX_PACKAGE_MODULE = re.compile(r"ray_tpu(\.[A-Za-z_]\w*)+")
+
+
+def _jax_package_module_strings(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and _JAX_PACKAGE_MODULE.fullmatch(node.value.strip())):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_package_module_named_as_an_entry_point(path):
+    """A string naming a JAX-package module (``"ray_tpu._private.raylet"``
+    after ``"-m"``) would start the reference's daemons from the port."""
+    bad = list(_jax_package_module_strings(path))
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_entry_point_rule_tells_the_packages_apart(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        'cmd = [exe, "-m", "ray_tpu._private.worker_main"]\n'
+        'ok = [exe, "-m", "ray_tpu_torch._private.worker_main"]\n'
+        'prefix = "ray_tpu."\n'
+        'doc = "the reference\'s ray_tpu._private.raylet, for comparison"\n')
+    assert list(_jax_package_module_strings(probe)) == [
+        (1, "ray_tpu._private.worker_main")]
+
+
+def _descendants(pid):
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
+def _cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return [a.decode() for a in f.read().split(b"\0") if a]
+    except OSError:
+        return None
+
+
+def test_port_cluster_spawns_only_port_processes():
+    """Every process a port cluster starts (GCS, raylet, task and actor
+    workers) runs a ``ray_tpu_torch.`` module, and none loads JAX or the
+    JAX package; a worker that touches no tensor loads no torch."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=2, num_gpus=0,
+                       object_store_memory=64 * 1024 * 1024)
+    try:
+        @ray_tpu_torch.remote
+        def modules():
+            return sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "ray_tpu", "torch"))
+
+        @ray_tpu_torch.remote
+        class Probe:
+            def modules(self):
+                return sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "ray_tpu"))
+
+        actor = Probe.remote()
+        assert ray_tpu_torch.get([modules.remote(), actor.modules.remote()],
+                                 timeout=60) == [[], []]
+        cmds = [c for c in map(_cmdline, _descendants(os.getpid()))
+                if c is not None]
+        assert len(cmds) >= 3                  # GCS, raylet, workers
+        for cmd in cmds:
+            assert "-m" in cmd, cmd
+            module = cmd[cmd.index("-m") + 1]
+            assert module.startswith("ray_tpu_torch."), cmd
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -192,17 +192,38 @@ def test_kv_state_and_prefix_take_cpu_tensors():
     assert P.stable_hash_prefix([1, 2, 3]) == R.stable_hash_prefix([1, 2, 3])
 
 
+# The serve engine's settings (its paged pool, preemption gate,
+# speculative depth, KV tiers, prefix-index cap, accounting and SLOs).
+SERVE_KNOBS = {
+    "serve_kv_block_size", "serve_preempt_hold_s", "serve_preempt_cooldown_s",
+    "serve_spec_k", "serve_kv_host_tier_bytes",
+    "serve_kv_adopt_cost_fixed_ms", "serve_kv_adopt_cost_per_block_ms",
+    "serve_kv_prefill_cost_per_token_ms", "serve_prefix_index_max_heads",
+    "serve_accounting_instrumentation", "serve_accounting_max_tenants",
+    "serve_slo_ttft_ms", "serve_slo_tpot_ms", "serve_slo_objective",
+    "serve_slo_burn_fast_window_s", "serve_slo_burn_slow_window_s",
+    "serve_slo_burn_threshold", "serve_slo_min_samples",
+}
+
+
 def test_port_config_and_hysteresis_match_reference(monkeypatch):
-    """The serve knobs: the reference's defaults and RAY_TPU_ overrides;
-    the Hysteresis gate: the reference's decisions on one sequence."""
+    """The config table, serve knobs included: a part of the reference's
+    with its types, defaults and RAY_TPU_ overrides; the Hysteresis
+    gate: the reference's decisions on one sequence."""
+    from ray_tpu._private.config import _REGISTRY as REF_REGISTRY
     from ray_tpu._private.config import GlobalConfig as RC
     from ray_tpu.observability.control import Hysteresis as RH
-    from ray_tpu_torch._private.config import _KNOBS
+    from ray_tpu_torch._private.config import _REGISTRY
     from ray_tpu_torch._private.config import GlobalConfig as PC
     from ray_tpu_torch.observability.control import Hysteresis as PH
 
-    for name in _KNOBS:
-        assert getattr(PC, name) == getattr(RC, name), name
+    assert set(_REGISTRY) <= set(REF_REGISTRY)
+    assert SERVE_KNOBS <= set(_REGISTRY)
+    # The tables, not the resolved values: a cluster started earlier in
+    # this process may have loaded a _system_config into either one.
+    for name, entry in _REGISTRY.items():
+        ref = REF_REGISTRY[name]
+        assert (entry.type, entry.default) == (ref.type, ref.default), name
     monkeypatch.setenv("RAY_TPU_serve_spec_k", "6")
     assert PC.serve_spec_k == 6 == RC.serve_spec_k
     rh, ph = RH(0.5, 0.2, 1.0), PH(0.5, 0.2, 1.0)
