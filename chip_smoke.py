@@ -88,15 +88,15 @@ Phases, one line each; any failure raises and exits non-zero:
               (each migrated first token counted on both hops, as in the
               reference), one tenant-ledger row per request, the importer's
               blocks and bytes, every two-hop span tree. A profile window
-              over each server (a second mix, split by hop). A speculative
+              over each server (half a second mix, split by hop). A speculative
               decode server adopting from the prefill server: B1 launches
               = draft layers x draft prefills, then B1 on an adopted
               request's real draft q/k/v. A fresh monolithic server on the
               same mix (tok/s, TTFT, TPOT, token agreement), which then
               donates a prompt's prefix chain to a fresh receiver: every
               exported block promoted, only the suffix prefilled, the
-              donor's tokens. Last, the hooks' cost: 4 pairs of fresh
-              servers with the cost meters on and off
+              donor's tokens. Last, the hooks' cost: HOOK_PAIRS (2) pairs
+              of fresh servers with the cost meters on and off
               (serve_accounting_instrumentation), alternating which runs
               first, on the same mix: tok/s of each and their ratios.
 6f. disagg gates -- 4 layers at Llama-3-8B widths: two-hop equal to one
@@ -120,6 +120,35 @@ Phases, one line each; any failure raises and exits non-zero:
               bf16 CUDA tensor round-trips through a GPU actor bit for
               bit; two num_gpus=0.5 tasks share id 0; a 1 GiB f32 CPU
               tensor's get lies over the store's memory; after shutdown no
+              cluster process is left and the card's memory is back
+              within 1 GiB.
+6h. serve-app -- Serve on the port's runtime, on a fresh cluster (no
+              resource arguments): ``build_routed_llm_app``, two Llama-3-8B
+              int8 replicas of 0.5 GPU each behind the LLM router: the 12
+              serve requests one at a time through the
+              ``DeploymentHandle`` give the serve phase's tokens, then the
+              mix from 4 client threads (tok/s, TTFT, TPOT, client latency
+              as ratios to 6g's in-process and actor runs and the serve
+              phase); B1 in the replicas = 32 x prefills (read through the
+              controller's replica handles), both replicas routed,
+              ``serve_replicas`` 2, and a span tree serve.request >
+              serve.replica_call > llm.server_call > llm.request read back
+              from the GCS. ``build_disagg_llm_app`` (a prefill and a
+              decode replica, 6e's engine config): 6e's mix one at a time
+              gives 6e's monolithic tokens, prompts of 256 tokens or more
+              two-hop through the object store; the mix from 4 clients;
+              its migrations' own store put (the prefill replica's
+              return) and get (the decode replica's);
+              redeployed with a speculative decode pool, B1 in it = draft
+              layers x draft prefills. At 4 layers, bf16, paged: both
+              replicas in the GCS prefix index, a repeat routed "scored" to
+              the holder, a peer pull from a busy holder (every pulled
+              block promoted, only the suffix prefilled, the holder's
+              tokens), and a host tier smaller than a block demoting to
+              the store and promoting back, a chain evicted whole (all
+              of it promoted) and one evicted in part (its head run
+              promoted, as in the reference), each with the tokens of a
+              run without the tier at the same depth. After shutdown no
               cluster process is left and the card's memory is back
               within 1 GiB.
 7. train   -- f32 checks first: flash against plain attention at dim
@@ -924,6 +953,9 @@ def phase_serve(dev, cfg, loader, mix, card):
                   f"bad result {res}")
         n_tok = sum(res["num_tokens"] for res in results)
         ttft = float(np.median([res["ttft_s"] for res in results]))
+        figures = {"tok_s": n_tok / wall, "ttft_p50_ms": 1e3 * ttft,
+                   "tpot_p50_ms": 1e3 * float(np.median(
+                       [res["tpot_s"] for res in results]))}
         log("serve", f"{len(results)}/{N_REQUESTS} completed, {n_tok} "
             f"tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s, TTFT p50 "
             f"{ttft * 1e3:.1f} ms, flash launches {launches} for "
@@ -934,7 +966,8 @@ def phase_serve(dev, cfg, loader, mix, card):
         phase_parity(server, cfg, reqs, results, dev)
         profile = phase_profile(server, cfg)
         dense_mix = run_mix(server, mix, "serve", card, long_prompts=False)
-        return launches, profile, dense_mix
+        tokens = [res["tokens"] for res in results]
+        return launches, profile, dense_mix, tokens, figures
     finally:
         server.shutdown()
 
@@ -1168,8 +1201,9 @@ PAGED_ENGINE = {**ENGINE, "kv_layout": "paged", "kv_block_size": 16,
                 "kv_spill": True, "kv_host_tier_bytes": 1 << 30,
                 "preempt_hold_s": 0.0, "preempt_cooldown_s": 0.0}
 SYS_PREFIX, SPEC_K, GATE_LAYERS = 256, 4, 4
-# Pairs of fresh servers, accounting on and off, that price the hooks.
-HOOK_PAIRS = 4
+# Pairs of fresh servers, accounting on and off, that price the hooks
+# (two, one each way round; PRs 11-12 ran four).
+HOOK_PAIRS = 2
 
 
 def paged_mix(vocab):
@@ -1915,7 +1949,7 @@ def phase_disagg(dev, cfg, loader, card):
     the meters, one ledger row per request, KVImporter's blocks and bytes
     against the adopted states', every two-hop span tree. Then one
     profile window over the prefill server and one over the decode
-    server, on a second mix (seed 1) split by hop. (3) A speculative
+    server, on half a second mix (seed 1) split by hop. (3) A speculative
     decode server (the default random draft) adopting from the prefill
     server: B1 launches = draft layers x draft prefills, then B1 on an
     adopted request's real draft q/k/v. (4) A fresh monolithic server on
@@ -1946,10 +1980,10 @@ def phase_disagg(dev, cfg, loader, card):
     _free(pre, dec)
     del pre, dec
     mono = server(LLMServer)
-    whole = [mono(r)["tokens"] for r in reqs]
+    whole_one = [mono(r)["tokens"] for r in reqs]
     _free(mono)
     del mono
-    same = sum(a == b for a, b in zip(hop, whole))
+    same = sum(a == b for a, b in zip(hop, whole_one))
     log("disagg", f"bitwise: two-hop == monolithic greedy tokens for "
         f"{same} of {len(reqs)} requests, one at a time (int8, "
         f"{cfg.n_layers} layers); {card}")
@@ -2017,8 +2051,10 @@ def phase_disagg(dev, cfg, loader, card):
         f"{len(two)} migrated first tokens; {rows} ledger rows; "
         f"{len(route.traces)} span trees whole; {card}")
 
-    # Profiles: a second mix, each hop in a window of its own.
-    prof = disagg_mix(cfg.vocab_size, seed=1)
+    # Profiles: the first half of a second mix (its first six requests:
+    # four on the shared prefix, a long and a short prompt; half, to leave
+    # the run's time to the Serve phase), each hop in a window of its own.
+    prof = disagg_mix(cfg.vocab_size, seed=1)[:6]
     ptwo = [r for r in prof if len(r["prompt"]) >= PREFILL_THRESHOLD]
     pshort = [r for r in prof if len(r["prompt"]) < PREFILL_THRESHOLD]
     results = [None] * len(ptwo)
@@ -2177,7 +2213,8 @@ def phase_disagg(dev, cfg, loader, card):
     def strip(d):
         return {k: v for k, v in d.items() if k != "results"}
 
-    return {"bitwise_requests": len(reqs), "pair": strip(pair),
+    return {"bitwise_requests": len(reqs), "monolithic_tokens": whole_one,
+            "pair": strip(pair),
             "monolithic": strip(whole), "agreement": agree_mono,
             "migration": migration, "profiles": profiles,
             "spec": {"b1_launches": b1, "draft_prefills": prefills,
@@ -2435,7 +2472,7 @@ def _actor_classes(rt):
     return ServeActor, CardProbe, half_gpu
 
 
-def _timed_mix(call, reqs, label, card):
+def _timed_mix(call, reqs, label, card, phase="runtime"):
     """The 12 requests from 4 client threads through ``call``: tok/s,
     TTFT and TPOT p50 (the engine's), and the client's latency p50."""
     lat = {}
@@ -2461,7 +2498,7 @@ def _timed_mix(call, reqs, label, card):
            "tpot_p50_ms": 1e3 * float(np.median([r["tpot_s"]
                                                  for r in results])),
            "latency_p50_ms": 1e3 * float(np.median(list(lat.values())))}
-    log("runtime", f"{label}: {len(reqs)} requests, {n_tok} tokens in "
+    log(phase, f"{label}: {len(reqs)} requests, {n_tok} tokens in "
         f"{wall:.2f} s = {out['tok_s']:.1f} tok/s, TTFT p50 "
         f"{out['ttft_p50_ms']:.1f} ms, TPOT p50 {out['tpot_p50_ms']:.2f} "
         f"ms, client latency p50 {out['latency_p50_ms']:.0f} ms; {card}")
@@ -2732,6 +2769,656 @@ def phase_runtime(dev, card):
           f"{out['memory_after_mib']:.0f} MiB after")
     out["phase_s"] = time.perf_counter() - phase_t0
     log("runtime", f"shut down: no cluster process left, card memory "
+        f"{mem0:.0f} -> {out['memory_after_mib']:.0f} MiB; the phase took "
+        f"{out['phase_s']:.1f} s; {card}")
+    return out
+
+
+SERVE_APP_GPUS = 0.5             # each engine replica's share of the card
+GATE_APP_GPUS = 0.25             # the same at 4 layers: four replicas at once
+# The cluster of phase 6h: cache affinity only breaks ties (a busy holder
+# loses the pick, so the peer pull runs), the prefix index and the
+# metrics published often, and every trace kept.
+SERVE_APP_SYSTEM = {"serve_router_cache_weight": 0.01,
+                    "serve_prefix_index_publish_interval_s": 0.5,
+                    "metrics_report_interval_s": 0.5,
+                    "trace_sample_rate": 1.0}
+# The cache-aware gates (4 layers): a 256-token shared prefix, the
+# holder kept busy by a request of this many new tokens.
+APP_BUSY_TOKENS = 300
+# The store-tier gates: a host tier smaller than one block, so every
+# block the pool evicts demotes to the object store. Prompts of 300
+# tokens (a chain of 18 blocks), each a 512-bucket prefill of 32 blocks.
+# Whole chain: a pool of exactly 32 blocks, so the second prompt evicts
+# all 18 cached blocks of the first, whose repeat promotes its whole
+# chain. Partial: a pool of 34, so the second prompt evicts only the 16
+# coldest, the chain's head (the prefix cache evicts in insertion order,
+# as the reference's does); the repeat matches no pool block from the
+# head, promotes the 16 links and leaves the 2 still in the pool unused
+# (the reference's rule: the tier continues the pool's run from the head).
+TIER_PROMPT, TIER_CHAIN = 300, 300 // 16
+TIER_ENGINE = {**PAGED_ENGINE, "num_kv_blocks": 32, "kv_host_tier_bytes": 1}
+PARTIAL_ENGINE = {**TIER_ENGINE, "num_kv_blocks": 34}
+PARTIAL_HEAD = 32 - (34 - TIER_CHAIN)          # the links the pool evicts
+
+
+def _serve_app_classes():
+    """The apps' servers, each with methods that read its process (B1's
+    count, the lease) and, for the two-hop timing, the served
+    migrations' own store put (the prefill replica's return) and get (the
+    decode replica's resolution of the forwarded ref). Defined in a
+    function, so that cloudpickle ships them by value and a replica needs
+    only the port."""
+    from ray_tpu_torch.serve.llm import DecodeServer, LLMServer, PrefillServer
+
+    class Counted:
+        def b1(self):
+            import ray_tpu_torch
+            from ray_tpu_torch.ops import attention
+
+            st = self.stats()
+            return {"launches": attention.flash_fwd_cuda.launches,
+                    "prefills": st["prefills"],
+                    "draft_prefills": st.get("spec", {}).get(
+                        "draft_prefills", 0),
+                    "pid": os.getpid(),
+                    "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+                    "cuda_visible_devices":
+                        os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": str(self._engine.device),
+                    "foreign": sorted(m for m in sys.modules
+                                      if m.split(".")[0]
+                                      in ("jax", "ray_tpu"))}
+
+    class AppServer(Counted, LLMServer):
+        pass
+
+    def timed(fn, moves, result, before=None):
+        """``fn`` timed, after ``before(args)`` if given: one (ms, payload
+        bytes) in ``moves`` per call whose ``result(args, out)`` is a dict
+        holding a KV checkpoint."""
+        def call(*args, **kwargs):
+            if before is not None:
+                before(args)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            ms = 1e3 * (time.perf_counter() - t0)
+            res = result(args, out)
+            st = res.get("kv_state") if isinstance(res, dict) else None
+            if st is not None:
+                moves.append((ms, st.payload_bytes))
+            return out
+        return call
+
+    class AppPrefill(Counted, PrefillServer):
+        def __init__(self, *args, **kwargs):
+            """Time this worker's store put of each ``prefill`` return
+            (serialize, create, copy, seal): the first hop's migration."""
+            from ray_tpu_torch._private.worker import global_worker
+
+            super().__init__(*args, **kwargs)
+            self._moves = []
+            w = global_worker()
+            w._store_returns = timed(w._store_returns, self._moves,
+                                     lambda args, out: args[1])
+
+        def migrations(self):
+            return list(self._moves)
+
+    class AppDecode(Counted, DecodeServer):
+        def __init__(self, *args, **kwargs):
+            """Time the replica's get of each forwarded prefill result
+            (``Replica.handle_request`` resolves it through
+            ``ray_tpu_torch.get``): the second hop's migration. The ref
+            arrives before the prefill has ended, so the get is timed
+            from the moment the result is in the store."""
+            import ray_tpu_torch
+
+            def ready(args):
+                if isinstance(args[0], ray_tpu_torch.ObjectRef):
+                    wait([args[0]], timeout=300)
+
+            super().__init__(*args, **kwargs)
+            self._moves = []
+            wait = ray_tpu_torch.wait
+            ray_tpu_torch.get = timed(ray_tpu_torch.get, self._moves,
+                                      lambda args, out: out, ready)
+
+        def migrations(self):
+            return list(self._moves)
+
+    return AppServer, AppPrefill, AppDecode
+
+
+def _swap(app, cls):
+    """Serve ``app``'s deployment with ``cls`` in place of its class."""
+    app.deployment = app.deployment.options(func_or_class=cls)
+    return app
+
+
+def _app_replicas(rt, app, deployment, n=1, old=()):
+    """The controller's handles on a deployment's replicas, once it has
+    ``n`` of them that are not in ``old``."""
+    from ray_tpu_torch.serve._private.controller import (
+        get_or_create_controller,
+    )
+
+    deadline = time.monotonic() + 300
+    while True:
+        _, reps = rt.get(get_or_create_controller().get_replicas.remote(
+            app, deployment), timeout=60)
+        reps = [r for r in reps if r._actor_id not in old]
+        if len(reps) == n:
+            return reps
+        check(time.monotonic() < deadline,
+              f"{app}/{deployment}: {len(reps)} replicas, want {n}")
+        time.sleep(0.2)
+
+
+def _rcall(rt, replica, method, *args, timeout=900):
+    return rt.get(replica.handle_request.remote(method, args, {}),
+                  timeout=timeout)
+
+
+def _poll(fn, timeout=60.0, period=0.1):
+    deadline = time.monotonic() + timeout
+    while True:
+        out = fn()
+        if out or time.monotonic() > deadline:
+            return out
+        time.sleep(period)
+
+
+def _check_lease(info, what):
+    check(info["foreign"] == [], f"{what} loaded {info['foreign']}")
+    check(info["gpu_ids"] == [0] and info["cuda_visible_devices"] == "0"
+          and info["device"].startswith("cuda"), f"{what}'s lease: {info}")
+
+
+def _trace_names(node):
+    return {node["name"]}.union(*[_trace_names(c)
+                                  for c in node["children"]])
+
+
+def _serve_trace(trace_id, want=("serve.request", "serve.replica_call",
+                                 "llm.server_call", "llm.request")):
+    """One routed request's span tree from the GCS trace store, once its
+    root and ``want`` arrived; None after 60 s."""
+    from ray_tpu_torch.util import state
+
+    def tree():
+        t = state.get_trace(trace_id)
+        return t if (t and t.get("complete") and t.get("root")
+                     and set(want) <= _trace_names(t["root"])) else None
+
+    return _poll(tree, timeout=60, period=0.2)
+
+
+def _ratios(ours, theirs, keys=("tok_s", "ttft_p50_ms", "tpot_p50_ms",
+                                "latency_p50_ms")):
+    return {k: ours[k] / theirs[k] for k in keys
+            if theirs.get(k) and ours.get(k) is not None}
+
+
+def _ratio_text(r):
+    return ", ".join(f"{k} {v:.3f}x" for k, v in r.items())
+
+
+def phase_serve_app(dev, card, serve_tokens, serve_fig, runtime,
+                    disagg_tokens, disagg):
+    """Serve on the port's runtime: (1) ``build_routed_llm_app``, two
+    Llama-3-8B int8 replicas of half the card each behind the LLM
+    router, the 12 serve requests one at a time through the handle (the
+    serve phase's tokens) and from 4 client threads; B1 in the replicas
+    = 32 x prefills, read through the controller's replica handles; the
+    router's counts, ``serve_replicas`` and a span tree from the GCS.
+    (2) ``build_disagg_llm_app``, a prefill and a decode replica: 6e's
+    mix one at a time (6e's monolithic tokens, prompts of 256 tokens or
+    more two-hop through the store) and from 4 clients; the mix's own
+    migrations' store put and get; then a speculative decode pool: B1 =
+    draft layers x draft prefills. (3) 4 layers, bf16, paged: the prefix
+    index, a cache-aware pick, a peer pull from a busy holder and the
+    store tier's demote and promote after a whole and a partial
+    eviction. (4) Teardown: no cluster process left, the card's memory
+    back."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.serve.llm import (build_disagg_llm_app,
+                                         build_llm_app, build_routed_llm_app)
+    from ray_tpu_torch.serve.llm.disagg.spec import draft_config_for
+    from ray_tpu_torch.serve.llm.kv_cache import stable_hash_prefix
+    from ray_tpu_torch.util import metrics, state
+
+    cfg = serve_config()
+    AppServer, AppPrefill, AppDecode = _serve_app_classes()
+    common = dict(model_config=cfg, num_gpus=SERVE_APP_GPUS,
+                  quantize="int8", init_seed=0, device=None)
+    mem0 = gpu_memory_used_mib()
+    out = {"card": card, "steps_s": {}}
+    phase_t0 = time.perf_counter()
+
+    def mark(step):
+        """The phase's wall time after each of its steps."""
+        out["steps_s"][step] = time.perf_counter() - phase_t0
+        log("serve-app", f"[time] {step} done at "
+            f"{out['steps_s'][step]:.1f} s of the phase")
+
+    rt.init(_system_config=dict(SERVE_APP_SYSTEM))
+    try:
+        # (1) The routed app at full width, dense.
+        t0 = time.perf_counter()
+        app = build_routed_llm_app(engine_config=dict(ENGINE),
+                                   num_replicas=2, **common)
+        _swap(app.init_args[0], AppServer)
+        handle = serve.run(app, name="routed")
+        reps = _app_replicas(rt, "routed", "llm", n=2)
+        infos = [_rcall(rt, r, "b1") for r in reps]
+        out["routed_ready_s"] = time.perf_counter() - t0
+        for info in infos:
+            _check_lease(info, "a routed replica")
+        check(len({i["pid"] for i in infos}) == 2,
+              "the two replicas share a process")
+        log("serve-app", f"routed app: 2 replicas of {SERVE_APP_GPUS} GPU "
+            f"ready in {out['routed_ready_s']:.1f} s (pids "
+            f"{[i['pid'] for i in infos]}, gpu ids "
+            f"{[i['gpu_ids'] for i in infos]}); {card}")
+        mark("routed ready")
+        before = [_rcall(rt, r, "b1") for r in reps]
+        reqs = serve_requests(cfg)
+        one = [handle.remote(r).result(timeout=900) for r in reqs]
+        same = sum(o["tokens"] == t for o, t in zip(one, serve_tokens))
+        out["routed_tokens_equal"] = f"{same}/{len(reqs)}"
+        log("serve-app", f"greedy tokens one at a time through the handle "
+            f"== the serve phase's in-process tokens: "
+            f"{out['routed_tokens_equal']}")
+        check(same == len(reqs), "routed tokens differ from the serve "
+              "phase's")
+        mark("routed one at a time")
+
+        def through_handle(r):
+            return handle.remote(r).result(timeout=900)
+
+        routed = _timed_mix(through_handle, reqs, "routed app mix", card,
+                            phase="serve-app")
+        mark("routed mix")
+        after = [_rcall(rt, r, "b1") for r in reps]
+        launches = sum(a["launches"] - b["launches"]
+                       for a, b in zip(after, before))
+        prefills = sum(a["prefills"] - b["prefills"]
+                       for a, b in zip(after, before))
+        by_replica = [a["launches"] - b["launches"]
+                      for a, b in zip(after, before)]
+        st = handle.stats.remote().result(timeout=60)
+        log("serve-app", f"B1 launches in the replicas {by_replica} = "
+            f"{launches} for {prefills} prefills; router: "
+            f"{st['replicas']} replicas, routed {st['routed']}")
+        check(prefills == 2 * len(reqs)
+              and launches == cfg.n_layers * prefills,
+              f"B1 in the replicas {launches} != {cfg.n_layers} x "
+              f"{prefills}")
+        check(st["replicas"] == 2 and len(st["routed"]) == 2
+              and sum(st["routed"].values()) == 2 * len(reqs),
+              f"router stats {st}")
+        n_rep = _poll(lambda: metrics.query(
+            "serve_replicas", labels={"deployment": "routed/llm"}).latest
+            == 2.0, timeout=30)
+        check(n_rep, "serve_replicas did not read 2")
+        check(all("x-trace-id" in o for o in one), "a response without "
+              "x-trace-id")
+        tree = _serve_trace(one[0]["x-trace-id"])
+        check(tree is not None, "no span tree for a routed request")
+        root = tree["root"]
+        hop = next(c for c in root["children"]
+                   if c["name"] == "serve.replica_call")
+        call = next(c for c in hop["children"]
+                    if c["name"] == "llm.server_call")
+        req = next(c for c in call["children"]
+                   if c["name"] == "llm.request")
+        check(hop["parent_span_id"] == root["span_id"]
+              and call["parent_span_id"] == hop["span_id"]
+              and req["parent_span_id"] == call["span_id"],
+              "span parents of a routed request")
+        in_proc = {k: float(np.mean([m[k] for s, m in runtime["mix"]
+                                     if s == "in-process"]))
+                   for k in routed if k != "wall_s" and k != "tokens"}
+        actor = {k: float(np.mean([m[k] for s, m in runtime["mix"]
+                                   if s == "actor"]))
+                 for k in in_proc}
+        out["routed"] = {
+            "mix": routed, "b1_launches": launches, "prefills": prefills,
+            "b1_by_replica": by_replica, "routed": st["routed"],
+            "over_runtime_in_process": _ratios(routed, in_proc),
+            "over_runtime_actor": _ratios(routed, actor),
+            "over_serve_phase": _ratios(routed, serve_fig)}
+        log("serve-app", f"routed app / 6g in-process: "
+            f"{_ratio_text(out['routed']['over_runtime_in_process'])}; / 6g "
+            f"actor: {_ratio_text(out['routed']['over_runtime_actor'])}; / "
+            f"serve phase: {_ratio_text(out['routed']['over_serve_phase'])}"
+            f"; the trace serve.request > serve.replica_call > "
+            f"llm.server_call > llm.request read back; {card}")
+        serve.delete("routed")
+        mark("routed checks and delete")
+
+        # (2) The disaggregated app at full width, paged.
+        t0 = time.perf_counter()
+
+        def disagg_app(**kw):
+            app = build_disagg_llm_app(
+                engine_config=dict(PAGED_ENGINE), prefill_replicas=1,
+                decode_replicas=1, prefill_threshold=PREFILL_THRESHOLD,
+                **common, **kw)
+            _swap(app.init_args[0], AppDecode)
+            _swap(app.init_kwargs["prefill_handle"], AppPrefill)
+            return app
+
+        handle = serve.run(disagg_app(), name="disagg")
+        (pre,) = _app_replicas(rt, "disagg", "llm-prefill")
+        (dec,) = _app_replicas(rt, "disagg", "llm-decode")
+        for r, what in ((pre, "the prefill replica"),
+                        (dec, "the decode replica")):
+            _check_lease(_rcall(rt, r, "b1"), what)
+        out["disagg_ready_s"] = time.perf_counter() - t0
+        mark("disagg ready")
+        reqs = disagg_mix(cfg.vocab_size)
+        two = [r for r in reqs if len(r["prompt"]) >= PREFILL_THRESHOLD]
+        m0 = _rcall(rt, dec, "stats")["migration"]["blocks"]
+        one = [handle.remote(r).result(timeout=900) for r in reqs]
+        m1 = _rcall(rt, dec, "stats")["migration"]["blocks"]
+        same = sum(o["tokens"] == t for o, t in zip(one, disagg_tokens))
+        st = handle.stats.remote().result(timeout=60)
+        out["disagg_tokens_equal"] = f"{same}/{len(reqs)}"
+        log("serve-app", f"disagg app ready in {out['disagg_ready_s']:.1f} "
+            f"s; 6e's mix one at a time: tokens == 6e's monolithic paged "
+            f"server's for {out['disagg_tokens_equal']}; lanes "
+            f"{st['lanes']}; the decode replica adopted {m1 - m0} blocks")
+        check(same == len(reqs), "disagg app tokens differ from the "
+              "monolithic paged server's")
+        check(st["lanes"].get("interactive/prefill") == len(two)
+              and st["lanes"].get("interactive/decode")
+              == len(reqs) - len(two) and m1 > m0,
+              f"two-hop split: {st['lanes']}, adopted {m1 - m0} blocks")
+        mark("disagg one at a time")
+        puts0 = len(_rcall(rt, pre, "migrations"))
+        gets0 = len(_rcall(rt, dec, "migrations"))
+        pair = _timed_mix(through_handle, reqs, "disagg app mix", card,
+                          phase="serve-app")
+        mark("disagg mix")
+        # The mix's own migrations: the prefill replica's put of each
+        # result it returned, the decode replica's get of each it adopted.
+        puts = _rcall(rt, pre, "migrations")[puts0:]
+        gets = _rcall(rt, dec, "migrations")[gets0:]
+        check(len(puts) == len(gets) == len(two)
+              and sorted(b for _, b in puts) == sorted(b for _, b in gets)
+              and all(b > 0 for _, b in puts),
+              f"{len(puts)} puts and {len(gets)} gets of KV checkpoints "
+              f"in the mix, {len(two)} two-hop requests")
+        store = {"put_ms_p50": float(np.median([m for m, _ in puts])),
+                 "put_ms_max": max(m for m, _ in puts),
+                 "get_ms_p50": float(np.median([m for m, _ in gets])),
+                 "get_ms_max": max(m for m, _ in gets),
+                 "mib_p50": float(np.median([b for _, b in puts])) / 2**20,
+                 "migrations": len(puts)}
+        mig = disagg["migration"]
+        out["disagg"] = {"mix": pair, "store": store,
+                         "over_6e_pair": _ratios(pair, disagg["pair"]),
+                         "adopted_blocks": m1 - m0}
+        log("serve-app", f"disagg app / 6e in-process pair: "
+            f"{_ratio_text(out['disagg']['over_6e_pair'])}; per migration "
+            f"of the mix ({len(puts)}): the prefill replica's store put "
+            f"of its return p50 {store['put_ms_p50']:.2f} ms "
+            f"(max {store['put_ms_max']:.2f}), the decode replica's get "
+            f"p50 "
+            f"{store['get_ms_p50']:.2f} ms (max {store['get_ms_max']:.2f}),"
+            f" payload p50 {store['mib_p50']:.1f} MiB; 6e in-process: "
+            f"export p50 {mig['export_ms_p50']:.2f} ms, adopt p50 "
+            f"{mig['adopt_ms_p50']:.2f} ms; {card}")
+
+        # The speculative decode pool, by redeploying the app.
+        old = {dec._actor_id}
+        handle = serve.run(disagg_app(speculative={"draft_seed": 0}),
+                           name="disagg")
+        (dec,) = _app_replicas(rt, "disagg", "llm-decode", old=old)
+        d0 = _rcall(rt, dec, "b1")
+        _check_lease(d0, "the speculative replica")
+        errors = []
+        # B1's count depends on the draft's prefills, not on how long
+        # each request decodes.
+        threads, _ = _clients(through_handle,
+                              [dict(r, max_tokens=2) for r in two], errors)
+        _join(threads, errors)
+        d1 = _rcall(rt, dec, "b1")
+        dc = draft_config_for(cfg)
+        b1 = d1["launches"] - d0["launches"]
+        drafts = d1["draft_prefills"] - d0["draft_prefills"]
+        fits = sum(len(r["prompt"]) <= ENGINE["prefill_buckets"][-1]
+                   for r in two)
+        out["spec"] = {"b1_launches": b1, "draft_prefills": drafts}
+        log("serve-app", f"speculative decode replica: B1 launches {b1} = "
+            f"{dc.n_layers} draft layers x {drafts} draft prefills over "
+            f"{len(two)} two-hop requests ({fits} fit a bucket); {card}")
+        check(drafts == fits and b1 == dc.n_layers * drafts and b1 > 0,
+              f"B1 in the speculative replica {b1} != {dc.n_layers} x "
+              f"{drafts} ({fits} fit a bucket)")
+        serve.delete("disagg")
+        mark("speculative decode pool and delete")
+
+        # (3) 4 layers: the prefix index, the cache-aware pick, the peer
+        # pull and the store tier. The three apps start together, a
+        # quarter of the card each replica.
+        cfg4 = _gate_cfg(torch.bfloat16)
+        gate = dict(common, model_config=cfg4, quantize="bf16",
+                    num_gpus=GATE_APP_GPUS)
+        handle = serve.run(build_routed_llm_app(
+            engine_config=dict(PAGED_ENGINE), num_replicas=2,
+            probe_interval_s=0.05, **gate), name="cached")
+        tier = serve.run(build_llm_app(engine_config=dict(TIER_ENGINE),
+                                       name="tier", **gate), name="tier")
+        partial = serve.run(build_llm_app(
+            engine_config=dict(PARTIAL_ENGINE), name="partial", **gate),
+            name="partial")
+        reps = _app_replicas(rt, "cached", "llm", n=2)
+        rng = np.random.RandomState(7)
+
+        def toks(n):
+            return rng.randint(0, cfg4.vocab_size, int(n)).tolist()
+
+        shared = toks(SYS_PREFIX)
+        first, busy, second = (shared + toks(n) for n in (40, 8, 50))
+        n_pull = SYS_PREFIX // PAGED_ENGINE["kv_block_size"]
+
+        def ask(prompt, n):
+            return handle.remote({"prompt": prompt, "max_tokens": n})
+
+        def settled():
+            """The router sees both replicas idle (its probed depths lag
+            a request's end by up to a probe period)."""
+            st = handle.stats.remote().result(timeout=60)
+            return (st["inflight"] == 0 and len(st["depth"]) == 2
+                    and not any(st["depth"].values()))
+
+        ask(first, 8).result(timeout=300)
+        st = handle.stats.remote().result(timeout=60)
+        (holder,) = st["routed"]
+        head = stable_hash_prefix(shared)
+
+        # The index also holds the tier apps' replicas: read this app's.
+        ids = {_rcall(rt, r, "load")["index_id"] for r in reps}
+
+        def indexed():
+            idx = global_worker().gcs.call("lookup_prefix_index",
+                                           timeout=10)
+            held = [k for k in ids & set(idx)
+                    if head in {int(h) for h, _ in idx[k]["heads"]}]
+            return idx if ids <= set(idx) and len(held) == 1 else None
+
+        check(_poll(indexed, timeout=30), "the prefix index does not show "
+              "both replicas, one of them holding the prefix")
+        time.sleep(0.6)          # the router's index catches up
+        check(_poll(settled, timeout=30), "the replicas never read idle")
+        ask(first, 8).result(timeout=300)
+        st = handle.stats.remote().result(timeout=60)
+        check(st["routed"].get(holder) == 2
+              and st["cache_index"]["outcomes"]["scored"] >= 1,
+              f"the repeat was not routed scored to the holder: {st}")
+        check(_poll(settled, timeout=30), "the replicas never read idle")
+        long_req = ask(busy, APP_BUSY_TOKENS)
+        check(_poll(lambda: handle.stats.remote().result(
+            timeout=60)["inflight"] == 1, timeout=30, period=0.01),
+            "the busy request never reached the router")
+        st = handle.stats.remote().result(timeout=60)
+        check(st["routed"].get(holder) == 3, f"the busy request did not "
+              f"go to the holder: {st['routed']}")
+        pulled = ask(second, 16).result(timeout=300)
+        st = handle.stats.remote().result(timeout=60)
+        other = [k for k in st["routed"] if k != holder]
+        check(len(other) == 1 and st["cache_index"]["outcomes"]["pulled"]
+              == 1, f"no peer pull to the other replica: {st}")
+        rep = {r._actor_id.hex(): r for r in reps}
+        tiers = _rcall(rt, rep[other[0]], "stats")["kv_tiers"]
+        rows = _poll(lambda: state.list_serve_accounting(
+            trace_id=pulled["x-trace-id"]), timeout=30)
+        tree = _serve_trace(pulled["x-trace-id"],
+                            want=("serve.request", "kv.peer_pull"))
+        pull = next(c for c in tree["root"]["children"]
+                    if c["name"] == "kv.peer_pull")
+        long_req.result(timeout=900)
+        donor = _rcall(rt, rep[holder], "__call__",
+                       {"prompt": second, "max_tokens": 16})
+        out["cache"] = {"pulled_blocks": pull["attrs"]["blocks"],
+                        "promoted": tiers["promoted_blocks"],
+                        "avoided": rows[0]["prefill_tokens_avoided"],
+                        "pull_ms": 1e3 * pull["dur"],
+                        "outcomes": st["cache_index"]["outcomes"]}
+        log("serve-app", f"4 layers: both replicas in the prefix index; "
+            f"the repeat routed scored to the holder; with the holder "
+            f"busy the next prompt went to the other replica, which "
+            f"pulled {pull['attrs']['blocks']} blocks in "
+            f"{1e3 * pull['dur']:.1f} ms (kv.peer_pull), promoted "
+            f"{tiers['promoted_blocks']} and prefilled "
+            f"{rows[0]['prefill_tokens_computed']} of {len(second)} tokens;"
+            f" tokens == the holder's: {pulled['tokens'] == donor['tokens']}"
+            f"; {card}")
+        check(pull["attrs"]["blocks"] == n_pull
+              and tiers["promoted_blocks"] == n_pull
+              and rows[0]["prefill_tokens_avoided"] == SYS_PREFIX
+              and rows[0]["prefill_tokens_computed"]
+              == len(second) - SYS_PREFIX,
+              f"peer pull: {out['cache']}, row {rows[0]}")
+        check(pulled["tokens"] == donor["tokens"], "the pulling replica's "
+              "tokens differ from the holder's")
+        mark("4-layer apps, prefix index, pick and peer pull")
+
+        # The store tier. The run without it is the holder's: the paged
+        # cell's pool and host tier, where none of these prompts is
+        # evicted, and as many slots as the tier apps (equal batch widths,
+        # so a pool hit and a promote of the same depth give equal bits).
+        plain = rep[holder]
+
+        def run(h, prompt, n=16):
+            return h.remote({"prompt": prompt, "max_tokens": n}).result(
+                timeout=300)["tokens"]
+
+        def run_plain(prompt, n=16):
+            return _rcall(rt, plain, "__call__",
+                          {"prompt": prompt, "max_tokens": n})["tokens"]
+
+        def stats_of(h):
+            st = h.stats.remote().result(timeout=60)
+            return {**st["kv_tiers"],
+                    "pool_hit_tokens": st["prefix_cache"]["hit_tokens"]}
+
+        # Whole chain: b evicts every cached block of a; a's repeat
+        # promotes the chain and prefills what a full pool hit does.
+        a, b = toks(TIER_PROMPT), toks(TIER_PROMPT)
+        got, want, stats = [], [], []
+        for p in (a, b, a):
+            got.append(run(tier, p))
+            want.append(run_plain(p))
+            stats.append(stats_of(tier))
+        demoted, back = stats[1]["store"], stats[2]["store"]
+        out["store_tier"] = {"demoted_blocks": demoted["blocks"],
+                             "promoted_from_store": back["promotes"],
+                             "dropped": stats[2]["dropped_blocks"]}
+        log("serve-app", f"store tier, whole chain: {demoted['blocks']} "
+            f"blocks demoted to the object store (host tier "
+            f"{TIER_ENGINE['kv_host_tier_bytes']} byte), {back['promotes']}"
+            f" promoted back from it; tokens == the run without the tier: "
+            f"{[x == y for x, y in zip(got, want)]}; {card}")
+        check(demoted["blocks"] == TIER_CHAIN
+              and stats[1]["host"]["blocks"] == 0
+              and back["promotes"] == TIER_CHAIN
+              and stats[2]["promoted_blocks"] == TIER_CHAIN
+              and stats[2]["dropped_blocks"] == 0,
+              f"store tier: {TIER_CHAIN} blocks should demote and promote: "
+              f"{stats}")
+        check(got == want, "tokens with the store tier differ from the "
+              "run without it")
+
+        # Partial: d evicts only the head of c's chain. c's repeat hits no
+        # pool block from the head, promotes the PARTIAL_HEAD links from
+        # the store and recomputes the rest: the pool hit plus the
+        # promoted run is PARTIAL_HEAD of the chain's TIER_CHAIN, as the
+        # reference's engine gives (tests/test_torch_paged.py holds both
+        # packages to it). The run without the tier holds exactly those
+        # links in its pool (a prompt of their length first), so both
+        # prefill the same suffix.
+        c, d = toks(TIER_PROMPT), toks(TIER_PROMPT)
+        p0 = stats_of(partial)
+        run(partial, c)
+        run(partial, d)
+        p1 = stats_of(partial)
+        again = run(partial, c)
+        p2 = stats_of(partial)
+        run_plain(c[:PARTIAL_HEAD * PAGED_ENGINE["kv_block_size"] + 1], 1)
+        want_c = run_plain(c)
+        part = {"demoted": p1["store"]["blocks"] - p0["store"]["blocks"],
+                "pool_hit_blocks": (p2["pool_hit_tokens"]
+                                    - p1["pool_hit_tokens"])
+                // PAGED_ENGINE["kv_block_size"],
+                "promoted": p2["promoted_blocks"] - p1["promoted_blocks"],
+                "from_store": p2["store"]["promotes"]
+                - p1["store"]["promotes"],
+                "dropped": p2["dropped_blocks"], "chain": TIER_CHAIN}
+        out["store_tier_partial"] = part
+        log("serve-app", f"store tier, partial eviction: {part['demoted']} "
+            f"of the chain's {TIER_CHAIN} blocks demoted (its head); the "
+            f"repeat hit {part['pool_hit_blocks']} pool blocks and promoted "
+            f"{part['promoted']} ({part['from_store']} from the store), so "
+            f"{TIER_CHAIN - part['pool_hit_blocks'] - part['promoted']} "
+            f"links still in the pool went unused, as in the reference; "
+            f"tokens == a run with a {part['promoted']}-block pool hit: "
+            f"{again == want_c}; {card}")
+        check(part["demoted"] == part["promoted"] == part["from_store"]
+              == PARTIAL_HEAD and part["pool_hit_blocks"] == 0
+              and p1["host"]["blocks"] == 0 and part["dropped"] == 0,
+              f"partial eviction: {part}, want {PARTIAL_HEAD} demoted and "
+              f"promoted, no pool hit")
+        check(again == want_c, "tokens after a partial promote differ from "
+              "a pool hit of the same depth")
+        mark("store tier")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            procs = _cluster_pids()
+            rt.shutdown()
+    deadline = time.monotonic() + 30
+    while True:
+        left = {p: c for p, c in procs.items() if _alive(p, c)}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"processes left after shutdown: {left}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["memory_before_mib"] = mem0
+    out["memory_after_mib"] = gpu_memory_used_mib()
+    check(abs(out["memory_after_mib"] - mem0) < 1024,
+          f"card memory {mem0:.0f} MiB before the phase, "
+          f"{out['memory_after_mib']:.0f} MiB after")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("serve-app", f"shut down: no cluster process left, card memory "
         f"{mem0:.0f} -> {out['memory_after_mib']:.0f} MiB; the phase took "
         f"{out['phase_s']:.1f} s; {card}")
     return out
@@ -4174,21 +4861,35 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
+    t_run = time.perf_counter()
+
+    def lap(phase):
+        """The wall time since the script started, after each phase."""
+        log("time", f"{phase} done at {time.perf_counter() - t_run:.1f} s")
+
     log("env", f"{card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     built = phase_build()
+    lap("build")
     ring_built = phase_ring_build(built)
+    lap("ring_build")
     rows = phase_kernels(dev)
+    lap("kernels")
     bwd_rows = phase_bwd_kernels(dev)
+    lap("bwd_kernels")
     head_dims = phase_head_dims(dev)
+    lap("head_dims")
     draft_b1 = phase_draft_b1(dev)
+    lap("draft_b1")
     n_params = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS).num_params()
     group = ZERO_N * 128
     ring_rows = phase_ring_kernels(dev, card,
                                    -(-n_params // group) * group // 128)
+    lap("ring_kernels")
     q_params = LlamaConfig.llama3_8b(n_layers=QZERO_LAYERS).num_params()
     qring_rows = phase_qring_kernels(dev, card,
                                      -(-q_params // group) * group)
+    lap("qring_kernels")
     from ray_tpu_torch.models.llama import init_params
 
     # One weight tree (bf16, seed 0) behind the dense, paged and
@@ -4196,44 +4897,64 @@ def main() -> int:
     serve_cfg = serve_config()
     serve_params = init_params(serve_cfg, 0, dev)
     mix = paged_mix(serve_cfg.vocab_size)
-    serve_launches, serve_profile, dense_mix = phase_serve(
-        dev, serve_cfg, lambda: serve_params, mix, card)
+    serve_launches, serve_profile, dense_mix, serve_tokens, serve_fig = \
+        phase_serve(dev, serve_cfg, lambda: serve_params, mix, card)
+    lap("serve")
     gc.collect()
     torch.cuda.empty_cache()
     paged = phase_paged_serve(dev, serve_cfg, lambda: serve_params, mix,
                               dense_mix, card)
+    lap("paged_serve")
     gc.collect()
     torch.cuda.empty_cache()
     spec = phase_spec_serve(dev, serve_cfg, lambda: serve_params, mix, card)
+    lap("spec_serve")
     gc.collect()
     torch.cuda.empty_cache()
     disagg = phase_disagg(dev, serve_cfg, lambda: serve_params, card)
+    lap("disagg")
     del serve_params, dense_mix
     gc.collect()
     torch.cuda.empty_cache()
     paged_bitwise = phase_paged_bitwise(dev, card)
+    lap("paged_bitwise")
     gc.collect()
     torch.cuda.empty_cache()
     paged_tokens = phase_paged_tokens(dev, card)
+    lap("paged_tokens")
     gc.collect()
     torch.cuda.empty_cache()
     disagg_gates = phase_disagg_gates(dev, card)
+    lap("disagg_gates")
     gc.collect()
     torch.cuda.empty_cache()
     runtime = phase_runtime(dev, card)
+    lap("runtime")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_app = phase_serve_app(dev, card, serve_tokens, serve_fig, runtime,
+                                disagg.pop("monolithic_tokens"), disagg)
+    lap("serve_app")
+    app_b1 = serve_app["routed"]["b1_launches"] + \
+        serve_app["spec"]["b1_launches"]
+    print(json.dumps({"serve_app": serve_app}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(dev, card)
+    lap("train")
     gc.collect()
     torch.cuda.empty_cache()
     c4_launches, zero_f32_err = phase_zero_f32(dev)
+    lap("zero_f32")
     gc.collect()
     torch.cuda.empty_cache()
     zero = phase_zero_train(dev, card)
+    lap("zero_train")
     mono, over = zero["monolithic"], zero["overlap"]
     gc.collect()
     torch.cuda.empty_cache()
     zq = phase_zero_quant(dev, card)
+    lap("zero_quant")
     qmono, qef, qover = zq["monolithic"], zq["error_feedback"], zq["overlap"]
     qruns = (qmono, qef, qover)
     zero_b = [a + b for a, b in zip(mono["launches_b1_b3"],
@@ -4328,13 +5049,14 @@ def main() -> int:
         "replaces": "ray_tpu/ops/attention.py:47",
         "launches": (serve_launches + spec["b1_launches"]
                      + disagg["spec"]["b1_launches"]
-                     + runtime["b1_launches"]
+                     + runtime["b1_launches"] + app_b1
                      + train["launches"][0] + zero_b[0] + zq_b[0]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
                                  disagg["spec"]["b1_launches"],
                              "runtime_gpu_actor": runtime["b1_launches"],
+                             "serve_app": app_b1,
                              "train": train["launches"][0],
                              "zero_train": zero_b[0], "zero_quant": zq_b[0]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),

@@ -14,15 +14,20 @@ the node's NVIDIA cards leased as the ``GPU`` resource under
 ``put``, ``wait``, ``kill``, ``get_actor``, ``get_gpu_ids``), the serving
 data plane on the dense and paged KV layouts with speculative decoding
 and the disaggregated prefill/decode tier (``models.llama``,
-``ops.attention``, ``serve.llm``), the serving engine's metrics, spans
-and cost meters (``observability``, ``util.metrics``, ``util.tracing``),
+``ops.attention``, ``serve.llm``), Serve on that runtime (``serve``: the
+controller, replicas on ``num_gpus`` of the card, ``DeploymentHandle``,
+the LLM router with the cluster prefix index and the peer pull, and
+``build_llm_app`` / ``build_routed_llm_app`` / ``build_disagg_llm_app``),
+the serving engine's metrics, spans and cost meters, pushed to the GCS
+(``observability``, ``util.metrics``, ``util.tracing``, ``util.state``),
 training on one device (``ops.fused_loss``, ``parallel.train_step``, the
 attention's backward kernels) and ZeRO over ring collectives
 (``parallel.zero``, ``util.collective``).
 
 Not ported yet, each raising where it is asked for: ``runtime_env``, the
-``ray_tpu_torch://`` client, ``dag``, the dashboard and the workers'
-device-profile bracket. Importing the package imports no torch: a worker
+``ray_tpu_torch://`` client, ``dag``, the dashboard, the workers'
+device-profile bracket, and Serve's ingress (``serve.start``,
+``serve.start_grpc``). Importing the package imports no torch: a worker
 that never touches a tensor never loads it.
 
 Public API parity map (reference file:line):

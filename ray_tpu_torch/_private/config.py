@@ -134,12 +134,26 @@ _define("memory_preempt_cooldown_s", float, 5.0,
         "verdict.")
 
 # --- control plane and serve ---
+_define("ctrl_metrics_staleness_s", float, 10.0,
+        "A controller reading whose newest source push is older than "
+        "this holds (no action) instead of acting — 'the gauge is low' "
+        "and 'the gauge stopped updating' must never be conflated.")
 _define("ctrl_decisions_buffer_size", int, 2_000,
         "Ring buffer capacity of the GCS control-decision log "
         "(GET /api/controller).")
+_define("serve_autoscale_interval_s", float, 2.0,
+        "Period of the serve controller's autoscale policy loop (each "
+        "tick refreshes the MetricsHub and re-evaluates desired "
+        "replicas; jittered ±20% to avoid thundering herds).")
+_define("serve_autoscale_cooldown_s", float, 5.0,
+        "Minimum spacing between scale actions on one deployment, on "
+        "top of the up/downscale hold delays.")
 _define("serve_kv_block_size", int, 16,
         "Default paged-KV block size (rows per HBM block) for serve "
         "LLM engines built without an explicit kv_block_size.")
+_define("serve_router_probe_interval_s", float, 1.0,
+        "Period of the LLM router's per-replica queue-depth probe; a "
+        "stalled replica sheds traffic within about one period.")
 _define("serve_preempt_hold_s", float, 0.25,
         "How long the interactive lane must stay starved (queued "
         "request + no admissible slot) before the engine's Hysteresis "
@@ -169,10 +183,29 @@ _define("serve_kv_prefill_cost_per_token_ms", float, 0.05,
         "PromoteCostModel: prefill cost per prompt token — the "
         "recompute side of the promote-vs-recompute crossover. Short "
         "suffixes recompute; long ones re-adopt.")
+_define("serve_prefix_index_publish_interval_s", float, 2.0,
+        "Period of each LLM replica's prefix-index publish (hash-chain "
+        "heads + tier residency -> GCS report_prefix_index).")
+_define("serve_prefix_index_ttl_s", float, 15.0,
+        "GCS prefix-index entry lifetime: a replica that stops "
+        "publishing drops out of cache-aware routing after this long "
+        "(and the router HOLDs to plain p2c per the staleness "
+        "discipline when its whole view is older than this).")
 _define("serve_prefix_index_max_heads", int, 512,
         "Cap on hash-chain heads one replica publishes per index "
         "report (hottest first; the index is a routing hint, not a "
         "directory).")
+_define("serve_router_cache_weight", float, 0.25,
+        "Cache-aware p2c: score = load - weight * expected prefix-hit "
+        "blocks. Keep < 1 so affinity breaks near-ties without "
+        "outweighing whole queued requests (BENCH llama_serve_kv_"
+        "tiering: weight 1.0 saturates the hot family's replica and "
+        "queue wait eats the prefill savings). 0 recovers plain "
+        "queue-depth p2c.")
+_define("serve_peer_pull_min_blocks", int, 4,
+        "Minimum expected-hit advantage (in blocks) a peer must hold "
+        "over the chosen replica before the router pulls KV blocks "
+        "from it instead of letting the replica recompute.")
 _define("serve_accounting_instrumentation", bool, True,
         "Per-request cost accounting on serve LLM engines "
         "(observability.accounting.RequestMeter): prefill tokens "
@@ -180,6 +213,13 @@ _define("serve_accounting_instrumentation", bool, True,
         "chip-seconds per phase, folded into the tenant ledger and "
         "published to the GCS accounting ring. Off = the unmetered "
         "engine; the serve_accounting_overhead bench prices the delta.")
+_define("serve_accounting_buffer_size", int, 4096,
+        "Bound on the GCS serve-accounting ring "
+        "(report_serve_accounting / list_serve_accounting rows across "
+        "all replicas).")
+_define("serve_accounting_top_n", int, 8,
+        "How many tenants the accounting summaries rank by cost "
+        "(serve_accounting_summary / GET /api/accounting top lists).")
 _define("serve_accounting_max_tenants", int, 64,
         "Bound on distinct tenant rows a TenantLedger holds; overflow "
         "tenants fold into the '__other__' rollup row, which also caps "

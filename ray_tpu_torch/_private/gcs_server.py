@@ -157,6 +157,27 @@ class GcsServer:
             maxlen=GlobalConfig.ctrl_decisions_buffer_size)
         self._ctrl_decision_seq = 0
 
+        # Cluster-wide prefix index: replica -> its newest published
+        # set of KV hash-chain heads (stable_hash, depth) + tier
+        # residency summary. A routing HINT, not a directory: entries
+        # expire after serve_prefix_index_ttl_s without a re-publish,
+        # and every consumer re-verifies against real tokens before
+        # trusting a hash (serve/llm/kv_cache.stable_hash_prefix).
+        self.prefix_index: Dict[str, Dict[str, Any]] = {}
+
+        # Serve cost-accounting ring (observability/accounting.py):
+        # every finished serve request publishes one cost row (tenant,
+        # lane, trace_id, tokens, block/chip-seconds). Bounded deque +
+        # monotone seq, windowed aggregation server-side: the bounded
+        # TenantLedger folds rows on ingest and the per-lane SLOTracker
+        # evaluates TTFT/TPOT attainment, recording SLO_BURN when both
+        # burn windows trip.
+        self.serve_accounting: deque = deque(
+            maxlen=GlobalConfig.serve_accounting_buffer_size)
+        self._serve_acct_seq = 0
+        self._serve_ledger = None   # lazy accounting.TenantLedger
+        self._serve_slo = None      # lazy accounting.SLOTracker
+
         self._reschedule_on_start: List[bytes] = []
         self._register_handlers()
         # Actor/PG lifecycle transitions all publish; piggyback snapshot
@@ -300,6 +321,9 @@ class GcsServer:
             "summary_cluster_events",
             "report_ctrl_decision", "list_ctrl_decisions",
             "get_trace", "list_traces", "trace_stats",
+            "report_prefix_index", "lookup_prefix_index",
+            "report_serve_accounting", "list_serve_accounting",
+            "serve_accounting_summary",
         ]:
             s.register(name, getattr(self, f"_h_{name}"))
 
@@ -386,6 +410,177 @@ class GcsServer:
                 continue
             out.append(d)
         return out[-max(int(limit), 0):]
+
+    # ------------------------------------------------- cluster prefix index
+    async def _h_report_prefix_index(self, replica, heads, tiers=None):
+        """One LLM replica's cache-aware-routing hint: the hash-chain
+        heads it can serve without prefilling (hottest first, capped at
+        serve_prefix_index_max_heads) plus a tier residency summary.
+        Last write wins per replica; the report IS the heartbeat — a
+        replica that stops publishing ages out at lookup."""
+        cap = int(GlobalConfig.serve_prefix_index_max_heads)
+        self.prefix_index[str(replica)] = {
+            "heads": [(int(h), int(d)) for h, d in list(heads)[:cap]],
+            "tiers": dict(tiers or {}),
+            "ts": time.time(),
+        }
+        return True
+
+    async def _h_lookup_prefix_index(self):
+        """TTL-filtered snapshot: {replica: {heads, tiers, age_s}}.
+        Expired entries are dropped here (lazy expiry — no sweeper
+        task to keep alive across bounces)."""
+        ttl = float(GlobalConfig.serve_prefix_index_ttl_s)
+        now = time.time()
+        out: Dict[str, Any] = {}
+        for rep in list(self.prefix_index):
+            rec = self.prefix_index[rep]
+            age = now - rec["ts"]
+            if age > ttl:
+                del self.prefix_index[rep]
+                continue
+            out[rep] = {"heads": list(rec["heads"]),
+                        "tiers": dict(rec["tiers"]),
+                        "age_s": age}
+        return out
+
+    # ------------------------------------------------- serve accounting
+    def _serve_acct_ledger(self):
+        if self._serve_ledger is None:
+            from ray_tpu_torch.observability.accounting import TenantLedger
+
+            self._serve_ledger = TenantLedger(
+                max_tenants=int(
+                    GlobalConfig.serve_accounting_max_tenants))
+        return self._serve_ledger
+
+    def _serve_slo_tracker(self):
+        if self._serve_slo is None:
+            from ray_tpu_torch.observability.accounting import SLOTracker
+
+            self._serve_slo = SLOTracker()
+        return self._serve_slo
+
+    async def _h_report_serve_accounting(self, row=None, rows=None):
+        """Serve engines publish one cost row per finished request
+        (RequestMeter.finalize shape), batched via ``rows`` when a
+        replica catches up. Ingest folds the bounded tenant ledger and
+        runs the SLO burn evaluation — the row is both the billing
+        record and the lane's attainment sample."""
+        for r in list(rows or []) + ([row] if row else []):
+            try:
+                self._ingest_serve_row(dict(r))
+            except Exception as e:
+                print(f"[gcs] WARNING: dropping malformed serve "
+                      f"accounting row: {type(e).__name__}: {e}",
+                      file=sys.stderr, flush=True)
+        return True
+
+    def _ingest_serve_row(self, row: dict) -> None:
+        def _opt(key):
+            v = row.get(key)
+            return None if v is None else float(v)
+
+        # Rows cross process boundaries and land on JSON surfaces
+        # (/api/accounting) — a raw-bytes node id must become hex here.
+        node_id = row.get("node_id")
+        rec = {
+            "tenant": str(row.get("tenant") or "default"),
+            "model": str(row.get("model") or ""),
+            "lane": str(row.get("lane") or "interactive"),
+            "trace_id": row.get("trace_id"),
+            "request_id": row.get("request_id"),
+            "node_id": (node_id.hex() if hasattr(node_id, "hex")
+                        else node_id),
+            "tokens_out": int(row.get("tokens_out") or 0),
+            "prefill_tokens_computed": int(
+                row.get("prefill_tokens_computed") or 0),
+            "prefill_tokens_avoided": int(
+                row.get("prefill_tokens_avoided") or 0),
+            "spec_proposed": int(row.get("spec_proposed") or 0),
+            "spec_accepted": int(row.get("spec_accepted") or 0),
+            "block_seconds": float(row.get("block_seconds") or 0.0),
+            "chip_seconds": {
+                str(k): float(v) for k, v in
+                dict(row.get("chip_seconds") or {}).items()},
+            "chip_seconds_total": float(
+                row.get("chip_seconds_total") or 0.0),
+            "migrations": int(row.get("migrations") or 0),
+            "queue_wait_s": _opt("queue_wait_s"),
+            "ttft_s": _opt("ttft_s"),
+            "tpot_s": _opt("tpot_s"),
+            "e2e_s": _opt("e2e_s"),
+            "finish_reason": row.get("finish_reason"),
+            "recv_ts": time.time(),
+        }
+        self._serve_acct_seq += 1
+        rec["seq"] = self._serve_acct_seq
+        self.serve_accounting.append(rec)
+        self._serve_acct_ledger().fold(rec)
+        # Only rows with a measured first token are SLO samples — a
+        # cancelled-in-queue request has no latency to attain.
+        if rec["ttft_s"] is None:
+            return
+        flag = self._serve_slo_tracker().observe(
+            rec["lane"], rec["ttft_s"], rec["tpot_s"])
+        if flag:
+            self._record_event(
+                "SLO_BURN",
+                f"serve lane {flag['lane']} is burning its SLO error "
+                f"budget: fast burn {flag['fast_burn']}x over "
+                f"{flag['window_fast_s']:.0f}s (attainment "
+                f"{flag['attainment_fast']:.4f} vs objective "
+                f"{flag['objective']}), slow burn {flag['slow_burn']}x "
+                f"over {flag['window_slow_s']:.0f}s; targets "
+                f"ttft<={flag['ttft_target_s']}s "
+                f"tpot<={flag['tpot_target_s']}s",
+                lane=flag["lane"],
+                fast_burn=flag["fast_burn"],
+                slow_burn=flag["slow_burn"],
+                attainment_fast=flag["attainment_fast"],
+                attainment_slow=flag["attainment_slow"],
+                objective=flag["objective"],
+                ttft_target_s=flag["ttft_target_s"],
+                tpot_target_s=flag["tpot_target_s"])
+
+    async def _h_list_serve_accounting(self, tenant=None, lane=None,
+                                       trace_id=None, limit=200):
+        """Newest-last slice of the cost-row ring, optionally filtered
+        by tenant, lane, or exact trace id (the ``x-trace-id`` a routed
+        request returned)."""
+        out = []
+        for rec in self.serve_accounting:
+            if tenant is not None and rec["tenant"] != tenant:
+                continue
+            if lane is not None and rec["lane"] != lane:
+                continue
+            if trace_id is not None and rec["trace_id"] != trace_id:
+                continue
+            out.append(rec)
+        return out[-max(int(limit), 0):]
+
+    async def _h_serve_accounting_summary(self, top_n=None,
+                                          trace_id=None):
+        """The rollup behind ``util.state.serve_accounting()`` and
+        ``GET /api/accounting``: top-N tenants by chip-seconds (the
+        "which tenant is eating the fleet?" answer), per-lane SLO
+        attainment/burn, ring occupancy — plus, given ``trace_id``,
+        that request's own cost row."""
+        if top_n is None:
+            top_n = int(GlobalConfig.serve_accounting_top_n)
+        ledger = self._serve_acct_ledger()
+        out = {
+            "tenants": ledger.top(int(top_n)),
+            "tenants_tracked": len(ledger),
+            "rows_in_buffer": len(self.serve_accounting),
+            "rows_recorded": self._serve_acct_seq,
+            "slo": self._serve_slo_tracker().snapshot(),
+        }
+        if trace_id is not None:
+            out["request"] = next(
+                (rec for rec in reversed(self.serve_accounting)
+                 if rec["trace_id"] == trace_id), None)
+        return out
 
     # --------------------------------------------------------------- metrics
     async def _h_metrics_text(self) -> str:
@@ -494,6 +689,34 @@ class GcsServer:
                   "retrievable from the store.",
                   "# TYPE rtpu_trace_stored gauge",
                   f"rtpu_trace_stored {ts['stored']}"]
+        # Serve SLO attainment/burn: the SLOTracker lives in THIS
+        # process (evaluated on accounting-row ingest), so its gauges
+        # export natively here rather than through the push path.
+        if self._serve_slo is not None:
+            slo = self._serve_slo.snapshot()
+            if slo:
+                lines += ["# HELP rtpu_serve_slo_attainment_ratio "
+                          "Fraction of requests in the fast window "
+                          "meeting the lane's TTFT/TPOT targets.",
+                          "# TYPE rtpu_serve_slo_attainment_ratio gauge",
+                          "# HELP rtpu_serve_slo_burn_rate SLO "
+                          "error-budget burn rate per lane and window; "
+                          "1.0 consumes budget exactly at the "
+                          "objective's allowance.",
+                          "# TYPE rtpu_serve_slo_burn_rate gauge"]
+                for lane, ent in sorted(slo.items()):
+                    if ent.get("attainment_fast") is not None:
+                        lines.append(
+                            f'rtpu_serve_slo_attainment_ratio'
+                            f'{{lane="{lane}"}} '
+                            f'{ent["attainment_fast"]}')
+                    for window in ("fast", "slow"):
+                        burn = ent.get(f"burn_{window}")
+                        if burn is not None:
+                            lines.append(
+                                f'rtpu_serve_slo_burn_rate'
+                                f'{{lane="{lane}",window="{window}"}} '
+                                f'{burn}')
         lines.extend(self._render_user_metrics())
         return "\n".join(lines) + "\n"
 

@@ -7,11 +7,15 @@ pieces the serving engine reports through:
 - ``accounting``: per-request cost meters (``RequestMeter``), the
   bounded tenant ledger, SLO attainment and burn (``SLOTracker``), and
   the token reconciliation self-check (``TokenReconciler``).
-- ``control``: the decision counter and span (``record_decision``) and
-  the ``Hysteresis`` gate the preemption policy reads.
+- ``control``: the decision counter and span, and with a worker the GCS
+  decision ring and cluster event (``record_decision``), and the
+  ``Hysteresis`` gate the serve autoscaler and the preemption policy
+  read.
 
-Metrics live in ``util.metrics``'s process-local registry and spans in
-``util.tracing``'s span buffer until the port's runtime ships them.
+Metrics live in ``util.metrics``'s process-local registry, pushed to the
+GCS by its flusher where the process has a worker attached; spans go to
+the worker's task events (the GCS trace store) there, and to
+``util.tracing``'s span buffer in a process without one.
 """
 
 from ray_tpu_torch.observability.accounting import (

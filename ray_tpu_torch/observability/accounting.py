@@ -32,13 +32,14 @@ goodput plane):
   pages. A not-burning → burning transition yields one flag dict per
   episode — the GCS turns it into a typed ``SLO_BURN`` cluster event.
 
-In the reference, rows publish to the GCS over the bounded accounting
-ring (``report_serve_accounting``) and surface through the state API
-and the dashboard. That ring needs the port's runtime (a later slice):
-here :func:`publish_serve_row` returns False, as the reference's does
-outside a connected worker, and rows reach the local tenant ledger, the
-metric surface and the row hooks only. The whole plane is gated on
-``serve_accounting_instrumentation``, so the on/off delta can be priced.
+Rows publish to the GCS over the bounded accounting ring
+(``report_serve_accounting`` / ``list_serve_accounting`` /
+``serve_accounting_summary``) when the process has a worker attached,
+and surface as ``util.state.serve_accounting()``; without one,
+:func:`publish_serve_row` returns False, as the reference's does, and
+rows reach the local tenant ledger, the metric surface and the row hooks
+only. The whole plane is gated on ``serve_accounting_instrumentation``,
+so the on/off delta can be priced.
 """
 
 from __future__ import annotations
@@ -446,9 +447,21 @@ def publish_serve_row(row: Dict[str, Any]) -> bool:
     """Fire-and-forget report of one accounting row into the GCS ring
     (``report_serve_accounting``). Returns False (silently) outside a
     connected worker — a bare-process engine still gets local metrics
-    and the local ledger. The port has no worker yet (its runtime is a
-    later slice), so every row stays local and this returns False."""
-    return False
+    and the local ledger."""
+    try:
+        from ray_tpu_torch._private.worker import global_worker_or_none
+
+        w = global_worker_or_none()
+        if w is None or getattr(w, "_dead", False):
+            return False
+        payload = dict(row)
+        nid = w.node_id
+        payload.setdefault(
+            "node_id", nid.hex() if hasattr(nid, "hex") else nid)
+        w.gcs.cast("report_serve_accounting", row=payload)
+        return True
+    except Exception:
+        return False
 
 
 # ------------------------------------------------------------ SLO targets

@@ -1,18 +1,21 @@
 """Control-plane plumbing: the port's copy of
 ``ray_tpu/observability/control.py``.
 
-- ``rtpu_ctrl_decisions_total{controller,action}``: one counter
-  increment per decision (:func:`record_decision`), and a decision span
-  (``ctrl:<controller>``) in the span buffer, so an action lines up with
-  the load that caused it. The engine's preemption policy records one
-  per checkpointed batch decode.
-- :class:`Hysteresis`, the gate between "the metric moved" and "act on
-  it": a proposed change must hold for a direction-specific delay, and
-  actions are spaced by a cooldown.
+What keeps the controllers' *decisions* (the serve autoscaler, the
+engine's preemption policy) as observable as the metrics they read:
 
-The reference also ships each decision to the GCS decision ring and as a
-typed cluster event when a worker is connected; the port has no worker
-yet (its runtime is a later slice), so ``emit`` changes nothing here.
+- ``rtpu_ctrl_decisions_total{controller,action}``: one counter
+  increment per decision (:func:`record_decision`), from whichever
+  process decided.
+- a decision span (``ctrl:<controller>``), so an action lines up with
+  the load that caused it.
+- with a worker attached, a typed cluster event (AUTOSCALE_UP/DOWN, ...)
+  carrying the triggering reading, and the GCS decision ring
+  (``list_ctrl_decisions``).
+
+It also hosts :class:`Hysteresis`, the gate between "the metric moved"
+and "act on it": a proposed change must hold for a direction-specific
+delay, and actions are spaced by a cooldown.
 """
 
 from __future__ import annotations
@@ -51,11 +54,14 @@ def record_decision(controller: str, action: str, reason: str,
                     node_id: Optional[str] = None,
                     severity: Optional[str] = None,
                     emit: bool = True) -> Dict[str, Any]:
-    """Record one control decision: increment the decision counter and
-    record a ``ctrl:<controller>`` span carrying the reason and the
-    triggering reading. Returns the payload the reference ships to the
-    GCS decision ring (``event_type``, ``message`` and ``severity`` are
-    its cluster event's; with no worker in the port they go nowhere)."""
+    """Record one control decision everywhere it is observable.
+
+    Always increments the decision counter and records a
+    ``ctrl:<controller>`` span carrying the reason and the triggering
+    reading. With ``emit=True`` and a live global worker, also ships the
+    cluster event and the GCS decision-ring entry synchronously; async
+    callers with their own GCS client pass ``emit=False`` and forward
+    the returned payload themselves."""
     reading = dict(reading or {})
     payload = {"controller": controller, "action": action,
                "reason": reason, "reading": reading, "node_id": node_id}
@@ -67,6 +73,25 @@ def record_decision(controller: str, action: str, reason: str,
     tracing.record_span(
         f"ctrl:{controller}", now, 0.0,
         attrs={"action": action, "reason": reason, **reading})
+
+    if not emit:
+        return payload
+
+    from ray_tpu_torch._private.worker import global_worker_or_none
+    w = global_worker_or_none()
+    if w is None or getattr(w, "_dead", False):
+        return payload
+    try:
+        w.gcs.call("report_ctrl_decision", timeout=5, **payload)
+        if event_type is not None:
+            w.gcs.call(
+                "report_cluster_event", event_type=event_type,
+                message=message or f"{controller}: {action} ({reason})",
+                severity=severity, node_id=node_id,
+                extra={"controller": controller, "action": action,
+                       **reading}, timeout=5)
+    except Exception:
+        pass  # decisions must never take down the deciding loop
     return payload
 
 

@@ -38,7 +38,11 @@ EVENT_TYPES: Dict[str, str] = {
     "JOB_FINISHED": "A job was marked finished.",
     # Control-plane decisions: each carries the triggering metric
     # reading in its extra fields so the event log alone answers "why
-    # did it preempt".
+    # did it scale / preempt".
+    "AUTOSCALE_UP": "The serve autoscaler added replicas to a "
+                    "deployment.",
+    "AUTOSCALE_DOWN": "The serve autoscaler removed replicas from a "
+                      "deployment.",
     "PREEMPT_RESCHEDULE": "The memory monitor preemptively retired the "
                           "largest leased worker before the OOM-kill "
                           "threshold; its task reschedules via the "
@@ -79,6 +83,8 @@ DEFAULT_SEVERITY: Dict[str, str] = {
     "SPILL_PRESSURE": "WARNING",
     "JOB_STARTED": "INFO",
     "JOB_FINISHED": "INFO",
+    "AUTOSCALE_UP": "INFO",
+    "AUTOSCALE_DOWN": "INFO",
     "PREEMPT_RESCHEDULE": "WARNING",
     "SLO_BURN": "WARNING",
 }

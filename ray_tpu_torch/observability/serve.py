@@ -2,9 +2,10 @@
 of ``ray_tpu/observability/serve.py``.
 
 One process-wide singleton: engines in one process (a prefill and a
-decode server side by side, say) share the registry entries. The metrics
-the serve controller and the LLM router set (``serve_replicas``,
-``serve_router_*``) come with the port's runtime, as those do. Names,
+decode server side by side, say) share the registry entries, and the
+serve controller (``serve_replicas``) and the LLM router
+(``serve_router_*``) set theirs in their own processes; counters and
+histograms aggregate across replicas on the GCS scrape side. Names,
 tags, boundaries and descriptions are the reference's. Latency semantics
 follow the serving literature:
 
@@ -74,6 +75,13 @@ class ServeMetrics:
             "serve_request_timeouts_total",
             description="Server-side waits that gave up before the "
                         "engine finished the request.")
+        # Set by the serve controller (one process), so the per-pid
+        # gauge split still yields one authoritative series per
+        # deployment — the grafana replica-count panel reads this.
+        self.replicas = Gauge(
+            "serve_replicas", tag_keys=("deployment",),
+            description="Live replicas per deployment, as reconciled "
+                        "by the serve controller.")
         # Paged KV cache (serve/llm/kv_cache.py): pool occupancy and
         # prefix reuse. used + free == the engine's num_kv_blocks, so
         # used / (used + free) is the HBM-side KV utilization panel.
@@ -99,6 +107,16 @@ class ServeMetrics:
             "serve_prefix_cache_evictions_total",
             description="Prefix-cache entries evicted under pool "
                         "pressure (LRU).")
+        # LLM router (serve/llm/router.py): per-replica load as seen by
+        # the queue-depth probe, and where requests actually went.
+        self.router_queue_depth = Gauge(
+            "serve_router_queue_depth", tag_keys=("replica",),
+            description="Engine queue depth per LLM replica as last "
+                        "probed by the router.")
+        self.router_requests = Counter(
+            "serve_router_requests_total", tag_keys=("replica",),
+            description="Requests forwarded per LLM replica by the "
+                        "router's power-of-two-choices pick.")
         # Disaggregated serving (serve/llm/disagg): KV-block migration
         # between the prefill and decode pools, SLO lanes, and
         # speculative decoding.
@@ -134,6 +152,11 @@ class ServeMetrics:
             description="Lifetime accepted / proposed draft tokens for "
                         "this engine (decode speedup is about "
                         "1 + ratio * (spec_k - 1)).")
+        self.router_lane_requests = Counter(
+            "serve_router_lane_requests_total", tag_keys=("lane", "pool"),
+            description="Requests forwarded by the LLM router, split by "
+                        "SLO lane and destination pool (monolithic | "
+                        "prefill | decode).")
         # KV memory hierarchy (kv_cache.KVTierManager): evicted prefix
         # blocks spill HBM -> host RAM -> object store and are promoted
         # back through the adopt scatter instead of re-prefilling.
@@ -159,6 +182,18 @@ class ServeMetrics:
             "serve_kv_tier_bytes", tag_keys=("tier",),
             description="Resident KV bytes per tier of the memory "
                         "hierarchy (hbm | host | store).")
+        # Cluster-wide prefix index (GCS report/lookup_prefix_index):
+        # what cache-aware routing sees and how fresh it is.
+        self.router_cache_hops = Counter(
+            "serve_router_cache_decisions_total", tag_keys=("outcome",),
+            description="Cache-aware routing decisions by outcome "
+                        "(scored: index applied; held: index stale, "
+                        "plain p2c; pulled: peer KV pull issued).")
+        self.router_index_age = Gauge(
+            "serve_router_index_age_seconds",
+            description="Age of the LLM router's newest cluster "
+                        "prefix-index view (staleness HOLD beyond "
+                        "serve_prefix_index_ttl_s).")
 
 
 def serve_metrics() -> ServeMetrics:

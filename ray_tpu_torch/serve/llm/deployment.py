@@ -1,13 +1,17 @@
-"""LLMServer: the continuous-batching engine behind a plain callable, the
+"""LLMServer — the continuous-batching engine as a Serve replica: the
 PyTorch counterpart of ``ray_tpu/serve/llm/deployment.py``.
 
-The server owns one ``LLMEngine`` and one scheduler thread driving it;
-``__call__`` (from any number of threads) submits into the engine's queue
-inside an ``llm.server_call`` span and blocks on its handle, so
-concurrent requests share the one decode batch. ``export_prefix`` and
-``import_prefix`` are the two halves of a peer prefix pull. Binding it as
-a Serve application (``build_llm_app``) and the prefix-index publisher
-need the port's own runtime and are a later slice.
+Requests flow router -> replica -> engine: the replica actor hosts one
+``LLMEngine`` plus a single scheduler thread driving it; ``__call__``
+(which Serve runs concurrently up to ``max_ongoing_requests``) submits
+into the engine's queue inside an ``llm.server_call`` span and blocks on
+its handle, so concurrent requests share the one decode batch.
+``export_prefix`` and ``import_prefix`` are the two halves of a peer
+prefix pull; a paged replica with a prefix cache publishes its hash-chain
+heads to the cluster-wide prefix index on a fixed period when its
+process has a cluster attached. ``build_llm_app`` binds it as a Serve
+application, its replicas on ``num_gpus`` of the card. The server also
+runs in a plain process (``device="cpu"`` where there is no card).
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ class LLMServer:
     (a ``LlamaConfig`` or its kwargs) and ``params_loader`` (a zero-arg
     callable returning the draft's params on the device). The draft is
     not quantized, as in the reference.
+
+    As a Serve replica it builds in the replica's process, on the card
+    its lease names (``CUDA_VISIBLE_DEVICES``); a lease without a GPU
+    raises unless ``device="cpu"`` is bound with the other arguments.
     """
 
     def __init__(self, model_config: Any = None,
@@ -105,6 +113,19 @@ class LLMServer:
             name="llm-engine-scheduler", daemon=True)
         self._thread.start()
 
+        # Cluster-wide prefix index: this replica's identity in the
+        # GCS index (the router learns it from load()), plus the
+        # publisher thread pushing hash-chain heads on a fixed period.
+        # The publish IS the liveness signal — a dead replica ages out
+        # of cache-aware routing at the index TTL.
+        import uuid
+
+        self._replica_id = uuid.uuid4().hex[:12]
+        if getattr(self._engine, "_prefix", None) is not None:
+            threading.Thread(
+                target=self._publish_index_loop, daemon=True,
+                name="llm-prefix-index-publish").start()
+
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """request: {"prompt": [token ids], "max_tokens": int,
         "temperature": float, "stop": [token ids], "slo": lane,
@@ -144,6 +165,31 @@ class LLMServer:
             "tpot_s": handle.tpot_s,
         }
 
+    def _publish_index_loop(self) -> None:
+        from ray_tpu_torch._private.config import GlobalConfig
+        from ray_tpu_torch._private.worker import global_worker_or_none
+
+        interval = float(
+            GlobalConfig.serve_prefix_index_publish_interval_s)
+        while not self._stop.wait(interval):
+            w = global_worker_or_none()
+            if w is None:
+                continue        # no cluster: nothing to publish to
+            try:
+                eng = self._engine
+                tiers: Dict[str, Any] = {
+                    "block_size": eng.config.kv_block_size}
+                if eng._tiers is not None:
+                    ts = eng._tiers.stats()
+                    tiers["host_blocks"] = ts["host"]["blocks"]
+                    tiers["store_blocks"] = ts["store"]["blocks"]
+                w.gcs.call("report_prefix_index", timeout=5,
+                           replica=self._replica_id,
+                           heads=eng.prefix_index_heads(),
+                           tiers=tiers)
+            except Exception:
+                pass            # index is a hint; never crash a replica
+
     def export_prefix(self, tokens, max_blocks=None):
         """Donor side of a peer prefix pull: the longest pool + tier chain
         covering ``tokens`` as single-block KVPrefix links. Hops to the
@@ -160,13 +206,17 @@ class LLMServer:
         return self._engine.import_prefix(prefixes)
 
     def load(self) -> Dict[str, Any]:
-        """Cheap load snapshot: engine queue and busy slots."""
+        """Cheap load snapshot for the LLM router's queue-depth probe
+        (serve/llm/router.py): engine queue and busy slots, safe to call
+        at probe frequency. ``index_id`` is how the router joins this
+        replica's handle to its GCS prefix-index entry."""
         s = self._engine.stats()
         return {
             "queued": s["queued"],
             "active_slots": s["active_slots"],
             "free_slots": s["num_slots"] - s["active_slots"],
             "lanes": s["queued_by_lane"],
+            "index_id": self._replica_id,
         }
 
     def stats(self) -> Dict[str, Any]:
@@ -179,12 +229,64 @@ class LLMServer:
             raise RuntimeError("llm engine scheduler thread died")
 
     def shutdown(self, timeout: float = 30.0) -> None:
-        """Stop the scheduler thread and wait for it."""
+        """Stop the scheduler thread and the index publisher, and wait
+        for the scheduler."""
         self._stop.set()
         self._engine._work.set()
-        self._thread.join(timeout)
+        if threading.current_thread() is not self._thread:
+            self._thread.join(timeout)
 
     def __del__(self):
-        stop = getattr(self, "_stop", None)
-        if stop is not None:
-            stop.set()
+        # Serve's Replica.prepare_shutdown calls this before the kill.
+        if getattr(self, "_thread", None) is not None:
+            self.shutdown()
+        elif getattr(self, "_stop", None) is not None:
+            self._stop.set()
+
+
+def build_llm_app(model_config: Any = None, engine_config: Any = None,
+                  *, name: str = "llm", num_replicas: int = 1,
+                  num_gpus: float = 0, max_ongoing_requests: int = 32,
+                  init_seed: int = 0, quantize: Optional[str] = None,
+                  quantize_int8: bool = False,
+                  params_loader: Optional[Any] = None,
+                  device: Optional[str] = None):
+    """Bind LLMServer as a Serve application: one engine per replica,
+    `max_ongoing_requests` concurrent submitters feeding its slot pool.
+    Pass configs as dicts (e.g. ``{"num_slots": 8}``) or dataclasses.
+    ``num_gpus`` is each replica's share of the card (a fraction puts
+    several replicas on one card). ``quantize`` defaults to the int8
+    serve config; pass "bf16" to opt out. ``device`` is bound with the
+    rest (``"cpu"`` on a host without a card; None is the leased card).
+    For N replicas behind a queue-depth-aware router, use
+    ``serve.llm.build_routed_llm_app`` instead."""
+    from ray_tpu_torch import serve
+
+    if quantize is None and quantize_int8:
+        quantize = "int8"
+    dep = serve.deployment(
+        LLMServer, name=name, num_replicas=num_replicas,
+        num_gpus=num_gpus, max_ongoing_requests=max_ongoing_requests)
+    return dep.bind(model_config=_plain(model_config),
+                    engine_config=_plain(engine_config),
+                    init_seed=init_seed, quantize=quantize,
+                    params_loader=params_loader, **_device_kw(device))
+
+
+def _device_kw(device: Any) -> Dict[str, Any]:
+    """The bound ``device`` argument: left out when None, so the replica
+    builds on the card its lease names."""
+    return {} if device is None else {"device": str(device)}
+
+
+def _plain(cfg: Any):
+    """Dataclass -> dict so the spec cloudpickles as plain values (a
+    ``torch.dtype`` field included); dicts/None pass through."""
+    import dataclasses
+
+    if cfg is None or isinstance(cfg, dict):
+        return cfg
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: getattr(cfg, f.name)
+                for f in dataclasses.fields(cfg)}
+    return cfg

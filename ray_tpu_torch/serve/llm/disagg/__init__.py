@@ -12,15 +12,16 @@ port's copy of ``ray_tpu/serve/llm/disagg``.
 - ``spec.py``: the draft-model helpers of speculative decoding, the
   decode side's speed lever.
 
-The servers run in one process here; ``build_disagg_llm_app`` (two
-replica pools behind the LLM router, the payload through the object
-store) needs the port's runtime and comes with it.
+``build_disagg_llm_app`` puts the two on replica pools of their own
+behind the LLM router, the payload moving between them through the
+object store; the servers also run side by side in one process.
 """
 
+from ray_tpu_torch.serve.llm.disagg.app import build_disagg_llm_app
 from ray_tpu_torch.serve.llm.disagg.decode import DecodeServer
 from ray_tpu_torch.serve.llm.disagg.prefill import PrefillServer
 from ray_tpu_torch.serve.llm.disagg.spec import build_draft, draft_config_for
 from ray_tpu_torch.serve.llm.disagg.transfer import KVExporter, KVImporter
 
 __all__ = ["DecodeServer", "KVExporter", "KVImporter", "PrefillServer",
-           "build_draft", "draft_config_for"]
+           "build_disagg_llm_app", "build_draft", "draft_config_for"]

@@ -4,9 +4,10 @@ copy of ``ray_tpu/serve/llm/disagg/decode.py``.
 An ``LLMServer`` (so it still serves plain ``__call__`` traffic — short
 interactive prompts go straight here, where their prefill is cheap) plus
 ``adopt``: take a :class:`PrefillServer` result, import its KV blocks
-into this engine's pool, and decode to completion. In the reference the
-router passes that result by object reference between replicas; that
-waits for the port's runtime, so here the caller passes the dict.
+into this engine's pool, and decode to completion. The LLM router passes
+that result by object reference between replicas (the replica gets it
+from the store, its tensors views of the stored object, which adoption
+only reads), or a caller passes the dict in-process.
 """
 
 from __future__ import annotations

@@ -7,9 +7,8 @@ long prefill never monopolizes the engine for a whole step) up to its
 FIRST sampled token, then export the sequence's paged KV blocks as a
 :class:`~ray_tpu_torch.serve.llm.kv_cache.KVState` (CPU tensors) and
 free the slot. The returned dict is what a :class:`DecodeServer`'s
-``adopt`` takes; in the reference the router forwards it between
-replicas through the object store, which waits for the port's runtime,
-so here the caller hands it over in-process.
+``adopt`` takes: the LLM router forwards it between replicas through the
+object store (or a caller hands it over in-process).
 
 A request that already terminates at its first token (stop / eos /
 ``max_tokens == 1`` / sequence limit) comes back ``done`` with the

@@ -75,8 +75,10 @@ makes it: the call does not bind, so, as in the reference, no decision
 is recorded. Telemetry never breaks a request: every hook is wrapped
 where the reference wraps it.
 
-Left for the port's runtime: the object-store KV tier below the host
-tier, the prefix-index publisher and ``build_llm_app``.
+Below the host tier, evicted prefix blocks demote to the object store
+(``_tier_store_put``/``_tier_store_get``) when the engine's process has
+a cluster attached, as a Serve replica does; without one the put raises
+and the tier counts a drop.
 """
 
 from __future__ import annotations
@@ -406,10 +408,11 @@ class LLMEngine:
                 prefill_per_token_s=c.kv_prefill_cost_per_token_ms
                 * 1e-3)
             if c.kv_spill and self._prefix is not None:
-                # No object-store tier without a cluster: host overflow
-                # is dropped and counted.
-                self._tiers = KVTierManager(c.kv_host_tier_bytes,
-                                            c.kv_block_size)
+                # Host overflow demotes to the object store; without a
+                # cluster the put raises and the tier counts a drop.
+                self._tiers = KVTierManager(
+                    c.kv_host_tier_bytes, c.kv_block_size,
+                    put_fn=_tier_store_put, get_fn=_tier_store_get)
                 self._prefix.spill_fn = self._spill_evicted
         else:
             self._cache = init_kv_cache(model_config, B, c.max_seq_len,
@@ -1357,19 +1360,28 @@ class LLMEngine:
         """Receiver side of a peer pull: park pulled chain links in the
         host tier; the pulling request's admission then promotes them
         through the cost model. Thread-safe (the tier manager locks): no
-        scheduler hop needed."""
+        scheduler hop needed.
+
+        Each link is parked as a copy of its tensors: links pulled
+        through the object store are views of the stored object (a
+        ``get`` of a CPU tensor does not copy), and a parked view would
+        hold that object's extent reader-pinned for as long as the tier
+        keeps the link."""
         if self._tiers is None:
             return 0
-        return self._tiers.spill(list(prefixes))
+        return self._tiers.spill([
+            dataclasses.replace(p, k_blocks=p.k_blocks.clone(),
+                                v_blocks=p.v_blocks.clone())
+            for p in prefixes])
 
     def prefix_index_heads(self, max_heads: Optional[int] = None
                            ) -> List[Tuple[int, int]]:
         """What this replica can serve without prefilling, as
         ``(stable_hash, depth)`` chain links: pool-resident first
         (hottest), then tier residents, deduplicated and capped at
-        ``serve_prefix_index_max_heads``. The reference's replica
-        publishes this to the cluster-wide prefix index; that publisher
-        comes with the port's runtime."""
+        ``serve_prefix_index_max_heads``. A Serve replica publishes
+        this to the cluster-wide prefix index
+        (``LLMServer._publish_index_loop``)."""
         from ray_tpu_torch._private.config import GlobalConfig
 
         if max_heads is None:
@@ -1811,6 +1823,28 @@ class LLMEngine:
                 "draft_prefills": self._draft_prefills,
             }
         return out
+
+
+def _tier_store_put(prefix):
+    """Object-store leg of the KV hierarchy: demote a KVPrefix below
+    host RAM. Raises when no cluster is attached — KVTierManager then
+    counts the drop and moves on (a dropped block is a future
+    recompute, never an error)."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import global_worker_or_none
+
+    if global_worker_or_none() is None:
+        raise RuntimeError(
+            "no cluster attached: object-store KV tier unavailable")
+    return ray_tpu_torch.put(prefix)
+
+
+def _tier_store_get(ref):
+    """A demoted KVPrefix back from the store: its tensors are views of
+    the stored object, which the promote only reads (into the pool)."""
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get(ref, timeout=30.0)
 
 
 def static_batch_generate(params, model_config, requests: List[Request],

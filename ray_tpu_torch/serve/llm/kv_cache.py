@@ -60,8 +60,9 @@ class KVState:
     `LLMEngine._export_state` copies the slot's live blocks into CPU
     tensors ([L, n_valid, bs, n_kv, hd]); admission adopts them back
     into a pool. Produced by batch-lane preemption (the checkpoint that
-    lets a preempted decode resume); the disaggregated prefill tier
-    that also produces them in the reference is a later slice.
+    lets a preempted decode resume) and by the disaggregated prefill
+    tier (``disagg/prefill.py``), whose result a Serve router forwards
+    to a decode replica through the object store.
 
     ``pos`` is the number of CONSUMED tokens — rows [0, pos) of the
     dense view are valid; ``next_tok`` is the last sampled token, not

@@ -1,5 +1,8 @@
 """User-defined application metrics: the port's copy of
-``ray_tpu/util/metrics.py`` (reference: Ray's ``python/ray/util/metrics.py``).
+``ray_tpu/util/metrics.py`` (reference: Ray's ``python/ray/util/metrics.py``,
+exported through the node MetricsAgent -> Prometheus there; here pushed
+to the GCS metrics registry and served from the GCS ``/metrics`` scrape
+endpoint alongside the system gauges).
 
 Usage, as in the reference::
 
@@ -9,27 +12,30 @@ Usage, as in the reference::
                        tag_keys=("route",))
     requests.inc(1.0, tags={"route": "/predict"})
 
-Metrics live in one process-local registry: re-declaring a name aliases
-the first instance's storage. ``snapshot_records`` and ``local_summary``
-read it (the serving engine's token reconciliation reads the latter).
-
-The runtime's worker and raylet call ``metric_source`` (a worker's
-cluster-unique push key: a killed worker pushes its last snapshot under
-it) and ``flush``. Not here yet (ROADMAP A4): the flusher thread that
-pushes snapshots to the GCS every ``metrics_report_interval_s``, so
-``flush`` pushes nothing, and the ``MetricsHub``/``query`` read path over
-the cluster aggregate.
+Metrics are process-local (re-declaring a name aliases the first
+instance's storage) and flushed to the GCS every
+``GlobalConfig.metrics_report_interval_s`` seconds by a daemon thread
+when the process has a worker attached; ``flush`` pushes at once and
+returns False without one. Aggregation on the scrape side: counters and
+histograms are summed across processes; gauges are exported per-process
+with a ``pid`` label (summing gauges would be wrong). ``MetricsHub`` and
+``query`` read the cluster aggregate back as windowed series with
+explicit staleness (``ctrl_metrics_staleness_s``); ``local_summary``
+reads this process's registry in the same shape.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 _registry_lock = threading.Lock()
 _registry: Dict[str, "Metric"] = {}  # name -> canonical instance
+_flusher_started = False
 
 DEFAULT_BOUNDARIES = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
@@ -82,6 +88,7 @@ class Metric:
                 self._exemplars = prior._exemplars
             else:
                 _registry[self._name] = self
+        _ensure_flusher()
 
     # Reference parity: metric.set_default_tags({...}) returns self.
     def set_default_tags(self, tags: Dict[str, str]) -> "Metric":
@@ -196,18 +203,19 @@ class Histogram(Metric):
                         "value": float(value), "ts": time.time()}
 
 
-# --------------------------------------------------------------- snapshots
+# --------------------------------------------------------------------- flush
 
 _flush_samplers: List = []
 
 
 def register_flush_sampler(fn) -> None:
-    """Register a callable invoked right before every snapshot — the
-    hook for sampled gauges (device memory, engine queue depth) that
-    must be fresh when read, without timer threads of their own."""
+    """Register a callable invoked right before every metrics flush —
+    the hook for sampled gauges (device memory, engine queue depth) that
+    must be fresh at export time without their own timer threads."""
     with _registry_lock:
         if fn not in _flush_samplers:
             _flush_samplers.append(fn)
+    _ensure_flusher()
 
 
 def _run_samplers() -> None:
@@ -215,14 +223,35 @@ def _run_samplers() -> None:
         try:
             fn()
         except Exception:
-            pass  # a broken sampler must not stop the snapshot
+            pass  # a broken sampler must not stop the flush
 
 
 def snapshot_records() -> List[Dict[str, object]]:
-    """Serializable snapshots of every registered metric."""
+    """Serializable snapshots of every registered metric (for async push
+    paths that cannot use the sync GCS client, e.g. worker kill)."""
     _run_samplers()
     with _registry_lock:
         return [m._snapshot() for m in _registry.values()]
+
+
+def _flush_once() -> bool:
+    """Push one snapshot of every registered metric to the GCS."""
+    from ray_tpu_torch._private.worker import global_worker_or_none
+
+    w = global_worker_or_none()
+    if w is None or getattr(w, "_dead", False):
+        return False
+    _run_samplers()
+    with _registry_lock:
+        snaps = [m._snapshot() for m in _registry.values()]
+    if not snaps:
+        return True
+    try:
+        w.gcs.call("push_metrics", source=metric_source(w),
+                   records=snaps, timeout=5)
+        return True
+    except Exception:
+        return False
 
 
 def metric_source(worker) -> str:
@@ -232,18 +261,280 @@ def metric_source(worker) -> str:
     return f"{os.getpid()}@{suffix}"
 
 
+def _ensure_flusher() -> None:
+    global _flusher_started
+    with _registry_lock:
+        if _flusher_started:
+            return
+        _flusher_started = True
+
+    def _loop():
+        from ray_tpu_torch._private.config import GlobalConfig
+        while True:
+            time.sleep(GlobalConfig.metrics_report_interval_s)
+            _flush_once()
+
+    threading.Thread(target=_loop, daemon=True,
+                     name="rtpu-metrics-flusher").start()
+
+
 def flush() -> bool:
-    """The reference pushes a snapshot to the GCS here (worker shutdown
-    and kill call it). The periodic push is ROADMAP A4's: until then this
-    pushes nothing and returns False."""
-    return False
+    """Force an immediate push (also called at worker shutdown/kill;
+    SIGKILL'd workers lose at most one flush interval of updates)."""
+    return _flush_once()
+
+
+# ----------------------------------------------------------------- MetricsHub
+#
+# The query surface the control plane reads (serve autoscaler, data
+# backpressure tuner, raylet memory preemption). One substrate: the GCS
+# ``user_metrics_summary`` aggregate, polled into bounded time-windowed
+# series with *explicit* staleness — a controller can always tell "the
+# gauge is low" apart from "the gauge stopped updating", and must hold
+# rather than act on the latter.
+
+_LABEL_RE = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_labels(label_str: str) -> Dict[str, str]:
+    """``k="v",pid="123@ab"`` -> dict (the GCS summary data-key format)."""
+    return {m.group(1): m.group(2).replace('\\"', '"').replace("\\\\", "\\")
+            for m in _LABEL_RE.finditer(label_str or "")}
+
+
+def _merge_hist(acc: Optional[Dict[str, Any]],
+                cell: Dict[str, Any]) -> Dict[str, Any]:
+    if acc is None:
+        return {"count": float(cell.get("count", 0.0)),
+                "sum": float(cell.get("sum", 0.0)),
+                "buckets": {k: float(v)
+                            for k, v in cell.get("buckets", {}).items()}}
+    acc["count"] += float(cell.get("count", 0.0))
+    acc["sum"] += float(cell.get("sum", 0.0))
+    for k, v in cell.get("buckets", {}).items():
+        acc["buckets"][k] = acc["buckets"].get(k, 0.0) + float(v)
+    return acc
+
+
+def _hist_sub(new: Dict[str, Any], old: Dict[str, Any]) -> Dict[str, Any]:
+    """Windowed delta of two cumulative histogram snapshots. A negative
+    count means the series reset (sources exited faster than tombstones
+    accrued); fall back to the newest cumulative state."""
+    delta = {"count": new["count"] - old["count"],
+             "sum": new["sum"] - old["sum"],
+             "buckets": {k: v - old["buckets"].get(k, 0.0)
+                         for k, v in new["buckets"].items()}}
+    if delta["count"] <= 0 or any(v < 0 for v in delta["buckets"].values()):
+        return new
+    return delta
+
+
+class MetricSeries:
+    """One queried metric: samples ``[(ts, value), ...]`` inside the
+    window (newest last) plus explicit staleness. Gauge/counter values
+    are floats; histogram values are ``{count, sum, buckets}`` dicts of
+    cumulative state."""
+
+    def __init__(self, name: str, mtype: Optional[str],
+                 samples: List[Tuple[float, Any]],
+                 age_s: Optional[float], n_series: int = 0):
+        self.name = name
+        self.type = mtype
+        self.samples = samples
+        #: Seconds since the freshest *source push* contributing to the
+        #: newest sample (GCS-side age + time since the hub last fetched).
+        #: ``None`` when the metric has never been observed.
+        self.age_s = age_s
+        #: How many label-sets were aggregated into each sample.
+        self.n_series = n_series
+
+    def __bool__(self) -> bool:
+        return bool(self.samples)
+
+    @property
+    def latest(self):
+        return self.samples[-1][1] if self.samples else None
+
+    def stale(self, ttl: Optional[float] = None) -> bool:
+        """True when the newest contributing push is older than ``ttl``
+        (default ``GlobalConfig.ctrl_metrics_staleness_s``). A series
+        with no samples at all is *absent*, not stale — test with
+        ``bool(series)`` first; controllers treat absent as "signal not
+        wired" and stale as "signal broken, hold"."""
+        if not self.samples:
+            return False
+        if ttl is None:
+            from ray_tpu_torch._private.config import GlobalConfig
+            ttl = GlobalConfig.ctrl_metrics_staleness_s
+        return self.age_s is None or self.age_s > ttl
+
+    def mean(self) -> Optional[float]:
+        """Mean gauge/counter value over the window (histograms: mean
+        observation of the newest cumulative snapshot)."""
+        if not self.samples:
+            return None
+        if self.type == "histogram":
+            cell = self.samples[-1][1]
+            return cell["sum"] / cell["count"] if cell["count"] else 0.0
+        vals = [v for _, v in self.samples]
+        return sum(vals) / len(vals)
+
+    def delta(self) -> Optional[float]:
+        """Increase across the window (counters / histogram counts)."""
+        if not self.samples:
+            return None
+        new, old = self.samples[-1][1], self.samples[0][1]
+        if self.type == "histogram":
+            return max(0.0, new["count"] - old["count"])
+        return max(0.0, float(new) - float(old))
+
+    def rate(self) -> Optional[float]:
+        """delta() / window span; None with fewer than two samples."""
+        if len(self.samples) < 2:
+            return None
+        span = self.samples[-1][0] - self.samples[0][0]
+        d = self.delta()
+        return (d / span) if span > 0 and d is not None else None
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Histogram quantile over the window (delta of the oldest vs
+        newest cumulative snapshot; single-sample series use lifetime
+        state). Returns the smallest bucket boundary covering ``q`` of
+        observations — the Prometheus ``histogram_quantile`` estimate
+        without interpolation, which is all hysteresis needs."""
+        if self.type != "histogram" or not self.samples:
+            return None
+        cell = self.samples[-1][1]
+        if len(self.samples) > 1:
+            cell = _hist_sub(cell, self.samples[0][1])
+        count = cell["count"]
+        if not count:
+            return None
+        target = q * count
+        for bound, cum in sorted(cell["buckets"].items(),
+                                 key=lambda kv: float(kv[0])):
+            if cum >= target:
+                return float(bound)
+        # Beyond the last boundary (+inf bucket): the largest finite
+        # boundary is the best lower bound we can report.
+        bounds = [float(b) for b in cell["buckets"]]
+        return max(bounds) if bounds else None
+
+
+class MetricsHub:
+    """Windowed, staleness-aware client over the cluster metrics plane.
+
+    ``fetch(prefixes)`` returns a ``user_metrics_summary``-shaped dict
+    (default: the GCS RPC through the global worker; the data
+    backpressure tuner plugs in :func:`local_summary` to read its own
+    process registry with zero RPCs). ``refresh()`` is rate-limited, so
+    controllers may call it every tick; samples are pruned beyond
+    ``history_s``."""
+
+    def __init__(self, fetch=None, history_s: float = 600.0,
+                 min_refresh_s: float = 0.5):
+        self._fetch = fetch or _gcs_summary
+        self._history_s = history_s
+        self._min_refresh_s = min_refresh_s
+        self._lock = threading.Lock()
+        # (name, label_str) -> deque[(ts, value)]
+        self._series: Dict[Tuple[str, str], deque] = {}
+        self._meta: Dict[str, Dict[str, Any]] = {}
+        self._server_age: Dict[str, Optional[float]] = {}
+        self._last_refresh = 0.0
+
+    def refresh(self, prefixes: Optional[Sequence[str]] = None,
+                force: bool = False) -> bool:
+        now = time.time()
+        with self._lock:
+            if not force and now - self._last_refresh < self._min_refresh_s:
+                return True
+            self._last_refresh = now
+        try:
+            summary = self._fetch(list(prefixes) if prefixes else None)
+        except Exception:
+            return False
+        if summary is None:
+            return False
+        self.ingest(summary, ts=now)
+        return True
+
+    def ingest(self, summary: Dict[str, Any],
+               ts: Optional[float] = None) -> None:
+        """Append one summary snapshot (also the unit-test entry point:
+        feed synthetic snapshots, no cluster required)."""
+        ts = time.time() if ts is None else ts
+        horizon = ts - self._history_s
+        with self._lock:
+            for name, entry in summary.items():
+                self._meta[name] = {
+                    "type": entry.get("type"),
+                    "boundaries": entry.get("boundaries")}
+                self._server_age[name] = entry.get("age_s")
+                for label_str, cell in (entry.get("data") or {}).items():
+                    dq = self._series.setdefault((name, label_str), deque())
+                    dq.append((ts, cell))
+                    while dq and dq[0][0] < horizon:
+                        dq.popleft()
+
+    def query(self, name: str, window: Optional[float] = None,
+              labels: Optional[Dict[str, str]] = None) -> MetricSeries:
+        """Aggregate every stored label-set of ``name`` whose labels are
+        a superset of ``labels`` into one windowed series. Counters and
+        histograms sum across label-sets; gauges sum too (the per-pid
+        gauge split means "sum over processes" is the cluster total —
+        pass ``labels={"pid": ...}`` for a single process). ``name``
+        accepts the exported ``rtpu_`` prefix."""
+        if name.startswith("rtpu_"):
+            name = name[len("rtpu_"):]
+        now = time.time()
+        cutoff = (now - window) if window else None
+        with self._lock:
+            meta = self._meta.get(name)
+            mtype = meta["type"] if meta else None
+            merged: Dict[float, Any] = {}
+            n_series = 0
+            for (sname, label_str), dq in self._series.items():
+                if sname != name:
+                    continue
+                if labels:
+                    parsed = parse_labels(label_str)
+                    if any(parsed.get(k) != str(v)
+                           for k, v in labels.items()):
+                        continue
+                n_series += 1
+                for sts, cell in dq:
+                    if cutoff is not None and sts < cutoff:
+                        continue
+                    if mtype == "histogram":
+                        merged[sts] = _merge_hist(merged.get(sts), cell)
+                    else:
+                        merged[sts] = merged.get(sts, 0.0) + float(cell)
+            server_age = self._server_age.get(name)
+            fetched = self._last_refresh
+        samples = sorted(merged.items())
+        age = None
+        if samples:
+            age = max(0.0, now - fetched) + (server_age or 0.0)
+        return MetricSeries(name, mtype, samples, age, n_series)
+
+
+def _gcs_summary(prefixes: Optional[List[str]]):
+    """Default hub fetch: the GCS aggregate through the global worker."""
+    from ray_tpu_torch._private.worker import global_worker_or_none
+
+    w = global_worker_or_none()
+    if w is None or getattr(w, "_dead", False):
+        return None
+    return w.gcs.call("user_metrics_summary", prefixes=prefixes, timeout=5)
 
 
 def local_summary(prefixes: Optional[List[str]] = None) -> Dict[str, Any]:
-    """This process's registry in the reference's
-    ``user_metrics_summary`` shape: {name: {type, description, age_s,
-    data: {label string: value or histogram cell}}}. ``age_s`` is 0:
-    local reads are fresh by construction."""
+    """This process's registry in ``user_metrics_summary`` shape — the
+    zero-RPC hub fetch for in-process controllers (the data executors
+    tune against gauges *they* set; a GCS round-trip would only add the
+    flush interval as control latency). ``age_s`` is 0: local reads are
+    fresh by construction."""
     out: Dict[str, Any] = {}
     for rec in snapshot_records():
         name, typ = rec["name"], rec["type"]
@@ -275,3 +566,25 @@ def local_summary(prefixes: Optional[List[str]] = None) -> Dict[str, Any]:
             entry["boundaries"] = list(rec.get("boundaries", ()))
         out[name] = entry
     return out
+
+
+_global_hub: Optional[MetricsHub] = None
+
+
+def global_hub() -> MetricsHub:
+    global _global_hub
+    with _registry_lock:
+        if _global_hub is None:
+            _global_hub = MetricsHub()
+        return _global_hub
+
+
+def query(name: str, window: Optional[float] = None,
+          labels: Optional[Dict[str, str]] = None) -> MetricSeries:
+    """Query the cluster metrics plane: ``query("serve_queue_wait_seconds",
+    window=30).quantile(0.95)``. Refreshes the process-global hub from
+    the GCS (rate-limited) and returns a windowed, staleness-aware
+    series — the controllers' one shared read path."""
+    hub = global_hub()
+    hub.refresh()
+    return hub.query(name, window=window, labels=labels)

@@ -19,17 +19,19 @@ Typical use::
             out = server(request)          # the engine parents under it
     tree = tracing.build_trace_tree(tracing.span_events(tc.trace_id))
 
-Where the spans go. The reference appends each SPAN event to its
-worker's ``_task_events`` buffer, which the worker pushes to the GCS
-(task events, the tail-sampled trace store); in a process without a
-worker it records nothing. The port has no worker yet, so
-``record_span`` appends the same event dict to a process-local buffer
-bounded at ``SPAN_BUFFER_SIZE`` events (the oldest drop first), the
-counterpart of that worker buffer: ``span_events`` reads it,
-``drain_span_events`` empties it (what the runtime's push will call),
-and ``span_tree`` builds the reference's cross-task tree from it. Every
-event is recorded under ``SPAN_TASK_ID``, the task id the reference
-gives spans recorded outside any task.
+Where the spans go. In a process with a worker attached (a driver
+after ``ray_tpu_torch.init()``, a task or an actor), ``record_span``
+appends each SPAN event to the worker's ``_task_events`` buffer, as the
+reference does: the worker pushes it to the GCS (task events and the
+tail-sampled trace store), where ``util.state.get_trace`` reads it back,
+and a traced span nudges that push to come within half a second. In a
+process without a worker, where the reference records nothing, the port
+appends the same event dict to a process-local buffer bounded at
+``SPAN_BUFFER_SIZE`` events (the oldest drop first): ``span_events``
+reads it, ``drain_span_events`` empties it, and ``span_tree`` builds the
+reference's cross-task tree from it. Such an event is recorded under
+``SPAN_TASK_ID``, the task id the reference gives spans recorded outside
+any task.
 """
 
 from __future__ import annotations
@@ -173,8 +175,15 @@ def record_span(name: str, start: float, dur: float,
     parents a *fresh* span id under the active span. ``span()`` and
     ``trace_root()`` always pass ``trace=`` explicitly, so a span is
     never double-tagged by its own ambient push."""
+    from ray_tpu_torch._private.worker import global_worker_or_none
+
+    w = global_worker_or_none()
+    if w is not None and (getattr(w, "_dead", False)
+                          or not hasattr(w, "_task_events_lock")):
+        return
+    tid = w.current_task_id() if w is not None else None
     event = {
-        "task_id": SPAN_TASK_ID,
+        "task_id": tid.binary() if tid else SPAN_TASK_ID,
         "name": name, "job_id": b"", "state": "SPAN",
         "ts": start, "dur": dur,
         "owner_pid": os.getpid(),
@@ -190,8 +199,19 @@ def record_span(name: str, start: float, dur: float,
         event["trace_id"] = trace["trace_id"]
         event["span_id"] = trace.get("span_id")
         event["parent_span_id"] = trace.get("parent_span_id")
-    with _span_lock:
-        _spans.append(event)
+    if w is None:
+        with _span_lock:
+            _spans.append(event)
+        return
+    with w._task_events_lock:
+        w._task_events.append(event)
+    if event.get("trace_id"):
+        # Traced spans feed the GCS TraceStore; nudge the debounced
+        # flush so traces assemble on a sub-second cadence instead of
+        # waiting for the 100-event batch threshold.
+        flush = getattr(w, "flush_task_events_soon", None)
+        if flush is not None:
+            flush()
 
 
 def span_events(trace_id: Optional[str] = None) -> List[Dict[str, Any]]:
@@ -309,14 +329,21 @@ def critical_path(tree: Dict[str, Any]) -> Dict[str, Any]:
 def span_tree(events: Optional[List[Dict[str, Any]]] = None
               ) -> List[Dict[str, Any]]:
     """The reference's cross-task call tree, built from ``events`` (task
-    lifecycle and SPAN events; default: the span buffer). Each node is a
-    task with its lifecycle timestamps, user spans, and children (tasks
-    it submitted). SPAN events whose task node has no lifecycle event
-    are surfaced under a synthetic ``(orphaned-spans)`` root, never
-    dropped: with only the span buffer, that is where every span lands
-    until the runtime records task lifecycles."""
+    lifecycle and SPAN events; default: the head's task-event ring with
+    a worker attached, else the span buffer). Each node is a task with
+    its lifecycle timestamps, user spans, and children (tasks it
+    submitted). SPAN events whose task node has no lifecycle event are
+    surfaced under a synthetic ``(orphaned-spans)`` root, never dropped:
+    with only the span buffer, that is where every span lands."""
     if events is None:
-        events = span_events()
+        from ray_tpu_torch._private.worker import global_worker_or_none
+
+        if global_worker_or_none() is not None:
+            import ray_tpu_torch
+
+            events = ray_tpu_torch.task_events()
+        else:
+            events = span_events()
     nodes: Dict[bytes, Dict[str, Any]] = {}
     spans: Dict[bytes, List[Dict[str, Any]]] = {}
     for e in events:

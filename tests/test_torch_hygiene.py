@@ -59,7 +59,9 @@ def test_port_files_found():
             "memory_monitor.py", "log_monitor.py", "usage_stats.py",
             "worker.py", "remote_function.py", "actor.py",
             "runtime_context.py", "scheduling_strategies.py",
-            "placement_group.py"} <= names
+            "placement_group.py", "autoscale.py", "multiplex.py",
+            "handle.py", "replica.py", "router.py", "controller.py",
+            "api.py", "state.py", "app.py"} <= names
     assert (ROOT / "ray_tpu_torch/_private/csrc/arena_store.cpp").exists()
 
 
@@ -146,13 +148,33 @@ def _cmdline(pid):
 
 def test_port_cluster_spawns_only_port_processes():
     """Every process a port cluster starts (GCS, raylet, task and actor
-    workers) runs a ``ray_tpu_torch.`` module, and none loads JAX or the
-    JAX package; a worker that touches no tensor loads no torch."""
+    workers, and Serve's controller, router and replicas) runs a
+    ``ray_tpu_torch.`` module, and none loads JAX or the JAX package; a
+    worker that touches no tensor loads no torch."""
     import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.serve.llm import build_routed_llm_app
 
-    ray_tpu_torch.init(num_cpus=2, num_gpus=0,
+    ray_tpu_torch.init(num_cpus=8, num_gpus=0,
                        object_store_memory=64 * 1024 * 1024)
     try:
+        handle = serve.run(build_routed_llm_app(
+            LlamaConfig.tiny(dtype=torch.float32),
+            {"num_slots": 1, "max_seq_len": 32, "prefill_buckets": (8,)},
+            num_replicas=1, quantize="bf16", device="cpu"), name="hyg")
+        out = handle.remote({"prompt": [1, 2, 3],
+                             "max_tokens": 2}).result(timeout=120)
+        assert out["num_tokens"] == 2
+
+        @serve.deployment
+        def replica_modules(_):
+            return sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "ray_tpu"))
+
+        assert serve.run(replica_modules.bind(), name="mods").remote(
+            None).result(timeout=60) == []
+
         @ray_tpu_torch.remote
         def modules():
             return sorted(m for m in sys.modules
@@ -175,6 +197,7 @@ def test_port_cluster_spawns_only_port_processes():
             module = cmd[cmd.index("-m") + 1]
             assert module.startswith("ray_tpu_torch."), cmd
     finally:
+        serve.shutdown()
         ray_tpu_torch.shutdown()
 
 

@@ -580,3 +580,41 @@ def test_paged_bookkeeping_matches_the_reference_engine():
     for key in ("prefix_hits", "spilled", "promoted_blocks",
                 "promote_skips", "preempted"):
         assert got[key] > 0, (key, got)
+
+
+@pytest.mark.parametrize("num_kv_blocks,promoted", [(7, 5), (8, 4)],
+                         ids=["whole-chain", "partial"])
+def test_tier_promote_depth_after_eviction_matches_the_reference(
+        num_kv_blocks, promoted):
+    """A five-block chain (A), then a prompt (B) that evicts all of it
+    (a pool of 7) or only its four coldest links, the head (a pool of 8:
+    the prefix cache evicts in insertion order), then A again. With the
+    head gone the pool matches nothing, the tier continues from depth 0
+    and stops at the first link still in the pool: A's repeat promotes
+    4 links of 5 and recomputes the rest. Both packages do the same:
+    equal tokens and host counters."""
+    from ray_tpu.serve.llm import engine as JE
+
+    jc, jp, tc, tp = _model()
+    geo = dict(num_slots=1, max_seq_len=96, prefill_buckets=(16, 48),
+               kv_layout="paged", kv_block_size=8,
+               num_kv_blocks=num_kv_blocks, kv_adopt_cost_fixed_ms=1.0,
+               kv_adopt_cost_per_block_ms=0.1,
+               kv_prefill_cost_per_token_ms=50.0)
+    a, b = _prompt(60, 41), _prompt(61, 41)
+    runs = []
+    for mod, eng in ((JE, JE.LLMEngine(jp, jc, JE.EngineConfig(**geo))),
+                     (E, E.LLMEngine(tp, tc, E.EngineConfig(**geo),
+                                     device="cpu"))):
+        tokens = []
+        for prompt, n in ((a, 4), (b, 12), (a, 4)):
+            h = eng.submit(mod.Request(prompt=list(prompt), max_tokens=n))
+            while eng.has_work():
+                eng.step()
+            tokens.append(h.tokens)
+        runs.append((tokens, _bookkeeping(eng.stats())))
+    (want, ref), (got, port) = runs
+    assert got == want
+    assert port == ref
+    assert port["prefix_hits"] == 0
+    assert port["promoted_blocks"] == port["tier_promotes"] == promoted
