@@ -111,8 +111,10 @@ Phases, one line each; any failure raises and exits non-zero:
               phase's int8 server on its leased card (gpu ids [0],
               CUDA_VISIBLE_DEVICES "0", an H100, neither JAX nor the JAX
               package loaded) beside the same server in this process:
-              equal weight fingerprints, equal greedy tokens for the 12
-              serve requests one at a time; the 12-request mix from 4
+              equal weight fingerprints; the actor's greedy tokens for
+              the 12 serve requests one at a time equal the serve phase's
+              in-process tokens (6h holds its replicas to the same); the
+              12-request mix from 4
               client threads in-process, actor, actor, in-process (tok/s,
               TTFT, TPOT, client latency; the actor's ratios); B1 in the
               actor = 32 x 12 over one mix; a second num_gpus=1 actor
@@ -151,6 +153,31 @@ Phases, one line each; any failure raises and exits non-zero:
               run without the tier at the same depth. After shutdown no
               cluster process is left and the card's memory is back
               within 1 GiB.
+6i. trainer -- (run last) Train on the port's runtime. First, in this
+              process, ``run_pod_training`` at Llama-3-8B widths, 4
+              layers, bf16, flash attention, ``remat="dots"``, ZeRO
+              (``weight_update="sharded"``) over 4 virtual ranks, batch
+              4 x 1024 targets, 3 timed steps after the warmup step.
+              Then a cluster (``init(num_gpus=1)``) and
+              ``CudaTrainer(pod_train_loop, ScalingConfig(num_workers=1,
+              use_gpu=True), CudaConfig(weight_update="sharded",
+              mesh_axes={"data": 4}))`` with the same arguments, the
+              worker's loop reporting beside the summary what it read in
+              its process. Gates: the worker holds the GPU lease (gpu ids
+              [0], CUDA_VISIBLE_DEVICES "0" from the raylet); its
+              per-step losses equal the in-process ones bit for bit; its
+              launch counts of B1, B2, B3, C2 and C3 equal the
+              in-process call's and the step arithmetic's, none 0; the
+              summary has its goodput block; the GCS step matrix holds
+              one row per timed step for the worker and no stall; a
+              ``tiny()`` bf16 train state on the card comes back through
+              ``Checkpoint.from_pytree`` / ``to_pytree(device="cuda")``
+              bit for bit and on the card; after shutdown no cluster
+              process is left and the card's memory is back within
+              1 GiB. Printed: cluster start, worker ready and fit wall
+              seconds; tokens/s and MFU through the trainer and in
+              process, and their ratio; the goodput ratio and the phase
+              sums.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -249,6 +276,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -2569,13 +2597,14 @@ def _stages_text(st):
             + f" ms, at {st['offset_mib']:.1f} MiB in the arena")
 
 
-def phase_runtime(dev, card):
+def phase_runtime(dev, card, serve_tokens):
     """Llama-3-8B served from a GPU actor of the port's runtime: start a
     cluster with no resource arguments (the card detected as GPU: 1 and
     GPU-H100), check that it spawned only the port's processes, build
     the serve phase's int8 server in a num_gpus=1 actor and the same
-    server in this process, compare their weights and their greedy
-    tokens one request at a time, time the 12-request mix from 4 client
+    server in this process, compare their weights, hold the actor's
+    greedy tokens one request at a time to the serve phase's in-process
+    tokens (``serve_tokens``), time the 12-request mix from 4 client
     threads through each (in-process, actor, actor, in-process), count
     B1 in the actor, check that a second GPU actor waits for the card,
     move tensors through the object store, and tear down."""
@@ -2636,14 +2665,16 @@ def phase_runtime(dev, card):
             local(warm_req)
             rt.get(actor.serve.remote(warm_req), timeout=600)
             reqs = serve_requests(cfg)
+            # The in-process side's tokens are the serve phase's (the same
+            # server config, weights and requests), as 6h's are.
             same = 0
-            for r in reqs:
+            for r, want in zip(reqs, serve_tokens):
                 a = rt.get(actor.serve.remote(r), timeout=600)["tokens"]
-                same += a == local(r)["tokens"]
+                same += a == want
             out["tokens_equal"] = f"{same}/{len(reqs)}"
             log("runtime", f"{len(mine)} weight tensors equal; greedy "
-                f"tokens one at a time, actor == in-process: "
-                f"{out['tokens_equal']}")
+                f"tokens one at a time, actor == the serve phase's "
+                f"in-process tokens: {out['tokens_equal']}")
             check(same == len(reqs), f"actor tokens differ: "
                   f"{out['tokens_equal']}")
 
@@ -4813,6 +4844,257 @@ def phase_zero_quant(dev, card):
     return out
 
 
+# Phase 6i: the trainer on the card. Timed steps after the warmup step;
+# the model, batch and ranks are the ZeRO phase's.
+TRAINER_STEPS = 3
+
+
+def _trainer_loop(config):
+    """``pod_train_loop`` in the trainer's worker, with what 6i reads
+    there reported beside its summary: the lease, the per-step losses
+    (``run_pod_training``'s ``report`` hook, which ``pod_train_loop``
+    leaves unset, given here as the driver's in-process call is given
+    it) and the kernels' launch counts over the run."""
+    import os
+    import time
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.train import cuda_backend
+    from ray_tpu_torch.util.collective import ring as R
+
+    entered = time.time()
+    kernels = (attention.flash_fwd_cuda, attention.flash_bwd_dkv_cuda,
+               attention.flash_bwd_dq_cuda, R.KERNELS[1], R.KERNELS[2])
+    for k in kernels:
+        k.launches = 0
+    losses = []
+    run = cuda_backend.run_pod_training
+
+    def with_losses(**kw):
+        return run(**dict(kw, report=lambda m: losses.append(m["loss"])))
+
+    cuda_backend.run_pod_training = with_losses
+    try:
+        cuda_backend.pod_train_loop(config)
+    finally:
+        cuda_backend.run_pod_training = run
+    train.report({
+        "losses": losses, "launches": [k.launches for k in kernels],
+        "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "device_name": torch.cuda.get_device_name(0),
+        "entered": entered, "pid": os.getpid()})
+
+
+def _tree_cuda_equal(got, want):
+    """Every tensor of ``got`` on the card and bit-equal to ``want``'s."""
+    if isinstance(want, dict):
+        return list(got) == list(want) and all(
+            _tree_cuda_equal(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(
+            _tree_cuda_equal(g, w) for g, w in zip(got, want))
+    if isinstance(want, torch.Tensor):
+        return (got.is_cuda and got.dtype == want.dtype
+                and got.shape == want.shape
+                and _bits_equal(got, want))
+    return got == want
+
+
+def phase_trainer(dev, card):
+    """Train on the port's runtime; see the module docstring (6i)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.llama import (
+        LlamaConfig, flops_per_token, init_params, loss_fn)
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.parallel import build_train_step, create_train_state
+    from ray_tpu_torch.parallel.train_step import _leaves
+    from ray_tpu_torch.train import (
+        Checkpoint, CudaConfig, CudaTrainer, RunConfig, ScalingConfig)
+    from ray_tpu_torch.train.cuda_backend import run_pod_training
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.collective import ring as R
+
+    phase_t0 = time.perf_counter()
+    cfg = LlamaConfig.llama3_8b(
+        n_layers=TRAIN_LAYERS, max_seq_len=TRAIN_SEQ, attn_impl="flash",
+        remat="dots", param_dtype=torch.bfloat16)
+    L, n = cfg.n_layers, ZERO_N
+    args = dict(model_config=cfg, mesh_axes={"data": n},
+                steps=TRAINER_STEPS, batch_size=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ + 1, weight_update="sharded", seed=0)
+    kernels = (attention.flash_fwd_cuda, attention.flash_bwd_dkv_cuda,
+               attention.flash_bwd_dq_cuda, R.KERNELS[1], R.KERNELS[2])
+    names = ("B1", "B2", "B3", "C2", "C3")
+    runs = TRAINER_STEPS + 1                     # the warmup step too
+    want = [2 * L * n * runs, L * n * runs, L * n * runs, runs, runs]
+    out = {"card": card, "steps": TRAINER_STEPS, "ranks": n}
+    log("trainer", f"Llama-3-8B widths, {L} layers, bf16, flash, "
+        f"remat='dots', ZeRO over {n} virtual ranks, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} targets, {TRAINER_STEPS} timed steps after the "
+        f"warmup step; {card}")
+
+    # In process, before any cluster: the rows it would publish go
+    # nowhere, so the step matrix below holds the worker's alone.
+    for k in kernels:
+        k.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    local = run_pod_training(**args, device=dev,
+                             report=lambda m: losses.append(m["loss"]))
+    out["in_process_s"] = time.perf_counter() - t0
+    local_counts = [k.launches for k in kernels]
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(losses) == TRAINER_STEPS and all(np.isfinite(losses)),
+          f"in-process losses {losses}")
+    check(local_counts == want, f"in-process launches "
+          f"{dict(zip(names, local_counts))} != {dict(zip(names, want))}")
+
+    mem0 = gpu_memory_used_mib()
+    t0 = time.perf_counter()
+    rt.init(num_gpus=1)
+    out["cluster_start_s"] = time.perf_counter() - t0
+    storage = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+    try:
+        t_fit = time.time()
+        t0 = time.perf_counter()
+        result = CudaTrainer(
+            _trainer_loop, train_loop_config=dict(
+                model_config=cfg, steps=TRAINER_STEPS,
+                batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ + 1, seed=0),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            cuda_config=CudaConfig(weight_update="sharded",
+                                   mesh_axes={"data": n}),
+            run_config=RunConfig(name="trainer",
+                                 storage_path=storage.name)).fit()
+        out["fit_s"] = time.perf_counter() - t0
+        summary, seen = result.metrics_dataframe[0], result.metrics
+        out["worker_ready_s"] = seen["entered"] - t_fit
+        log("trainer", f"cluster up in {out['cluster_start_s']:.2f} s; the "
+            f"worker's loop began {out['worker_ready_s']:.2f} s into fit(), "
+            f"which took {out['fit_s']:.2f} s; the worker: gpu ids "
+            f"{seen['gpu_ids']}, CUDA_VISIBLE_DEVICES="
+            f"{seen['cuda_visible_devices']!r}, {seen['device_name']}; "
+            f"{card}")
+        check(seen["gpu_ids"] == [0]
+              and seen["cuda_visible_devices"] == "0",
+              f"the worker's lease: {seen}")
+        check(seen["pid"] != os.getpid(), "the loop ran in the driver")
+        check("H100" in seen["device_name"],
+              f"the worker's card is {seen['device_name']}")
+        check(seen["losses"] == losses, f"the worker's losses "
+              f"{seen['losses']} differ from the in-process {losses}")
+        check(seen["launches"] == local_counts and all(seen["launches"]),
+              f"the worker's launches {dict(zip(names, seen['launches']))}"
+              f" != in-process {dict(zip(names, local_counts))}")
+        log("trainer", "losses, worker == in-process bit for bit: "
+            + ", ".join(f"{x:.6f}" for x in losses) + "; launches in the "
+            "worker " + ", ".join(f"{a} {b}" for a, b in
+                                  zip(names, seen["launches"]))
+            + f" (in process the same; {runs} steps of {L} layers x {n} "
+            f"ranks)")
+
+        g = summary.get("goodput")
+        check(isinstance(g, dict) and 0 < g["goodput_ratio"] <= 1
+              and g["lost_s"]["recompiling"] > 0
+              and len(summary["step_walls"]) == TRAINER_STEPS,
+              f"the summary's goodput block: {g}")
+
+        def matrix():
+            info = next((r for r in state.train_summary()["workers"]
+                         if r["worker"] == "train-0"), None)
+            return info if info and info["done"] else None
+
+        info = _poll(matrix, timeout=30)
+        rows = state.list_train_steps(worker="train-0")
+        summ = state.train_summary()
+        check(info is not None and [r["step"] for r in rows]
+              == list(range(TRAINER_STEPS))
+              and all("compute" in r["phases"] for r in rows),
+              f"the GCS step matrix: {rows}, {info}")
+        check(not info["stalled"] and summ["stalled"] == [],
+              f"the GCS reads a stall: {summ}")
+        log("trainer", f"summary goodput ratio {g['goodput_ratio']:.4f} "
+            f"(productive {g['productive_s']:.3f} s of "
+            f"{g['accounted_s']:.3f} s; lost "
+            + ", ".join(f"{k} {v:.3f}" for k, v in g["lost_s"].items())
+            + " s); phase sums over the timed steps "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        summary["phase_seconds"].items())
+            + f" s; {len(rows)} step rows for train-0 in the GCS, done, "
+            f"no stall; in process: goodput ratio "
+            f"{local['goodput']['goodput_ratio']:.4f}, warmup step "
+            f"(recompiling) {local['goodput']['lost_s']['recompiling']:.3f}"
+            f" s; {card}")
+
+        fpt = flops_per_token(cfg, TRAIN_SEQ)
+        for side, s in (("trainer", summary), ("in_process", local)):
+            out[f"{side}_tok_s"] = s["tokens_per_sec"]
+            out[f"{side}_mfu"] = fpt * s["tokens_per_sec"] / PEAK_FLOPS[
+                torch.bfloat16]
+        out["tok_s_ratio"] = out["trainer_tok_s"] / out["in_process_tok_s"]
+        out.update(losses=losses, launches=dict(zip(names, local_counts)),
+                   worker_launches=dict(zip(names, seen["launches"])),
+                   goodput=g, phase_seconds=summary["phase_seconds"],
+                   step_walls=summary["step_walls"],
+                   in_process_goodput=local["goodput"])
+        log("trainer", f"tokens/s through the trainer "
+            f"{out['trainer_tok_s']:.0f} (MFU {100 * out['trainer_mfu']:.2f}"
+            f"%), in process {out['in_process_tok_s']:.0f} (MFU "
+            f"{100 * out['in_process_mfu']:.2f}%): ratio "
+            f"{out['tok_s_ratio']:.4f}; step walls "
+            + ", ".join(f"{x:.4f}" for x in summary["step_walls"])
+            + f" s; {card}")
+        procs = _cluster_pids()
+    finally:
+        rt.shutdown()
+        storage.cleanup()
+    deadline = time.monotonic() + 30
+    while True:
+        left = {p: c for p, c in procs.items() if _alive(p, c)}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"processes left after shutdown: {left}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["memory_before_mib"] = mem0
+    out["memory_after_mib"] = gpu_memory_used_mib()
+    check(abs(out["memory_after_mib"] - mem0) < 1024,
+          f"card memory {mem0:.0f} MiB before the cluster, "
+          f"{out['memory_after_mib']:.0f} MiB after")
+
+    # A tiny() bf16 train state on the card through a checkpoint.
+    tcfg = LlamaConfig.tiny(param_dtype=torch.bfloat16)
+    st = create_train_state(init_params(tcfg, 0, dev), device=dev)
+    step = build_train_step(lambda p, b: loss_fn(p, b, tcfg), device=dev)
+    st, _ = step(st, {"tokens": np.random.RandomState(0).randint(
+        0, tcfg.vocab_size, (2, 33))})
+    leaves = _leaves(st.params)
+    tree = {"params": st.params, "step": st.step,
+            "moments": [(st.optimizer.state[p]["exp_avg"],
+                         st.optimizer.state[p]["exp_avg_sq"])
+                        for p in leaves]}
+    back = Checkpoint.from_pytree(tree).to_pytree(device="cuda")
+    check(_tree_cuda_equal(back, tree), "the tiny() bf16 train state did "
+          "not come back from its checkpoint bit for bit on the card")
+    out["checkpoint_tensors"] = 3 * len(leaves)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("trainer", f"tiny() bf16 train state ({3 * len(leaves)} tensors: "
+        f"params and AdamW moments) through Checkpoint.from_pytree / "
+        f"to_pytree(device='cuda'): bit for bit, on the card; shut down: "
+        f"no cluster process left, card memory {mem0:.0f} -> "
+        f"{out['memory_after_mib']:.0f} MiB; the phase took "
+        f"{out['phase_s']:.1f} s; {card}")
+    del st, back, tree
+    return out
+
+
 def serve_ab(tree: str) -> int:
     """``--serve-ab DIR``: the paged mix without its prompts over 512 on a
     dense server, then the whole mix on a paged server, each fresh and
@@ -4928,7 +5210,7 @@ def main() -> int:
     lap("disagg_gates")
     gc.collect()
     torch.cuda.empty_cache()
-    runtime = phase_runtime(dev, card)
+    runtime = phase_runtime(dev, card, serve_tokens)
     lap("runtime")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4955,6 +5237,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     zq = phase_zero_quant(dev, card)
     lap("zero_quant")
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = phase_trainer(dev, card)
+    lap("trainer")
+    tr = trainer["worker_launches"]
     qmono, qef, qover = zq["monolithic"], zq["error_feedback"], zq["overlap"]
     qruns = (qmono, qef, qover)
     zero_b = [a + b for a, b in zip(mono["launches_b1_b3"],
@@ -4970,17 +5257,19 @@ def main() -> int:
                  f"causal bf16")
 
     def bwd_kernel(name, key, outs, replaces, train_launches, zero_launches,
-                   zq_launches):
+                   zq_launches, trainer_launches):
         report = kernel_report(built, f"{name}_kernel")
         f32_report = kernel_report(built, f"{name}_f32_kernel")
         return {
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": replaces,
-            "launches": train_launches + zero_launches + zq_launches,
+            "launches": (train_launches + zero_launches + zq_launches
+                         + trainer_launches),
             "launches_by_path": {"train": train_launches,
                                  "zero_train": zero_launches,
-                                 "zero_quant": zq_launches},
+                                 "zero_quant": zq_launches,
+                                 "trainer_worker": trainer_launches},
             "max_abs_err": max(r[f"bf16_{o}_err"] for r in bwd_rows
                                for o in outs),
             "f32_max_abs_err": max(r[f"f32_{o}_err"] for r in bwd_rows
@@ -5050,7 +5339,8 @@ def main() -> int:
         "launches": (serve_launches + spec["b1_launches"]
                      + disagg["spec"]["b1_launches"]
                      + runtime["b1_launches"] + app_b1
-                     + train["launches"][0] + zero_b[0] + zq_b[0]),
+                     + train["launches"][0] + zero_b[0] + zq_b[0]
+                     + tr["B1"]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
@@ -5058,7 +5348,8 @@ def main() -> int:
                              "runtime_gpu_actor": runtime["b1_launches"],
                              "serve_app": app_b1,
                              "train": train["launches"][0],
-                             "zero_train": zero_b[0], "zero_quant": zq_b[0]},
+                             "zero_train": zero_b[0], "zero_quant": zq_b[0],
+                             "trainer_worker": tr["B1"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "timed_by": TIMED_BY_GRAPH,
@@ -5086,19 +5377,21 @@ def main() -> int:
         "per_shape": rows,
     }, bwd_kernel("flash_bwd_dkv", "dkv", ("dk", "dv"),
                   "ray_tpu/ops/attention.py:149", train["launches"][1],
-                  zero_b[1], zq_b[1]),
+                  zero_b[1], zq_b[1], tr["B2"]),
         bwd_kernel("flash_bwd_dq", "dq", ("dq",),
                    "ray_tpu/ops/attention.py:211", train["launches"][2],
-                   zero_b[2], zq_b[2]),
+                   zero_b[2], zq_b[2], tr["B3"]),
         ring_kernel("C1", "ring_permute", 378,
                     {"zero_train_overlap": over["launches_c1_c4"][0],
                      "zero_quant_overlap": qover["launches_c1_c6"][0]}),
         ring_kernel("C2", "ring_reduce_scatter", 169,
-                    {"zero_train": mono["launches_c1_c4"][1]}),
+                    {"zero_train": mono["launches_c1_c4"][1],
+                     "trainer_worker": tr["C2"]}),
         ring_kernel("C3", "ring_allgather", 146,
                     {"zero_train": mono["launches_c1_c4"][2],
                      "zero_quant": qmono["launches_c1_c6"][2]
-                     + qef["launches_c1_c6"][2]}),
+                     + qef["launches_c1_c6"][2],
+                     "trainer_worker": tr["C3"]}),
         ring_kernel("C4", "ring_allreduce", 107,
                     {"zero_replicated_f32": c4_launches}),
         qring_kernel("C5", "ring_qhop", 121,
@@ -5113,7 +5406,7 @@ def main() -> int:
         "disagg_gates": disagg_gates, "runtime": runtime,
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
-        "zero_quant": zq}),
+        "zero_quant": zq, "trainer": trainer}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ an environment variable ``RAY_TPU_<name>`` on any process, or by a
 propagated to every other process through the GCS at registration time. The
 names and defaults are the reference's, the serve knobs included. Only the
 settings that a module of the port reads are defined: the rest of the
-reference's table comes with the module that reads it (ROADMAP A4, A5, A8).
+reference's table comes with the module that reads it (ROADMAP A4, A6, A8
+and the Data slice).
 """
 
 from __future__ import annotations
@@ -293,6 +294,35 @@ _define("profiler_max_unique_stacks", int, 10_000,
 _define("profiler_max_duration_s", float, 60.0,
         "Cap on a single worker-side profile RPC window (long profiles "
         "are chunked by the util.state.profile client).")
+
+# --- train goodput and the GCS step matrix (observability/goodput.py) ---
+_define("train_goodput_instrumentation", bool, True,
+        "Per-step train phase ledger + goodput accounting "
+        "(observability.goodput): rtpu_train_step_phase_seconds{phase} "
+        "histograms, the rtpu_train_goodput_ratio gauge, train.step "
+        "spans, and step-row heartbeats into the GCS step matrix "
+        "(report_train_steps). Off = the uninstrumented step loop.")
+_define("train_steps_buffer_size", int, 4096,
+        "Bound on the GCS train-step matrix ring (report_train_steps/"
+        "list_train_steps rows across all workers).")
+_define("train_straggler_threshold", float, 1.5,
+        "A train worker whose windowed mean step time exceeds the pod "
+        "median by this factor is flagged with a TRAIN_STRAGGLER "
+        "cluster event naming its dominant phase.")
+_define("train_straggler_window", int, 8,
+        "Per-worker window (steps) of the straggler detector's means; "
+        "also the re-flag suppression distance (one event per "
+        "straggler episode, not one per step).")
+_define("train_stall_heartbeats", int, 3,
+        "A train worker missing this many expected step-report "
+        "heartbeats (expected interval = its recent median step time) "
+        "is declared stalled: TRAIN_STALL event + automatic "
+        "dump_stacks capture of the worker attached to the event.")
+_define("train_stall_min_timeout_s", float, 10.0,
+        "Floor on the stall watchdog timeout, so fast steps (ms-class "
+        "on the CPU) don't declare a stall on scheduler jitter.")
+_define("train_stall_check_interval_s", float, 1.0,
+        "Period of the GCS train stall watchdog sweep.")
 
 
 

@@ -165,6 +165,21 @@ class GcsServer:
         # trusting a hash (serve/llm/kv_cache.stable_hash_prefix).
         self.prefix_index: Dict[str, Dict[str, Any]] = {}
 
+        # Cross-worker train step matrix: every instrumented train /
+        # learner worker publishes one row per step (worker, step,
+        # wall_s, per-phase seconds, goodput snapshot). The row doubles
+        # as the worker's step heartbeat: the straggler detector runs
+        # on ingest, the stall watchdog ages the per-worker last-report
+        # timestamps and auto-captures stacks from workers that go
+        # quiet mid-run.
+        self.train_steps: deque = deque(
+            maxlen=GlobalConfig.train_steps_buffer_size)
+        self._train_step_seq = 0
+        self.train_workers: Dict[str, Dict[str, Any]] = {}
+        self._train_straggler = None  # lazy StragglerDetector
+        self._train_stragglers: deque = deque(maxlen=64)
+        self._train_watchdog_task = None
+
         # Serve cost-accounting ring (observability/accounting.py):
         # every finished serve request publishes one cost row (tenant,
         # lane, trace_id, tokens, block/chip-seconds). Bounded deque +
@@ -193,6 +208,8 @@ class GcsServer:
     def start(self) -> int:
         port = self.server.start()
         self._health_task = get_io_loop().submit(self._health_loop())
+        self._train_watchdog_task = get_io_loop().submit(
+            self._train_watchdog_loop())
         for actor_id in self._reschedule_on_start:
             get_io_loop().submit(self._schedule_actor(actor_id))
         self._reschedule_on_start = []
@@ -322,6 +339,7 @@ class GcsServer:
             "report_ctrl_decision", "list_ctrl_decisions",
             "get_trace", "list_traces", "trace_stats",
             "report_prefix_index", "lookup_prefix_index",
+            "report_train_steps", "list_train_steps", "train_summary",
             "report_serve_accounting", "list_serve_accounting",
             "serve_accounting_summary",
         ]:
@@ -443,6 +461,161 @@ class GcsServer:
                         "tiers": dict(rec["tiers"]),
                         "age_s": age}
         return out
+
+    # --------------------------------------------------- train step matrix
+    def _train_detector(self):
+        if self._train_straggler is None:
+            from ray_tpu_torch.observability.goodput import StragglerDetector
+
+            self._train_straggler = StragglerDetector(
+                threshold=float(GlobalConfig.train_straggler_threshold),
+                window=int(GlobalConfig.train_straggler_window))
+        return self._train_straggler
+
+    async def _h_report_train_steps(self, row=None, rows=None):
+        """Train/learner workers publish step rows here (worker, step,
+        wall_s, phases{phase: seconds}, optional goodput snapshot). One
+        row per step, batched via `rows` when a worker catches up. The
+        report IS the worker's heartbeat — the stall watchdog ages
+        these, and a row with ``done: true`` marks the worker idle so a
+        finished run never trips it. The straggler detector runs on
+        ingest and records TRAIN_STRAGGLER naming the dominant phase."""
+        for r in list(rows or []) + ([row] if row else []):
+            try:
+                self._ingest_train_row(dict(r))
+            except Exception as e:
+                print(f"[gcs] WARNING: dropping malformed train step row: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr,
+                      flush=True)
+        return True
+
+    def _ingest_train_row(self, row: dict) -> None:
+        worker = str(row.get("worker") or "")
+        if not worker:
+            return
+        info = self.train_workers.setdefault(worker, {
+            "worker": worker, "walls": deque(maxlen=32), "steps": 0,
+            "last_step": None, "stalled": False, "done": False,
+            "straggler": None, "goodput": None,
+        })
+        info["last_ts"] = time.monotonic()
+        for key in ("worker_id", "node_id"):
+            if row.get(key) is not None:
+                info[key] = row[key]
+        if row.get("done"):
+            info["done"] = True
+            info["stalled"] = False
+            if isinstance(row.get("goodput"), dict):
+                info["goodput"] = dict(row["goodput"])
+            return
+        # Any real step row revives a worker previously marked done or
+        # stalled (next kick / recovered hang).
+        info["done"] = False
+        info["stalled"] = False
+        rec = {
+            "worker": worker,
+            "step": int(row.get("step", 0)),
+            "wall_s": float(row.get("wall_s", 0.0)),
+            "phases": {str(k): float(v)
+                       for k, v in dict(row.get("phases") or {}).items()},
+            "recv_ts": time.time(),
+        }
+        if isinstance(row.get("goodput"), dict):
+            rec["goodput"] = dict(row["goodput"])
+            info["goodput"] = rec["goodput"]
+        self._train_step_seq += 1
+        rec["seq"] = self._train_step_seq
+        self.train_steps.append(rec)
+        info["steps"] += 1
+        info["last_step"] = rec["step"]
+        info["walls"].append(rec["wall_s"])
+        flag = self._train_detector().observe(
+            worker, rec["step"], rec["wall_s"], rec["phases"])
+        if flag:
+            info["straggler"] = flag
+            self._train_stragglers.append(dict(flag, ts=time.time()))
+            node_id = info.get("node_id")
+            self._record_event(
+                "TRAIN_STRAGGLER",
+                f"train worker {worker} is a straggler: mean step "
+                f"{flag['mean_step_s']:.3f}s vs pod median "
+                f"{flag['median_step_s']:.3f}s ({flag['ratio']:.2f}x); "
+                f"dominant phase {flag['dominant_phase']} "
+                f"(+{flag['dominant_excess_s']:.3f}s over peers)",
+                node_id=node_id.hex() if hasattr(node_id, "hex")
+                else node_id,
+                worker=worker, step=flag["step"],
+                ratio=round(float(flag["ratio"]), 3),
+                dominant_phase=flag["dominant_phase"],
+                dominant_excess_s=round(
+                    float(flag["dominant_excess_s"]), 4),
+                mean_step_s=round(float(flag["mean_step_s"]), 4),
+                median_step_s=round(float(flag["median_step_s"]), 4))
+
+    async def _h_list_train_steps(self, worker=None, limit=200):
+        """Newest-last slice of the step-row ring, optionally filtered
+        by worker label."""
+        out = []
+        for rec in self.train_steps:
+            if worker is not None and rec["worker"] != worker:
+                continue
+            out.append(rec)
+        return out[-max(int(limit), 0):]
+
+    async def _h_train_summary(self):
+        """The cross-worker rollup behind `util.state.train_summary()`
+        (the reference's dashboard also serves it as `GET /api/train`):
+        per-worker step stats + stall/straggler
+        flags, the cluster goodput ratio (productive seconds over
+        accounted seconds, weighted by each worker's ledger), lost
+        seconds by cause, and per-phase means over the buffered rows."""
+        now = time.monotonic()
+        phase_tot: Dict[str, float] = defaultdict(float)
+        phase_n: Dict[str, int] = defaultdict(int)
+        for rec in self.train_steps:
+            for ph, s in rec["phases"].items():
+                phase_tot[ph] += s
+                phase_n[ph] += 1
+        workers = []
+        tot_prod = tot_acc = 0.0
+        lost: Dict[str, float] = defaultdict(float)
+        for w in sorted(self.train_workers):
+            info = self.train_workers[w]
+            walls = [s for s in info["walls"]]
+            node_id = info.get("node_id")
+            row = {
+                "worker": w,
+                "steps": info["steps"],
+                "last_step": info["last_step"],
+                "age_s": round(now - info.get("last_ts", now), 3),
+                "mean_step_s": (sum(walls) / len(walls)) if walls else None,
+                "stalled": info["stalled"],
+                "done": info["done"],
+                "straggler": info.get("straggler"),
+                "node_id": node_id.hex() if hasattr(node_id, "hex")
+                           else node_id,
+            }
+            g = info.get("goodput")
+            if g:
+                row["goodput_ratio"] = g.get("goodput_ratio")
+                tot_prod += float(g.get("productive_s") or 0.0)
+                tot_acc += float(g.get("accounted_s") or 0.0)
+                for cause, s in dict(g.get("lost_s") or {}).items():
+                    lost[cause] += float(s)
+            workers.append(row)
+        return {
+            "workers": workers,
+            "steps_in_buffer": len(self.train_steps),
+            "steps_recorded": self._train_step_seq,
+            "goodput_ratio": (tot_prod / tot_acc) if tot_acc else None,
+            "productive_s": tot_prod,
+            "accounted_s": tot_acc,
+            "lost_seconds": dict(lost),
+            "phase_mean_s": {ph: phase_tot[ph] / phase_n[ph]
+                             for ph in phase_tot},
+            "stragglers": list(self._train_stragglers),
+            "stalled": [r["worker"] for r in workers if r["stalled"]],
+        }
 
     # ------------------------------------------------- serve accounting
     def _serve_acct_ledger(self):
@@ -581,6 +754,74 @@ class GcsServer:
                 (rec for rec in reversed(self.serve_accounting)
                  if rec["trace_id"] == trace_id), None)
         return out
+
+    async def _train_watchdog_loop(self):
+        """Stall watchdog: a worker that published step rows and then
+        went quiet for longer than `train_stall_heartbeats` times its
+        own median step wall (floored at `train_stall_min_timeout_s`)
+        is marked stalled and a TRAIN_STALL event is recorded WITH the
+        worker's thread stacks auto-captured via its raylet's
+        dump_stacks — the forensics arrive with the page, not after
+        someone ssh'es in. Workers that reported ``done`` are exempt
+        until their next row."""
+        from statistics import median
+
+        while True:
+            await asyncio.sleep(
+                float(GlobalConfig.train_stall_check_interval_s))
+            if not self.train_workers:
+                continue
+            beats = int(GlobalConfig.train_stall_heartbeats)
+            floor = float(GlobalConfig.train_stall_min_timeout_s)
+            now = time.monotonic()
+            for w, info in list(self.train_workers.items()):
+                if info.get("done") or info.get("stalled"):
+                    continue
+                if not info["steps"]:
+                    continue
+                walls = [s for s in info["walls"] if s > 0]
+                timeout = max(floor,
+                              beats * (median(walls) if walls else 0.0))
+                age = now - info.get("last_ts", now)
+                if age <= timeout:
+                    continue
+                info["stalled"] = True
+                stacks = await self._capture_train_stacks(info)
+                node_id = info.get("node_id")
+                self._record_event(
+                    "TRAIN_STALL",
+                    f"train worker {w} stalled: no step report for "
+                    f"{age:.1f}s (timeout {timeout:.1f}s after "
+                    f"{info['steps']} steps); thread stacks "
+                    + ("attached" if stacks else "unavailable"),
+                    node_id=node_id.hex() if hasattr(node_id, "hex")
+                    else node_id,
+                    worker=w, age_s=round(age, 3),
+                    timeout_s=round(timeout, 3),
+                    last_step=info["last_step"],
+                    stacks=stacks)
+
+    async def _capture_train_stacks(self, info: dict):
+        """Best-effort dump_stacks against the stalled worker's raylet;
+        returns formatted stack text (truncated) or None. Never raises —
+        forensics failing must not take the watchdog down with it."""
+        node_id = info.get("node_id")
+        if node_id is None:
+            return None
+        client = self._client_for_node(node_id)
+        if client is None:
+            return None
+        try:
+            reply = await client.acall(
+                "dump_stacks", worker_id=info.get("worker_id"),
+                timeout=15)
+        except Exception:
+            return None
+        texts = []
+        for whex, rec in (reply or {}).items():
+            if isinstance(rec, dict) and rec.get("stacks"):
+                texts.append(f"worker {whex[:12]}:\n{rec['stacks']}")
+        return "\n\n".join(texts)[:20000] or None
 
     # --------------------------------------------------------------- metrics
     async def _h_metrics_text(self) -> str:

@@ -54,6 +54,14 @@ EVENT_TYPES: Dict[str, str] = {
     "SLO_BURN": "A serve lane is burning its SLO error budget: both "
                 "the fast and slow burn-rate windows exceed their "
                 "thresholds for TTFT/TPOT attainment.",
+    # Train goodput plane (observability/goodput.py + the GCS step
+    # matrix): the straggler event names the dominant phase; the stall
+    # event carries the stalled worker's thread stacks.
+    "TRAIN_STRAGGLER": "A train worker's step time exceeded the pod "
+                       "median by the straggler threshold; names the "
+                       "dominant phase.",
+    "TRAIN_STALL": "A train worker missed its step-report heartbeats; "
+                   "carries the worker's auto-captured thread stacks.",
 }
 
 # Worker exit taxonomy (reference: `WorkerExitType`). The raylet picks
@@ -87,6 +95,8 @@ DEFAULT_SEVERITY: Dict[str, str] = {
     "AUTOSCALE_DOWN": "INFO",
     "PREEMPT_RESCHEDULE": "WARNING",
     "SLO_BURN": "WARNING",
+    "TRAIN_STRAGGLER": "WARNING",
+    "TRAIN_STALL": "ERROR",
 }
 
 _EXIT_SEVERITY = {

@@ -4,12 +4,12 @@
 RPCs, `node_manager.proto:420-422`).
 
 The functions whose GCS handler the port has are the reference's:
-actors, workers, nodes, resources, cluster events, the serve accounting
-ring and the trace store. The rest raise ``NotImplementedError`` naming
-the slice that brings them (the per-node object and memory views and the
-task, job and placement-group listings with the state slice, the train
-step matrix with the trainer, logs, stacks and profiles with the
-device-facing observability).
+actors, workers, nodes, resources, cluster events, the train step
+matrix, the serve accounting ring and the trace store. The rest raise
+``NotImplementedError`` naming the slice that brings them (the per-node
+object and memory views and the task, job and placement-group listings
+with the state slice, logs, stacks and profiles with the device-facing
+observability).
 """
 
 from __future__ import annotations
@@ -104,6 +104,26 @@ def summary_events() -> Dict[str, Any]:
     return _gcs().call("summary_cluster_events", timeout=30)
 
 
+def train_summary() -> Dict[str, Any]:
+    """The training goodput & straggler rollup from the GCS step
+    matrix: per-worker step counts / mean step wall / stall and
+    straggler flags, the cluster goodput ratio (productive seconds
+    over accounted wall), lost seconds by cause
+    (stalled/recompiling/restarting/checkpointing), per-phase mean
+    seconds, and the recent TRAIN_STRAGGLER flags. Answers "which
+    worker is slowing the pod, and in which phase?" without logs."""
+    return _gcs().call("train_summary", timeout=30)
+
+
+def list_train_steps(worker: Optional[str] = None,
+                     limit: int = 200) -> List[Dict[str, Any]]:
+    """Newest-last rows of the cross-worker train step matrix (worker,
+    step, wall_s, per-phase seconds, goodput snapshot), optionally
+    filtered by worker label (e.g. ``train-0``, ``rank1``)."""
+    return _gcs().call("list_train_steps", worker=worker, limit=limit,
+                       timeout=30)
+
+
 def serve_accounting(top_n: Optional[int] = None,
                      trace_id: Optional[str] = None) -> Dict[str, Any]:
     """The serve cost-accounting rollup from the GCS accounting ring:
@@ -179,7 +199,6 @@ def trace_critical_path(tree_or_id: Any) -> Dict[str, Any]:
 
 # Not ported yet: each raises, naming the slice that brings it.
 _STATE = "the state slice (jobs, tasks, placement groups, objects)"
-_TRAIN = "the trainer slice (the GCS train step matrix)"
 _DEVICE = ("the device-facing observability slice (the program ring, "
            "the workers' logs, stacks and device-profile bracket)")
 
@@ -191,8 +210,6 @@ memory_summary = _not_ported("memory_summary", _STATE)
 summary = _not_ported("summary", _STATE)
 summary_tasks = _not_ported("summary_tasks", _STATE)
 summary_actors = _not_ported("summary_actors", _STATE)
-train_summary = _not_ported("train_summary", _TRAIN)
-list_train_steps = _not_ported("list_train_steps", _TRAIN)
 xla_summary = _not_ported("xla_summary", _DEVICE)
 list_xla_programs = _not_ported("list_xla_programs", _DEVICE)
 get_log = _not_ported("get_log", _DEVICE)

@@ -61,7 +61,11 @@ def test_port_files_found():
             "runtime_context.py", "scheduling_strategies.py",
             "placement_group.py", "autoscale.py", "multiplex.py",
             "handle.py", "replica.py", "router.py", "controller.py",
-            "api.py", "state.py", "app.py"} <= names
+            "api.py", "state.py", "app.py", "trainer.py",
+            "cuda_backend.py", "torch_backend.py", "backend.py",
+            "checkpoint.py", "sharded_checkpoint.py", "storage.py",
+            "session.py", "worker_group.py", "backend_executor.py",
+            "goodput.py", "train.py"} <= names
     assert (ROOT / "ray_tpu_torch/_private/csrc/arena_store.cpp").exists()
 
 
@@ -273,6 +277,15 @@ def test_ring_group_default_device_raises():
         RingGroup(4)
 
 
+def test_run_pod_training_default_device_raises():
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train.cuda_backend import run_pod_training
+
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_pod_training(model_config=LlamaConfig.tiny(), steps=1)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """A CPU tensor never reaches the CUDA wrapper's launch; the public
     function gives it the plain version instead, by device alone."""
@@ -281,3 +294,91 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q = torch.zeros((1, 128, 2, 64))
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd_cuda(q, q, q)
+
+
+TRAIN_SETTINGS = ("train_goodput_instrumentation", "train_steps_buffer_size",
+                  "train_straggler_threshold", "train_straggler_window",
+                  "train_stall_heartbeats", "train_stall_min_timeout_s",
+                  "train_stall_check_interval_s")
+
+
+def test_train_settings_are_the_reference_s():
+    """The seven ``train_*`` settings came with their readers (the
+    goodput ledger, the GCS step matrix and its watchdog), with the
+    reference's types and defaults."""
+    from ray_tpu._private.config import _REGISTRY as REF
+    from ray_tpu_torch._private.config import _REGISTRY
+
+    for name in TRAIN_SETTINGS:
+        assert name in _REGISTRY, name
+        assert (_REGISTRY[name].type, _REGISTRY[name].default) == \
+            (REF[name].type, REF[name].default), name
+
+
+def test_train_imports_are_lazy():
+    """Importing Train, its backends and its observability builds no
+    kernel, imports no triton and touches no CUDA: a kernel is built
+    inside the call that launches it."""
+    import subprocess
+
+    probe = (
+        "import sys, torch\n"
+        "import ray_tpu_torch.train as t\n"
+        "from ray_tpu_torch.train import (cuda_backend, torch_backend,\n"
+        "    sharded_checkpoint, storage, trainer)\n"
+        "from ray_tpu_torch.observability import goodput, train\n"
+        "from ray_tpu_torch.ops import _build\n"
+        "assert 'triton' not in sys.modules\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not _build._loaded\n"
+        "assert not [m for m in sys.modules\n"
+        "            if m.split('.')[0] in ('jax', 'ray_tpu')]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_trainer_workers_lease_gpus_and_are_port_processes():
+    """On a CPU cluster with two faked cards: a ``use_gpu=True`` worker
+    holds a GPU lease (its ``metadata()`` reports the lease's ids and the
+    raylet set ``CUDA_VISIBLE_DEVICES``), every process the node spawned
+    for the trainer's workers runs a ``ray_tpu_torch.`` module, and a GPU
+    gang of two raises, naming the cross-process collective slice."""
+    import ray_tpu_torch
+    from ray_tpu_torch.accelerators import gpu as G
+    from ray_tpu_torch.train import (
+        CudaTrainer, ScalingConfig, TrainingFailedError,
+    )
+    from ray_tpu_torch.train._internal.worker_group import WorkerGroup
+    from ray_tpu_torch.train.cuda_backend import pod_train_loop
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(G.FAKE_GPUS_ENV, "2")
+        mp.setenv(G.FAKE_GPU_TYPE_ENV, "H100")
+        ray_tpu_torch.init(num_cpus=4, object_store_memory=64 * 1024 * 1024)
+    try:
+        assert ray_tpu_torch.cluster_resources().get("GPU") == 2
+        group = WorkerGroup(1, ScalingConfig(num_workers=1, use_gpu=True)
+                            .worker_resources())
+        meta = group.metadata()
+        assert len(meta[0]["gpu_ids"]) == 1
+        visible = group.execute(
+            lambda: os.environ.get("CUDA_VISIBLE_DEVICES"))
+        assert visible == [str(meta[0]["gpu_ids"][0])]
+        assert ray_tpu_torch.available_resources().get("GPU") == 1
+        cmds = [c for c in map(_cmdline, _descendants(os.getpid()))
+                if c is not None]
+        assert any(str(meta[0]["pid"]) == str(p)
+                   for p in _descendants(os.getpid()))
+        for cmd in cmds:
+            assert "-m" in cmd, cmd
+            assert cmd[cmd.index("-m") + 1].startswith("ray_tpu_torch."), cmd
+        group.shutdown()
+
+        with pytest.raises(TrainingFailedError,
+                           match="cross-process collective slice"):
+            CudaTrainer(pod_train_loop, scaling_config=ScalingConfig(
+                num_workers=2, use_gpu=True)).fit()
+    finally:
+        ray_tpu_torch.shutdown()
