@@ -31,8 +31,10 @@ Phases, one line each; any failure raises and exits non-zero:
               (padded to 128 by the wrappers) and with the full mask at
               S=256; then B1 at the draft prefill's shapes (4 heads of 16,
               S 128, 256 and 512, f32 and bf16).
-4. serve   -- Llama-3-8B at full width and depth (random weights from a
-              seed, int8 weight-only, ``attn_impl="flash"``) answers 12
+4. serve   -- Llama-3-8B at full width and half its depth (16 of 32
+              layers, ``SERVE_LAYERS``: the script's time limit; random
+              weights from a seed, int8 weight-only,
+              ``attn_impl="flash"``) answers 12
               requests from 4 client threads through ``LLMServer``; every
               prefill must have launched B1 once per layer.
 5. parity  -- for 3 of those prompts the engine's greedy tokens equal the
@@ -177,7 +179,47 @@ Phases, one line each; any failure raises and exits non-zero:
               1 GiB. Printed: cluster start, worker ready and fit wall
               seconds; tokens/s and MFU through the trainer and in
               process, and their ratio; the goodput ratio and the phase
-              sums.
+              sums. Before step 0 the first batch's token min and max
+              against the vocabulary; a failed in-process run prints its
+              error's text, a failed ``fit()`` every worker's whole
+              stderr, and either fails the phase as it was (nothing
+              retries).
+6j. collective -- (run after phase 10, qring) collectives across
+              processes through ``util.collective``'s ``cuda`` backend: a
+              cluster (``init(num_gpus=1)``) and two actors of 0.5 GPU,
+              then four of 0.25 GPU (leases [0], CUDA_VISIBLE_DEVICES "0",
+              no JAX module), joined by ``create_collective_group(...,
+              backend="cuda")``; each rank launches its own part of C2,
+              C3, C4 and C6 (``ring_rank_launch``) against its peers'
+              memory opened through CUDA IPC, its stream ordered on their
+              flag words. Gates: at 65536 rows a rank, n 2 and 4, f32 and
+              bf16, every op, C2, C3, C4 and C6 bit for bit equal to the
+              in-process kernel (a ``RingGroup`` in the rank's process)
+              and the plain version on the stacked inputs; the host-level
+              API on the card (allreduce, reducescatter held to C4 then
+              the split, allgather, broadcast, reduce, barrier, send/recv)
+              equal to its CPU path for the same seeds, every call counted
+              on ``rtpu_collective_ops_total{op,backend="cuda",dtype}``;
+              50 back-to-back calls alternating the four kinds, no result
+              differing; exact rank-form launch counts. At full size (the
+              ZeRO cell's flat bf16 gradient, 4 layers, per rank, C3 on
+              its shard; C6 at the quantized ZeRO size, f32) a fixed
+              sample of rows against the plain fold over them,
+              regenerated from each rank's seed (C6: within the int8
+              ring's error bound of the exact sum), and each kind's
+              kernel time (CUDA events in rank 0), the call's wall and the
+              staged bytes beside the in-process kernel's time and the
+              library's (gloo's allreduce, allgather or reduce_scatter of
+              the card tensors over the group's process group). Then a
+              stalled peer (one rank makes no second call) and a dead
+              peer (its actor killed between two calls): every other rank
+              raises within 10 s naming it; and a peer stalled inside C6
+              past the ring's wait: every rank raises within 10 s, the
+              stalled one finding the call voided by the others' expiry
+              (no rank returns what the released streams left). The card's
+              compute mode and the
+              transport are printed; after shutdown no cluster process is
+              left and the card's memory is back within 1 GiB.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -271,6 +313,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import glob
 import json
 import os
 import re
@@ -349,6 +392,10 @@ TOL_PARITY_F32 = 1e-4
 ENGINE = {"num_slots": 8, "max_seq_len": 1024,
           "prefill_buckets": (128, 256, 512)}
 N_REQUESTS, N_CLIENTS, N_PARITY = 12, 4, 3
+# The served model's depth (of Llama-3-8B's 32): every serving phase
+# (4-6h) runs it, so it sets most of the script's time, which must stay
+# within its limit (1200 s with the build).
+SERVE_LAYERS = 16
 
 
 def log(phase: str, msg: str) -> None:
@@ -914,7 +961,7 @@ def phase_draft_b1(dev):
 def serve_config():
     from ray_tpu_torch.models.llama import LlamaConfig
 
-    return LlamaConfig.llama3_8b(attn_impl="flash",
+    return LlamaConfig.llama3_8b(n_layers=SERVE_LAYERS, attn_impl="flash",
                                  param_dtype=torch.bfloat16)
 
 
@@ -1361,7 +1408,8 @@ def _top2_gap(params, cfg, prompt, tokens, i, dev):
 def _agreement(phase, paged, dense, params, cfg, dev):
     """Requests of the paged run whose tokens equal the dense run's, and
     for the others the first divergence and the top-2 logit gap there
-    (printed, not required: bf16/int8 at full depth, other shapes)."""
+    (printed, not required: bf16/int8 at the served depth, other
+    shapes)."""
     by_prompt = {tuple(r["prompt"]): res["tokens"] for r, res in dense}
     same, diffs = 0, []
     for r, res in paged:
@@ -4905,6 +4953,16 @@ def _tree_cuda_equal(got, want):
     return got == want
 
 
+def _print_worker_stderr(logs_dir):
+    """Print every worker's stderr log of the session, whole."""
+    for path in sorted(glob.glob(os.path.join(logs_dir, "worker-*.err"))):
+        with open(path, errors="replace") as f:
+            text = f.read()
+        print(f"[trainer] ---- {os.path.basename(path)}, {len(text)} "
+              f"characters, whole ----\n{text}\n[trainer] ---- end of "
+              f"{os.path.basename(path)} ----", flush=True)
+
+
 def phase_trainer(dev, card):
     """Train on the port's runtime; see the module docstring (6i)."""
     import ray_tpu_torch as rt
@@ -4938,14 +4996,30 @@ def phase_trainer(dev, card):
         f"{TRAIN_SEQ} targets, {TRAINER_STEPS} timed steps after the "
         f"warmup step; {card}")
 
+    # The first batch, as run_pod_training makes it (seed 0; the same in
+    # the worker): its tokens must index the embedding.
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype("int32")
+    log("trainer", f"first batch {tokens.shape}: token min {tokens.min()}, "
+        f"max {tokens.max()}, vocabulary {cfg.vocab_size}")
+    check(0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+          "the first batch's tokens lie outside the vocabulary")
+
     # In process, before any cluster: the rows it would publish go
-    # nowhere, so the step matrix below holds the worker's alone.
+    # nowhere, so the step matrix below holds the worker's alone. A CUDA
+    # error fails the phase with its text (nothing retries).
     for k in kernels:
         k.launches = 0
     losses = []
     t0 = time.perf_counter()
-    local = run_pod_training(**args, device=dev,
-                             report=lambda m: losses.append(m["loss"]))
+    try:
+        local = run_pod_training(**args, device=dev,
+                                 report=lambda m: losses.append(m["loss"]))
+        torch.cuda.synchronize(dev)
+    except Exception as e:
+        log("trainer", f"the in-process run failed: {type(e).__name__}: "
+            f"{e}")
+        raise
     out["in_process_s"] = time.perf_counter() - t0
     local_counts = [k.launches for k in kernels]
     gc.collect()
@@ -4957,21 +5031,28 @@ def phase_trainer(dev, card):
 
     mem0 = gpu_memory_used_mib()
     t0 = time.perf_counter()
-    rt.init(num_gpus=1)
+    session = rt.init(num_gpus=1)["session_dir"]
     out["cluster_start_s"] = time.perf_counter() - t0
     storage = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
     try:
         t_fit = time.time()
         t0 = time.perf_counter()
-        result = CudaTrainer(
-            _trainer_loop, train_loop_config=dict(
-                model_config=cfg, steps=TRAINER_STEPS,
-                batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ + 1, seed=0),
-            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
-            cuda_config=CudaConfig(weight_update="sharded",
-                                   mesh_axes={"data": n}),
-            run_config=RunConfig(name="trainer",
-                                 storage_path=storage.name)).fit()
+        try:
+            result = CudaTrainer(
+                _trainer_loop, train_loop_config=dict(
+                    model_config=cfg, steps=TRAINER_STEPS,
+                    batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ + 1, seed=0),
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                cuda_config=CudaConfig(weight_update="sharded",
+                                       mesh_axes={"data": n}),
+                run_config=RunConfig(name="trainer",
+                                     storage_path=storage.name)).fit()
+        except Exception as e:
+            # The worker's whole stderr (a device-side assert prints its
+            # text there), then the failure as it was.
+            _print_worker_stderr(os.path.join(session, "logs"))
+            log("trainer", f"fit() failed: {type(e).__name__}: {e}")
+            raise
         out["fit_s"] = time.perf_counter() - t0
         summary, seen = result.metrics_dataframe[0], result.metrics
         out["worker_ready_s"] = seen["entered"] - t_fit
@@ -5095,6 +5176,767 @@ def phase_trainer(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 6j: collectives across processes (util.collective's cuda backend).
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_NS = (2, 4)           # ranks: 2 at 0.5 GPU (gates), 4 at 0.25
+COLLECTIVE_GATE_ROWS = 65536     # rows of 128 a rank at the bitwise gates
+COLLECTIVE_API_ROWS = 4096       # the host-level API and b2b calls
+COLLECTIVE_B2B = 50              # back-to-back calls, alternating kinds
+COLLECTIVE_TIMED = 3             # timed calls of a kind at full size
+COLLECTIVE_WAIT_S = 2.0          # the ring's wait deadline, failure cases
+COLLECTIVE_DEADLINE_S = 10.0     # a stalled or dead peer: the others raise
+COLLECTIVE_STALL_S = 3.0         # a peer's sleep inside C6 (past the wait)
+COLLECTIVE_ROUND_S = 60.0        # the groups' coordinator and gloo rounds
+COLLECTIVE_OPS = ("sum", "max", "min", "prod")
+# The rank form's kernels, in process_ring.KERNELS' order, with the
+# in-process key, the name in the kernels line and the line it replaces.
+COLLECTIVE_KERNELS = (
+    ("allreduce", "C4", "ring_allreduce_rank",
+     "ray_tpu/util/collective/pallas/ring.py:107"),
+    ("reducescatter", "C2", "ring_reduce_scatter_rank",
+     "ray_tpu/util/collective/pallas/ring.py:169"),
+    ("allgather", "C3", "ring_allgather_rank",
+     "ray_tpu/util/collective/pallas/ring.py:146"),
+    ("quantized_allreduce", "C6", "ring_qallreduce_rank",
+     "ray_tpu/util/collective/pallas/quantized.py:49"))
+
+
+def _collective_member(rt):
+    """A rank of 6j's groups: a GPU actor implementing the
+    ``_init_collective`` protocol (defined here so that the script's
+    import of the port is the workers' too). Inputs are made on the card
+    from a seed, in seeded pieces, so any rank can regenerate any rank's
+    rows without the whole stack."""
+
+    @rt.remote(num_gpus=0.25)
+    class Member:
+        PIECE = 1 << 24              # elements of one seeded piece
+
+        def __init__(self):
+            self.options = {}
+
+        def ready(self):
+            import os as _os
+            import sys as _sys
+
+            from ray_tpu_torch.util.collective import process_ring
+
+            torch.zeros(1, device="cuda")
+            process_ring._lib()          # the ring library, built already
+            with open("/proc/self/cmdline", "rb") as f:
+                cmdline = [a.decode() for a in f.read().split(b"\0") if a]
+            return {"pid": _os.getpid(), "cmdline": cmdline,
+                    "gpu_ids": rt.get_gpu_ids(),
+                    "cuda_visible_devices":
+                        _os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device_name": torch.cuda.get_device_name(0),
+                    "jax_modules": sorted(
+                        m for m in _sys.modules
+                        if m.split(".")[0] in ("jax", "ray_tpu"))}
+
+        def set_options(self, options):
+            self.options = dict(options)
+            return True
+
+        def _init_collective(self, world_size, rank, backend, group_name):
+            from ray_tpu_torch.util import collective as col
+
+            col.init_collective_group(world_size, rank, backend=backend,
+                                      group_name=group_name, **self.options)
+            return True
+
+        def destroy(self, g):
+            from ray_tpu_torch.util import collective as col
+
+            col.destroy_collective_group(g)
+            gc.collect()
+            torch.cuda.empty_cache()
+            return True
+
+        def transport(self, g):
+            from ray_tpu_torch.util.collective.collective import _group_mgr
+
+            return _group_mgr.get_group(g).ring.transport
+
+        def reset_counts(self):
+            from ray_tpu_torch.util.collective import process_ring
+
+            for k in process_ring.KERNELS:
+                k.launches = 0
+            return True
+
+        def counts(self):
+            from ray_tpu_torch.util.collective import process_ring
+
+            return [k.launches for k in process_ring.KERNELS]
+
+        @staticmethod
+        def _group(g):
+            from ray_tpu_torch.util.collective.collective import _group_mgr
+
+            grp = _group_mgr.get_group(g)
+            return grp, grp.world_size, grp.rank, grp.device
+
+        @classmethod
+        def _piece(cls, dev, seed, rank, i, dtype):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed((seed * 64 + rank) * 100003 + i)
+            return torch.randn(cls.PIECE, generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype)
+
+        @classmethod
+        def _input(cls, dev, seed, rank, elems, dtype, lo=0, hi=None):
+            """Elements [lo, hi) of rank's input (default: all of it)."""
+            hi = elems if hi is None else hi
+            out = torch.empty(hi - lo, dtype=dtype, device=dev)
+            for i in range(lo // cls.PIECE, -(-hi // cls.PIECE)):
+                a, b = max(lo, i * cls.PIECE), min(hi, (i + 1) * cls.PIECE)
+                out[a - lo:b - lo] = cls._piece(dev, seed, rank, i, dtype)[
+                    a - i * cls.PIECE:b - i * cls.PIECE]
+            return out
+
+        def gates(self, g, rows):
+            """C2, C3, C4 (f32, bf16, every op) and C6 (f32) across the
+            processes, each against the in-process kernel (a RingGroup of n
+            virtual ranks in this process) and the plain version on the
+            stacked inputs, bit for bit."""
+            from ray_tpu_torch.util.collective import RingGroup
+            from ray_tpu_torch.util.collective import quantized as Q
+            from ray_tpu_torch.util.collective import ring as R
+            from ray_tpu_torch.util.collective.types import ReduceOp
+
+            grp, n, r, dev = self._group(g)
+            ref = RingGroup(n, dev)
+            ops = {"sum": ReduceOp.SUM, "max": ReduceOp.MAX,
+                   "min": ReduceOp.MIN, "prod": ReduceOp.PRODUCT}
+            bad, names = [], []
+
+            def stack(seed, rows_, dtype):
+                return torch.stack([
+                    self._input(dev, seed, p, rows_ * 128, dtype)
+                    for p in range(n)]).view(n, rows_, 128)
+
+            def hold(name, got, kernel, plain):
+                names.append(name)
+                if got.shape != kernel.shape:
+                    bad.append(f"{name}: shape {tuple(got.shape)}")
+                elif not (torch.equal(got, kernel)
+                          and torch.equal(got, plain)):
+                    to_k = (got.float() - kernel.float()).abs().max()
+                    to_p = (got.float() - plain.float()).abs().max()
+                    bad.append(f"{name}: max abs diff to the in-process "
+                               f"kernel {to_k.item()}, to the plain "
+                               f"version {to_p.item()}")
+
+            seed = 100
+            for dtype in (torch.float32, torch.bfloat16):
+                for op in COLLECTIVE_OPS:
+                    seed += 1
+                    s = stack(seed, rows, dtype)
+                    hold(f"C4 {dtype} {op}",
+                         grp.ring_collective("allreduce", s[r], ops[op]),
+                         R.ring_allreduce(s, op, group=ref)[r],
+                         R.ring_allreduce(s, op, impl="plain")[r])
+                    hold(f"C2 {dtype} {op}",
+                         grp.ring_collective("reducescatter", s[r], ops[op]),
+                         R.ring_reduce_scatter(s, op, group=ref)[r],
+                         R.ring_reduce_scatter(s, op, impl="plain")[r])
+                    del s
+                seed += 1
+                s = stack(seed, rows // n, dtype)
+                hold(f"C3 {dtype}", grp.ring_collective("allgather", s[r]),
+                     R.ring_allgather(s, group=ref)[r],
+                     R.ring_allgather(s, impl="plain")[r])
+                del s
+            s = stack(seed + 1, rows, torch.float32)
+            hold("C6 f32", grp.ring_collective("quantized_allreduce", s[r]),
+                 Q.quantized_ring_allreduce(s, group=ref)[r],
+                 Q.quantized_ring_allreduce(s, impl="plain")[r])
+            del s
+            ref.check()
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+            return {"cases": names, "bad": bad}
+
+        def api(self, g, g_cpu, rows):
+            """The host-level API on the card against its CPU path (a
+            ``device="cpu"`` group of the same ranks) for the same seeds;
+            barrier, send / recv; the op counter."""
+            from ray_tpu_torch.observability.collective import \
+                collective_metrics
+            from ray_tpu_torch.util import collective as col
+
+            grp, n, r, dev = self._group(g)
+            x = self._input(dev, 900, r, rows * 128,
+                            torch.float32).view(rows, 128)
+            # (the counter by key: an attribute named "ops" beside torch
+            # makes cloudpickle ship torch.ops, which cannot be pickled)
+            def counted_ops():
+                return dict(vars(collective_metrics())["ops"]._snapshot()[
+                    "data"])
+
+            calls = (
+                ("allreduce", lambda gg, t: col.allreduce(t, gg)),
+                ("reducescatter", lambda gg, t: col.reducescatter(t, gg)),
+                ("allgather", lambda gg, t: torch.stack(col.allgather(t, gg))),
+                ("broadcast", lambda gg, t: col.broadcast(t, n - 1, gg)),
+                ("reduce", lambda gg, t: col.reduce(t, 0, gg)))
+            # The CPU path first: its group is of the cuda backend too,
+            # and the counter below holds the card's calls alone.
+            cpu = {name: fn(g_cpu, x.cpu()) for name, fn in calls}
+            before = counted_ops()
+            bad, card = [], {}
+            for name, fn in calls:
+                card[name] = fn(g, x)
+                if not (card[name].is_cuda
+                        and torch.equal(card[name].cpu(), cpu[name])):
+                    bad.append(name)
+            if not torch.equal(card["reducescatter"], torch.tensor_split(
+                    card["allreduce"], n, dim=0)[r]):
+                bad.append("reducescatter is not C4 then the split")
+            col.barrier(g)
+            want = {f"{op},cuda,float32": 1.0 for op, _ in calls}
+            want["barrier,cuda,unknown"] = 1.0
+            if r == 0:
+                col.send(x, n - 1, g)
+                want["send,cuda,float32"] = 1.0
+            if r == n - 1:
+                got = col.recv(0, g)
+                want["recv,cuda,unknown"] = 1.0
+                if not (got.is_cuda and torch.equal(got, self._input(
+                        dev, 900, 0, rows * 128, torch.float32).view(
+                            rows, 128))):
+                    bad.append("send/recv")
+            after = counted_ops()
+            counted = {k: v - before.get(k, 0.0) for k, v in after.items()
+                       if k.split(",")[1] == "cuda"
+                       and v != before.get(k, 0.0)}
+            if counted != want:
+                bad.append(f"rtpu_collective_ops_total {counted} != {want}")
+            return {"bad": bad, "counted": counted}
+
+        def back_to_back(self, g, rows, calls):
+            """calls alternating C4, C2, C3 and C6 on the same input: every
+            result of a kind equal to its first."""
+            grp, n, r, dev = self._group(g)
+            x = self._input(dev, 950, r, rows * 128,
+                            torch.float32).view(rows, 128)
+            kinds = ("allreduce", "reducescatter", "allgather",
+                     "quantized_allreduce")
+            first, differ = {}, []
+            t0 = time.perf_counter()
+            for i in range(calls):
+                y = grp.ring_collective(kinds[i % 4], x)
+                if kinds[i % 4] not in first:
+                    first[kinds[i % 4]] = y
+                elif not torch.equal(y, first[kinds[i % 4]]):
+                    differ.append(i)
+            return {"differ": differ, "wall_s": time.perf_counter() - t0}
+
+        def full(self, g, kind, elems, seed, timed):
+            """One kind at the full size: a warm call, then ``timed`` calls
+            (the kernels' device time from CUDA events in this rank, the
+            call's wall, the staged bytes); then a fixed sample of the
+            result's rows (8 at each end of each chunk) against the plain
+            fold over those rows, regenerated from every rank's seed (C6:
+            against the exact sum, within the int8 ring's error bound)."""
+            from ray_tpu_torch.util.collective import ring as R
+
+            grp, n, r, dev = self._group(g)
+            dtype = torch.float32 if kind == "quantized_allreduce" \
+                else torch.bfloat16
+            x = self._input(dev, seed, r, elems, dtype)
+            # max |x| a piece at a time: a temporary of x's size would not
+            # fit beside four ranks' inputs, results and workspaces.
+            m = max(float(p.abs().max()) for p in x.split(self.PIECE))
+            ring = grp.ring
+            launches, events, staged = ring._launches, [], []
+
+            def timed_launches(kind_, op, dtype_, lay):
+                """The ring's launches between two CUDA events on its
+                stream: the call's stream waits and copies fall outside."""
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record(ring.stream)
+                launches(kind_, op, dtype_, lay)
+                t1.record(ring.stream)
+                events.append((t0, t1))
+                staged.append(lay.staged_bytes)
+
+            ring._launches = timed_launches
+            walls = []
+            try:
+                for i in range(1 + timed):
+                    y = None
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y = grp.ring_collective(kind, x)
+                    wall = (time.perf_counter() - t0) * 1e3
+                    if i:
+                        walls.append(wall)
+            finally:
+                del ring._launches
+            kernel = [a.elapsed_time(b) for a, b in events[1:]]
+            del x
+            y = y.reshape(-1)
+            add = R._COMBINE["sum"]
+            span = 8 * 128
+            errs = []
+            if kind == "allgather":
+                for p in range(n):
+                    for lo in (0, elems - span):
+                        want = self._input(dev, seed, p, elems, dtype, lo,
+                                           lo + span)
+                        errs.append(0.0 if torch.equal(
+                            y[p * elems + lo:p * elems + lo + span], want)
+                            else float("inf"))
+            else:
+                c = elems // n
+                chunks = [r] if kind == "reducescatter" else range(n)
+                maxes = grp._gather_tensors(torch.tensor([m])).reshape(-1)
+                for ch in chunks:
+                    for lo in (ch * c, (ch + 1) * c - span):
+                        xs = [self._input(dev, seed, p, elems, dtype, lo,
+                                          lo + span) for p in range(n)]
+                        at = lo - ch * c if kind == "reducescatter" else lo
+                        got = y[at:at + span]
+                        if kind == "quantized_allreduce":
+                            # The int8 ring rounds a value to half a step
+                            # (max |sent| / 254) once a hop that sums:
+                            # the reduce-scatter's partial sums of 1 ..
+                            # n - 1 ranks, then the allgather's first hop
+                            # the sum of n; the later hops re-send those
+                            # int8 values (exact up to f32 rounding). A
+                            # sum of t ranks is bounded by the t largest
+                            # maxes; 1% covers the earlier hops' rounding
+                            # in the later maxes and f32's.
+                            mx = sorted(maxes.tolist(), reverse=True)
+                            tol = sum(sum(mx[:t]) for t in range(1, n + 1)) \
+                                / 254 * 1.01
+                            exact = torch.stack(xs).double().sum(0)
+                            err = float((got.double() - exact).abs().max())
+                            errs.append(err if err <= tol else float("inf"))
+                            continue
+                        first = ch if kind == "allreduce" else (ch + 1) % n
+                        acc = xs[first]
+                        for j in range(1, n):
+                            acc = add(xs[(first + j) % n], acc)
+                        errs.append(0.0 if torch.equal(got, acc)
+                                    else float("inf"))
+            del y
+            gc.collect()
+            torch.cuda.empty_cache()
+            return {"kernel_ms": kernel, "call_ms": walls,
+                    "staged_bytes": staged[-1], "samples": len(errs),
+                    "sample_max_err": max(errs)}
+
+        def library(self, g, kind, elems, seed):
+            """One torch call computing the kind's function on the input
+            ``full`` made (the same seed): gloo's allreduce (C4, in
+            place), allgather (C3, into the [n, ...] rows of one tensor)
+            or reduce_scatter (C2) of this rank's card tensor, over the
+            process group of g, a ``torch`` group of the same ranks,
+            bracketed as the ring's call. gloo stages a CUDA tensor
+            through pinned host buffers of torch's caching host
+            allocator: buffers of the sizes it takes are pinned and freed
+            first, as a warm call would leave them, and the timed call's
+            new pinnings are counted. C6's int8 ring has no torch
+            counterpart."""
+            from ray_tpu_torch.util.collective.collective import _group_mgr
+
+            if kind == "quantized_allreduce":
+                return {"library_ms": None, "library_computes":
+                        "none: no torch call computes the int8 ring's sum"}
+            grp = _group_mgr.get_group(g)
+            n, r, pg = grp.world_size, grp.rank, grp._pg
+            dev = torch.device("cuda", 0)
+            x = self._input(dev, seed, r, elems, torch.bfloat16)
+            es = x.element_size()
+            if kind == "allreduce":
+                name, fn, args = "allreduce", pg.allreduce, ([x],)
+                pins = [elems * es]
+            elif kind == "allgather":
+                out = torch.empty((n, elems), dtype=x.dtype, device=dev)
+                name, fn, args = "allgather", pg.allgather, (
+                    [list(out.unbind(0))], [x])
+                pins = [elems * es] * (n + 1)
+            else:
+                out = torch.empty(elems // n, dtype=x.dtype, device=dev)
+                name, fn, args = "reduce_scatter", pg.reduce_scatter, (
+                    [out], [list(x.chunk(n))])
+                pins = [elems // n * es] * (n + 1) + [elems * es]
+            bufs = [torch.empty(b, dtype=torch.uint8, pin_memory=True)
+                    for b in pins]
+            del bufs
+
+            def pinned():
+                return torch.cuda.host_memory_stats().get("num_host_alloc")
+
+            before = pinned()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args).wait()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = pinned()
+            del x, args
+            gc.collect()
+            torch.cuda.empty_cache()
+            return {"library_ms": ms,
+                    "library_pinned_in_call": None if before is None
+                    else after - before,
+                    "library_computes": f"gloo's {name} of the CUDA tensors "
+                                        f"(ProcessGroupGloo: host copies, "
+                                        f"{n} processes, one call)"}
+
+        def qstall(self, g, rows, stalled, at_hop, sleep_s):
+            """Two C6 calls; in the second, rank ``stalled`` sleeps on the
+            host for sleep_s before it enqueues phase ``at_hop``, so its
+            neighbours' streams stop at that hop's words. Raises what the
+            group raises."""
+            grp, n, r, dev = self._group(g)
+            x = self._input(dev, 995, r, rows * 128, torch.float32)
+            grp.ring_collective("quantized_allreduce", x)
+            ring = grp.ring
+            if r == stalled:
+                launch = ring._launch
+
+                def slow(kind, op, dtype, lay, base=0, hop=0):
+                    if hop == at_hop:
+                        time.sleep(sleep_s)
+                    launch(kind, op, dtype, lay, base=base, hop=hop)
+
+                ring._launch = slow
+            try:
+                grp.ring_collective("quantized_allreduce", x)
+            finally:
+                if r == stalled:
+                    del ring._launch
+            return True
+
+        def call(self, g, rows):
+            """One allreduce on the card; raises what the group raises."""
+            grp, n, r, dev = self._group(g)
+            x = self._input(dev, 990, r, rows * 128, torch.float32)
+            t0 = time.perf_counter()
+            grp.ring_collective("allreduce", x)
+            return time.perf_counter() - t0
+
+    return Member
+
+
+def _collective_group(rt, actors, name, backend="cuda", **options):
+    from ray_tpu_torch.util import collective as col
+
+    rt.get([a.set_options.remote(options) for a in actors], timeout=120)
+    t0 = time.perf_counter()
+    col.create_collective_group(actors, len(actors),
+                                list(range(len(actors))), backend=backend,
+                                group_name=name)
+    return time.perf_counter() - t0
+
+
+def _must_raise(rt, refs, deadline, want):
+    """Every ref must raise within the deadline, its text holding each of
+    ``want``: the elapsed seconds and the texts."""
+    t0 = time.monotonic()
+    out = []
+    for ref in refs:
+        left = max(0.1, deadline - (time.monotonic() - t0))
+        try:
+            rt.get(ref, timeout=left)
+        except rt.exceptions.GetTimeoutError:
+            raise AssertionError(f"a rank hung past {deadline} s")
+        except Exception as e:      # the rank's own error, re-raised here
+            text = str(e)
+            check(all(w in text for w in want),
+                  f"a rank raised without naming {want}: {text[-400:]}")
+            out.append((time.monotonic() - t0, text))
+            continue
+        raise AssertionError("a rank returned after its peer failed")
+    return out
+
+
+def _median(xs):
+    return float(np.median(xs))
+
+
+def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
+                     qring_rows):
+    """Collectives across processes; see the module docstring (6j)."""
+    import ray_tpu_torch as rt
+
+    phase_t0 = time.perf_counter()
+    # C6's rank form is a kernel of its own (C2-C4's are their one-process
+    # bodies): it must not spill either.
+    rank_c6 = kernel_report(built, "ring_qallreduce_rank_kernel")
+    check(rank_c6["spill_bytes"] == 0, f"C6's rank form spills: {rank_c6}")
+    log("collective", f"C6 rank form: {rank_c6['registers']} registers, "
+        f"{rank_c6['spill_bytes']} spill bytes")
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    mem0 = gpu_memory_used_mib()
+    out = {"card": card, "compute_mode": mode, "c6_rank_build": rank_c6}
+    t0 = time.perf_counter()
+    rt.init(num_gpus=1)
+    out["cluster_start_s"] = time.perf_counter() - t0
+    Member = _collective_member(rt)
+    procs = {}
+    try:
+        gates = {}
+        for n in COLLECTIVE_NS:
+            t0 = time.perf_counter()
+            actors = [Member.options(num_gpus=1.0 / n).remote()
+                      for _ in range(n)]
+            info = rt.get([a.ready.remote() for a in actors], timeout=300)
+            start_s = time.perf_counter() - t0
+            check(all(i["gpu_ids"] == [0] and i["cuda_visible_devices"]
+                      == "0" and "H100" in i["device_name"]
+                      and not i["jax_modules"] for i in info),
+                  f"the ranks' leases and modules: {info}")
+            name = f"gates{n}"
+            join_s = _collective_group(rt, actors, name,
+                                       timeout_s=COLLECTIVE_ROUND_S)
+            transport = rt.get(actors[0].transport.remote(name), timeout=60)
+            t0 = time.perf_counter()
+            res = rt.get([a.gates.remote(name, COLLECTIVE_GATE_ROWS)
+                          for a in actors], timeout=600)
+            bad = [b for x in res for b in x["bad"]]
+            check(not bad, f"n={n} gates: {bad}")
+            gates[n] = {"actor_start_s": start_s, "group_s": join_s,
+                        "gates_s": time.perf_counter() - t0,
+                        "cases": len(res[0]["cases"]) * n}
+            log("collective", f"n={n}: {n} actors of {1.0 / n} GPU up in "
+                f"{start_s:.2f} s (leases [0], CUDA_VISIBLE_DEVICES 0, "
+                f"an H100, no JAX module), group formed in {join_s:.2f} s, "
+                f"ordered by {transport}; compute mode {mode}. C2, C3, C4 "
+                f"(f32, bf16; {', '.join(COLLECTIVE_OPS)}) and C6 (f32) "
+                f"across the processes at {COLLECTIVE_GATE_ROWS} rows a "
+                f"rank: bit for bit equal to the in-process kernel and the "
+                f"plain version in {gates[n]['cases']} rank-cases "
+                f"({gates[n]['gates_s']:.2f} s)")
+            if n != COLLECTIVE_NS[-1]:
+                rt.get([a.destroy.remote(name) for a in actors], timeout=120)
+                for a in actors:
+                    rt.kill(a)
+                del actors
+        out.update(gates=gates, transport=transport,
+                   actor_start_s=gates[COLLECTIVE_NS[-1]]["actor_start_s"])
+        n = COLLECTIVE_NS[-1]
+        name = f"gates{n}"
+        _collective_group(rt, actors, "cpu", device="cpu",
+                          timeout_s=COLLECTIVE_ROUND_S)
+        rt.get([a.reset_counts.remote() for a in actors], timeout=60)
+        api = rt.get([a.api.remote(name, "cpu", COLLECTIVE_API_ROWS)
+                      for a in actors], timeout=300)
+        check(not [b for x in api for b in x["bad"]],
+              f"host-level API on the card vs its CPU path: {api}")
+        b2b = rt.get([a.back_to_back.remote(name, COLLECTIVE_API_ROWS,
+                                            COLLECTIVE_B2B)
+                      for a in actors], timeout=300)
+        check(all(not x["differ"] for x in b2b),
+              f"back-to-back calls that differ: {b2b}")
+        log("collective", f"n={n}: allreduce, reducescatter (C4 then the "
+            f"split), allgather, broadcast, reduce on the card equal to the "
+            f"CPU path for the same seeds; barrier; send/recv bit for bit; "
+            f"rtpu_collective_ops_total{{op,backend=cuda,dtype}} counted "
+            f"every call ({api[0]['counted']}); {COLLECTIVE_B2B} "
+            f"back-to-back calls alternating C4, C2, C3, C6 on every rank: "
+            f"no timeout, no result differs (wall "
+            f"{max(x['wall_s'] for x in b2b):.2f} s)")
+
+        # Full size: C6 first (its workspace is the smaller), then the
+        # ZeRO cell's flat bf16 gradient through C4, C2 and C3.
+        sizes = {"quantized_allreduce": q_elems,
+                 "allreduce": zero_rows * 128,
+                 "reducescatter": zero_rows * 128,
+                 "allgather": zero_rows // n * 128}
+        full = {}
+        t0 = time.perf_counter()
+        for kind in ("quantized_allreduce", "allreduce", "reducescatter",
+                     "allgather"):
+            res = rt.get([a.full.remote(name, kind, sizes[kind], 7,
+                                        COLLECTIVE_TIMED)
+                          for a in actors], timeout=600)
+            check(all(x["sample_max_err"] != float("inf") for x in res),
+                  f"{kind} at full size: a sampled row differs from the "
+                  f"plain fold: {res}")
+            full[kind] = res
+        out["full_size_s"] = time.perf_counter() - t0
+        counts = rt.get([a.counts.remote() for a in actors], timeout=60)
+        calls = 1 + COLLECTIVE_TIMED
+        b2b_each = [len(range(i, COLLECTIVE_B2B, 4)) for i in range(4)]
+        want = [3 + b2b_each[0] + calls, b2b_each[1] + calls,
+                2 + b2b_each[2] + calls,
+                (b2b_each[3] + calls) * (2 * n - 1)]
+        check(all(c == want for c in counts),
+              f"rank-form launches {counts} != {want} a rank")
+        out["launches"] = [sum(c[i] for c in counts) for i in range(4)]
+        # The library's call on the same inputs, in a torch group of the
+        # same ranks once the ring's workspaces are freed (gloo's staging
+        # would not fit beside them).
+        rt.get([a.destroy.remote(name) for a in actors], timeout=120)
+        _collective_group(rt, actors, "library", backend="torch",
+                          timeout_s=COLLECTIVE_ROUND_S)
+        t0 = time.perf_counter()
+        library = {}
+        for kind in ("reducescatter", "allgather", "allreduce",
+                     "quantized_allreduce"):
+            library[kind] = rt.get([a.library.remote("library", kind,
+                                                     sizes[kind], 7)
+                                    for a in actors], timeout=600)
+        out["library_s"] = time.perf_counter() - t0
+        rt.get([a.destroy.remote("library") for a in actors], timeout=120)
+
+        # A stalled peer: after one call on every rank, rank n - 1 makes
+        # no second call; the others wait for its ready word of epoch 2.
+        _collective_group(rt, actors, "stall",
+                          wait_timeout_s=COLLECTIVE_WAIT_S)
+        rt.get([a.call.remote("stall", 1024) for a in actors], timeout=120)
+        raised = _must_raise(rt, [a.call.remote("stall", 1024)
+                                  for a in actors[:-1]],
+                             COLLECTIVE_DEADLINE_S,
+                             (f"peer rank {n - 1} at 1", "epoch 2"))
+        out["stalled_peer_s"] = max(t for t, _ in raised)
+        rt.get([a.destroy.remote("stall") for a in actors], timeout=120)
+        # A peer stalled inside C6: rank n - 1 sleeps past the ring's wait
+        # before its phase 3 of the second call. The ranks whose waits
+        # expire void the call on every rank before their streams run on,
+        # so the stalled rank, once it wakes and finds its words written,
+        # raises too instead of returning what the released streams left.
+        _collective_group(rt, actors, "qstall",
+                          wait_timeout_s=COLLECTIVE_WAIT_S)
+        raised = _must_raise(
+            rt, [a.qstall.remote("qstall", 1024, n - 1, 3,
+                                 COLLECTIVE_STALL_S) for a in actors],
+            COLLECTIVE_DEADLINE_S, ("epoch 2", "cannot be used again"))
+        check("expired during the call of epoch 2" in raised[-1][1],
+              f"the stalled rank did not find the C6 call voided: "
+              f"{raised[-1][1][-300:]}")
+        out["c6_stalled_peer_s"] = max(t for t, _ in raised)
+        rt.get([a.destroy.remote("qstall") for a in actors], timeout=120)
+        # A dead peer: rank n - 1's actor killed between two calls.
+        _collective_group(rt, actors, "dead",
+                          wait_timeout_s=COLLECTIVE_WAIT_S)
+        rt.get([a.call.remote("dead", 1024) for a in actors], timeout=120)
+        victim = info[-1]["pid"]
+        rt.kill(actors[-1])
+        deadline = time.monotonic() + COLLECTIVE_DEADLINE_S
+        while _alive(victim, info[-1]["cmdline"]) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        raised = _must_raise(rt, [a.call.remote("dead", 1024)
+                                  for a in actors[:-1]],
+                             COLLECTIVE_DEADLINE_S,
+                             (f"peer rank(s) [{n - 1}]", "exited"))
+        out["dead_peer_s"] = max(t for t, _ in raised)
+        rt.get([a.destroy.remote("dead") for a in actors[:-1]], timeout=120)
+        log("collective", f"a stalled peer (rank {n - 1} makes no second "
+            f"call): "
+            f"every other rank raised within {out['stalled_peer_s']:.2f} s "
+            f"naming it and the epoch; a peer stalled {COLLECTIVE_STALL_S} "
+            f"s inside C6 (before its phase 3): every rank raised within "
+            f"{out['c6_stalled_peer_s']:.2f} s, the stalled one finding "
+            f"the call voided; a dead peer (rank {n - 1}'s actor "
+            f"killed between two calls): every other rank raised within "
+            f"{out['dead_peer_s']:.2f} s naming it (deadline "
+            f"{COLLECTIVE_DEADLINE_S} s; the ring's wait "
+            f"{COLLECTIVE_WAIT_S} s)")
+        procs = _cluster_pids()
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while True:
+        left = {p: c for p, c in procs.items() if _alive(p, c)}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"processes left after shutdown: {left}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # A rank's process leaves /proc's command line while the CUDA driver still
+    # tears down its context (16 GB at full size): wait for the memory.
+    t0 = time.monotonic()
+    while True:
+        out["memory_after_mib"] = gpu_memory_used_mib()
+        if abs(out["memory_after_mib"] - mem0) < 1024 or \
+                time.monotonic() - t0 > 60:
+            break
+        time.sleep(0.5)
+    out["memory_back_s"] = time.monotonic() - t0
+    out["memory_before_mib"] = mem0
+    check(abs(out["memory_after_mib"] - mem0) < 1024,
+          f"card memory {mem0:.0f} MiB before the cluster, "
+          f"{out['memory_after_mib']:.0f} MiB 60 s after")
+
+    rows = {}
+    in_process = {"C4": ring_rows[0]["C4"], "C2": ring_rows[0]["C2"],
+                  "C3": ring_rows[0]["C3"], "C6": qring_rows[0]["C6"]}
+    for kind, key, kname, _ in COLLECTIVE_KERNELS:
+        res = full[kind]
+        e = 4 if kind == "quantized_allreduce" else 2
+        elems = sizes[kind]
+        # One rank's launch moves (reads + writes, once each): C4 a chunk
+        # of every rank's input and it to every rank's output; C2 a chunk
+        # of every input, one chunk out; C3 its shard, n shards out; C6
+        # its block in and out (the int8 ring's bound, as in process).
+        moved = {"allreduce": 2 * elems, "reducescatter": elems + elems // n,
+                 "allgather": (1 + n) * elems,
+                 "quantized_allreduce": 2 * elems}[kind] * e
+        bound_ms, bound_by = ring_bound(moved, 0)
+        ip = in_process[key]
+        rows[key] = {
+            "n": n, "elems_per_rank": elems,
+            "dtype": "f32" if e == 4 else "bf16",
+            "ms": _median(res[0]["kernel_ms"]),
+            "ms_ranks": [_median(x["kernel_ms"]) for x in res],
+            "call_ms": _median(res[0]["call_ms"]),
+            "call_ms_ranks": [_median(x["call_ms"]) for x in res],
+            "staged_bytes": res[0]["staged_bytes"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "in_process_ms": ip["ms"], "in_process_bound_ms": ip["bound_ms"],
+            "plain_ms": ip["plain_ms"],
+            "library_ms": library[kind][0]["library_ms"],
+            "library_ms_ranks": [x["library_ms"] for x in library[kind]],
+            "library_pinned_in_call": [x.get("library_pinned_in_call")
+                                       for x in library[kind]],
+            "library_computes": library[kind][0]["library_computes"],
+            "sample_rows": res[0]["samples"] * 8,
+            "sample_max_err": max(x["sample_max_err"] for x in res)}
+        log("collective", f"{key} across {n} processes, {elems} "
+            f"{rows[key]['dtype']} a rank: kernel {rows[key]['ms']:.4f} ms "
+            f"in rank 0 (CUDA events; ranks "
+            + ", ".join(f"{v:.4f}" for v in rows[key]["ms_ranks"])
+            + f"), the call {rows[key]['call_ms']:.3f} ms (waits and "
+            f"staging), staged {rows[key]['staged_bytes']} bytes; one "
+            f"rank's bound {bound_ms:.4f} ms ({bound_by}); in process (all "
+            f"{n} ranks, one launch) {ip['ms']:.4f} ms, bound "
+            f"{ip['bound_ms']:.4f} ms; library "
+            + (f"{rows[key]['library_ms']:.3f} ms in rank 0 ("
+               f"host buffers pinned inside the timed call "
+               f"{rows[key]['library_pinned_in_call']}; "
+               if rows[key]["library_ms"] is not None else "none (")
+            + f"{rows[key]['library_computes']}); sampled rows held "
+            f"({rows[key]['sample_rows']} rows of 128, max err "
+            f"{rows[key]['sample_max_err']:.3g}); {card}")
+    out["rows"] = rows
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("collective", f"full size: {out['full_size_s']:.2f} s for the "
+        f"four kinds (inputs made, {1 + COLLECTIVE_TIMED} calls each, the "
+        f"sample checked); the library's calls {out['library_s']:.2f} s")
+    log("collective", f"cluster up in {out['cluster_start_s']:.2f} s; shut "
+        f"down: no cluster process left, card memory {mem0:.0f} -> "
+        f"{out['memory_after_mib']:.0f} MiB ({out['memory_back_s']:.1f} s "
+        f"after the processes left); the phase took "
+        f"{out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def serve_ab(tree: str) -> int:
     """``--serve-ab DIR``: the paged mix without its prompts over 512 on a
     dense server, then the whole mix on a paged server, each fresh and
@@ -5165,13 +6007,18 @@ def main() -> int:
     lap("draft_b1")
     n_params = LlamaConfig.llama3_8b(n_layers=TRAIN_LAYERS).num_params()
     group = ZERO_N * 128
-    ring_rows = phase_ring_kernels(dev, card,
-                                   -(-n_params // group) * group // 128)
+    zero_rows = -(-n_params // group) * group // 128
+    ring_rows = phase_ring_kernels(dev, card, zero_rows)
     lap("ring_kernels")
     q_params = LlamaConfig.llama3_8b(n_layers=QZERO_LAYERS).num_params()
-    qring_rows = phase_qring_kernels(dev, card,
-                                     -(-q_params // group) * group)
+    q_elems = -(-q_params // group) * group
+    qring_rows = phase_qring_kernels(dev, card, q_elems)
     lap("qring_kernels")
+    collective = phase_collective(dev, card, built, zero_rows, q_elems,
+                                  ring_rows, qring_rows)
+    lap("collective")
+    gc.collect()
+    torch.cuda.empty_cache()
     from ray_tpu_torch.models.llama import init_params
 
     # One weight tree (bf16, seed 0) behind the dense, paged and
@@ -5331,6 +6178,47 @@ def main() -> int:
                if k in main},
             **ring_build_fields(ring_built[key])}
 
+    def rank_kernel(i, kind, key, name, replaces):
+        row = collective["rows"][key]
+        return {
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/ring.cu",
+            "replaces": replaces,
+            "form": f"{key} across processes: one rank's launch in each of "
+                    f"{row['n']} GPU actors, peers through CUDA IPC, "
+                    f"ordered by {collective['transport']}",
+            "launches": collective["launches"][i],
+            "launches_by_path": {"collective_api_b2b_full_size":
+                                 collective["launches"][i]},
+            "max_abs_err": 0.0,
+            "tolerance": "bitwise: torch.equal with the in-process kernel "
+                         "and the plain version at the gates (n 2 and 4)"
+                         + ("; the full-size sample within the int8 "
+                            "ring's error bound of the exact sum"
+                            if key == "C6" else
+                            "; the full-size sample equal to the plain "
+                            "fold over its rows"),
+            "sample_max_err": row["sample_max_err"],
+            "ms": row["ms"], "timed_by": "CUDA events around rank 0's "
+                                         "launches, median of "
+                                         f"{COLLECTIVE_TIMED} calls",
+            "ms_ranks": row["ms_ranks"], "call_ms": row["call_ms"],
+            "staged_bytes": row["staged_bytes"],
+            "plain_ms": row["plain_ms"],
+            "plain_computes": "the plain version on all n ranks' stacked "
+                              "inputs (phase 8 / 10, this run)",
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_of": "one rank's launch: its bytes read and written once",
+            "in_process_ms": row["in_process_ms"],
+            "in_process_bound_ms": row["in_process_bound_ms"],
+            "library_ms": row["library_ms"],
+            "library_ms_ranks": row["library_ms_ranks"],
+            "library_pinned_in_call": row["library_pinned_in_call"],
+            "library_computes": row["library_computes"],
+            "shape": f"n={row['n']} ranks x {row['elems_per_rank']} "
+                     f"{row['dtype']} a rank",
+            "compute_mode": collective["compute_mode"]}
+
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -5399,14 +6287,16 @@ def main() -> int:
         qring_kernel("C6", "ring_qallreduce", 49,
                      {"zero_quant_monolithic": qmono["launches_c1_c6"][5],
                       "zero_quant_error_feedback":
-                          qef["launches_c1_c6"][5]})],
+                          qef["launches_c1_c6"][5]})]
+        + [rank_kernel(i, *k) for i, k in enumerate(COLLECTIVE_KERNELS)],
         "serve_profile": serve_profile, "paged_serve": paged,
         "spec_serve": spec, "paged_bitwise": paged_bitwise,
         "paged_tokens": paged_tokens, "disagg": disagg,
         "disagg_gates": disagg_gates, "runtime": runtime,
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
-        "zero_quant": zq, "trainer": trainer}),
+        "zero_quant": zq, "trainer": trainer,
+        "collective": {k: v for k, v in collective.items() if k != "rows"}}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,11 @@ the LLM router with the cluster prefix index and the peer pull, and
 the serving engine's metrics, spans and cost meters, pushed to the GCS
 (``observability``, ``util.metrics``, ``util.tracing``, ``util.state``),
 training on one device (``ops.fused_loss``, ``parallel.train_step``, the
-attention's backward kernels) and ZeRO over ring collectives
-(``parallel.zero``, ``util.collective``).
+attention's backward kernels), ZeRO over ring collectives
+(``parallel.zero``), Train on the runtime (``train``), and the
+reference's collective API with its ranks as actors (``util.collective``:
+the ``cuda`` backend runs the ring kernels with one process per rank on
+the card, ``torch`` is gloo, ``shm`` the coordinator hub).
 
 Not ported yet, each raising where it is asked for: ``runtime_env``, the
 ``ray_tpu_torch://`` client, ``dag``, the dashboard, the workers'

@@ -11,6 +11,10 @@ pieces the serving engine reports through:
   decision ring and cluster event (``record_decision``), and the
   ``Hysteresis`` gate the serve autoscaler and the preemption policy
   read.
+- ``collective``: the ``util.collective`` API's op and byte counters,
+  latency histogram and spans (``observe_collective``), and the
+  split-phase exposed/hidden books (``record_overlap``,
+  ``cumulative_exposed_seconds``).
 
 Metrics live in ``util.metrics``'s process-local registry, pushed to the
 GCS by its flusher where the process has a worker attached; spans go to
@@ -23,14 +27,20 @@ from ray_tpu_torch.observability.accounting import (
     TokenReconciler, accounting_enabled, fold_finished, slo_targets,
     tenant_ledger,
 )
+from ray_tpu_torch.observability.collective import (
+    CollectiveMetrics, collective_metrics, cumulative_exposed_seconds,
+    observe_collective, record_overlap,
+)
 from ray_tpu_torch.observability.control import (
     ControlMetrics, Hysteresis, record_decision,
 )
 from ray_tpu_torch.observability.serve import ServeMetrics, serve_metrics
 
 __all__ = [
-    "AccountingMetrics", "ControlMetrics", "Hysteresis", "RequestMeter",
-    "SLOTracker", "ServeMetrics", "TenantLedger", "TokenReconciler",
-    "accounting_enabled", "fold_finished", "record_decision",
+    "AccountingMetrics", "CollectiveMetrics", "ControlMetrics",
+    "Hysteresis", "RequestMeter", "SLOTracker", "ServeMetrics", "TenantLedger", "TokenReconciler",
+    "accounting_enabled", "collective_metrics",
+    "cumulative_exposed_seconds", "fold_finished", "observe_collective",
+    "record_decision", "record_overlap",
     "serve_metrics", "slo_targets", "tenant_ledger",
 ]

@@ -13,9 +13,12 @@
 // Each rank's data is one row of a rank-major tensor: rank r's block starts
 // at base + r * rank_stride and holds rows of 128 lanes, the reference's
 // (rows, 128) per-device layout. The kernel body is written per rank
-// against a table of per-rank pointers (input, output, comm slots, flags),
-// so a transport with one process per card and peer-mapped pointers changes
-// only how the host fills that table.
+// against a table of per-rank pointers (input, output, comm slots, flags).
+// Two transports fill that table: one launch plays all n ranks in one
+// process (ring_launch, below), or each rank is a process of its own that
+// launches only its rank's blocks against its peers' buffers opened
+// through CUDA IPC (the rank form, ring_rank_launch, for C2, C3, C4 and
+// C6; see its section).
 //
 // Design.
 //   - Grid (blocks_per_rank, n): block (b, r) plays rank r and owns the
@@ -58,13 +61,14 @@
 //     exits, its neighbours then time out in turn, and the wrapper raises.
 //   - C2, C3 and C4 are no rings of hops: one card needs no ring to get
 //     the ring's bits. Each is one pass and one flag round, with no comm
-//     slots. Completion stays explicit, as it must once ranks are
-//     processes (it tells a rank that its peers have stored into its
-//     output and read its input): after its stores the block fences and
-//     arrives on the receive word of block b of each other rank, then
-//     waits (bounded) until all n - 1 have arrived on its own. n - 1
-//     senders share one word, so it counts arrivals under the call's epoch
-//     tag, (tag << 32) | arrivals (see arrive). The epoch is base + 1.
+//     slots. Completion is explicit (it tells a rank that its peers have
+//     stored into its output and read its input; in the rank form the
+//     host's done round on the stream says it): after its stores the
+//     block fences and arrives on the receive word of block b of each
+//     other rank, then waits (bounded) until all n - 1 have arrived on its
+//     own. n - 1 senders share one word, so it counts arrivals under the
+//     call's epoch tag, (tag << 32) | arrivals (see arrive). The epoch is
+//     base + 1.
 //   - C3: a copy needs no combine order, so block (b, r) reads its range
 //     of rank r's input once and stores it at r * chunk of every rank's
 //     output, its own included (a peer store through the pointer table, as
@@ -191,12 +195,15 @@
 // code).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (ray_tpu_torch/ops/_build.py does this).
+//        -Xcompiler -fPIC -lcuda (ray_tpu_torch/ops/_build.py does this;
+//        -lcuda for the rank form's stream memory operations).
 
 #include <algorithm>
+#include <cstring>
 #include <mutex>
 #include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -245,6 +252,10 @@ struct RingArgs {
   long long* err_host;        // pinned host record: set, kind, rank, block,
                               // hop, what, wanted, seen
   int n, bpr, kind;
+  int rank0;                  // the rank of blockIdx.y == 0 (see rank form)
+  int per_rank;               // 1: one rank's launch in its own process
+  const u64* poison;          // the rank form: this rank's poison word
+                              // (nullptr in one process; see poisoned)
 };
 
 __device__ __forceinline__ int mod(int a, int n) { return ((a % n) + n) % n; }
@@ -265,6 +276,14 @@ __device__ __forceinline__ u64 ld_acquire(const u64* p) {
                : "l"(p)
                : "memory");
   return v;
+}
+
+// The rank form: whether this rank's call is void. A rank whose wait
+// expired writes its poison word (and its peers') before it releases its
+// stream, so a launch that runs after that stores nothing into another
+// rank's memory; the host then raises (process_ring.py).
+__device__ __forceinline__ bool poisoned(const RingArgs& a) {
+  return a.poison != nullptr && ld_acquire(a.poison) != 0;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -374,7 +393,7 @@ struct Block {
 __device__ __forceinline__ Block block_of(const RingArgs& a) {
   Block k;
   k.b = blockIdx.x;
-  k.r = blockIdx.y;
+  k.r = a.rank0 + blockIdx.y;
   k.n = a.n;
   k.right = k.r + 1 == a.n ? 0 : k.r + 1;
   k.left = k.r == 0 ? a.n - 1 : k.r - 1;
@@ -466,6 +485,7 @@ __device__ void push_done(const RingArgs& a, const Block& k) {
 template <typename T>
 __global__ void __launch_bounds__(NT)
 ring_allgather_kernel(const __grid_constant__ RingArgs a) {
+  if (poisoned(a)) return;
   const Block k = block_of(a);
   const uint4* in = reinterpret_cast<const uint4*>(a.in[k.r]);
   const long long at = k.r * a.chunk_vecs;
@@ -474,7 +494,7 @@ ring_allgather_kernel(const __grid_constant__ RingArgs a) {
              for (int j = 0, p = k.r; j < k.n; ++j, p = succ(p, k.n))
                __stcs(reinterpret_cast<uint4*>(a.out[p]) + at + i, v);
            });
-  push_done(a, k);
+  if (!a.per_rank) push_done(a, k);
 }
 
 // Fold U vectors i, i + NT, ... of chunk r (at: its offset) over the n
@@ -528,16 +548,17 @@ __device__ __forceinline__ void fold_store(const RingArgs& a, const Block& k,
 
 // Block (b, r) folds range b of chunk r over the n inputs in the
 // reference's order (see the header) and stores it (fold_store), then
-// push_done.
+// push_done (in one process; the rank form's completion is the host's).
 template <typename T, int OP, bool PUSH>
 __device__ __forceinline__ void fold_range(const RingArgs& a) {
+  if (poisoned(a)) return;
   const Block k = block_of(a);
   const long long at = k.r * a.chunk_vecs;
   long long i = k.lo + threadIdx.x;
   for (; i + 3 * NT < k.hi; i += 4 * NT)
     fold_store<T, OP, PUSH, 4>(a, k, at, i);
   for (; i < k.hi; i += NT) fold_store<T, OP, PUSH, 1>(a, k, at, i);
-  push_done(a, k);
+  if (!a.per_rank) push_done(a, k);
 }
 
 // C2: one ordered reduce, stored once: out[r] = chunk r reduced in the
@@ -726,28 +747,29 @@ struct WordAcc {
   float4 acc;
 };
 
-// One quantized hop t, over this block's float4s [lo, hi) of a chunk,
-// with the rank's scale of the send chunk: the int8 range and this
-// block's copy of the scale into the right neighbour's slot t % 2, then
-// the left neighbour's payload dequantized into dst (landed on cur, which
-// may be dst, as LAND says). Sets m to this thread's max |dst| written:
-// the next hop's max, when the next hop sends dst.
-template <int LAND>
-__device__ bool qhop(const RingArgs& a, const Block& k, int t, int total,
-                     float scale, const float4* send, const float4* cur,
-                     float4* dst, unsigned& m) {
+// Step 2 of hop t: this block's range of send quantized with the rank's
+// scale into the right neighbour's slot t % 2, and its copy of the scale
+// beside it.
+__device__ __forceinline__ void qsend(const RingArgs& a, const Block& k,
+                                      int t, float scale, const float4* send) {
   const int slot = t & 1;
-  const int f = flag_index(k.b, slot);
-  if (t >= 2 && !wait_flag(a, a.cap[k.r] + f, a.base + t - 1, k.r, k.b, t,
-                           WAIT_CAP))
-    return false;
   const long long lo = k.lo * F4, hi = k.hi * F4, words = a.chunk_vecs * F4;
   unsigned* out = reinterpret_cast<unsigned*>(a.slot[k.right]) + slot * words;
   each_vec(lo, hi, [&](long long i) { return send[i]; },
            [&](long long i, float4 v) { __stcg(out + i, quantize4(v, scale)); });
   if (threadIdx.x == 0) __stcg(a.scale[k.right] + slot * MAX_BPR + k.b, scale);
-  signal_flag(a.recv[k.right] + f, a.base + t + 1);
-  if (!hop_recv(a, k, t)) return false;
+}
+
+// Step 5 of hop t: the left neighbour's payload in this rank's slot t % 2
+// dequantized into dst (landed on cur, which may be dst, as LAND says).
+// Sets m to this thread's max |dst| written: the next hop's max, when the
+// next hop sends dst.
+template <int LAND>
+__device__ __forceinline__ void qrecv(const RingArgs& a, const Block& k,
+                                      int t, const float4* cur, float4* dst,
+                                      unsigned& m) {
+  const int slot = t & 1;
+  const long long lo = k.lo * F4, hi = k.hi * F4, words = a.chunk_vecs * F4;
   const unsigned* in = reinterpret_cast<const unsigned*>(a.slot[k.r]) +
                        slot * words;
   const float s = __ldcg(a.scale[k.r] + slot * MAX_BPR + k.b);
@@ -766,6 +788,23 @@ __device__ bool qhop(const RingArgs& a, const Block& k, int t, int total,
              [&](long long i, WordAcc w) {
                put(i, dequantize4<LAND>(w.q, s, w.acc));
              });
+}
+
+// One quantized hop t in one launch: the capacity wait, qsend, the
+// receive flag, the wait for the left neighbour's payload, qrecv and the
+// capacity release (steps 1-6 of the header).
+template <int LAND>
+__device__ bool qhop(const RingArgs& a, const Block& k, int t, int total,
+                     float scale, const float4* send, const float4* cur,
+                     float4* dst, unsigned& m) {
+  const int f = flag_index(k.b, t & 1);
+  if (t >= 2 && !wait_flag(a, a.cap[k.r] + f, a.base + t - 1, k.r, k.b, t,
+                           WAIT_CAP))
+    return false;
+  qsend(a, k, t, scale, send);
+  signal_flag(a.recv[k.right] + f, a.base + t + 1);
+  if (!hop_recv(a, k, t)) return false;
+  qrecv<LAND>(a, k, t, cur, dst, m);
   hop_release(a, k, t, total);
   return true;
 }
@@ -837,6 +876,42 @@ ring_qallreduce_kernel(const __grid_constant__ RingArgs a) {
                         out + recv * cf, m))
       return;
   }
+}
+
+// C6, rank form: phase t (0 .. 2(n - 1)) of rank a.rank0, one launch a
+// phase, in place on the rank's staging buffer (in == out). Phase t
+// combines hop t - 1 from this rank's slot (t > 0; the max of what it
+// writes, in registers, is hop t's), then, for t < 2(n - 1), takes hop
+// t's scale at the rank's barrier (every block it waits on is in this
+// launch) and sends hop t into the right neighbour's slot. Nothing here
+// waits on another process: between phases the host orders the stream on
+// the neighbours' receive and capacity words (see the rank form below).
+// The schedule and the arithmetic are ring_qallreduce_kernel's.
+__global__ void __launch_bounds__(NT)
+ring_qallreduce_rank_kernel(const __grid_constant__ RingArgs a) {
+  const Block k = block_of(a);
+  const int n = k.n, total = 2 * (n - 1), t = a.hop;
+  const float4* in = reinterpret_cast<const float4*>(a.in[k.r]);
+  float4* out = reinterpret_cast<float4*>(a.out[k.r]);
+  const long long cf = a.chunk_vecs * F4;     // float4 per chunk
+  unsigned m = 0;
+  if (t == 0) {
+    m = thread_absmax_bits(in + k.r * cf, k.lo * F4, k.hi * F4);
+  } else if (t - 1 < n - 1) {                 // reduce-scatter hop t - 1
+    const int recv = mod(k.r - t, n);
+    qrecv<LAND_FMA>(a, k, t - 1, in + recv * cf, out + recv * cf, m);
+  } else {                                    // allgather hop t - 1
+    const int recv = mod(k.r - (t - n), n);
+    qrecv<LAND_SET>(a, k, t - 1, nullptr, out + recv * cf, m);
+  }
+  if (t == total) return;
+  float scale;
+  // After the barrier, so every block of the launch reaches it.
+  if (!rank_scale(a, k, t, m, &scale) || poisoned(a)) return;
+  const float4* send = t < n - 1
+                           ? (t == 0 ? in : out) + mod(k.r - t, n) * cf
+                           : out + mod(k.r - (t - n + 1) + 1, n) * cf;
+  qsend(a, k, t, scale, send);
 }
 
 template <typename T>
@@ -986,6 +1061,9 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   RingArgs a;
   a.n = n;
   a.kind = kind;
+  a.rank0 = 0;
+  a.per_rank = 0;
+  a.poison = nullptr;
   a.chunk_vecs = chunk_elems / unit;
   a.base = base;
   a.hop = hop;
@@ -1024,6 +1102,205 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The rank form: one process per rank on one card (util/collective/
+// process_ring.py fills the tables). Rank r launches grid (bpr, 1) whose
+// blocks play rank r (rank0 = r) against a table of peer pointers opened
+// through CUDA IPC: every rank's staging input and output, comm slots and
+// in-kernel flag table. C2, C3 and C4 run their one-process bodies
+// without the in-kernel completion round (per_rank = 1); C6 runs
+// ring_qallreduce_rank_kernel once a phase. No kernel of this form waits
+// on a flag that another process sets: the host orders each rank's
+// stream on flag words that the peers' streams write (ring_stream_write /
+// ring_stream_wait, the CUDA driver's stream memory operations), before and
+// after the launches and between C6's phases. One card: every peer is the
+// same device, so the stream operations' fence and .gpu-scope
+// release/acquire inside a launch suffice; across cards (.sys scope) this
+// form is untested. A rank whose wait expired sets every rank's poison
+// word before it releases its own stream: the launches still queued
+// anywhere then leave the peers' memory alone (see poisoned).
+// Bound on the H100: bytes, as in one process, a rank's share: one rank's
+// launch reads and writes (C one chunk of the rank's block) C4 2nC (chunk
+// r of every rank's input, then it into every rank's output), C2 (n + 1)C,
+// C3 (1 + n) shards, C6 its block in and out at the bound (19C in all at
+// n = 4, as the one-launch form). The staging copies around the launch
+// (the caller's tensor in, the result out) move as many bytes again; they
+// are the price of buffers every peer can map once.
+// ---------------------------------------------------------------------------
+
+// Launch one rank's part of C2 (1), C3 (2), C4 (3) or C6 (5, phase `hop`
+// of 2(n - 1) + 1) on `stream`: ins / outs / slots / tables hold n
+// pointers each (slots: C6 only; tables: each rank's in-kernel flag table,
+// FLAG_SECTIONS x MAX_BPR x 2 u64, C6 only); chunk_elems and the epoch
+// base as in ring_launch (C6: base = calls so far x 2(n - 1)); poison is
+// this rank's poison word (C2-C4 store nothing, C6 sends nothing, once it
+// is set). Returns a cudaError_t; 0 when the launch was accepted.
+extern "C" int ring_rank_launch(int kind, int op, int dtype, int n, int rank,
+                                void** ins, void** outs, void** slots,
+                                void** tables, long long chunk_elems,
+                                unsigned long long base, int hop,
+                                void* poison, void* err_dev, void* err_host,
+                                void* stream) {
+  if (n < 2 || n > MAX_RANKS || rank < 0 || rank >= n || chunk_elems < 1 ||
+      !(kind == REDUCE_SCATTER || kind == ALLGATHER || kind == ALLREDUCE ||
+        kind == QALLREDUCE))
+    return int(cudaErrorInvalidValue);
+  const bool q = kind == QALLREDUCE;
+  if (q && (hop < 0 || hop > 2 * (n - 1) || slots == nullptr ||
+            tables == nullptr || dtype != 0 || op != SUM))
+    return int(cudaErrorInvalidValue);
+  const int elem = elem_bytes(dtype);
+  if (elem == 0) return int(cudaErrorInvalidValue);
+  const int unit = q ? QGROUP : 16 / elem;
+  if (chunk_elems % unit) return int(cudaErrorInvalidValue);
+  const void* fn =
+      q ? reinterpret_cast<const void*>(ring_qallreduce_rank_kernel)
+        : kernel_of(kind, op, dtype);
+  if (fn == nullptr) return int(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  int resident = 0;
+  err = resident_blocks(fn, dev, &resident);
+  if (err != cudaSuccess) return int(err);
+
+  RingArgs a;
+  a.n = n;
+  a.kind = kind;
+  a.rank0 = rank;
+  a.per_rank = 1;
+  a.poison = static_cast<const u64*>(poison);
+  a.chunk_vecs = chunk_elems / unit;
+  a.base = base;
+  a.hop = hop;
+  a.carry = nullptr;
+  a.err_dev = static_cast<int*>(err_dev);
+  a.err_host = static_cast<long long*>(err_host);
+  // One rank a launch: C6's rank barrier needs its bpr blocks resident.
+  const long long cap = std::min<long long>(MAX_BPR, resident);
+  if (cap < 1) return int(cudaErrorCooperativeLaunchTooLarge);
+  const long long want =
+      (a.chunk_vecs + MIN_VECS_PER_BLOCK - 1) / MIN_VECS_PER_BLOCK;
+  a.bpr = int(std::max(1LL, std::min(cap, want)));
+  for (int r = 0; r < MAX_RANKS; ++r) {
+    const bool live = r < n;
+    char* slot = live && q ? static_cast<char*>(slots[r]) : nullptr;
+    u64* rf = live && tables ? static_cast<u64*>(tables[r]) : nullptr;
+    a.in[r] = live ? static_cast<char*>(ins[r]) : nullptr;
+    a.out[r] = live ? static_cast<char*>(outs[r]) : nullptr;
+    a.slot[r] = slot;
+    a.scale[r] = slot ? reinterpret_cast<float*>(slot + 2 * chunk_elems)
+                      : nullptr;
+    a.recv[r] = rf;
+    a.cap[r] = rf ? rf + MAX_BPR * 2 : nullptr;
+    a.bar[r] = rf ? rf + 2 * MAX_BPR * 2 : nullptr;
+  }
+  void* args[] = {&a};
+  const dim3 grid(a.bpr, 1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = q ? cudaLaunchCooperativeKernel(fn, grid, dim3(NT), args, 0, s)
+          : cudaLaunchKernel(fn, grid, dim3(NT), args, 0, s);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// Whether the device takes 64-bit stream memory operations (the rank
+// form's transport): *out = the CUDA driver's attribute. Returns a CUresult.
+extern "C" int ring_stream_mem_ops(int* out) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaFree(nullptr) != cudaSuccess)
+    return int(CUDA_ERROR_NOT_INITIALIZED);
+  CUdevice d;
+  CUresult r = cuDeviceGet(&d, dev);
+  if (r != CUDA_SUCCESS) return int(r);
+  // The current attribute (CUDA 12), not the deprecated _V1 one, which
+  // reads 0 where the v2 operations work.
+  return int(cuDeviceGetAttribute(
+      out, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS, d));
+}
+
+// Enqueue on `stream`, in order, a write of `value` to each of the count
+// flag words at addrs (a peer's, through IPC, or this rank's own). The
+// driver fences the stream's earlier work before each write. Returns a
+// CUresult.
+extern "C" int ring_stream_write(void* stream, void** addrs, int count,
+                                 unsigned long long value) {
+  for (int i = 0; i < count; ++i) {
+    const CUresult r = cuStreamWriteValue64(
+        static_cast<CUstream>(stream), reinterpret_cast<CUdeviceptr>(addrs[i]),
+        value, CU_STREAM_WRITE_VALUE_DEFAULT);
+    if (r != CUDA_SUCCESS) return int(r);
+  }
+  return 0;
+}
+
+// Enqueue on `stream` a wait until each of the count flag words at addrs
+// (this rank's own) holds at least `value` (cyclic 64-bit comparison). A
+// stream wait has no timeout: the host watches the call against its
+// deadline and, on expiry, writes the awaited values itself
+// (ring_stream_write on another stream). Returns a CUresult.
+extern "C" int ring_stream_wait(void* stream, void** addrs, int count,
+                                unsigned long long value) {
+  for (int i = 0; i < count; ++i) {
+    const CUresult r = cuStreamWaitValue64(
+        static_cast<CUstream>(stream), reinterpret_cast<CUdeviceptr>(addrs[i]),
+        value, CU_STREAM_WAIT_VALUE_GEQ);
+    if (r != CUDA_SUCCESS) return int(r);
+  }
+  return 0;
+}
+
+extern "C" const char* ring_driver_error_string(int err) {
+  const char* s = nullptr;
+  if (cuGetErrorString(static_cast<CUresult>(err), &s) != CUDA_SUCCESS ||
+      s == nullptr)
+    return "unknown driver error";
+  return s;
+}
+
+// Memory shared across processes: cudaMalloc'd outside torch's caching
+// allocator, zeroed, and its IPC handle (ring_ipc_handle_bytes() bytes)
+// written to handle. Returns a cudaError_t.
+extern "C" int ring_ipc_alloc(long long bytes, void** ptr, void* handle) {
+  cudaError_t err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, static_cast<size_t>(bytes));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  return int(err);
+}
+
+// A peer's memory from its handle (never this process's own).
+extern "C" int ring_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return int(cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+extern "C" int ring_ipc_close(void* ptr) {
+  return int(cudaIpcCloseMemHandle(ptr));
+}
+
+extern "C" int ring_free(void* ptr) { return int(cudaFree(ptr)); }
+
+extern "C" int ring_ipc_handle_bytes() {
+  return int(sizeof(cudaIpcMemHandle_t));
+}
+
+// Stream-ordered copies (any direction: unified addressing) and zero
+// fills of the staging buffers. Return a cudaError_t.
+extern "C" int ring_copy(void* dst, const void* src, long long bytes,
+                         void* stream) {
+  return int(cudaMemcpyAsync(dst, src, static_cast<size_t>(bytes),
+                             cudaMemcpyDefault,
+                             static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int ring_zero(void* dst, long long bytes, void* stream) {
+  return int(cudaMemsetAsync(dst, 0, static_cast<size_t>(bytes),
+                             static_cast<cudaStream_t>(stream)));
 }
 
 // Bytes of comm slots a call needs for all n ranks: C1-C4 none; C5, C6

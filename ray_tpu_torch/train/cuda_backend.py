@@ -11,9 +11,11 @@ collectives are the hand-written kernels C1–C4 on the card), so:
 - ``on_start`` at world size 1 forms nothing. CPU workers at a larger
   world size form a gloo process group through rank 0's address and check
   that every worker agrees on its size (the reference checks device
-  counts). GPU workers at a larger world size raise: one card cannot hold
-  two ranks of a process group, and the ring kernels across processes are
-  the cross-process collective slice's work (ROADMAP A3).
+  counts). GPU workers at a larger world size raise: the ring kernels
+  run across processes (``util.collective``'s ``cuda`` backend), but the
+  ZeRO step across processes does not yet: the split-phase C1 and C5 in
+  their cross-process forms and ``parallel.zero`` on one rank per process
+  are the ZeRO-across-processes slice's work.
 - ``run_pod_training``'s ``mesh_axes={"data": n}`` means n virtual ranks.
   Its routes: ``weight_update="replicated"`` at n = 1 is
   ``build_train_step`` (B1–B3 on the card); at n > 1
@@ -86,12 +88,14 @@ class CudaBackend(Backend):
         world_size = worker_group.num_workers
         if world_size > 1 and _on_card(backend_config.device):
             raise NotImplementedError(
-                f"CudaBackend: {world_size} GPU workers would form one "
-                "process group of ranks on the card, which one card cannot "
-                "hold, and the port's ring kernels across processes come "
-                "with the cross-process collective slice. Run "
-                "one GPU worker with mesh_axes={'data': n} (n virtual ranks "
-                "on its card), or CPU workers with CudaConfig(device='cpu')")
+                f"CudaBackend: {world_size} GPU workers would run the ZeRO "
+                "step with one rank per process, which comes with the "
+                "ZeRO-across-processes slice (the split-phase C1 and C5 "
+                "across processes, parallel.zero on one rank per process); "
+                "the ring kernels across processes are util.collective's "
+                "'cuda' backend. Run one GPU worker with "
+                "mesh_axes={'data': n} (n virtual ranks on its card), or "
+                "CPU workers with CudaConfig(device='cpu')")
         if world_size > 1:
             form_process_group(worker_group, "gloo", timeout_s=120.0)
         defaults = {"device": backend_config.device,

@@ -23,8 +23,27 @@ scale per chunk)::
     h = start_quantized_ring_reduce_scatter(x)   # one C5 launch per hop
     shard = wait_quantized_ring_reduce_scatter(h)
     local_quantization_residual(block, n)        # error feedback
+
+The reference's user-facing API (``collective.py``), its ranks actors of
+the port's runtime, on three backends: ``cuda`` (the ring kernels C2, C3,
+C4 and C6 with one process per rank on the card, ``process_ring.py``),
+``torch`` (``torch.distributed`` over gloo) and ``shm`` (the coordinator
+actor)::
+
+    create_collective_group(actors, n, list(range(n)), backend="cuda")
+    # in each actor (its _init_collective calls init_collective_group):
+    y = allreduce(x)          # C4 (C6 in a quantized group)
+    allgather / broadcast     # C3
+    reducescatter             # C4, then split axis 0 (the reference's)
+    reduce / barrier / send / recv
 """
 
+from ray_tpu_torch.util.collective.collective import (
+    allgather, allreduce, barrier, broadcast, create_collective_group,
+    destroy_collective_group, get_collective_group_size, get_group_mesh,
+    get_rank, init_collective_group, is_group_initialized, recv, reduce,
+    reducescatter, send,
+)
 from ray_tpu_torch.util.collective.group import RingGroup, default_group
 from ray_tpu_torch.util.collective.ring import (
     LANES, SplitPhaseHandle, ring_allgather, ring_allreduce,
@@ -36,9 +55,14 @@ from ray_tpu_torch.util.collective.quantized import (
     local_quantization_residual, quantized_ring_allreduce,
     start_quantized_ring_reduce_scatter, wait_quantized_ring_reduce_scatter,
 )
-from ray_tpu_torch.util.collective.types import ReduceOp
+from ray_tpu_torch.util.collective.types import Backend, ReduceOp
 
 __all__ = [
+    "init_collective_group", "create_collective_group",
+    "destroy_collective_group", "is_group_initialized", "get_rank",
+    "get_collective_group_size", "get_group_mesh", "allreduce", "barrier",
+    "reduce", "broadcast", "allgather", "reducescatter", "send", "recv",
+    "Backend",
     "ring_allreduce", "ring_allgather", "ring_reduce_scatter",
     "quantized_ring_allreduce", "select_impl", "SplitPhaseHandle",
     "start_ring_reduce_scatter", "wait_ring_reduce_scatter",

@@ -1,0 +1,458 @@
+"""The port's ``util.collective`` (``ray_tpu_torch.util.collective``: the
+reference's user-facing API on the ``shm``, ``torch`` and ``cuda``
+backends) on a cluster of the port's runtime, with actors as ranks that
+implement the ``_init_collective`` protocol.
+
+Each case holds the port to the reference's own arithmetic on the same
+numpy inputs (made from seeds), computed in this process:
+
+- ``shm``: exactly the reference's ``SHMGroup`` arithmetic
+  (``ray_tpu/util/collective/util.py::_reduce``, ``np.array_split``).
+- ``torch`` over gloo, at n = 2 and 3: exactly ``XLAGroup``'s host
+  arithmetic (the rank-major stack reduced over axis 0 in numpy,
+  ``array_split``).
+- ``cuda`` with ``device="cpu"`` (the plain ring versions over the stack
+  gathered through gloo), at n = 2 and 4: ``device_allreduce`` and the
+  four ``ring_collective`` kinds bit for bit against the reference's
+  Pallas ring kernels in interpret mode under ``shard_map`` on the stacked
+  rows, as ``tests/test_torch_ring.py`` runs them; the quantized allreduce
+  as ``tests/test_torch_quantized.py`` holds C6 (bit for bit at n = 2 and
+  4); the host-level ``reducescatter`` equal to C4 then the reference's
+  split.
+
+Then the errors and the bookkeeping: the JAX package's backend names
+raise, naming the port's; ``get_group_mesh`` raises; a second group of
+one name raises and a destroyed group can be made again; the metrics'
+names and tags are the reference's ``CollectiveMetrics``'; a peer that
+never arrives makes the others raise within the group's timeout. One
+cluster and four actors for the module; every ``get`` has a timeout.
+"""
+
+import itertools
+import re
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+from jax.experimental.shard_map import shard_map  # noqa: E402
+from jax.sharding import Mesh  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+import ray_tpu_torch  # noqa: E402
+from ray_tpu.util.collective import pallas as J  # noqa: E402
+from ray_tpu.util.collective.pallas import quantized as JQ  # noqa: E402
+from ray_tpu.util.collective.types import ReduceOp as RefOp  # noqa: E402
+from ray_tpu.util.collective.util import _reduce as ref_reduce  # noqa: E402
+from ray_tpu_torch.util import collective as col  # noqa: E402
+from ray_tpu_torch.util.collective.types import Backend, ReduceOp  # noqa: E402
+
+IMPL = "pallas_interpret"
+OPS = {"sum": ReduceOp.SUM, "prod": ReduceOp.PRODUCT, "min": ReduceOp.MIN,
+       "max": ReduceOp.MAX, "avg": ReduceOp.AVERAGE}
+REF_OPS = {"sum": RefOp.SUM, "prod": RefOp.PRODUCT, "min": RefOp.MIN,
+           "max": RefOp.MAX, "avg": RefOp.AVERAGE}
+NP_OPS = {"sum": "sum", "prod": "prod", "min": "min", "max": "max",
+          "avg": "mean"}
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    info = ray_tpu_torch.init(num_cpus=8, num_gpus=0,
+                              object_store_memory=256 * 1024 * 1024,
+                              ignore_reinit_error=True)
+    yield info
+    ray_tpu_torch.shutdown()
+
+
+@ray_tpu_torch.remote
+class Member:
+    """A rank: implements the ``_init_collective`` protocol with the
+    options the test set, and runs what it is sent."""
+
+    def __init__(self):
+        self.options = {}
+
+    def set_options(self, options):
+        self.options = dict(options)
+        return True
+
+    def _init_collective(self, world_size, rank, backend, group_name):
+        col.init_collective_group(world_size, rank, backend=backend,
+                                  group_name=group_name, **self.options)
+        return True
+
+    def run(self, fn, *args):
+        return fn(*args)
+
+
+@pytest.fixture(scope="module")
+def members(cluster):
+    return [Member.remote() for _ in range(4)]
+
+
+_names = itertools.count()
+
+
+def _group(members, n, backend, **options):
+    name = f"g{next(_names)}_{backend}"
+    actors = members[:n]
+    ray_tpu_torch.get([a.set_options.remote(options) for a in actors],
+                      timeout=60)
+    col.create_collective_group(actors, n, list(range(n)), backend=backend,
+                                group_name=name)
+    return actors, name
+
+
+_shared = {}
+
+
+def _shared_group(members, n, backend, **options):
+    """One group per (n, backend, options) for the module's cases that
+    leave a group as they found it (each group is a coordinator actor)."""
+    key = (n, backend, tuple(sorted(options.items())))
+    if key not in _shared:
+        _shared[key] = _group(members, n, backend, **options)
+    return _shared[key]
+
+
+def _run(actors, fn, *per_rank):
+    """fn(*args_r) on rank r, for every rank; per_rank: one list each."""
+    return ray_tpu_torch.get(
+        [a.run.remote(fn, *(arg[r] for arg in per_rank))
+         for r, a in enumerate(actors)], timeout=120)
+
+
+def _destroy(actors, name):
+    _run(actors, lambda g: col.destroy_collective_group(g),
+         [name] * len(actors))
+
+
+def _host(seed, *shape, op="sum"):
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    if op == "prod":
+        x = 1.0 + 0.1 * x        # products of a few factors near 1
+    return x
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _jax(fn, host, n):
+    """fn over each rank's shard, as the reference runs it (rank-major
+    result: row r is rank r's output)."""
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("x",))
+    g = jax.jit(shard_map(lambda x: fn(x[0])[None], mesh=mesh,
+                          in_specs=P("x"), out_specs=P("x"),
+                          check_rep=False))
+    return np.asarray(g(host))
+
+
+# ---------------------------------------------------------------------------
+# shm: the reference's SHMGroup arithmetic.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_shm_allreduce_is_the_reference_s(members, op):
+    n = 4
+    host = _host(1, n, 6, 5, op=op)
+    actors, g = _shared_group(members, n, "shm")
+    out = _run(actors, lambda x, o, g: col.allreduce(x, g, o),
+               host, [OPS[op]] * n, [g] * n)
+    want = ref_reduce(list(host), REF_OPS[op])
+    for o in out:
+        assert o.dtype == want.dtype
+        np.testing.assert_array_equal(o, want)
+
+
+def test_shm_gather_scatter_broadcast_and_p2p(members):
+    n = 4
+    host = _host(2, n, 7, 3)            # 7 rows: array_split is ragged
+    actors, g = _shared_group(members, n, "shm")
+    ag = _run(actors, lambda x, g: col.allgather(x, g), host, [g] * n)
+    for per_rank in ag:
+        for r in range(n):
+            np.testing.assert_array_equal(per_rank[r], host[r])
+    bc = _run(actors, lambda x, g: col.broadcast(x, 2, g), host, [g] * n)
+    for o in bc:
+        np.testing.assert_array_equal(o, host[2])
+    rs = _run(actors, lambda x, g: col.reducescatter(x, g), host, [g] * n)
+    want = np.array_split(ref_reduce(list(host), RefOp.SUM), n, axis=0)
+    for r in range(n):
+        np.testing.assert_array_equal(rs[r], want[r])
+    red = _run(actors, lambda x, g: col.reduce(x, 1, g), host, [g] * n)
+    np.testing.assert_array_equal(red[1], ref_reduce(list(host), RefOp.SUM))
+    np.testing.assert_array_equal(red[0], host[0])
+
+    def p2p(r, g):
+        if r == 0:
+            col.send(np.full(4, 7.0), 3, g)
+            col.send(np.full(4, 8.0), 3, g)
+            return None
+        if r == 3:
+            return [col.recv(0, g), col.recv(0, g)]
+        return None
+
+    got = _run(actors, p2p, list(range(n)), [g] * n)
+    np.testing.assert_array_equal(got[3][0], np.full(4, 7.0))
+    np.testing.assert_array_equal(got[3][1], np.full(4, 8.0))
+
+
+# ---------------------------------------------------------------------------
+# torch over gloo: XLAGroup's host arithmetic.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("op", sorted(OPS))
+def test_torch_allreduce_is_xla_group_s(members, n, op):
+    host = _host(10 + n, n, 7, 5, op=op)
+    actors, g = _shared_group(members, n, "torch")
+    out = _run(actors, lambda x, o, g: col.allreduce(x, g, o),
+               host, [OPS[op]] * n, [g] * n)
+    want = getattr(np.stack(host), NP_OPS[op])(axis=0)
+    for o in out:
+        assert isinstance(o, np.ndarray) and o.dtype == want.dtype
+        np.testing.assert_array_equal(o, want)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_torch_collectives_are_xla_group_s(members, n):
+    host = _host(20 + n, n, 7, 5)
+    actors, g = _shared_group(members, n, "torch")
+    stack = np.stack(host)
+    rs = _run(actors, lambda x, g: col.reducescatter(x, g), host, [g] * n)
+    for r in range(n):
+        np.testing.assert_array_equal(
+            rs[r], np.array_split(stack.sum(axis=0), n, axis=0)[r])
+    ag = _run(actors, lambda x, g: col.allgather(x, g), host, [g] * n)
+    bc = _run(actors, lambda x, g: col.broadcast(x, n - 1, g), host,
+              [g] * n)
+    red = _run(actors, lambda x, g: col.reduce(x, 0, g, ReduceOp.MAX),
+               host, [g] * n)
+    for r in range(n):
+        for j in range(n):
+            np.testing.assert_array_equal(ag[r][j], host[j])
+        np.testing.assert_array_equal(bc[r], host[n - 1])
+    np.testing.assert_array_equal(red[0], stack.max(axis=0))
+    np.testing.assert_array_equal(red[1], host[1])
+
+    def p2p(r, g):
+        col.barrier(g)
+        if r == 0:
+            col.send(np.arange(6.0), 1, g)
+            return None
+        return col.recv(0, g) if r == 1 else None
+
+    got = _run(actors, p2p, list(range(n)), [g] * n)
+    np.testing.assert_array_equal(got[1], np.arange(6.0))
+
+
+# ---------------------------------------------------------------------------
+# cuda on the CPU: the plain rings against the reference's Pallas kernels.
+# ---------------------------------------------------------------------------
+
+def _cuda_group(members, n, **options):
+    return _shared_group(members, n, "cuda", device="cpu", **options)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", ["sum", "max", "min", "prod"])
+def test_cuda_allreduce_and_reduce_scatter_match_pallas(members, n, op):
+    actors, g = _cuda_group(members, n)
+    host = _host(30 + n, n, 5, 7, op=op)     # the LANES padding path
+    want = _jax(lambda x: J.ring_allreduce(x, "x", n=n, op=op, impl=IMPL),
+                host, n)
+    dev = _run(actors, lambda x, o, g: col.collective._group_mgr.get_group(
+        g).device_allreduce(x, o), host, [OPS[op]] * n, [g] * n)
+    ring = _run(actors, lambda x, o, g: col.collective._group_mgr.get_group(
+        g).ring_collective("allreduce", x, o), host, [OPS[op]] * n, [g] * n)
+    # Host-level reducescatter: C4, then the reference's split of axis 0.
+    rs = _run(actors, lambda x, o, g: col.reducescatter(x, g, o),
+              host, [OPS[op]] * n, [g] * n)
+    for r in range(n):
+        np.testing.assert_array_equal(_np(dev[r]), want[r])
+        np.testing.assert_array_equal(_np(ring[r]), want[r])
+        np.testing.assert_array_equal(
+            _np(rs[r]), np.array_split(want[r], n, axis=0)[r])
+    # ring_collective("reducescatter") is C2 (each slab padded alone).
+    host = _host(40 + n, n, n * 3, 5, 7, op=op)
+    want = _jax(lambda x: J.ring_reduce_scatter(x, "x", n=n, op=op,
+                                                impl=IMPL), host, n)
+    got = _run(actors, lambda x, o, g: col.collective._group_mgr.get_group(
+        g).ring_collective("reducescatter", x, o), host, [OPS[op]] * n,
+        [g] * n)
+    for r in range(n):
+        assert tuple(got[r].shape) == (3, 5, 7)
+        np.testing.assert_array_equal(_np(got[r]), want[r])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_allgather_and_broadcast_match_pallas(members, n):
+    actors, g = _cuda_group(members, n)
+    host = _host(50 + n, n, 3, 50)
+    want = _jax(lambda x: J.ring_allgather(x, "x", n=n, impl=IMPL), host, n)
+    ring = _run(actors, lambda x, g: col.collective._group_mgr.get_group(
+        g).ring_collective("allgather", x), host, [g] * n)
+    ag = _run(actors, lambda x, g: col.allgather(x, g), host, [g] * n)
+    bc = _run(actors, lambda x, g: col.broadcast(x, 1, g), host, [g] * n)
+    for r in range(n):
+        assert tuple(ring[r].shape) == (n, 3, 50)
+        np.testing.assert_array_equal(_np(ring[r]), want[r])
+        for j in range(n):
+            np.testing.assert_array_equal(_np(ag[r][j]), want[r][j])
+        np.testing.assert_array_equal(_np(bc[r]), host[1])
+
+
+def _quantized_rows(members, n, op, host):
+    """Every rank's row through a ``quantized=True`` group's allreduce and
+    through ``device_allreduce(quantized=True)`` of a plain one."""
+    actors, g = _cuda_group(members, n, quantized=True)
+    got = _run(actors, lambda x, o, g: col.allreduce(x, g, o), host,
+               [OPS[op]] * n, [g] * n)
+    actors, g = _cuda_group(members, n)
+    dev = _run(actors, lambda x, o, g: col.collective._group_mgr.get_group(
+        g).device_allreduce(x, o, quantized=True), host, [OPS[op]] * n,
+        [g] * n)
+    return np.stack([_np(t) for t in got]), np.stack([_np(t) for t in dev])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", ["sum", "avg"])
+def test_cuda_quantized_allreduce_matches_pallas(members, n, op):
+    """C6, bit for bit with the reference on the inputs of
+    ``tests/test_torch_quantized.py`` (seed 40 + n, 40 x 50 a rank); each
+    rank's row differs from the others', as the reference's."""
+    host = _host(40 + n, n, 40, 50)          # 2000 elements: the int8 rung
+    want = _jax(lambda x: JQ.quantized_ring_allreduce(
+        x, "x", n=n, op=op, impl=IMPL), host, n)
+    got, dev = _quantized_rows(members, n, op, host)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(dev, want)
+    assert not np.array_equal(want[0], want[1])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_quantized_allreduce_is_the_port_s_c6(members, n):
+    """On other inputs the group's rows are the in-process C6's function
+    (``quantized_ring_allreduce`` on the stack) bit for bit. The
+    reference's CPU rounding of its accumulate is one FMA on some inputs
+    and not on others (here seed 64 at n = 4: 1748 of 8000 elements one
+    ulp apart), so against it each element is held to one f32 rounding
+    per hop, as ``tests/test_torch_quantized.py`` holds n = 8."""
+    from ray_tpu_torch.util.collective.quantized import \
+        quantized_ring_allreduce
+
+    host = _host(60 + n, n, 40, 50)
+    got, dev = _quantized_rows(members, n, "sum", host)
+    port = quantized_ring_allreduce(torch.from_numpy(host)).numpy()
+    np.testing.assert_array_equal(got, port)
+    np.testing.assert_array_equal(dev, port)
+    want = _jax(lambda x: JQ.quantized_ring_allreduce(
+        x, "x", n=n, impl=IMPL), host, n)
+    hops = 2 * (n - 1)
+    err = np.abs(got.astype(np.float64) - want)
+    assert err.max() <= hops * 2.0 ** -23 * np.abs(want).max()
+
+
+def test_cuda_metrics_count_every_op(members):
+    """Every op through the API is counted with the reference's tags:
+    rtpu_collective_ops_total{op, backend="cuda", dtype}."""
+    n = 2
+    actors, g = _cuda_group(members, n)
+    host = _host(70, n, 4, 3)
+
+    def ops(x, g):
+        from ray_tpu_torch.observability.collective import collective_metrics
+
+        before = dict(collective_metrics().ops._snapshot()["data"])
+        col.allreduce(x, g)
+        col.allgather(x, g)
+        col.broadcast(x, 0, g)
+        col.barrier(g)
+        after = collective_metrics().ops._snapshot()["data"]
+        return {k: after[k] - before.get(k, 0.0) for k in after
+                if after[k] != before.get(k, 0.0)}
+
+    got = _run(actors, ops, host, [g] * n)
+    for d in got:
+        assert d == {"allreduce,cuda,float32": 1.0,
+                     "allgather,cuda,float32": 1.0,
+                     "broadcast,cuda,float32": 1.0,
+                     "barrier,cuda,unknown": 1.0}
+
+
+# ---------------------------------------------------------------------------
+# Errors and bookkeeping.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["xla", "pallas"])
+def test_jax_package_backends_raise_naming_the_port_s(name):
+    with pytest.raises(ValueError, match="'torch'.*'cuda'"):
+        Backend.validate(name)
+    with pytest.raises(ValueError, match="'torch'.*'cuda'"):
+        col.init_collective_group(2, 0, backend=name, group_name="nope")
+    assert Backend.validate("gloo") == Backend.validate("cpu") == "shm"
+
+
+def test_get_group_mesh_raises_naming_the_mesh_slice():
+    with pytest.raises(NotImplementedError, match="mesh-parallel slice"):
+        col.get_group_mesh("default")
+
+
+def test_second_init_raises_and_destroy_then_reinit_works(members):
+    n = 2
+    for backend in ("shm", "torch"):
+        actors, g = _group(members, n, backend)
+
+        def again(r, g, b):
+            try:
+                col.init_collective_group(2, r, backend=b, group_name=g)
+            except RuntimeError as e:
+                return str(e)
+            return None
+
+        errs = _run(actors, again, [0, 1], [g] * n, [backend] * n)
+        assert all("already initialized" in e for e in errs)
+        _destroy(actors, g)
+        assert _run(actors, lambda g: col.is_group_initialized(g),
+                    [g] * n) == [False, False]
+        col.create_collective_group(actors, n, [0, 1], backend=backend,
+                                    group_name=g)
+        host = _host(80, n, 3)
+        out = _run(actors, lambda x, g: col.allreduce(x, g), host, [g] * n)
+        for o in out:
+            np.testing.assert_array_equal(o, host.sum(axis=0))
+        _destroy(actors, g)
+
+
+def test_metric_names_and_tags_are_the_reference_s():
+    from ray_tpu.observability.collective import CollectiveMetrics as RefM
+    from ray_tpu_torch.observability.collective import CollectiveMetrics
+
+    ref, port = RefM(), CollectiveMetrics()
+    for attr in ("ops", "bytes", "op_seconds", "exposed_seconds",
+                 "hidden_seconds"):
+        a, b = getattr(ref, attr), getattr(port, attr)
+        assert (b._name, b._type, b._tag_keys) == \
+            (a._name, a._type, a._tag_keys), attr
+        assert getattr(b, "boundaries", None) == \
+            getattr(a, "boundaries", None), attr
+
+
+@pytest.mark.parametrize("backend", ["shm", "torch"])
+def test_a_peer_that_never_arrives_makes_the_others_raise(members, backend):
+    """Rank 1 never calls: rank 0 raises within the group's timeout (2 s
+    here) plus the round trip, and does not hang."""
+    n = 2
+    actors, g = _group(members, n, backend, timeout_s=2.0)
+    start = time.monotonic()
+    with pytest.raises(Exception) as info:
+        ray_tpu_torch.get(actors[0].run.remote(
+            lambda g: col.allreduce(np.ones(3, np.float32), g), g),
+            timeout=60)
+    assert time.monotonic() - start < 20.0
+    assert re.search(r"time(d |)out", repr(info.value), re.I), info.value
+    _destroy(actors, g)

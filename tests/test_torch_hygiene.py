@@ -65,7 +65,10 @@ def test_port_files_found():
             "cuda_backend.py", "torch_backend.py", "backend.py",
             "checkpoint.py", "sharded_checkpoint.py", "storage.py",
             "session.py", "worker_group.py", "backend_executor.py",
-            "goodput.py", "train.py"} <= names
+            "goodput.py", "train.py", "collective.py", "util.py",
+            "types.py", "process_ring.py", "base_collective_group.py",
+            "shm_collective_group.py", "torch_collective_group.py",
+            "cuda_collective_group.py"} <= names
     assert (ROOT / "ray_tpu_torch/_private/csrc/arena_store.cpp").exists()
 
 
@@ -193,6 +196,20 @@ def test_port_cluster_spawns_only_port_processes():
         actor = Probe.remote()
         assert ray_tpu_torch.get([modules.remote(), actor.modules.remote()],
                                  timeout=60) == [[], []]
+        # A collective group's coordinator actor runs in a worker of the
+        # port: its process is a ray_tpu_torch. module.
+        from ray_tpu_torch.util import state
+        from ray_tpu_torch.util.collective.util import \
+            get_or_create_coordinator
+
+        hub = get_or_create_coordinator("hygiene", 1)
+        assert ray_tpu_torch.get(hub.put.remote("k", 1), timeout=60)
+        wid = next(a["worker_id"] for a in state.list_actors()
+                   if a["name"] == "collective_group:hygiene")
+        pid = next(w["pid"] for w in state.list_workers()
+                   if w["worker_id"] == wid)
+        cmd = _cmdline(pid)
+        assert cmd[cmd.index("-m") + 1].startswith("ray_tpu_torch."), cmd
         cmds = [c for c in map(_cmdline, _descendants(os.getpid()))
                 if c is not None]
         assert len(cmds) >= 3                  # GCS, raylet, workers
@@ -277,6 +294,21 @@ def test_ring_group_default_device_raises():
         RingGroup(4)
 
 
+def test_cuda_collective_group_default_device_raises():
+    """A ``cuda`` group made without ``device=`` runs on the card, and
+    raises on a host without one before any rendezvous."""
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util.collective.collective_group \
+        .cuda_collective_group import CudaGroup
+
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CudaGroup(2, 0, "no-card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        col.init_collective_group(2, 0, backend="cuda", group_name="no-card")
+    assert not col.is_group_initialized("no-card")
+
+
 def test_run_pod_training_default_device_raises():
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.train.cuda_backend import run_pod_training
@@ -344,7 +376,7 @@ def test_trainer_workers_lease_gpus_and_are_port_processes():
     holds a GPU lease (its ``metadata()`` reports the lease's ids and the
     raylet set ``CUDA_VISIBLE_DEVICES``), every process the node spawned
     for the trainer's workers runs a ``ray_tpu_torch.`` module, and a GPU
-    gang of two raises, naming the cross-process collective slice."""
+    gang of two raises, naming the ZeRO-across-processes slice."""
     import ray_tpu_torch
     from ray_tpu_torch.accelerators import gpu as G
     from ray_tpu_torch.train import (
@@ -377,7 +409,7 @@ def test_trainer_workers_lease_gpus_and_are_port_processes():
         group.shutdown()
 
         with pytest.raises(TrainingFailedError,
-                           match="cross-process collective slice"):
+                           match="ZeRO-across-processes slice"):
             CudaTrainer(pod_train_loop, scaling_config=ScalingConfig(
                 num_workers=2, use_gpu=True)).fit()
     finally:

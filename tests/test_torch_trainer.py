@@ -547,11 +547,11 @@ def test_get_dataset_shard_refused_naming_the_data_slice():
 
 def test_gpu_gang_of_two_refused(cluster, tmp_path):
     """Two workers on the card (CudaConfig's default device) would be two
-    ranks of one process group on one card: the backend refuses, naming
-    the cross-process collective slice, and tears the workers down."""
+    ranks of one ZeRO step in two processes: the backend refuses, naming
+    the ZeRO-across-processes slice, and tears the workers down."""
     before = ray_tpu_torch.available_resources().get("CPU")
     with pytest.raises(TrainingFailedError,
-                       match="cross-process collective slice"):
+                       match="ZeRO-across-processes slice"):
         CudaTrainer(pod_train_loop,
                     scaling_config=ScalingConfig(num_workers=2),
                     run_config=RunConfig(storage_path=str(tmp_path))).fit()
