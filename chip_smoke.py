@@ -155,9 +155,10 @@ Phases, one line each; any failure raises and exits non-zero:
               run without the tier at the same depth. After shutdown no
               cluster process is left and the card's memory is back
               within 1 GiB.
-6i. trainer -- (run last) Train on the port's runtime. First, in this
-              process, ``run_pod_training`` at Llama-3-8B widths, 4
-              layers, bf16, flash attention, ``remat="dots"``, ZeRO
+6i. trainer -- (run after zero quant) Train on the port's runtime.
+              First, in this process, ``run_pod_training`` at
+              Llama-3-8B widths, 4 layers, bf16, flash attention,
+              ``remat="dots"``, ZeRO
               (``weight_update="sharded"``) over 4 virtual ranks, batch
               4 x 1024 targets, 3 timed steps after the warmup step.
               Then a cluster (``init(num_gpus=1)``) and
@@ -195,7 +196,12 @@ Phases, one line each; any failure raises and exits non-zero:
               flag words. Gates: at 65536 rows a rank, n 2 and 4, f32 and
               bf16, every op, C2, C3, C4 and C6 bit for bit equal to the
               in-process kernel (a ``RingGroup`` in the rank's process)
-              and the plain version on the stacked inputs; the host-level
+              and the plain version on the stacked inputs; the split-phase
+              rank calls of C1 (f32, bf16: one hop, the caller's block
+              read where it lies into the right neighbour's staging) and
+              C5 in place (f32, every hop of a reduce-scatter, two
+              launches a hop: send, then receive after the peers' done
+              words; its carry column) the same way; the host-level
               API on the card (allreduce, reducescatter held to C4 then
               the split, allgather, broadcast, reduce, barrier, send/recv)
               equal to its CPU path for the same seeds, every call counted
@@ -210,7 +216,15 @@ Phases, one line each; any failure raises and exits non-zero:
               kernel time (CUDA events in rank 0), the call's wall and the
               staged bytes beside the in-process kernel's time and the
               library's (gloo's allreduce, allgather or reduce_scatter of
-              the card tensors over the group's process group). Then a
+              the card tensors over the group's process group); one overlap
+              chunk of each split-phase kind at full size (C1: a hop's
+              block of the ZeRO cell, 939,026 rows of 128 bf16; C5: a
+              reduce-scatter of the quantized cell's chunk, 619,526 rows
+              of 128 f32 a hop), each hop's kernel time in rank 0, its
+              call's wall and the staged bytes, a sample of rows held (C1
+              equal to the left neighbour's, C5 within the int8 ring's
+              bound of the exact sum), and C1's library call (gloo's send
+              and receive of pinned host copies of the block). Then a
               stalled peer (one rank makes no second call) and a dead
               peer (its actor killed between two calls): every other rank
               raises within 10 s naming it; and a peer stalled inside C6
@@ -220,6 +234,37 @@ Phases, one line each; any failure raises and exits non-zero:
               compute mode and the
               transport are printed; after shutdown no cluster process is
               left and the card's memory is back within 1 GiB.
+6k. zero gang -- (run last, after 6i) ZeRO with one rank per process:
+              ``parallel.zero`` over the gang's ``cuda`` collective group,
+              each rank a ``CudaTrainer`` worker on a fraction of the card.
+              First, in this process, the virtual-rank runs each gang
+              route is held to. Then a cluster and
+              ``CudaTrainer(ScalingConfig(num_workers=4, use_gpu=True,
+              resources_per_worker={"CPU": 1, "GPU": 0.25}),
+              CudaConfig(weight_update="sharded", mesh_axes={"data":
+              4}))`` at 6i's arguments but 2 layers (``GANG_LAYERS``: four
+              ranks at 4 layers do not fit the card): the monolithic route
+              (C2 + C3) then ``overlap=True`` (C1 per hop) through
+              ``run_pod_training``, from the same params in the same
+              workers; then two workers of 0.5 GPU: the monolithic route
+              at 4 layers, and at 1 layer ``quantized_grads`` (C6 + C3),
+              ``error_feedback`` and the quantized overlap (C5 in place +
+              C1), whose steps the loop builds over the gang's group.
+              Gates: every rank's per-step losses and grad norms equal the
+              in-process virtual ranks' bit for bit, every rank's final
+              params fingerprint equal to theirs; each worker's launches
+              of B1, B2, B3, C1, C2, C3, C5 and C6 equal the step
+              arithmetic; each worker holds its fractional lease (gpu ids
+              [0], CUDA_VISIBLE_DEVICES "0") and no JAX module; the GCS
+              step matrix holds every worker's timed steps, no stall;
+              after shutdown no cluster process is left and the card's
+              memory is back within 1 GiB. Printed: step walls and
+              tokens/s through the gang against in process, each rank's
+              peak memory (torch's peak plus the ring's workspace) against
+              the prediction, and the staging's share of a step (the rank
+              forms' staged bytes and the host's time in the ring's calls,
+              against the step wall). A failed ``fit()`` prints every
+              worker's stderr.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -5010,11 +5055,15 @@ def phase_trainer(dev, card):
     # error fails the phase with its text (nothing retries).
     for k in kernels:
         k.launches = 0
-    losses = []
+    losses, norms, prints = [], [], []
     t0 = time.perf_counter()
     try:
-        local = run_pod_training(**args, device=dev,
-                                 report=lambda m: losses.append(m["loss"]))
+        local = run_pod_training(
+            **args, device=dev,
+            report=lambda m: (losses.append(m["loss"]),
+                              norms.append(m["grad_norm"])),
+            on_finish=lambda st: prints.append(_flat_fingerprint(
+                st.flat[0])))
         torch.cuda.synchronize(dev)
     except Exception as e:
         log("trainer", f"the in-process run failed: {type(e).__name__}: "
@@ -5119,7 +5168,8 @@ def phase_trainer(dev, card):
             out[f"{side}_mfu"] = fpt * s["tokens_per_sec"] / PEAK_FLOPS[
                 torch.bfloat16]
         out["tok_s_ratio"] = out["trainer_tok_s"] / out["in_process_tok_s"]
-        out.update(losses=losses, launches=dict(zip(names, local_counts)),
+        out.update(losses=losses, grad_norms=norms, fingerprint=prints[0],
+                   launches=dict(zip(names, local_counts)),
                    worker_launches=dict(zip(names, seen["launches"])),
                    goodput=g, phase_seconds=summary["phase_seconds"],
                    step_walls=summary["step_walls"],
@@ -5177,6 +5227,436 @@ def phase_trainer(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# 6k: the ZeRO gang -- parallel.zero with one rank per process.
+# ---------------------------------------------------------------------------
+
+# The four-worker gang's depth: at 4 layers four ranks' state, workspaces
+# and contexts do not fit the card's 80 GB (PERF.md §4).
+GANG_LAYERS = 2
+# Per gang size: (route, layers, how, step keyword arguments), run in this
+# order in the same workers, each from seed 0's params. "pod" runs
+# run_pod_training (the entry point a CudaTrainer loop calls); "zero"
+# builds parallel.zero's step over the gang's group (run_pod_training,
+# as the reference's, has no int8 exchange).
+GANG_ROUTES = {
+    4: (("monolithic", GANG_LAYERS, "pod", {}),
+        ("overlap", GANG_LAYERS, "pod", {"overlap": True})),
+    2: (("monolithic", TRAIN_LAYERS, "pod", {}),
+        ("quantized", QZERO_LAYERS, "zero", {"quantized_grads": True}),
+        ("error feedback", QZERO_LAYERS, "zero",
+         {"quantized_grads": True, "error_feedback": True}),
+        ("quantized overlap", QZERO_LAYERS, "zero",
+         {"quantized_grads": True, "overlap": True,
+          "n_chunks": ZERO_CHUNKS})),
+}
+# Each rank's predicted peak (GB: torch's peak allocation plus the ring's
+# workspace), per gang size and depth (PERF.md's prediction for
+# the gradients streamed into the buffer).
+GANG_PREDICTED_GB = {(4, GANG_LAYERS): 15.5, (2, TRAIN_LAYERS): 21.5,
+                     (2, QZERO_LAYERS): 20.5}
+GANG_KERNELS = ("B1", "B2", "B3", "C1", "C2", "C3", "C5", "C6")
+
+
+def _gang_cfg(layers):
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_8b(
+        n_layers=layers, max_seq_len=TRAIN_SEQ, attn_impl="flash",
+        remat="dots", param_dtype=torch.bfloat16)
+
+
+_ARANGE = {}
+
+
+def _flat_fingerprint(row):
+    """Two integers that equal parameter rows share: the sum of the row's
+    16-bit words and their sum weighted by position (mod 65521, plus 1),
+    taken on the device a piece at a time."""
+    words = row.detach().reshape(-1).view(torch.int16)
+    piece = 1 << 24
+    w = _ARANGE.get(words.device)
+    if w is None:
+        w = _ARANGE[words.device] = (torch.arange(
+            piece, device=words.device, dtype=torch.int64) % 65521) + 1
+    total = weighted = 0
+    for i in range(0, words.numel(), piece):
+        v = words[i:i + piece].to(torch.int64)
+        total += int(v.sum())
+        weighted += int((v * w[:v.numel()]).sum()) * (i // piece + 1)
+    return [total, weighted]
+
+
+def _zero_steps(cfg, group, kw, dev):
+    """``parallel.zero``'s step over ``group`` (a RingGroup in this
+    process, or the gang's CudaGroup) with run_pod_training's arguments:
+    seed 0's params and batch, AdamW at 1e-3, the warmup step, then
+    TRAINER_STEPS timed steps. Returns the timed steps' losses, grad
+    norms and walls, and the first held rank's fingerprint."""
+    import functools
+
+    from ray_tpu_torch.models.llama import init_params, loss_fn
+    from ray_tpu_torch.parallel import (
+        build_zero_train_step, create_zero_state)
+    from ray_tpu_torch.parallel.train_step import WEIGHT_DECAY
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    opt = functools.partial(torch.optim.AdamW, lr=1e-3,
+                            weight_decay=WEIGHT_DECAY)
+    state = create_zero_state(init_params(cfg, 0, device=dev), opt, group,
+                              error_feedback=kw.get("error_feedback",
+                                                    False))
+    step = build_zero_train_step(lambda p, b: loss_fn(p, b, cfg), opt,
+                                 group, **kw)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype("int32")
+    batch = {"tokens": torch.from_numpy(tokens).to(dev, torch.int64)}
+    losses, norms, walls = [], [], []
+    for i in range(1 + TRAINER_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync()
+        if i:
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    fp = _flat_fingerprint(state.flat[0])
+    del state, step
+    return losses, norms, walls, fp
+
+
+def _gang_loop(config):
+    """CudaTrainer's loop in 6k's workers: every route of ``routes`` in
+    turn, each from seed 0's params, with the per-step losses and grad
+    norms, the final params' fingerprint, the kernels' launch counts, the
+    step walls, the peak memory and the ring's staging (bytes and host
+    time in its calls) read in this process; rank 0 reports every rank's
+    record (gathered over the gang's process group)."""
+    import os
+    import sys
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.train import cuda_backend
+    from ray_tpu_torch.util.collective import process_ring as PR
+
+    entered = time.time()
+    group = cuda_backend.gang_group(config["device"])
+    dev, ring = group.device, group.ring
+    on_card = dev.type == "cuda"
+    kernels = dict(zip(GANG_KERNELS, (
+        attention.flash_fwd_cuda, attention.flash_bwd_dkv_cuda,
+        attention.flash_bwd_dq_cuda, PR.ring_permute_rank_cuda,
+        PR.ring_reduce_scatter_rank_cuda, PR.ring_allgather_rank_cuda,
+        PR.ring_qrs_hop_rank_cuda, PR.ring_qallreduce_rank_cuda)))
+    in_ring = [0.0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                in_ring[0] += time.perf_counter() - t0
+        return call
+
+    # A whole call is an enqueue and a finish: the host's time in both.
+    if ring is not None:
+        ring._enqueue = timed(ring._enqueue)
+        ring.finish = timed(ring.finish)
+    runs = {}
+    for name, layers, how, kw in config["routes"]:
+        cfg = _gang_cfg(layers)
+        for k in kernels.values():
+            k.launches = 0
+        staged0 = ring.staged_bytes if on_card else 0
+        in_ring[0] = 0.0
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, norms, prints = [], [], []
+        t0 = time.perf_counter()
+        if how == "pod":
+            summary = cuda_backend.run_pod_training(
+                model_config=cfg, mesh_axes=config["mesh_axes"],
+                steps=TRAINER_STEPS, batch_size=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ + 1, weight_update="sharded", seed=0,
+                device=config["device"],
+                report=lambda m: (losses.append(m["loss"]),
+                                  norms.append(m["grad_norm"])),
+                on_finish=lambda st: prints.append(_flat_fingerprint(
+                    st.flat[0])), **kw)
+            walls, tok_s = summary["step_walls"], summary["tokens_per_sec"]
+        else:
+            losses, norms, walls, fp = _zero_steps(cfg, group, kw, dev)
+            prints.append(fp)
+            tok_s = TRAIN_BATCH * TRAIN_SEQ * len(walls) / sum(walls)
+        runs[name] = {
+            "losses": losses, "grad_norms": norms, "fingerprint": prints[0],
+            "launches": {k: f.launches for k, f in kernels.items()},
+            "step_walls": walls, "tok_s": tok_s,
+            "route_s": time.perf_counter() - t0,
+            "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+            if on_card else 0.0,
+            "workspace_gb": ring._data_bytes / 1e9 if on_card else 0.0,
+            "staged_bytes": ring.staged_bytes - staged0 if on_card else 0,
+            "ring_host_s": in_ring[0]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    mine = {"rank": group.rank, "pid": os.getpid(), "entered": entered,
+            "runs": runs, "gpu_ids": ray_tpu_torch.get_gpu_ids(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_name": torch.cuda.get_device_name(0) if on_card
+            else str(dev),
+            "jax_modules": sorted(m for m in sys.modules
+                                  if m.split(".")[0] in ("jax", "ray_tpu"))}
+    every = [None] * group.world_size
+    dist.all_gather_object(every, mine)
+    train.report({"workers": every})
+
+
+def _gang_launches(n, layers, how, kw):
+    """Each worker's launches over one route's 1 + TRAINER_STEPS steps:
+    one rank's forward and backward (B1 twice a layer under remat="dots"),
+    and its exchanges' rank forms."""
+    from ray_tpu_torch.parallel.zero import _chunks, _padded_len
+
+    runs = 1 + TRAINER_STEPS
+    padded = _padded_len(_gang_cfg(layers).num_params(), n)
+    chunks = len(_chunks(padded, n, kw.get("n_chunks", 4)))
+    want = dict.fromkeys(GANG_KERNELS, 0)
+    want.update(B1=2 * layers * runs, B2=layers * runs, B3=layers * runs)
+    if kw.get("quantized_grads") and kw.get("overlap"):
+        want.update(C5=2 * (n - 1) * chunks * runs,
+                    C1=(n - 1) * chunks * runs)
+    elif kw.get("quantized_grads"):
+        want.update(C6=(2 * (n - 1) + 1) * runs, C3=runs)
+    elif kw.get("overlap"):
+        want.update(C1=2 * (n - 1) * chunks * runs)
+    else:
+        want.update(C2=runs, C3=runs)
+    return want
+
+
+def phase_zero_gang(dev, card, trainer):
+    """ZeRO with one rank per process; see the module docstring (6k)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (
+        CudaConfig, CudaTrainer, RunConfig, ScalingConfig)
+    from ray_tpu_torch.train.cuda_backend import run_pod_training
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.collective import RingGroup
+
+    phase_t0 = time.perf_counter()
+    out = {"card": card, "gangs": {}}
+    # The workers' device: the card each lease names (a CPU rehearsal
+    # passes the CPU).
+    device = None if dev.type == "cuda" else str(dev)
+    # In this process first, before any cluster: the virtual-rank run each
+    # gang route is held to. The four-rank monolithic run is 6i's.
+    ref = {}
+    t0 = time.perf_counter()
+    for n, routes in GANG_ROUTES.items():
+        for name, layers, how, kw in routes:
+            if (n, name, layers) == (ZERO_N, "monolithic", TRAIN_LAYERS):
+                ref[n, name] = {"losses": trainer["losses"],
+                                "grad_norms": trainer["grad_norms"],
+                                "fingerprint": trainer["fingerprint"],
+                                "tok_s": trainer["in_process_tok_s"],
+                                "step_walls": None}
+                continue
+            cfg = _gang_cfg(layers)
+            if how == "pod":
+                losses, norms, prints = [], [], []
+                res = run_pod_training(
+                    model_config=cfg, mesh_axes={"data": n},
+                    steps=TRAINER_STEPS, batch_size=TRAIN_BATCH,
+                    seq_len=TRAIN_SEQ + 1, weight_update="sharded", seed=0,
+                    device=dev,
+                    report=lambda m: (losses.append(m["loss"]),
+                                      norms.append(m["grad_norm"])),
+                    on_finish=lambda st: prints.append(_flat_fingerprint(
+                        st.flat[0])), **kw)
+                ref[n, name] = {"losses": losses, "grad_norms": norms,
+                                "fingerprint": prints[0],
+                                "tok_s": res["tokens_per_sec"],
+                                "step_walls": res["step_walls"]}
+            else:
+                losses, norms, walls, fp = _zero_steps(
+                    cfg, RingGroup(n, dev), kw, dev)
+                ref[n, name] = {"losses": losses, "grad_norms": norms,
+                                "fingerprint": fp, "step_walls": walls,
+                                "tok_s": TRAIN_BATCH * TRAIN_SEQ
+                                * len(walls) / sum(walls)}
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(all(np.isfinite(ref[n, name]["losses"])),
+                  f"in-process {name} at n={n}: {ref[n, name]}")
+    out["in_process_s"] = time.perf_counter() - t0
+    log("gang", f"in process: the virtual-rank runs the gangs are held "
+        f"to, {len(ref) - 1} new ({out['in_process_s']:.1f} s; the "
+        f"four-rank monolithic run is 6i's); {card}")
+
+    mem0 = gpu_memory_used_mib()
+    t0 = time.perf_counter()
+    session = rt.init(num_gpus=1)["session_dir"]
+    out["cluster_start_s"] = time.perf_counter() - t0
+    storage = tempfile.TemporaryDirectory(prefix="chip_smoke_gang_")
+    procs = {}
+    try:
+        for n, routes in GANG_ROUTES.items():
+            t_fit, t0 = time.time(), time.perf_counter()
+            try:
+                result = CudaTrainer(
+                    _gang_loop, train_loop_config=dict(
+                        routes=routes, mesh_axes={"data": n},
+                        device=device),
+                    scaling_config=ScalingConfig(
+                        num_workers=n, use_gpu=True,
+                        resources_per_worker={"CPU": 1, "GPU": 1.0 / n}),
+                    cuda_config=CudaConfig(
+                        device=device, weight_update="sharded",
+                        mesh_axes={"data": n}),
+                    run_config=RunConfig(name=f"gang{n}",
+                                         storage_path=storage.name)).fit()
+            except Exception as e:
+                _print_worker_stderr(os.path.join(session, "logs"))
+                log("gang", f"n={n}: fit() failed: {type(e).__name__}: {e}")
+                raise
+            fit_s = time.perf_counter() - t0
+            workers = sorted(result.metrics["workers"],
+                             key=lambda w: w["rank"])
+            check([w["rank"] for w in workers] == list(range(n)),
+                  f"n={n}: the workers' ranks {[w['rank'] for w in workers]}")
+            check(all(w["gpu_ids"] == [0] and w["cuda_visible_devices"]
+                      == "0" and "H100" in w["device_name"]
+                      and not w["jax_modules"] and w["pid"] != os.getpid()
+                      for w in workers),
+                  f"n={n}: the workers' leases and modules: " + str(
+                      [{k: v for k, v in w.items() if k != "runs"}
+                       for w in workers]))
+            gang = {"fit_s": fit_s, "routes": {},
+                    "worker_ready_s": max(w["entered"] for w in workers)
+                    - t_fit}
+            for name, layers, how, kw in routes:
+                want = ref[n, name]
+                got = [w["runs"][name] for w in workers]
+                for r, g in enumerate(got):
+                    check(g["losses"] == want["losses"]
+                          and g["grad_norms"] == want["grad_norms"],
+                          f"n={n} {name}: rank {r}'s losses {g['losses']} "
+                          f"and grad norms {g['grad_norms']} differ from "
+                          f"the in-process virtual ranks' "
+                          f"{want['losses']}, {want['grad_norms']}")
+                    check(g["fingerprint"] == want["fingerprint"],
+                          f"n={n} {name}: rank {r}'s params fingerprint "
+                          f"{g['fingerprint']} != in process "
+                          f"{want['fingerprint']}")
+                    lw = _gang_launches(n, layers, how, kw)
+                    check(g["launches"] == lw,
+                          f"n={n} {name}: rank {r}'s launches "
+                          f"{g['launches']} != {lw}")
+                walls = [float(np.mean(g["step_walls"])) for g in got]
+                wall = max(walls)
+                peak = [g["peak_allocated_gb"] + g["workspace_gb"]
+                        for g in got]
+                row = {
+                    "layers": layers, "losses": want["losses"],
+                    "grad_norms": want["grad_norms"],
+                    "launches_per_worker": got[0]["launches"],
+                    "step_wall_s": walls, "tok_s": got[0]["tok_s"],
+                    "in_process_tok_s": want["tok_s"],
+                    "tok_s_ratio": got[0]["tok_s"] / want["tok_s"],
+                    "peak_gb": peak,
+                    "predicted_peak_gb": GANG_PREDICTED_GB.get((n, layers)),
+                    "staged_gb_per_step": [g["staged_bytes"] / 1e9
+                                           / (1 + TRAINER_STEPS)
+                                           for g in got],
+                    "ring_host_s_per_step": [g["ring_host_s"]
+                                             / (1 + TRAINER_STEPS)
+                                             for g in got],
+                    "route_s": max(g["route_s"] for g in got)}
+                row["ring_share_of_step"] = (
+                    max(row["ring_host_s_per_step"]) / wall)
+                gang["routes"][name] = row
+                log("gang", f"n={n} {name} ({layers} layers): every rank's "
+                    f"losses and grad norms bit for bit the in-process "
+                    f"virtual ranks' ("
+                    + ", ".join(f"{x:.6f}" for x in want["losses"])
+                    + f"), every rank's params fingerprint equal to theirs; "
+                    f"launches a worker {got[0]['launches']}; step walls "
+                    + ", ".join(f"{x:.4f}" for x in walls)
+                    + f" s by rank; tok/s {row['tok_s']:.0f} through the "
+                    f"gang, {want['tok_s']:.0f} in process (ratio "
+                    f"{row['tok_s_ratio']:.4f}); peak GB a rank (torch + "
+                    f"workspace) " + ", ".join(f"{x:.2f}" for x in peak)
+                    + f" (predicted {row['predicted_peak_gb']}); staged "
+                    f"{row['staged_gb_per_step'][0]:.3f} GB a step, the "
+                    f"ring's host time {max(row['ring_host_s_per_step']):.4f}"
+                    f" s a step ({100 * row['ring_share_of_step']:.1f}% of "
+                    f"the step wall); {card}")
+
+            def matrix():
+                rows = {r: state.list_train_steps(worker=f"train-{r}")
+                        for r in range(n)}
+                done = all({x["step"] for x in rs} == set(
+                    range(TRAINER_STEPS)) for rs in rows.values())
+                return rows if done else None
+
+            rows = _poll(matrix, timeout=30)
+            summ = state.train_summary()
+            check(rows is not None and all(
+                "compute" in x["phases"] for rs in rows.values()
+                for x in rs), f"n={n}: the GCS step matrix: {rows}")
+            check(summ["stalled"] == [], f"n={n}: a stall: {summ}")
+            out["gangs"][n] = gang
+            log("gang", f"n={n}: {n} workers of {1.0 / n} GPU (leases [0], "
+                f"CUDA_VISIBLE_DEVICES 0, no JAX module), loops began "
+                f"{gang['worker_ready_s']:.2f} s into fit(), which took "
+                f"{fit_s:.2f} s; the GCS step matrix holds every worker's "
+                f"timed steps, no stall; {card}")
+        procs = _cluster_pids()
+    finally:
+        rt.shutdown()
+        storage.cleanup()
+    deadline = time.monotonic() + 30
+    while True:
+        left = {p: c for p, c in procs.items() if _alive(p, c)}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"processes left after shutdown: {left}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    while True:
+        out["memory_after_mib"] = gpu_memory_used_mib()
+        if abs(out["memory_after_mib"] - mem0) < 1024 or \
+                time.monotonic() - t0 > 60:
+            break
+        time.sleep(0.5)
+    out["memory_before_mib"] = mem0
+    out["memory_back_s"] = time.monotonic() - t0
+    check(abs(out["memory_after_mib"] - mem0) < 1024,
+          f"card memory {mem0:.0f} MiB before the cluster, "
+          f"{out['memory_after_mib']:.0f} MiB 60 s after")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("gang", f"cluster up in {out['cluster_start_s']:.2f} s; shut down: "
+        f"no cluster process left, card memory {mem0:.0f} -> "
+        f"{out['memory_after_mib']:.0f} MiB; the phase took "
+        f"{out['phase_s']:.1f} s; {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 6j: collectives across processes (util.collective's cuda backend).
 # ---------------------------------------------------------------------------
 
@@ -5200,7 +5680,11 @@ COLLECTIVE_KERNELS = (
     ("allgather", "C3", "ring_allgather_rank",
      "ray_tpu/util/collective/pallas/ring.py:146"),
     ("quantized_allreduce", "C6", "ring_qallreduce_rank",
-     "ray_tpu/util/collective/pallas/quantized.py:49"))
+     "ray_tpu/util/collective/pallas/quantized.py:49"),
+    ("permute", "C1", "ring_permute_rank",
+     "ray_tpu/util/collective/pallas/ring.py:378"),
+    ("qrs_hop", "C5", "ring_qrs_hop_rank",
+     "ray_tpu/util/collective/pallas/quantized.py:121"))
 
 
 def _collective_member(rt):
@@ -5617,6 +6101,199 @@ def _collective_member(rt):
                     del ring._launch
             return True
 
+        def rank_hops(self, g, rows):
+            """The split-phase rank calls, hop by hop: C1 (f32, bf16) on
+            this rank's block and every hop of C5 in place (f32) on its
+            buffer of n chunks, each against the in-process kernel (a
+            ``RingGroup`` of n virtual ranks in this process, C5 with its
+            own carry table) and the plain version on the stacked inputs,
+            bit for bit; C5's carry column too."""
+            from ray_tpu_torch.util.collective import RingGroup
+            from ray_tpu_torch.util.collective import quantized as Q
+            from ray_tpu_torch.util.collective import ring as R
+
+            grp, n, r, dev = self._group(g)
+            ref = RingGroup(n, dev)
+            bad, names = [], []
+
+            def stack(seed, rows_, dtype):
+                return torch.stack([
+                    self._input(dev, seed, p, rows_ * 128, dtype)
+                    for p in range(n)]).view(n, rows_, 128)
+
+            def hold(name, got, kernel, plain):
+                names.append(name)
+                if not (torch.equal(got, kernel) and torch.equal(got, plain)):
+                    to_k = (got.float() - kernel.float()).abs().max()
+                    to_p = (got.float() - plain.float()).abs().max()
+                    bad.append(f"{name}: max abs diff to the in-process "
+                               f"kernel {to_k.item()}, to the plain "
+                               f"version {to_p.item()}")
+
+            for seed, dtype in ((300, torch.float32), (301, torch.bfloat16)):
+                s = stack(seed, rows, dtype)
+                hop = grp.start_hop("permute", s[r].clone())
+                grp.finish_hops([hop])
+                hold(f"C1 {dtype}", hop.result,
+                     R.ring_permute_cuda(s, group=ref)[r],
+                     R.ring_permute_plain(s)[r])
+                del s, hop
+            rows = rows // n * n
+            s = stack(302, rows, torch.float32)
+            s[1 % n, :rows // n] = 0.0        # a chunk at the scale floor
+            mine = s[r].clone()
+            kern, plain = s.clone(), s
+            carry = torch.full((n - 1, n), -1, dtype=torch.int64,
+                               device=dev)
+            carry_k = torch.empty((n - 1, n), dtype=torch.int64, device=dev)
+            carry_p = torch.zeros((n - 1, n), dtype=torch.int64, device=dev)
+            for t in range(n - 1):
+                grp.finish_hops([grp.start_hop("qrs_hop", mine, t=t,
+                                               carry=carry)])
+                Q.ring_qrs_hop_cuda(kern, t, carry_k, group=ref)
+                Q.ring_qrs_hop_plain(plain, t, carry_p)
+                hold(f"C5 in place hop {t}", mine, kern[r], plain[r])
+                # Rows 1 .. t + 1 filled (hop u fills row u + 1), row 0
+                # and the rest zero since hop 0 zeroed the table.
+                names.append(f"C5 carry hop {t}")
+                if not (torch.equal(carry[:, r], carry_p[:, r])
+                        and torch.equal(carry_k[:, r], carry_p[:, r])):
+                    bad.append(f"C5 carry after hop {t}: rank form "
+                               f"{carry[:, r].tolist()}, in process "
+                               f"{carry_k[:, r].tolist()}, plain "
+                               f"{carry_p[:, r].tolist()}")
+            ref.check()
+            del ref, s, kern, plain, mine
+            gc.collect()
+            torch.cuda.empty_cache()
+            return {"cases": names, "bad": bad}
+
+        def hop_full(self, g, kind, rows, seed, timed):
+            """One overlap chunk at full size, ``1 + timed`` times: C1
+            (bf16) one hop of this rank's [rows, 128] block; C5 (f32) the
+            whole split-phase int8 reduce-scatter of a [n * rows, 128]
+            chunk, hop by hop. Each hop's launches between CUDA events on
+            the ring's stream (rank 0's are the kernel times), each call's
+            host wall, the staged bytes; then a fixed sample of rows: C1
+            equal to the left neighbour's regenerated rows, C5's reduced
+            chunk within the int8 ring's error bound of the exact sum."""
+            grp, n, r, dev = self._group(g)
+            ring = grp.ring
+            dtype = torch.bfloat16 if kind == "permute" else torch.float32
+            elems = rows * 128 * (1 if kind == "permute" else n)
+            launch, events = ring._launch, []
+
+            def timed_launch(*a, **kw):
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0.record(ring.stream)
+                launch(*a, **kw)
+                t1.record(ring.stream)
+                events.append((t0, t1))
+
+            ring._launch = timed_launch
+            walls, staged = [], []
+            try:
+                for i in range(1 + timed):
+                    x = self._input(dev, seed, r, elems, dtype).view(-1, 128)
+                    m = max(float(p.abs().max())
+                            for p in x.view(-1).split(self.PIECE))
+                    carry = torch.empty((n - 1, n), dtype=torch.int64,
+                                        device=dev)
+                    events.clear()
+                    st0 = ring.staged_bytes
+                    hops = 1 if kind == "permute" else n - 1
+                    call_walls = []
+                    for t in range(hops):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        if kind == "permute":
+                            hop = grp.start_hop("permute", x)
+                        else:
+                            hop = grp.start_hop("qrs_hop", x, t=t,
+                                                carry=carry)
+                        grp.finish_hops([hop])
+                        call_walls.append((time.perf_counter() - t0) * 1e3)
+                    if i:
+                        walls.append(call_walls)
+                        kernel = [a.elapsed_time(b) for a, b in events]
+                        if kind == "qrs_hop":
+                            # two launches a hop: send, receive
+                            kernel = [kernel[2 * t] + kernel[2 * t + 1]
+                                      for t in range(hops)]
+                        staged.append((ring.staged_bytes - st0, kernel))
+            finally:
+                del ring._launch
+            span = 8 * 128
+            errs = []
+            if kind == "permute":
+                got = hop.result.view(-1)
+                for lo in (0, elems - span):
+                    want = self._input(dev, seed, (r - 1) % n, elems, dtype,
+                                       lo, lo + span)
+                    errs.append(0.0 if torch.equal(got[lo:lo + span], want)
+                                else float("inf"))
+            else:
+                c = elems // n
+                got = x.view(-1)[r * c:(r + 1) * c]
+                maxes = grp._gather_tensors(torch.tensor([m])).reshape(-1)
+                mx = sorted(maxes.tolist(), reverse=True)
+                tol = sum(sum(mx[:t]) for t in range(1, n)) / 254 * 1.01
+                for lo in (0, c - span):
+                    exact = torch.stack([self._input(
+                        dev, seed, p, elems, dtype, r * c + lo,
+                        r * c + lo + span) for p in range(n)]).double().sum(0)
+                    err = float((got[lo:lo + span].double() - exact)
+                                .abs().max())
+                    errs.append(err if err <= tol else float("inf"))
+            del x, got, hop
+            gc.collect()
+            torch.cuda.empty_cache()
+            return {"kernel_ms": [k for _, k in staged],
+                    "call_ms": walls, "staged_bytes": staged[-1][0],
+                    "samples": len(errs), "sample_max_err": max(errs)}
+
+        def hop_library(self, g, rows, seed):
+            """C1's function through the library: gloo's send to the right
+            neighbour and receive from the left of this rank's bf16 block
+            (``hop_full``'s input), over the process group of g, a
+            ``torch`` group of the same ranks. gloo moves host memory, so
+            the call copies the block to pinned host memory, sends and
+            receives there, and copies the result back to the card, as
+            gloo's collectives stage a CUDA tensor."""
+            from ray_tpu_torch.util.collective.collective import _group_mgr
+
+            grp = _group_mgr.get_group(g)
+            n, r, pg = grp.world_size, grp.rank, grp._pg
+            dev = torch.device("cuda", 0)
+            x = self._input(dev, seed, r, rows * 128, torch.bfloat16)
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            back = torch.empty_like(host)
+            out = torch.empty_like(x)
+            grp.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host.copy_(x)
+            works = [pg.send([host], (r + 1) % n, 7),
+                     pg.recv([back], (r - 1) % n, 7)]
+            for w in works:
+                w.wait()
+            out.copy_(back)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            ok = torch.equal(out[:1024], self._input(
+                dev, seed, (r - 1) % n, rows * 128, torch.bfloat16, 0, 1024))
+            del x, host, back, out
+            gc.collect()
+            torch.cuda.empty_cache()
+            return {"library_ms": ms, "library_ok": ok,
+                    "library_computes": f"gloo's send to the right and "
+                                        f"receive from the left "
+                                        f"(ProcessGroupGloo send/recv of "
+                                        f"pinned host copies, {n} "
+                                        f"processes), the copies to and "
+                                        f"from the card included"}
+
         def call(self, g, rows):
             """One allreduce on the card; raises what the group raises."""
             grp, n, r, dev = self._group(g)
@@ -5626,6 +6303,14 @@ def _collective_member(rt):
             return time.perf_counter() - t0
 
     return Member
+
+
+def _overlap_rows(elems, n):
+    """Rows of 128 a rank sends at one hop of the first overlap chunk of a
+    flat vector of ``elems`` (``parallel.zero._chunks``' first chunk, over
+    n ranks)."""
+    groups = elems // (n * 128)
+    return -(-groups // min(ZERO_CHUNKS, groups))
 
 
 def _collective_group(rt, actors, name, backend="cuda", **options):
@@ -5670,18 +6355,21 @@ def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
     import ray_tpu_torch as rt
 
     phase_t0 = time.perf_counter()
-    # C6's rank form is a kernel of its own (C2-C4's are their one-process
-    # bodies): it must not spill either.
+    # C5's and C6's rank forms are kernels of their own (C1-C4's are
+    # their one-process bodies): they must not spill either.
     rank_c6 = kernel_report(built, "ring_qallreduce_rank_kernel")
-    check(rank_c6["spill_bytes"] == 0, f"C6's rank form spills: {rank_c6}")
-    log("collective", f"C6 rank form: {rank_c6['registers']} registers, "
-        f"{rank_c6['spill_bytes']} spill bytes")
+    rank_c5 = kernel_report(built, "ring_qrs_hop_rank_kernel")
+    for key, rep in (("C5", rank_c5), ("C6", rank_c6)):
+        check(rep["spill_bytes"] == 0, f"{key}'s rank form spills: {rep}")
+        log("collective", f"{key} rank form: {rep['registers']} registers, "
+            f"{rep['spill_bytes']} spill bytes")
     mode = subprocess.run(
         ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()[0]
     mem0 = gpu_memory_used_mib()
-    out = {"card": card, "compute_mode": mode, "c6_rank_build": rank_c6}
+    out = {"card": card, "compute_mode": mode, "c6_rank_build": rank_c6,
+           "c5_rank_build": rank_c5}
     t0 = time.perf_counter()
     rt.init(num_gpus=1)
     out["cluster_start_s"] = time.perf_counter() - t0
@@ -5708,9 +6396,19 @@ def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
                           for a in actors], timeout=600)
             bad = [b for x in res for b in x["bad"]]
             check(not bad, f"n={n} gates: {bad}")
+            hops = rt.get([a.rank_hops.remote(name, COLLECTIVE_GATE_ROWS)
+                           for a in actors], timeout=600)
+            bad = [b for x in hops for b in x["bad"]]
+            check(not bad, f"n={n} C1 and C5 rank-form gates: {bad}")
             gates[n] = {"actor_start_s": start_s, "group_s": join_s,
                         "gates_s": time.perf_counter() - t0,
-                        "cases": len(res[0]["cases"]) * n}
+                        "cases": len(res[0]["cases"]) * n,
+                        "hop_cases": len(hops[0]["cases"]) * n}
+            log("collective", f"n={n}: C1 (f32, bf16) and C5 in place "
+                f"(f32, every hop, its carry column) in rank form at "
+                f"{COLLECTIVE_GATE_ROWS} rows a rank: bit for bit equal to "
+                f"the in-process kernel and the plain version in "
+                f"{gates[n]['hop_cases']} rank-cases")
             log("collective", f"n={n}: {n} actors of {1.0 / n} GPU up in "
                 f"{start_s:.2f} s (leases [0], CUDA_VISIBLE_DEVICES 0, "
                 f"an H100, no JAX module), group formed in {join_s:.2f} s, "
@@ -5767,16 +6465,30 @@ def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
                   f"{kind} at full size: a sampled row differs from the "
                   f"plain fold: {res}")
             full[kind] = res
+        # One overlap chunk at full size: C1 on a hop's block of the ZeRO
+        # cell (bf16), C5 in place on a chunk of the quantized cell (f32).
+        hop_rows = {"permute": _overlap_rows(zero_rows * 128, n),
+                    "qrs_hop": _overlap_rows(q_elems, n)}
+        for kind in ("permute", "qrs_hop"):
+            res = rt.get([a.hop_full.remote(name, kind, hop_rows[kind], 8,
+                                            COLLECTIVE_TIMED)
+                          for a in actors], timeout=600)
+            check(all(x["sample_max_err"] != float("inf") for x in res),
+                  f"{kind} rank form at full size: a sampled row is off: "
+                  f"{res}")
+            full[kind] = res
         out["full_size_s"] = time.perf_counter() - t0
         counts = rt.get([a.counts.remote() for a in actors], timeout=60)
         calls = 1 + COLLECTIVE_TIMED
         b2b_each = [len(range(i, COLLECTIVE_B2B, 4)) for i in range(4)]
         want = [3 + b2b_each[0] + calls, b2b_each[1] + calls,
                 2 + b2b_each[2] + calls,
-                (b2b_each[3] + calls) * (2 * n - 1)]
+                (b2b_each[3] + calls) * (2 * n - 1),
+                calls, calls * 2 * (n - 1)]
         check(all(c == want for c in counts),
               f"rank-form launches {counts} != {want} a rank")
-        out["launches"] = [sum(c[i] for c in counts) for i in range(4)]
+        out["launches"] = [sum(c[i] for c in counts)
+                           for i in range(len(want))]
         # The library's call on the same inputs, in a torch group of the
         # same ranks once the ring's workspaces are freed (gloo's staging
         # would not fit beside them).
@@ -5790,6 +6502,12 @@ def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
             library[kind] = rt.get([a.library.remote("library", kind,
                                                      sizes[kind], 7)
                                     for a in actors], timeout=600)
+        library["permute"] = rt.get([a.hop_library.remote(
+            "library", hop_rows["permute"], 8) for a in actors], timeout=600)
+        check(all(x["library_ok"] for x in library["permute"]),
+              "gloo's send/recv did not deliver the left neighbour's block")
+        library["qrs_hop"] = [{"library_ms": None, "library_computes":
+                               "none: no torch call is the int8 hop"}] * n
         out["library_s"] = time.perf_counter() - t0
         rt.get([a.destroy.remote("library") for a in actors], timeout=120)
 
@@ -5877,7 +6595,7 @@ def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
     rows = {}
     in_process = {"C4": ring_rows[0]["C4"], "C2": ring_rows[0]["C2"],
                   "C3": ring_rows[0]["C3"], "C6": qring_rows[0]["C6"]}
-    for kind, key, kname, _ in COLLECTIVE_KERNELS:
+    for kind, key, kname, _ in COLLECTIVE_KERNELS[:4]:
         res = full[kind]
         e = 4 if kind == "quantized_allreduce" else 2
         elems = sizes[kind]
@@ -5924,6 +6642,55 @@ def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
             + f"{rows[key]['library_computes']}); sampled rows held "
             f"({rows[key]['sample_rows']} rows of 128, max err "
             f"{rows[key]['sample_max_err']:.3g}); {card}")
+    hop_in_process = {"C1": ring_rows[0]["C1"], "C5": qring_rows[0]["C5"]}
+    for kind, key in (("permute", "C1"), ("qrs_hop", "C5")):
+        res = full[kind]
+        hop_rows_ = hop_rows[kind]
+        # One hop of one rank moves (reads + writes, once each): C1 its
+        # block in and into the neighbour's staging, C5 in place its send
+        # chunk, and its receive chunk in and out (f32; the int8 payload
+        # is the wire format's price).
+        blk = hop_rows_ * 128
+        moved = 2 * blk * 2 if kind == "permute" else 3 * blk * 4
+        bound_ms, bound_by = ring_bound(moved, 0)
+        per_hop = [_median([k[t] for k in res[0]["kernel_ms"]])
+                   for t in range(len(res[0]["kernel_ms"][0]))]
+        calls_ = [_median([w[t] for w in res[0]["call_ms"]])
+                  for t in range(len(res[0]["call_ms"][0]))]
+        ip = hop_in_process[key]
+        rows[key] = {
+            "n": n, "rows_per_hop": hop_rows_,
+            "elems_per_rank": blk * (1 if kind == "permute" else n),
+            "dtype": "bf16" if kind == "permute" else "f32",
+            "ms": per_hop[0], "ms_per_hop": per_hop,
+            "ms_ranks": [_median([k[0] for k in x["kernel_ms"]])
+                         for x in res],
+            "call_ms": calls_[0], "call_ms_per_hop": calls_,
+            "staged_bytes": res[0]["staged_bytes"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "in_process_ms": ip.get("hop0_ms", ip["ms"]),
+            "in_process_bound_ms": ip["bound_ms"],
+            "plain_ms": ip["plain_ms"],
+            "library_ms": library[kind][0]["library_ms"],
+            "library_ms_ranks": [x["library_ms"] for x in library[kind]],
+            "library_pinned_in_call": None,
+            "library_computes": library[kind][0]["library_computes"],
+            "sample_rows": res[0]["samples"] * 8,
+            "sample_max_err": max(x["sample_max_err"] for x in res)}
+        log("collective", f"{key} rank form, one overlap chunk, {n} "
+            f"processes, {hop_rows_} rows of 128 {rows[key]['dtype']} a "
+            f"hop: kernel per hop "
+            + ", ".join(f"{v:.4f}" for v in per_hop)
+            + f" ms in rank 0 (CUDA events; hop 0 in ranks "
+            + ", ".join(f"{v:.4f}" for v in rows[key]["ms_ranks"])
+            + "), the calls " + ", ".join(f"{v:.3f}" for v in calls_)
+            + f" ms, staged {rows[key]['staged_bytes']} bytes; one rank's "
+            f"bound {bound_ms:.4f} ms ({bound_by}); in process (all ranks, "
+            f"one launch) {rows[key]['in_process_ms']:.4f} ms; library "
+            + (f"{rows[key]['library_ms']:.3f} ms in rank 0 ("
+               if rows[key]["library_ms"] is not None else "none (")
+            + f"{rows[key]['library_computes']}); sampled rows held (max "
+            f"err {rows[key]['sample_max_err']:.3g}); {card}")
     out["rows"] = rows
     out["phase_s"] = time.perf_counter() - phase_t0
     log("collective", f"full size: {out['full_size_s']:.2f} s for the "
@@ -6088,6 +6855,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer = phase_trainer(dev, card)
     lap("trainer")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gang = phase_zero_gang(dev, card, trainer)
+    lap("zero_gang")
+    # Launches in the gangs' workers, every worker and route.
+    gang_launches = {k: sum(row["launches_per_worker"][k] * n
+                            for n, g in gang["gangs"].items()
+                            for row in g["routes"].values())
+                     for k in GANG_KERNELS}
     tr = trainer["worker_launches"]
     qmono, qef, qover = zq["monolithic"], zq["error_feedback"], zq["overlap"]
     qruns = (qmono, qef, qover)
@@ -6104,7 +6880,7 @@ def main() -> int:
                  f"causal bf16")
 
     def bwd_kernel(name, key, outs, replaces, train_launches, zero_launches,
-                   zq_launches, trainer_launches):
+                   zq_launches, trainer_launches, gang_workers):
         report = kernel_report(built, f"{name}_kernel")
         f32_report = kernel_report(built, f"{name}_f32_kernel")
         return {
@@ -6112,11 +6888,12 @@ def main() -> int:
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": replaces,
             "launches": (train_launches + zero_launches + zq_launches
-                         + trainer_launches),
+                         + trainer_launches + gang_workers),
             "launches_by_path": {"train": train_launches,
                                  "zero_train": zero_launches,
                                  "zero_quant": zq_launches,
-                                 "trainer_worker": trainer_launches},
+                                 "trainer_worker": trainer_launches,
+                                 "zero_gang_workers": gang_workers},
             "max_abs_err": max(r[f"bf16_{o}_err"] for r in bwd_rows
                                for o in outs),
             "f32_max_abs_err": max(r[f"f32_{o}_err"] for r in bwd_rows
@@ -6187,21 +6964,28 @@ def main() -> int:
             "form": f"{key} across processes: one rank's launch in each of "
                     f"{row['n']} GPU actors, peers through CUDA IPC, "
                     f"ordered by {collective['transport']}",
-            "launches": collective["launches"][i],
+            "launches": (collective["launches"][i]
+                         + gang_launches.get(key, 0)),
             "launches_by_path": {"collective_api_b2b_full_size":
-                                 collective["launches"][i]},
+                                 collective["launches"][i],
+                                 "zero_gang_workers":
+                                     gang_launches.get(key, 0)},
             "max_abs_err": 0.0,
             "tolerance": "bitwise: torch.equal with the in-process kernel "
                          "and the plain version at the gates (n 2 and 4)"
                          + ("; the full-size sample within the int8 "
                             "ring's error bound of the exact sum"
-                            if key == "C6" else
+                            if key in ("C5", "C6") else
                             "; the full-size sample equal to the plain "
                             "fold over its rows"),
             "sample_max_err": row["sample_max_err"],
             "ms": row["ms"], "timed_by": "CUDA events around rank 0's "
                                          "launches, median of "
-                                         f"{COLLECTIVE_TIMED} calls",
+                                         f"{COLLECTIVE_TIMED} calls"
+                                         + ("; hop 0 of one overlap chunk "
+                                            "(C5: its send and receive "
+                                            "launches)" if key in
+                                            ("C1", "C5") else ""),
             "ms_ranks": row["ms_ranks"], "call_ms": row["call_ms"],
             "staged_bytes": row["staged_bytes"],
             "plain_ms": row["plain_ms"],
@@ -6228,7 +7012,7 @@ def main() -> int:
                      + disagg["spec"]["b1_launches"]
                      + runtime["b1_launches"] + app_b1
                      + train["launches"][0] + zero_b[0] + zq_b[0]
-                     + tr["B1"]),
+                     + tr["B1"] + gang_launches["B1"]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
@@ -6237,7 +7021,8 @@ def main() -> int:
                              "serve_app": app_b1,
                              "train": train["launches"][0],
                              "zero_train": zero_b[0], "zero_quant": zq_b[0],
-                             "trainer_worker": tr["B1"]},
+                             "trainer_worker": tr["B1"],
+                             "zero_gang_workers": gang_launches["B1"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "timed_by": TIMED_BY_GRAPH,
@@ -6265,10 +7050,10 @@ def main() -> int:
         "per_shape": rows,
     }, bwd_kernel("flash_bwd_dkv", "dkv", ("dk", "dv"),
                   "ray_tpu/ops/attention.py:149", train["launches"][1],
-                  zero_b[1], zq_b[1], tr["B2"]),
+                  zero_b[1], zq_b[1], tr["B2"], gang_launches["B2"]),
         bwd_kernel("flash_bwd_dq", "dq", ("dq",),
                    "ray_tpu/ops/attention.py:211", train["launches"][2],
-                   zero_b[2], zq_b[2], tr["B3"]),
+                   zero_b[2], zq_b[2], tr["B3"], gang_launches["B3"]),
         ring_kernel("C1", "ring_permute", 378,
                     {"zero_train_overlap": over["launches_c1_c4"][0],
                      "zero_quant_overlap": qover["launches_c1_c6"][0]}),
@@ -6295,7 +7080,7 @@ def main() -> int:
         "disagg_gates": disagg_gates, "runtime": runtime,
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
-        "zero_quant": zq, "trainer": trainer,
+        "zero_quant": zq, "trainer": trainer, "zero_gang": gang,
         "collective": {k: v for k, v in collective.items() if k != "rows"}}),
         flush=True)
     print(card, flush=True)

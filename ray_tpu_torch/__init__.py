@@ -93,7 +93,7 @@ def init(
         if address is not None and "://" in address:
             raise NotImplementedError(
                 "the thin client (ray_tpu_torch://) is not ported yet "
-                "(ROADMAP A4, after the core runtime)")
+                "(the client slice, after the core runtime)")
 
         if address is None:
             node = Node(head=True, num_cpus=num_cpus, num_gpus=num_gpus,

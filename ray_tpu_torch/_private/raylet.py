@@ -330,8 +330,8 @@ class Raylet:
 
     def _runtime_env_manager(self):
         raise NotImplementedError(
-            "runtime_env is not ported yet (ROADMAP A4, after the core "
-            "runtime)")
+            "runtime_env is not ported yet (the runtime-env slice, after "
+            "the core runtime)")
 
     def _release_worker_env(self, handle) -> None:
         """Per-worker teardown at every removal site: runtime_env cache
@@ -1018,7 +1018,7 @@ class Raylet:
         if kind == "tpu_profile":
             raise NotImplementedError(
                 "the worker's device-profile bracket is not ported yet "
-                "(ROADMAP A6, torch.profiler)")
+                "(the device-profile slice, torch.profiler)")
 
         targets = ([self.workers[worker_id]] if worker_id in self.workers
                    else list(self.workers.values()) if worker_id is None

@@ -1140,8 +1140,8 @@ class Worker:
         if not env:
             return None
         raise NotImplementedError(
-            "runtime_env is not ported yet (ROADMAP A4, after the core "
-            "runtime)")
+            "runtime_env is not ported yet (the runtime-env slice, after "
+            "the core runtime)")
 
     def submit_task(self, fn_hash: str, fn_name: str, args, kwargs,
                     options: Dict[str, Any]) -> List[ObjectRef]:

@@ -27,8 +27,8 @@ on the worker image. Three layers share this module:
   shows host-side stalls are the dominant TPU perf bug).
 
 The reference's device-trace bracket (``capture_tpu_trace``, a
-``jax.profiler`` window) is not ported: its torch counterpart is ROADMAP
-A6.
+``jax.profiler`` window) is not ported: its torch counterpart comes with
+the device-profile slice.
 """
 
 from __future__ import annotations

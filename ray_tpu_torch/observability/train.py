@@ -1,6 +1,6 @@
 """Training instrumentation: train sessions and RLlib learners (the
 port's copy of ``ray_tpu/observability/train.py``; the port's RLlib, the
-learners' driver, comes with ROADMAP A8).
+learners' driver, comes with the RLlib slice).
 
 Two singletons feeding the same registry the serving metrics use:
 

@@ -17,8 +17,8 @@
 // Two transports fill that table: one launch plays all n ranks in one
 // process (ring_launch, below), or each rank is a process of its own that
 // launches only its rank's blocks against its peers' buffers opened
-// through CUDA IPC (the rank form, ring_rank_launch, for C2, C3, C4 and
-// C6; see its section).
+// through CUDA IPC (the rank form, ring_rank_launch, for every kind but
+// C5's standalone form; see its section).
 //
 // Design.
 //   - Grid (blocks_per_rank, n): block (b, r) plays rank r and owns the
@@ -254,6 +254,7 @@ struct RingArgs {
   int n, bpr, kind;
   int rank0;                  // the rank of blockIdx.y == 0 (see rank form)
   int per_rank;               // 1: one rank's launch in its own process
+  int phase;                  // C5 in place, rank form: 0 send, 1 receive
   const u64* poison;          // the rank form: this rank's poison word
                               // (nullptr in one process; see poisoned)
 };
@@ -441,14 +442,18 @@ __device__ __forceinline__ void hop_release(const RingArgs& a, const Block& k,
 
 // C1: one hop of the whole block, straight into the right neighbour's
 // output (no slots): out[right] = in[r].
+// The rank form (per_rank) stores and exits: the host's done round on the
+// stream tells the neighbour that its output is complete.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 ring_permute_kernel(const __grid_constant__ RingArgs a) {
+  if (poisoned(a)) return;
   const Block k = block_of(a);
   const uint4* src = reinterpret_cast<const uint4*>(a.in[k.r]);
   uint4* dst = reinterpret_cast<uint4*>(a.out[k.right]);
   each_vec(k.lo, k.hi, [&](long long i) { return src[i]; },
            [&](long long i, uint4 v) { __stcg(dst + i, v); });
+  if (a.per_rank) return;
   signal_flag(a.recv[k.right] + flag_index(k.b, 0), a.base + 1);
   hop_recv(a, k, 0);
 }
@@ -680,7 +685,8 @@ __device__ bool rank_scale(const RingArgs& a, const Block& k, int t,
 // reported and the block exits.
 __device__ bool carried_scale(const RingArgs& a, const Block& k, int t,
                               float* scale) {
-  if (threadIdx.x == 0) arrive_barrier(a, k);
+  // The rank form's barrier counts only the launches that wait at it.
+  if (threadIdx.x == 0 && !a.per_rank) arrive_barrier(a, k);
   const u64 w = __ldcg(a.carry + size_t(t) * k.n + k.r);
   if ((w >> 32) != u64(t)) {
     if (threadIdx.x == 0) report(a, k.r, k.b, t, WAIT_CARRY, t, w >> 32);
@@ -914,6 +920,46 @@ ring_qallreduce_rank_kernel(const __grid_constant__ RingArgs a) {
   qsend(a, k, t, scale, send);
 }
 
+// C5 in place, rank form: hop a.hop of the split-phase int8 reduce-scatter
+// on rank a.rank0's buffer (a.in[r], n chunks, in this process's memory),
+// in two launches, because the receive may start only once the left
+// neighbour's process has sent. Phase 0 takes the hop's scale (hop 0: a max
+// pass over the send chunk and the rank's barrier, every block of which is
+// in this launch; later hops: the max that hop t - 1's receive carried in
+// this rank's own table, with no wait) and quantizes chunk r - t - 1 into
+// the right neighbour's slot 0, with each block's copy of the scale.
+// Phase 1 adds what the left neighbour sent onto chunk r - t - 2 (cur + q *
+// scale, rounded twice) and carries the max of what it wrote to carry[t +
+// 1][r]. Between them the host orders the stream on the peers' done words.
+// The arithmetic is ring_qhop_kernel's QRS_HOP, so the two agree bit for bit.
+__global__ void __launch_bounds__(NT)
+ring_qrs_hop_rank_kernel(const __grid_constant__ RingArgs a) {
+  const Block k = block_of(a);
+  const int t = a.hop;
+  float4* b = reinterpret_cast<float4*>(a.in[k.r]);
+  const long long cf = a.chunk_vecs * F4;     // float4 per chunk
+  if (a.phase == 0) {
+    const float4* send = b + mod(k.r - t - 1, k.n) * cf;
+    float scale;
+    if (t == 0) {
+      if (!rank_scale(a, k, 0, thread_absmax_bits(send, k.lo * F4, k.hi * F4),
+                      &scale))
+        return;
+    } else if (!carried_scale(a, k, t, &scale)) {
+      return;
+    }
+    // After the barrier, so every block of the launch reaches it.
+    if (poisoned(a)) return;
+    qsend(a, k, 0, scale, send);
+    return;
+  }
+  if (poisoned(a)) return;
+  float4* dst = b + mod(k.r - t - 2, k.n) * cf;
+  unsigned m = 0;
+  qrecv<LAND_ADD>(a, k, 0, dst, dst, m);
+  if (t + 2 < k.n) carry_max(a, k, t + 1, m);
+}
+
 template <typename T>
 const void* kernel_for(int kind, int op) {
   switch (kind) {
@@ -1063,6 +1109,7 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
   a.kind = kind;
   a.rank0 = 0;
   a.per_rank = 0;
+  a.phase = 0;
   a.poison = nullptr;
   a.chunk_vecs = chunk_elems / unit;
   a.base = base;
@@ -1109,9 +1156,14 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
 // process_ring.py fills the tables). Rank r launches grid (bpr, 1) whose
 // blocks play rank r (rank0 = r) against a table of peer pointers opened
 // through CUDA IPC: every rank's staging input and output, comm slots and
-// in-kernel flag table. C2, C3 and C4 run their one-process bodies
-// without the in-kernel completion round (per_rank = 1); C6 runs
-// ring_qallreduce_rank_kernel once a phase. No kernel of this form waits
+// in-kernel flag table. C1, C2, C3 and C4 run their one-process bodies
+// without the in-kernel flag round (per_rank = 1); C6 runs
+// ring_qallreduce_rank_kernel once a phase, C5's in-place form
+// ring_qrs_hop_rank_kernel twice a hop (send, receive). C1 reads the
+// caller's block where it lies and stores it into the right neighbour's
+// staging output; C5 reads and writes the caller's buffer where it lies,
+// and only its int8 payload crosses to the neighbour's comm slot. No
+// kernel of this form waits
 // on a flag that another process sets: the host orders each rank's
 // stream on flag words that the peers' streams write (ring_stream_write /
 // ring_stream_wait, the CUDA driver's stream memory operations), before and
@@ -1125,39 +1177,54 @@ extern "C" int ring_launch(int kind, int op, int dtype, int n, void* in,
 // launch reads and writes (C one chunk of the rank's block) C4 2nC (chunk
 // r of every rank's input, then it into every rank's output), C2 (n + 1)C,
 // C3 (1 + n) shards, C6 its block in and out at the bound (19C in all at
-// n = 4, as the one-launch form). The staging copies around the launch
+// n = 4, as the one-launch form), C1 its block in and out, C5 in place a
+// hop's send chunk in, its receive chunk in and out (3C, f32; the int8
+// payload's 0.5C is the wire format's price). The staging copies around the launch
 // (the caller's tensor in, the result out) move as many bytes again; they
 // are the price of buffers every peer can map once.
 // ---------------------------------------------------------------------------
 
-// Launch one rank's part of C2 (1), C3 (2), C4 (3) or C6 (5, phase `hop`
-// of 2(n - 1) + 1) on `stream`: ins / outs / slots / tables hold n
-// pointers each (slots: C6 only; tables: each rank's in-kernel flag table,
-// FLAG_SECTIONS x MAX_BPR x 2 u64, C6 only); chunk_elems and the epoch
-// base as in ring_launch (C6: base = calls so far x 2(n - 1)); poison is
-// this rank's poison word (C2-C4 store nothing, C6 sends nothing, once it
-// is set). Returns a cudaError_t; 0 when the launch was accepted.
+// Launch one rank's part of C1 (0), C2 (1), C3 (2), C4 (3), C6 (5, phase
+// `hop` of 2(n - 1) + 1) or C5 in place (6, hop `hop`, phase `phase`: 0
+// send, 1 receive) on `stream`: ins / outs / slots / tables hold n
+// pointers each (C1: ins[rank] the caller's block, outs[rank + 1] the
+// right neighbour's staging output; C5: ins[rank] = outs[rank] the
+// caller's buffer; slots: C5, C6 only; tables: each rank's in-kernel flag
+// table, FLAG_SECTIONS x MAX_BPR x 2 u64, C5, C6 only); chunk_elems and
+// the epoch base as in ring_launch (C5, C6: base = the rank barrier's
+// rounds so far); carry: C5's [n - 1][n] u64 table in this process's
+// memory (its column rank), zeroed before hop 0; poison is this rank's
+// poison word (C1-C4 store nothing, C5 and C6 send nothing, once it is
+// set). Returns a cudaError_t; 0 when the launch was accepted.
 extern "C" int ring_rank_launch(int kind, int op, int dtype, int n, int rank,
                                 void** ins, void** outs, void** slots,
                                 void** tables, long long chunk_elems,
                                 unsigned long long base, int hop,
                                 void* poison, void* err_dev, void* err_host,
-                                void* stream) {
+                                void* stream, int phase, void* carry) {
   if (n < 2 || n > MAX_RANKS || rank < 0 || rank >= n || chunk_elems < 1 ||
-      !(kind == REDUCE_SCATTER || kind == ALLGATHER || kind == ALLREDUCE ||
-        kind == QALLREDUCE))
+      !(kind == PERMUTE || kind == REDUCE_SCATTER || kind == ALLGATHER ||
+        kind == ALLREDUCE || kind == QALLREDUCE || kind == QRS_HOP))
     return int(cudaErrorInvalidValue);
-  const bool q = kind == QALLREDUCE;
-  if (q && (hop < 0 || hop > 2 * (n - 1) || slots == nullptr ||
-            tables == nullptr || dtype != 0 || op != SUM))
+  const bool q = kind == QALLREDUCE || kind == QRS_HOP;
+  if (q && (slots == nullptr || tables == nullptr || dtype != 0 ||
+            op != SUM))
+    return int(cudaErrorInvalidValue);
+  if (kind == QALLREDUCE && (hop < 0 || hop > 2 * (n - 1)))
+    return int(cudaErrorInvalidValue);
+  if (kind == QRS_HOP && (hop < 0 || hop > n - 2 || phase < 0 || phase > 1 ||
+                          carry == nullptr || ins[rank] != outs[rank]))
     return int(cudaErrorInvalidValue);
   const int elem = elem_bytes(dtype);
   if (elem == 0) return int(cudaErrorInvalidValue);
   const int unit = q ? QGROUP : 16 / elem;
   if (chunk_elems % unit) return int(cudaErrorInvalidValue);
   const void* fn =
-      q ? reinterpret_cast<const void*>(ring_qallreduce_rank_kernel)
-        : kernel_of(kind, op, dtype);
+      kind == QALLREDUCE
+          ? reinterpret_cast<const void*>(ring_qallreduce_rank_kernel)
+      : kind == QRS_HOP
+          ? reinterpret_cast<const void*>(ring_qrs_hop_rank_kernel)
+          : kernel_of(kind, op, dtype);
   if (fn == nullptr) return int(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1171,14 +1238,16 @@ extern "C" int ring_rank_launch(int kind, int op, int dtype, int n, int rank,
   a.kind = kind;
   a.rank0 = rank;
   a.per_rank = 1;
+  a.phase = phase;
   a.poison = static_cast<const u64*>(poison);
   a.chunk_vecs = chunk_elems / unit;
   a.base = base;
   a.hop = hop;
-  a.carry = nullptr;
+  a.carry = static_cast<u64*>(carry);
   a.err_dev = static_cast<int*>(err_dev);
   a.err_host = static_cast<long long*>(err_host);
-  // One rank a launch: C6's rank barrier needs its bpr blocks resident.
+  // One rank a launch: C5's and C6's rank barrier needs its bpr blocks
+  // resident.
   const long long cap = std::min<long long>(MAX_BPR, resident);
   if (cap < 1) return int(cudaErrorCooperativeLaunchTooLarge);
   const long long want =

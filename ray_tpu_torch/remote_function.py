@@ -93,7 +93,7 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         raise NotImplementedError(
-            "dag is not ported yet (ROADMAP A4, after the core runtime)")
+            "dag is not ported yet (the dag slice, after the core runtime)")
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

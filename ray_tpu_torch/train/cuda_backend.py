@@ -3,26 +3,34 @@
 ``run_pod_training``, ``pod_train_loop``).
 
 The reference's backend calls ``jax.distributed.initialize`` on every
-worker so that one SPMD mesh spans the pod, then runs a pjit'd Llama step
-over it. The port's data parallelism runs ``n`` virtual ranks on the
-worker's one device (``parallel.zero``: a ``RingGroup`` whose ring
-collectives are the hand-written kernels C1–C4 on the card), so:
+worker so that one SPMD mesh spans the W processes, and its
+``run_pod_training`` shards the batch and the ZeRO update over them. The
+port's data ranks are ``parallel.zero``'s: n virtual ranks on one device
+(a ``RingGroup``), or one rank per process (a ``CudaGroup``, the ring
+kernels' rank forms across processes that share the card). So:
 
-- ``on_start`` at world size 1 forms nothing. CPU workers at a larger
-  world size form a gloo process group through rank 0's address and check
-  that every worker agrees on its size (the reference checks device
-  counts). GPU workers at a larger world size raise: the ring kernels
-  run across processes (``util.collective``'s ``cuda`` backend), but the
-  ZeRO step across processes does not yet: the split-phase C1 and C5 in
-  their cross-process forms and ``parallel.zero`` on one rank per process
-  are the ZeRO-across-processes slice's work.
-- ``run_pod_training``'s ``mesh_axes={"data": n}`` means n virtual ranks.
-  Its routes: ``weight_update="replicated"`` at n = 1 is
-  ``build_train_step`` (B1–B3 on the card); at n > 1
+- ``on_start`` at world size 1 forms nothing. At W > 1 it forms a gloo
+  process group through rank 0's address (every worker must agree on its
+  size, as the reference checks device counts) and a ``cuda`` collective
+  group over the W workers (``util.collective``; on the card each worker
+  a rank of the ring kernels' rank forms, under ``CudaConfig(device=
+  "cpu")`` the plain rings over gloo). A worker without the card that
+  its config asks for raises there, naming it. ``on_shutdown`` destroys
+  the group (its IPC mappings and workspace) and the process group.
+- ``run_pod_training`` at W = 1: ``mesh_axes={"data": n}`` means n
+  virtual ranks, and ``"data": -1`` raises (no device count to absorb).
+  At W > 1 each worker is one of W data ranks over the gang's group:
+  ``mesh_axes`` of None, ``{"data": -1}`` or ``{"data": W}``; any other
+  ``data`` raises, naming both numbers, as the reference's ``make_mesh``
+  refuses a mesh its devices do not fill. Every worker makes the same
+  global batch from ``seed`` and takes its own rows of it.
+- Routes: ``weight_update="replicated"`` on one rank is
+  ``build_train_step`` (B1–B3 on the card); on n ranks
   ``build_replicated_train_step`` (B1–B3, C4); ``"sharded"`` is
   ``build_zero_train_step`` (B1–B3, C2 + C3); ``overlap=True`` its
-  split-phase form (B1–B3, C1 per hop). ``fsdp`` and ``tensor`` axes
-  raise (the mesh-parallel slice, ROADMAP A7).
+  split-phase form (B1–B3, C1 per hop); across processes the same steps
+  run the kernels' rank forms. ``fsdp`` and ``tensor`` axes raise (the
+  mesh-parallel slice).
 
 The ranks sum their gradients (the ZeRO step's contract); the reference's
 GSPMD routes average them. AdamW divides each element by its own running
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import functools
 import time
+import uuid
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Union
 
@@ -67,12 +76,13 @@ class CudaConfig(BackendConfig):
 
 
 # What the worker's CudaConfig gives `pod_train_loop` where its config
-# leaves a key out (set on each worker by CudaBackend.on_start).
+# leaves a key out, and the name of the gang's collective group (set on
+# each worker by CudaBackend.on_start).
 _worker_defaults: Dict[str, Any] = {}
-
-
-def _on_card(device: Optional[Union[str, torch.device]]) -> bool:
-    return device is None or torch.device(device).type == "cuda"
+# How long a gang rank's ring call waits for its peers before the group
+# fails: a rank that finishes its backward first waits there for the
+# slowest (the ranks time-slice one card).
+GANG_WAIT_S = 120.0
 
 
 def _setup_cuda_worker(defaults: Dict[str, Any]) -> int:
@@ -83,25 +93,45 @@ def _setup_cuda_worker(defaults: Dict[str, Any]) -> int:
     return _process_group_size()
 
 
+def _join_gang(world_size: int, rank: int, name: str,
+               device: Optional[str]) -> bool:
+    """Make this worker rank ``rank`` of the gang's ``cuda`` group."""
+    from ray_tpu_torch.util import collective as col
+
+    col.init_collective_group(world_size, rank, backend="cuda",
+                              group_name=name, device=device,
+                              wait_timeout_s=GANG_WAIT_S)
+    return True
+
+
+def _leave_gang(name: str) -> None:
+    from ray_tpu_torch.util import collective as col
+
+    col.destroy_collective_group(name)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 class CudaBackend(Backend):
     def on_start(self, worker_group, backend_config: CudaConfig) -> None:
+        import ray_tpu_torch
+
         world_size = worker_group.num_workers
-        if world_size > 1 and _on_card(backend_config.device):
-            raise NotImplementedError(
-                f"CudaBackend: {world_size} GPU workers would run the ZeRO "
-                "step with one rank per process, which comes with the "
-                "ZeRO-across-processes slice (the split-phase C1 and C5 "
-                "across processes, parallel.zero on one rank per process); "
-                "the ring kernels across processes are util.collective's "
-                "'cuda' backend. Run one GPU worker with "
-                "mesh_axes={'data': n} (n virtual ranks on its card), or "
-                "CPU workers with CudaConfig(device='cpu')")
+        name = None
         if world_size > 1:
             form_process_group(worker_group, "gloo", timeout_s=120.0)
+            name = f"cuda_backend:{uuid.uuid4().hex[:12]}"
+            ray_tpu_torch.get([
+                w.execute.remote(_join_gang, world_size, rank, name,
+                                 backend_config.device)
+                for rank, w in enumerate(worker_group.workers)],
+                timeout=600)
+        self._gang = name
         defaults = {"device": backend_config.device,
                     "mesh_axes": backend_config.mesh_axes,
                     "weight_update": backend_config.weight_update,
-                    "overlap": backend_config.overlap}
+                    "overlap": backend_config.overlap,
+                    "group_name": name}
         sizes = worker_group.execute(_setup_cuda_worker, defaults)
         # Every worker must see the whole gang: a mismatch means a partial
         # group (some worker failed to join).
@@ -111,15 +141,24 @@ class CudaBackend(Backend):
                 f"(want {world_size})")
 
     def on_shutdown(self, worker_group, backend_config: CudaConfig) -> None:
+        name = getattr(self, "_gang", None)
+        if name is not None:
+            try:
+                worker_group.execute(_leave_gang, name)
+            except Exception:
+                pass
+            self._gang = None
         try:
             worker_group.execute(_shutdown_torch_process_group)
         except Exception:
             pass
 
 
-def _data_ranks(mesh_axes: Optional[dict]) -> int:
-    """The number of virtual data ranks ``mesh_axes`` asks for."""
-    axes = dict(mesh_axes) if mesh_axes else {"data": 1}
+def _data_ranks(mesh_axes: Optional[dict], world_size: int = 1) -> int:
+    """The number of data ranks ``mesh_axes`` asks for: virtual ranks on
+    one device at world size 1, else the W processes of the gang."""
+    axes = dict(mesh_axes) if mesh_axes else {
+        "data": -1 if world_size > 1 else 1}
     other = {ax: size for ax, size in axes.items()
              if ax != "data" and size != 1}
     if other:
@@ -129,6 +168,13 @@ def _data_ranks(mesh_axes: Optional[dict]) -> int:
             "the mesh-parallel slice (fsdp, tensor, sequence and expert "
             "parallelism)")
     n = int(axes.get("data", 1))
+    if world_size > 1:
+        if n not in (-1, world_size):
+            raise ValueError(
+                f"mesh_axes {axes}: 'data': {n} does not match the "
+                f"{world_size} workers of the gang (each worker is one data "
+                f"rank); give 'data': {world_size} or -1")
+        return world_size
     if n == -1:
         raise ValueError(
             f"mesh_axes {axes}: 'data': -1 absorbs the device count in the "
@@ -138,6 +184,29 @@ def _data_ranks(mesh_axes: Optional[dict]) -> int:
     if n < 1:
         raise ValueError(f"mesh_axes {axes}: 'data' must be >= 1")
     return n
+
+
+def gang_group(device: Optional[Union[str, torch.device]] = None):
+    """The gang's ``cuda`` collective group in this worker (formed by
+    ``CudaBackend.on_start`` at W > 1), for a loop that builds its own
+    ``parallel.zero`` step over the W ranks; ``device`` (default: the
+    card) must be the group's."""
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.util.collective.collective import _group_mgr
+
+    name = _worker_defaults.get("group_name")
+    if name is None:
+        raise RuntimeError(
+            "no gang here: the gang's collective group exists in the "
+            "workers of a CudaTrainer of several workers")
+    group = _group_mgr.get_group(name)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if group.device != dev:
+        raise ValueError(f"the gang's group runs on {group.device}, the "
+                         f"loop on {dev}")
+    return group
 
 
 def _process_group_size() -> int:
@@ -167,17 +236,21 @@ def run_pod_training(model_config=None, mesh_axes=None, steps: int = 4,
                      learning_rate: float = 1e-3, seed: int = 0,
                      overlap: bool = False, n_chunks: int = 4,
                      collective: str = "auto", report=None,
-                     device: Optional[Union[str, torch.device]] = None
-                     ) -> dict:
+                     device: Optional[Union[str, torch.device]] = None,
+                     on_finish=None) -> dict:
     """Run `steps` Llama train steps on ``device`` (default: the card);
     returns throughput metrics, with the reference's keys.
 
+    In a gang of W > 1 workers (``CudaTrainer``) this worker is one of W
+    data ranks over the gang's group (see the module docstring).
     ``tokens_per_sec`` is measured over the steps after the warmup step
     (step 0: the first launches and the optimizer's build), which is
-    excluded. ``n_devices`` is 1: the ``mesh_axes`` ranks are virtual
-    ranks on the one device, so ``tokens_per_sec_per_chip`` is the
-    card's. ``report``, where given, gets ``{"loss", "step"}`` after
-    each timed step.
+    excluded, and counts the global batch. ``n_devices`` is 1: the ranks
+    are virtual ranks on the one device, or processes that share it, so
+    ``tokens_per_sec_per_chip`` is the card's. ``report``, where given,
+    gets ``{"loss", "grad_norm", "step"}`` after each timed step;
+    ``on_finish``, where
+    given, gets the final train state before the summary returns.
 
     When ``train_goodput_instrumentation`` is on (default), the loop
     runs under the per-step phase ledger (`observability.goodput`):
@@ -203,11 +276,14 @@ def run_pod_training(model_config=None, mesh_axes=None, steps: int = 4,
     from ray_tpu_torch.util.collective import RingGroup
 
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     if model_config is None:
         model_config = LlamaConfig(
             vocab_size=512, dim=128, n_layers=4, n_heads=8, n_kv_heads=4,
             hidden_dim=256, max_seq_len=128)
-    n = _data_ranks(mesh_axes)
+    world = _process_group_size()
+    n = _data_ranks(mesh_axes, world)
     if overlap:
         weight_update = "sharded"
     if weight_update not in ("replicated", "sharded"):
@@ -226,7 +302,7 @@ def run_pod_training(model_config=None, mesh_axes=None, steps: int = 4,
         state = create_train_state(params, optimizer, device=dev)
         step = build_train_step(loss, optimizer, device=dev)
     else:
-        group = RingGroup(n, dev)
+        group = gang_group(dev) if world > 1 else RingGroup(n, dev)
         state = create_zero_state(params, optimizer, group)
         if weight_update == "replicated":
             step = build_replicated_train_step(loss, optimizer, group,
@@ -287,16 +363,20 @@ def run_pod_training(model_config=None, mesh_axes=None, steps: int = 4,
             if report is not None:
                 with sp.phase("weight_publish"):
                     report({"loss": float(metrics["loss"]),
+                            "grad_norm": float(metrics["grad_norm"]),
                             "step": int(metrics["step"])})
             step_rows.append(sp.finish())
         else:
             state, metrics = step(state, batch)
             if report is not None:
                 report({"loss": float(metrics["loss"]),
+                        "grad_norm": float(metrics["grad_norm"]),
                         "step": int(metrics["step"])})
     fence()
     elapsed = time.perf_counter() - t0
     loss_value = float(metrics["loss"])
+    if on_finish is not None:
+        on_finish(state)
     tokens_per_sec = tokens_per_step * steps / max(elapsed, 1e-9)
     extra = {}
     if ledger is not None:

@@ -25,8 +25,9 @@ scale per chunk)::
     local_quantization_residual(block, n)        # error feedback
 
 The reference's user-facing API (``collective.py``), its ranks actors of
-the port's runtime, on three backends: ``cuda`` (the ring kernels C2, C3,
-C4 and C6 with one process per rank on the card, ``process_ring.py``),
+the port's runtime, on three backends: ``cuda`` (the ring kernels C1-C6
+with one process per rank on the card, ``process_ring.py``; the ring
+functions above take this rank's tensor with such a group),
 ``torch`` (``torch.distributed`` over gloo) and ``shm`` (the coordinator
 actor)::
 

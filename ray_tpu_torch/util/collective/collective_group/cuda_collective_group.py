@@ -7,15 +7,26 @@ per rank, the counterpart of the reference's ``PallasGroup``
 barrier, send / recv) is the parent's, and the group also exchanges the
 ring's workspace handles through the coordinator. The data plane:
 
-- ``device_allreduce(x, op, quantized=)`` and ``ring_collective(kind, x)``
-  for the four kinds of the reference's ``_ring_fn``: ``allreduce`` (C4),
-  ``quantized_allreduce`` (C6, with the int8 ring's fallback ladder),
-  ``allgather`` (C3) and ``reducescatter`` (C2). Each takes this rank's
-  tensor and returns this rank's row of the rank-major function
-  (``ring_allreduce`` etc.) on the ranks' stacked tensors. On the card
-  each rank launches its own part (``process_ring.py``); on the CPU
+- ``device_allreduce(x, op, quantized=)`` and ``ring_collective(kind, x,
+  op, out=)`` for the four kinds of the reference's ``_ring_fn``:
+  ``allreduce`` (C4), ``quantized_allreduce`` (C6, with the int8 ring's
+  fallback ladder), ``allgather`` (C3) and ``reducescatter`` (C2). Each
+  takes this rank's tensor and returns this rank's row of the rank-major
+  function (``ring_allreduce`` etc.) on the ranks' stacked tensors, into
+  the caller's ``out`` where one is given (the ZeRO step's flat params
+  take C3's result so, with no [n, ...] temporary). On the card each
+  rank launches its own part (``process_ring.py``); on the CPU
   (``device="cpu"``) the plain ring functions run over the stack gathered
   through gloo, so the CPU path has the ring's bits.
+- The split-phase hops the ZeRO step's overlap routes run (``ring.py``'s
+  and ``quantized.py``'s ``start_*`` / ``wait_*`` with this group):
+  ``start_hop("permute", x, out=)`` (C1: the left neighbour's block) and
+  ``start_hop("qrs_hop", buf, t=, carry=)`` (C5 in place: hop t of the
+  split-phase int8 reduce-scatter) enqueue on ``comm_stream`` and return
+  at once; ``finish_hops`` waits for them. On the CPU each hop runs its
+  plain version on the gathered stack when it is started.
+- ``gather(x)``: every rank's x stacked rank-major on the group's device
+  (through gloo), for the ZeRO step's per-rank scalars.
 - Host-level ops keep the reference's dispatch: ``allreduce`` (any op of
   ``_RING_OPS``) rides C4, or C6 in a group made with ``quantized=True``;
   ``reducescatter`` is the reference's "allreduce, then split axis 0,
@@ -46,7 +57,8 @@ from ray_tpu_torch.util.collective.collective_group.torch_collective_group \
     import TorchGroup, _host_tensor
 from ray_tpu_torch.util.collective.process_ring import (
     ProcessRing, ring_allgather_rank_cuda, ring_allreduce_rank_cuda,
-    ring_qallreduce_rank_cuda, ring_reduce_scatter_rank_cuda,
+    ring_permute_rank_cuda, ring_qallreduce_rank_cuda,
+    ring_qrs_hop_rank_cuda, ring_reduce_scatter_rank_cuda,
 )
 from ray_tpu_torch.util.collective.types import ReduceOp
 
@@ -60,11 +72,23 @@ _RING_OPS = {
 KINDS = ("allreduce", "quantized_allreduce", "allgather", "reducescatter")
 
 
+class _Done:
+    """A hop of the CPU path: computed when it was started."""
+
+    __slots__ = ("result",)
+
+    def __init__(self, result):
+        self.result = result
+
+
 class CudaGroup(TorchGroup):
     """Collective group whose device-side ops are the port's ring kernels,
     one process per rank."""
 
     backend_name = "cuda"
+    # ring.py and quantized.py take this group's rank tensors, one rank's
+    # block, where a RingGroup takes the ranks' [n, ...] stack.
+    rank_form = True
 
     def __init__(self, world_size: int, rank: int, group_name: str,
                  device: Optional[Union[str, torch.device]] = None,
@@ -105,6 +129,20 @@ class CudaGroup(TorchGroup):
             tensor = _host_tensor(tensor)
         return tensor.to(self.device)
 
+    @property
+    def n(self) -> int:
+        return self.world_size
+
+    @property
+    def comm_stream(self):
+        """The stream the ring's calls run on (None on the CPU)."""
+        return None if self.ring is None else self.ring.stream
+
+    def gather(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Every rank's tensor, stacked rank-major on the group's device
+        (a host-level round through gloo: the values are exact)."""
+        return self._stack(tensor.detach().cpu()).to(self.device)
+
     def _stack(self, x: torch.Tensor) -> torch.Tensor:
         """The rank-major stack the plain functions run on: every rank's
         tensor through gloo on the CPU, x alone in a group of one."""
@@ -113,9 +151,11 @@ class CudaGroup(TorchGroup):
         return self._gather_tensors(x)
 
     def ring_collective(self, kind: str, tensor,
-                        op: ReduceOp = ReduceOp.SUM) -> torch.Tensor:
+                        op: ReduceOp = ReduceOp.SUM,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One of the reference's ``_ring_fn`` kinds on this rank's tensor;
-        returns this rank's result (allgather: [n, *shape])."""
+        returns this rank's result (allgather: [n, *shape]), written into
+        ``out`` if given (its shape and dtype)."""
         if kind not in KINDS:
             raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
         x = self._tensor(tensor)
@@ -128,23 +168,71 @@ class CudaGroup(TorchGroup):
                   "allgather": R.ring_allgather,
                   "reducescatter":
                       lambda s: R.ring_reduce_scatter(s, name)}[kind]
-            return fn(stack)[self.rank]
+            res = fn(stack)[self.rank]
+            return res if out is None else out.copy_(res)
         if kind == "allgather":
-            return ring_allgather_rank_cuda(x, ring=self.ring)
+            return ring_allgather_rank_cuda(x, ring=self.ring, out=out)
         if kind == "quantized_allreduce":
             name = Q._check_args(x, name, "allreduce", "ring_allreduce")
             if Q._wants_bf16(x[None]):
-                return self.ring_collective(
+                res = self.ring_collective(
                     "allreduce", x.to(torch.bfloat16), op).to(x.dtype)
-            out = ring_qallreduce_rank_cuda(x.to(torch.float32),
-                                            ring=self.ring).to(x.dtype)
+                return res if out is None else out.copy_(res)
+            if x.dtype == torch.float32:
+                res = ring_qallreduce_rank_cuda(x, ring=self.ring, out=out)
+            else:
+                res = ring_qallreduce_rank_cuda(
+                    x.to(torch.float32), ring=self.ring).to(x.dtype)
+                res = res if out is None else out.copy_(res)
         elif kind == "allreduce":
-            out = ring_allreduce_rank_cuda(
-                x, "sum" if name == "avg" else name, ring=self.ring)
+            res = ring_allreduce_rank_cuda(
+                x, "sum" if name == "avg" else name, ring=self.ring, out=out)
         else:
-            out = ring_reduce_scatter_rank_cuda(
-                x, "sum" if name == "avg" else name, ring=self.ring)
-        return out / self.world_size if name == "avg" else out
+            res = ring_reduce_scatter_rank_cuda(
+                x, "sum" if name == "avg" else name, ring=self.ring, out=out)
+        if name != "avg":
+            return res
+        return res / self.world_size if out is None \
+            else torch.div(res, self.world_size, out=res)
+
+    # ------------------------------------------------- split-phase hops
+    def start_hop(self, kind: str, x: torch.Tensor, *,
+                  out: Optional[torch.Tensor] = None, t: int = 0,
+                  carry: Optional[torch.Tensor] = None):
+        """One hop on this rank's block, enqueued: ``"permute"`` (C1, x
+        [rows, 128]: the left neighbour's block into ``out`` or a new
+        tensor) or ``"qrs_hop"`` (C5 in place on the f32 buffer x
+        [n * c, 128], hop t, with the reduce-scatter's [n - 1, n] int64
+        ``carry`` table). Returns a hop whose ``result`` is the output
+        (complete on ``comm_stream``); ``finish_hops`` waits for it. On
+        the CPU the plain version runs on the gathered stack now."""
+        if kind not in ("permute", "qrs_hop"):
+            raise ValueError(f"hop kind must be 'permute' or 'qrs_hop', "
+                             f"got {kind!r}")
+        if self.ring is not None:
+            if kind == "permute":
+                return ring_permute_rank_cuda(x, ring=self.ring, out=out)
+            return ring_qrs_hop_rank_cuda(x, t, carry, ring=self.ring)
+        stack = self._stack(x)
+        if kind == "permute":
+            res = R.ring_permute_plain(stack)[self.rank]
+            return _Done(res if out is None else out.copy_(res))
+        n = self.world_size
+        table = torch.zeros((n - 1, n), dtype=torch.int64)
+        Q.ring_qrs_hop_plain(stack, t, table)
+        x.copy_(stack[self.rank])
+        if carry is not None:
+            if t == 0:
+                carry.zero_()
+            if t + 2 < n:
+                carry[t + 1, self.rank] = table[t + 1, self.rank]
+        return _Done(x)
+
+    def finish_hops(self, hops) -> None:
+        """Wait on the host for hops ``start_hop`` enqueued (bounded by
+        the ring's wait deadline); raises what the ring raises."""
+        if self.ring is not None:
+            self.ring.finish(hops)
 
     def device_allreduce(self, tensor, op: ReduceOp = ReduceOp.SUM,
                          quantized: Optional[bool] = None) -> torch.Tensor:

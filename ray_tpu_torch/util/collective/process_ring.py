@@ -9,36 +9,52 @@ peer pointers opened through CUDA IPC. ``ProcessRing`` is to ``CudaGroup``
 ``RingGroup``: it holds
 
 - the symmetric workspace, one ``cudaMalloc`` per rank outside torch's
-  caching allocator: the staging input and output and C6's comm slots and
-  scales, grown to the largest call (a collective re-exchange) and mapped
-  once by every peer;
+  caching allocator: the staging input and output and the comm slots and
+  scales of C5 and C6, grown to the largest call (a collective
+  re-exchange) and mapped once by every peer;
 - the flag words, a second allocation exchanged once: per peer a ready and
   a done word, C6's receive and capacity words, and the in-kernel table of
-  C6's rank barrier;
+  the rank barrier that C5's first hop and C6's phases take their scale
+  at;
 - the epochs, the bounded waits and the failure record.
 
 The rule: no kernel waits on a flag that another process sets. A call of
 epoch e on rank r goes, on the group's stream:
 
 1. copy the caller's tensor into the staging input (zero padded to the
-   kernels' block), then write "ready e" into every peer's word for r, and
-   wait until every peer has written its own into r's words. The host
-   watches that point against the deadline before it enqueues a kernel;
-2. the launch (C2, C3, C4: one; C6: 2(n - 1) + 1 phases, each after the
-   stream waited for the left neighbour's receive word and, from hop 2 on,
-   the right neighbour's capacity word, and followed by this rank's own
-   writes of those words to its neighbours);
+   kernels' block; C1 and C5 read the caller's memory where it lies and
+   stage nothing), then write "ready e" into every peer's word for r, and
+   wait until every peer has written its own into r's words;
+2. the launches (C1, C2, C3, C4: one; C6: 2(n - 1) + 1 phases, each after
+   the stream waited for the left neighbour's receive word and, from hop 2
+   on, the right neighbour's capacity word, and followed by this rank's
+   own writes of those words to its neighbours; C5, one hop of the
+   split-phase int8 reduce-scatter: its send phase, then step 3, then its
+   receive phase);
 3. write "done e" into every peer's word and wait for every peer's; then
-   copy the result out of the staging output. The host waits for that too.
+   copy the result out of the staging output (into the caller's ``out``
+   where one is given).
+
+``run`` is a whole call: it enqueues the call and waits for it on the
+host. The split-phase hops (``start_permute``, ``start_qrs_hop``) only
+enqueue: the host goes on (the ZeRO step issues the next chunk's hops and
+runs this chunk's optimizer math), and ``finish`` later waits for what it
+enqueued. Calls in flight are issued in the same order on every rank (the
+SPMD contract) and share one staging workspace. That is safe because they
+share one stream too: a call's copy-in comes after the call before it has
+passed its done round on this rank's stream, and a peer writes into this
+rank's staging output or comm slot only after this rank's ready word of
+the next epoch, which its stream writes after its copy-out or receive.
 
 The writes and waits are the CUDA driver's stream memory operations
 (``cuStreamWriteValue64`` / ``cuStreamWaitValue64``): the GPU's front end
 waits, and other processes' kernels run meanwhile in the card's default
 compute mode (contexts time-slice; no MPS is needed). A stream wait has no
-timeout, so the host polls each call's events against ``wait_timeout_s``;
-on expiry it names the peers that did not reach the epoch, writes the
-poison word of every rank (which voids the call: the launches still
-queued store nothing into another rank's memory, and every rank's host
+timeout, so the host polls each call's events against ``wait_timeout_s``
+(at ``run`` or ``finish``); on expiry it names the peers that did not
+reach the epoch, writes the poison word of every rank (which voids the
+call and every call queued behind it: the launches still queued store
+nothing into another rank's memory and send nothing, and every rank's host
 raises after its done wait), then the awaited values into its own words
 (which releases its stream), marks the ring failed and raises. A peer
 process that has exited is named before any of this rank's work is
@@ -85,7 +101,7 @@ def _lib() -> ctypes.CDLL:
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     for name, res, args in (
             ("ring_rank_launch", i, [i] * 5 + [ptrs] * 4
-             + [ll, ctypes.c_ulonglong, i, vp, vp, vp, vp]),
+             + [ll, ctypes.c_ulonglong, i, vp, vp, vp, vp, i, vp]),
             ("ring_stream_mem_ops", i, [ctypes.POINTER(ctypes.c_int)]),
             ("ring_stream_write", i, [vp, ptrs, i, ctypes.c_ulonglong]),
             ("ring_stream_wait", i, [vp, ptrs, i, ctypes.c_ulonglong]),
@@ -151,7 +167,18 @@ class _Layout:
 
     def __init__(self, kind: str, x: torch.Tensor, n: int):
         size = x.numel()
-        if kind in ("allreduce", "qallreduce"):
+        # C1 and C5 read the caller's block where it lies (see _rank_block).
+        self.in_place = kind in ("permute", "qrs_hop")
+        if kind == "permute":
+            self.chunk, self.in_elems, self.out_elems = size, 0, size
+            self.copy_in, self.zero = [], []
+            self.copy_out = [(0, 0, size)]
+            self.shape = tuple(x.shape)
+        elif kind == "qrs_hop":
+            self.chunk, self.in_elems, self.out_elems = size // n, 0, 0
+            self.copy_in, self.zero, self.copy_out = [], [], []
+            self.shape = tuple(x.shape)
+        elif kind in ("allreduce", "qallreduce"):
             chunk = -(-size // (n * LANES)) * LANES
             self.chunk, self.in_elems = chunk, n * chunk
             self.out_elems = self.in_elems
@@ -189,7 +216,8 @@ class _Layout:
                   self.out_off + self.out_elems * es)
         self.slot_off = _align(end)
         self.slot_bytes = ring._lib().ring_slot_bytes(
-            KINDS.index(kind), 1, self.chunk) if kind == "qallreduce" else 0
+            KINDS.index(kind), 1, self.chunk) \
+            if kind in ("qallreduce", "qrs_hop") else 0
         self.total = self.slot_off + self.slot_bytes
         self.staged_bytes = sum(c for _, _, c in self.copy_in) * es + \
             sum(c for _, _, c in self.copy_out) * es
@@ -215,7 +243,9 @@ class ProcessRing:
         self.wait_timeout_s = float(wait_timeout_s)
         self._exchange = exchange
         self._epoch = 0                 # calls so far (ready / done words)
-        self._qcalls = 0                # C6 calls so far (hop epochs)
+        # Rounds of the in-kernel rank barrier so far: C6's phases but the
+        # last, C5's first hops (its later hops read the carry, no wait).
+        self._bar_rounds = 0
         self.failed: Optional[str] = None
         self._kind: Optional[str] = None  # the kind of the call in flight
         lib = _lib()
@@ -257,6 +287,8 @@ class ProcessRing:
         self._words = torch.zeros(HOST_WORDS, dtype=torch.int64,
                                   pin_memory=True)
         self._poison = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+        # Bytes copied in and out of the staging buffers so far.
+        self.staged_bytes = 0
 
     def __repr__(self) -> str:
         return f"ProcessRing(rank {self.rank} of {self.n}, {self.device})"
@@ -439,20 +471,65 @@ class ProcessRing:
         raise RuntimeError(self.failed)
 
     # --------------------------------------------------------------- calls
-    def run(self, kind: str, op: str, x: torch.Tensor) -> torch.Tensor:
+    def run(self, kind: str, op: str, x: torch.Tensor,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One call of ``kind`` (reduce_scatter, allgather, allreduce or
-        qallreduce) on this rank's tensor x: returns this rank's result."""
+        qallreduce) on this rank's tensor x: returns this rank's result
+        (written into ``out`` if given: contiguous, its shape and x's
+        dtype on the ring's device)."""
+        call = self._enqueue(kind, op, x, out)
+        self.finish([call])
+        return call.result
+
+    def start_permute(self, x: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> "_Call":
+        """Enqueue one C1 hop of this rank's block x [rows, 128]: ``out``
+        (or a new tensor) gets the left neighbour's block. Returns the
+        call for ``finish``; ``call.result`` is ``out``, complete on the
+        ring's stream."""
+        return self._enqueue("permute", "sum", x, out)
+
+    def start_qrs_hop(self, buf: torch.Tensor, t: int,
+                      carry: torch.Tensor) -> "_Call":
+        """Enqueue hop t of the split-phase int8 reduce-scatter on this
+        rank's f32 buffer [n * c, 128], in place: chunk r - t - 1 goes to
+        the right neighbour, and what the left one sends is added onto
+        chunk r - t - 2. ``carry`` is the reduce-scatter's own [n - 1, n]
+        int64 table on the ring's device (column r is this rank's), which
+        hop 0 zeroes on the stream. Returns the call for ``finish``."""
+        return self._enqueue("qrs_hop", "sum", buf, buf, hop=t, carry=carry)
+
+    def _enqueue(self, kind: str, op: str, x: torch.Tensor,
+                 out: Optional[torch.Tensor], hop: int = 0,
+                 carry: Optional[torch.Tensor] = None) -> "_Call":
+        """Enqueue one call on the ring's stream (after the current
+        stream's work so far) without waiting on the host."""
         self.raise_if_failed()
-        x = x.contiguous()
         lay = _Layout(kind, x, self.n)
+        if lay.in_place:
+            x = _rank_block(kind, x)
+        else:
+            x = x.contiguous()
         self._kind = kind
         self._reserve(lay.total)
         lib, es = _lib(), x.element_size()
         e = self._epoch = self._epoch + 1
         st = self.stream
         st.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(st):
-            out = torch.empty(lay.shape, dtype=x.dtype, device=self.device)
+        x.record_stream(st)
+        if out is None:
+            with torch.cuda.stream(st):
+                out = torch.empty(lay.shape, dtype=x.dtype,
+                                  device=self.device)
+        elif (tuple(out.shape) != lay.shape or out.dtype != x.dtype
+              or out.device != self.device or not out.is_contiguous()):
+            raise ValueError(f"ring {kind}: out must be a contiguous "
+                             f"{lay.shape} {x.dtype} tensor on "
+                             f"{self.device}")
+        else:
+            out.record_stream(st)
+        if carry is not None:
+            carry.record_stream(st)
         sp = st.cuda_stream
         base = self._data
         for d, s, c in lay.copy_in:
@@ -469,13 +546,28 @@ class ProcessRing:
         self._wait([self._own_word(READY + p) for p in peers], e)
         ready = torch.cuda.Event()
         ready.record(st)
-        self._await(ready, "ready", e)
-        self._launches(kind, op, x.dtype, lay)
+        if kind == "qrs_hop":
+            if hop == 0:
+                with torch.cuda.stream(st):
+                    carry.zero_()
+            self._launch(kind, op, x.dtype, lay, hop=hop, phase=0,
+                         src=x, carry=carry)
+        elif kind == "permute":
+            self._launch(kind, op, x.dtype, lay, src=x)
+        else:
+            self._launches(kind, op, x.dtype, lay)
         self._write(st, [self._peer_word(p, DONE + self.rank)
                          for p in peers], e)
         self._wait([self._own_word(DONE + p) for p in peers], e)
+        if kind == "qrs_hop":
+            # Every peer's send phase has stored: the left neighbour's
+            # payload is in this rank's slot.
+            self._launch(kind, op, x.dtype, lay, hop=hop, phase=1,
+                         src=x, carry=carry)
         # Read after every peer's done word: a rank that voids the call
-        # writes the poison before its stream can write done.
+        # writes the poison before its stream can write done. The word
+        # only ever goes from 0 to set, so one pinned copy serves every
+        # call in flight.
         _check(lib.ring_copy(self._poison.data_ptr(), self._own_word(POISON),
                              8, sp), "reading the poison word")
         for d, s, c in lay.copy_out:
@@ -484,25 +576,48 @@ class ProcessRing:
                    "copying the result out")
         done = torch.cuda.Event()
         done.record(st)
-        self._await(done, "done", e)
-        self._kernel_failed()
-        self._voided(e)
-        return out
+        self.staged_bytes += lay.staged_bytes
+        return _Call(kind, e, ready, done, out)
+
+    def finish(self, calls: Sequence["_Call"]) -> None:
+        """Wait on the host, in order, for calls this ring enqueued
+        (bounded: see the module docstring); raise if one was voided or a
+        kernel stopped."""
+        for c in calls:
+            self._kind = c.kind
+            self._await(c.ready, "ready", c.epoch)
+            self._await(c.done, "done", c.epoch)
+            self._kernel_failed()
+            self._voided(c.epoch)
 
     def _launch(self, kind: str, op: str, dtype: torch.dtype,
-                lay: _Layout, base: int = 0, hop: int = 0) -> None:
+                lay: _Layout, base: int = 0, hop: int = 0, phase: int = 0,
+                src: Optional[torch.Tensor] = None,
+                carry: Optional[torch.Tensor] = None) -> None:
         offs = lambda off: [b + off for b in self._peer_data]  # noqa: E731
         slots = offs(lay.slot_off) if lay.slot_bytes else []
         tables = [f + HOST_WORDS * 8 for f in self._peer_flags] \
-            if kind == "qallreduce" else []
+            if kind in ("qallreduce", "qrs_hop") else []
+        if src is None:
+            ins, outs = offs(lay.in_off), offs(lay.out_off)
+        else:
+            # C1 and C5 read (C5 also writes) the caller's memory: only
+            # this rank's entry is used.
+            ins = [src.data_ptr() if p == self.rank else 0
+                   for p in range(self.n)]
+            outs = ins if kind == "qrs_hop" else offs(lay.out_off)
+        if kind == "qrs_hop" and phase == 0 and hop == 0:
+            base = self._bar_rounds
+            self._bar_rounds += 1
         err = _lib().ring_rank_launch(
             KINDS.index(kind), _OPS[op], _DTYPE_CODES[dtype], self.n,
-            self.rank, _ptrs(offs(lay.in_off)), _ptrs(offs(lay.out_off)),
+            self.rank, _ptrs(ins), _ptrs(outs),
             _ptrs(slots) if slots else None,
             _ptrs(tables) if tables else None, lay.chunk, base, hop,
             self._own_word(POISON), self._err_dev.data_ptr(),
             self._err_host_dev,
-            self.stream.cuda_stream)
+            self.stream.cuda_stream, phase,
+            None if carry is None else carry.data_ptr())
         _check(err, f"ring {kind} rank launch")
         _RANK_KERNELS[kind].launches += 1
 
@@ -513,10 +628,12 @@ class ProcessRing:
             return
         # C6: phase t combines hop t - 1 and sends hop t, after the left
         # neighbour's payload of hop t - 1 is in this rank's slot and the
-        # right neighbour has drained its slot t % 2 (hop t - 2).
+        # right neighbour has drained its slot t % 2 (hop t - 2). Its
+        # epochs are the rank barrier's rounds, which every rank counts
+        # alike (C5's first hops take rounds too).
         total = 2 * (self.n - 1)
-        base = self._qcalls * total
-        self._qcalls += 1
+        base = self._bar_rounds
+        self._bar_rounds += total
         for t in range(total + 1):
             waits = []
             if t >= 1:
@@ -536,6 +653,30 @@ class ProcessRing:
                             base + t + 1)
 
 
+class _Call:
+    """One call enqueued on a ring: its kind, epoch, the events after its
+    ready and done rounds, and its result (complete on the ring's stream
+    once ``done`` has passed)."""
+
+    __slots__ = ("kind", "epoch", "ready", "done", "result")
+
+    def __init__(self, kind, epoch, ready, done, result):
+        self.kind, self.epoch = kind, epoch
+        self.ready, self.done, self.result = ready, done, result
+
+
+def _rank_block(kind: str, x: torch.Tensor) -> torch.Tensor:
+    """The caller's block as C1 and C5 read it where it lies: [rows, 128]
+    (C5: f32, rows a multiple of n), contiguous and 16-byte aligned."""
+    if x.dim() != 2 or x.shape[1] != LANES or x.shape[0] < 1:
+        raise ValueError(f"ring {kind} rank form takes [rows, {LANES}], got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"ring {kind} rank form: the block must be "
+                         f"contiguous and 16-byte aligned")
+    return x
+
+
 # ---------------------------------------------------------------------------
 # The rank form's wrappers, one per kernel, each counting its launches.
 # ---------------------------------------------------------------------------
@@ -552,49 +693,100 @@ def _check_rank(name: str, x: torch.Tensor, ring_: ProcessRing) -> None:
 
 
 def ring_allreduce_rank_cuda(x: torch.Tensor, op: str = "sum", *,
-                             ring: ProcessRing) -> torch.Tensor:
+                             ring: ProcessRing,
+                             out: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """C4, this rank's launch: returns the reduction of every rank's x (op
     sum, max, min or prod), this rank's row of ``ring_allreduce`` on the
-    ranks' stacked tensors. ``.launches`` counts launches."""
+    ranks' stacked tensors (into ``out`` if given; ``out`` may be x).
+    ``.launches`` counts launches."""
     _check_rank("ring_allreduce_rank_cuda", x, ring)
-    return ring.run("allreduce", op, x)
+    return ring.run("allreduce", op, x, out)
 
 
 def ring_reduce_scatter_rank_cuda(x: torch.Tensor, op: str = "sum", *,
-                                  ring: ProcessRing) -> torch.Tensor:
+                                  ring: ProcessRing,
+                                  out: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """C2, this rank's launch on x [n * k, ...]: returns [k, ...], this
-    rank's row of ``ring_reduce_scatter`` on the stacked tensors.
-    ``.launches`` counts launches."""
+    rank's row of ``ring_reduce_scatter`` on the stacked tensors (into
+    ``out`` if given). ``.launches`` counts launches."""
     _check_rank("ring_reduce_scatter_rank_cuda", x, ring)
-    return ring.run("reduce_scatter", op, x)
+    return ring.run("reduce_scatter", op, x, out)
 
 
-def ring_allgather_rank_cuda(x: torch.Tensor, *,
-                             ring: ProcessRing) -> torch.Tensor:
+def ring_allgather_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
+                             out: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """C3, this rank's launch: returns [n, *x.shape], every rank's x in
-    rank order. ``.launches`` counts launches."""
+    rank order (into ``out`` if given: the caller's flat params take it
+    with no [n, ...] temporary). ``.launches`` counts launches."""
     _check_rank("ring_allgather_rank_cuda", x, ring)
-    return ring.run("allgather", "sum", x)
+    return ring.run("allgather", "sum", x, out)
 
 
-def ring_qallreduce_rank_cuda(x: torch.Tensor, *,
-                              ring: ProcessRing) -> torch.Tensor:
+def ring_qallreduce_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
+                              out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """C6, this rank's 2(n - 1) + 1 phase launches on f32 x: returns this
     rank's row of ``ring_qallreduce_plain`` on the stacked blocks (the
-    int8 ring's sum). ``.launches`` counts launches."""
+    int8 ring's sum; into ``out`` if given, which may be x).
+    ``.launches`` counts launches."""
     _check_rank("ring_qallreduce_rank_cuda", x, ring)
     if x.dtype != torch.float32:
         raise TypeError(f"ring_qallreduce_rank_cuda: unsupported dtype "
                         f"{x.dtype} (the int8 ring takes float32 only)")
-    return ring.run("qallreduce", "sum", x)
+    return ring.run("qallreduce", "sum", x, out)
+
+
+def ring_permute_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
+                           out: Optional[torch.Tensor] = None) -> "_Call":
+    """C1, this rank's launch on its block x [rows, 128], enqueued: the
+    call's ``result`` (``out`` if given) gets the left neighbour's block,
+    this rank's row of ``ring_permute_plain`` on the stacked blocks, once
+    ``ring.finish`` has waited for it. ``.launches`` counts launches."""
+    _check_rank("ring_permute_rank_cuda", x, ring)
+    return ring.start_permute(x, out)
+
+
+def ring_qrs_hop_rank_cuda(buf: torch.Tensor, t: int, carry: torch.Tensor,
+                           *, ring: ProcessRing) -> "_Call":
+    """C5 in place, this rank's two launches (send, receive) of hop t of
+    the split-phase int8 reduce-scatter on its f32 buffer [n * c, 128],
+    enqueued: once ``ring.finish`` has waited for the call, buf is this
+    rank's row of ``ring_qrs_hop_plain`` on the stacked buffers, and
+    column r of the carry table [n - 1, n] int64 is what
+    ``ring_qrs_hop_cuda`` would fill there. ``.launches`` counts
+    launches."""
+    _check_rank("ring_qrs_hop_rank_cuda", buf, ring)
+    n = ring.n
+    if buf.dtype != torch.float32:
+        raise TypeError(f"ring_qrs_hop_rank_cuda: unsupported dtype "
+                        f"{buf.dtype} (the int8 ring takes float32 only)")
+    if buf.dim() != 2 or buf.shape[1] != LANES or buf.shape[0] % n:
+        raise ValueError(f"ring_qrs_hop_rank_cuda takes [n * c, {LANES}] "
+                         f"with n = {n}, got {tuple(buf.shape)}")
+    if not 0 <= t < n - 1:
+        raise ValueError(f"ring_qrs_hop_rank_cuda: hop {t} of a "
+                         f"reduce-scatter of {n - 1} hops")
+    if carry is None or carry.shape != (n - 1, n) \
+            or carry.dtype != torch.int64 or carry.device != buf.device \
+            or not carry.is_contiguous():
+        raise ValueError(f"ring_qrs_hop_rank_cuda needs the reduce-scatter's "
+                         f"carry table, a contiguous [{n - 1}, {n}] int64 "
+                         f"tensor on {buf.device}")
+    return ring.start_qrs_hop(buf, t, carry)
 
 
 for _fn in (ring_allreduce_rank_cuda, ring_reduce_scatter_rank_cuda,
-            ring_allgather_rank_cuda, ring_qallreduce_rank_cuda):
+            ring_allgather_rank_cuda, ring_qallreduce_rank_cuda,
+            ring_permute_rank_cuda, ring_qrs_hop_rank_cuda):
     _fn.launches = 0
 
 _RANK_KERNELS = {"allreduce": ring_allreduce_rank_cuda,
                  "reduce_scatter": ring_reduce_scatter_rank_cuda,
                  "allgather": ring_allgather_rank_cuda,
-                 "qallreduce": ring_qallreduce_rank_cuda}
+                 "qallreduce": ring_qallreduce_rank_cuda,
+                 "permute": ring_permute_rank_cuda,
+                 "qrs_hop": ring_qrs_hop_rank_cuda}
 KERNELS = tuple(_RANK_KERNELS.values())

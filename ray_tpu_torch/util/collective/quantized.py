@@ -49,6 +49,14 @@ Public functions (the reference's, with its fallback ladder):
 - ``local_quantization_residual(block, n)``: what a rank's data loses to
   its first int8 compression, for error feedback (plain tensor math).
 
+With one process per rank (a ``CudaGroup``) each function takes this
+rank's tensor where a ``RingGroup`` takes the ranks' stack (as in
+``ring.py``): ``quantized_ring_allreduce`` is C6's rank form, and the
+split-phase reduce-scatter enqueues C5's rank form hop by hop (two
+launches a hop, its send and its receive phase, with the carry table in
+this rank's memory); ``local_quantization_residual`` takes a rank's
+[rows, LANES] block too.
+
 Ladder: non-float input raises ``TypeError``; ops other than sum/avg and
 an unknown precision raise ``ValueError``; f64 input, fewer than
 ``_MIN_QUANT_ELEMS`` elements per rank (``RAY_TPU_QAR_MIN_ELEMS``, default
@@ -71,8 +79,8 @@ import torch
 from ray_tpu_torch.util.collective import ring
 from ray_tpu_torch.util.collective.ring import (
     LANES, SplitPhaseHandle, _bind, _check_block, _from_block, _group_for,
-    _issue, _join, _launch, _norm_op, _own, _resume, _rot, _rs_block,
-    _rs_hop, _to_block, select_impl,
+    _issue, _join, _launch, _norm_op, _own, _rank_form, _rank_impl,
+    _resume, _rot, _rs_block, _rs_hop, _to_block, select_impl,
 )
 
 # Below this many elements per rank the scale traffic dominates any wire
@@ -321,6 +329,14 @@ def quantized_ring_allreduce(x: torch.Tensor, op: Any = "sum", *,
     op = _check_args(x, op, "allreduce", "ring_allreduce")
     if precision not in ("int8", "bf16"):
         raise ValueError(f"precision must be int8|bf16, got {precision!r}")
+    if _rank_form(group):
+        _rank_impl(impl, group)
+        if precision == "bf16":
+            return group.ring_collective(
+                "allreduce", x.to(torch.bfloat16), op).to(x.dtype)
+        out = x if donate and x.dtype == torch.float32 \
+            and x.is_contiguous() else None
+        return group.ring_collective("quantized_allreduce", x, op, out=out)
     n = x.shape[0]
     impl = select_impl(impl, x.device)
     if n == 1 or precision == "bf16" or _wants_bf16(x):
@@ -359,6 +375,8 @@ def start_quantized_ring_reduce_scatter(x: torch.Tensor, op: Any = "sum",
     an f32 x is clobbered. The bf16 rung only casts here; its ring runs
     at the wait."""
     op = _check_args(x, op, "reduce-scatter", "ring_reduce_scatter")
+    if _rank_form(group):
+        return _rank_start_qrs(x, op, impl, group, donate)
     n = x.shape[0]
     if x.dim() < 2 or x.shape[1] % n:
         raise ValueError(f"reduce_scatter: leading dim of each rank not "
@@ -395,6 +413,16 @@ def wait_quantized_ring_reduce_scatter(h: SplitPhaseHandle) -> torch.Tensor:
         out = ring.ring_reduce_scatter(h.buf, h.op, impl=h.impl,
                                        group=group, donate=True)
         return out.to(dtype)
+    if h.calls is not None:
+        h.group.finish_hops(h.calls)
+        h.calls = []
+        mine = h.buf[h.group.rank]
+        _join(h, mine)
+        _, dtype, shape, per_shard, _ = h.meta
+        out = _from_block(mine, (), shape, per_shard)
+        if h.op == "avg":
+            out = out / n
+        return out.to(dtype)
     b4 = h.buf.view(n, n, -1, LANES)
     with _resume(h):
         for t in range(h.hops_done, n - 1):
@@ -418,11 +446,16 @@ def local_quantization_residual(block: torch.Tensor, n: int,
     chunk (n per rank, the kernels' scale rule), always f32 (an int
     error-feedback buffer would requantize the correction itself).
 
-    ``block`` is rank-major [R, rows, LANES] with rows % n == 0 (the
-    reference takes one rank's [rows, LANES]). Below ``_MIN_QUANT_ELEMS``
-    elements per rank the wire carries bf16, whose round-off is returned
-    instead. Written into ``out`` if given; works a chunk piece at a time.
+    ``block`` is rank-major [R, rows, LANES] with rows % n == 0, or one
+    rank's [rows, LANES] (the reference's form; ``out`` then of that
+    shape). Below ``_MIN_QUANT_ELEMS`` elements per rank the wire carries
+    bf16, whose round-off is returned instead. Written into ``out`` if
+    given; works a chunk piece at a time.
     """
+    if block.dim() == 2:
+        res = local_quantization_residual(
+            block[None], n, None if out is None else out[None])
+        return res[0]
     if block.dim() != 3 or block.shape[2] != LANES or block.shape[1] % n:
         raise ValueError(f"expected [ranks, rows, {LANES}] with rows "
                          f"divisible by {n}, got {tuple(block.shape)}")
@@ -443,3 +476,38 @@ def local_quantization_residual(block: torch.Tensor, n: int,
             for s, d in zip(_pieces(src), _pieces(dst)):
                 torch.sub(s, _codes(s, scale) * scale, out=d)
     return out
+
+
+def _rank_start_qrs(x: torch.Tensor, op: str, impl: str, group,
+                    donate: bool) -> SplitPhaseHandle:
+    """``start_quantized_ring_reduce_scatter`` on this rank's x
+    [n * k, ...]: every hop of C5's rank form enqueued now, in place on
+    this rank's f32 buffer, with the handle's carry table. The bf16 rung
+    (too few elements) casts here and runs C2's rank form at the wait."""
+    n = group.n
+    if x.dim() < 1 or x.shape[0] % n:
+        raise ValueError(f"reduce_scatter: leading dim of each rank not "
+                         f"divisible by ring size {n}")
+    h = SplitPhaseHandle("quantized_reduce_scatter", n, op,
+                         select_impl(impl, group.device))
+    if _wants_bf16(x[None]):
+        _rank_impl(h.impl, group)
+        h.meta = ("bf16", x.dtype, group)
+        h.buf = x.to(torch.bfloat16)
+        return h
+    _bind(h, x, group)
+    with _issue(h, x):
+        xf = x.to(torch.float32)
+        block, shape, per_shard = _rs_block(xf[None], n)
+        block = block[0]
+        if not (donate or _own(block, x)):
+            block = block.clone()
+        h.buf = block.view(n, -1, LANES)
+        carry = torch.empty((n - 1, n), dtype=torch.int64,
+                            device=x.device)        # hop 0 zeroes it
+        h.meta = ("int8", x.dtype, shape, per_shard, carry)
+        for t in range(n - 1):
+            h.calls.append(group.start_hop("qrs_hop", block, t=t,
+                                           carry=carry))
+    h.hops_done = n - 1
+    return h

@@ -51,6 +51,20 @@ bit. On the card ``start_*`` enqueues hop 0 on the group's comm stream
 after the current stream's work so far, ``wait_*`` enqueues the rest
 there and makes the current stream wait for it; compute issued between
 the two runs beside the hops.
+
+One process per rank: given a ``CudaGroup`` (``util.collective``'s
+``cuda`` backend, ``group.rank_form``), the public functions take this
+rank's tensor where a ``RingGroup`` takes the ranks' stack, and return
+this rank's row of the result (``ring_allgather``: [n, ...];
+``ring_reduce_scatter`` of x [n * k, ...]: [k, ...]). The monolithic
+calls are the group's rank forms of C2, C3 and C4. The split-phase forms
+drive C1's rank form hop by hop with the same schedule and the same
+tensor combine (rank r sends chunk r - t - 1 and combines what arrives
+into chunk r - t - 2), so every rank's row is the virtual-rank form's bit
+for bit. ``start_*`` enqueues every hop on the group's comm stream at
+once and returns; the host waits at ``wait_*`` (bounded by the ring's
+deadline). Calls in flight must be started in the same order on every
+rank.
 """
 
 from __future__ import annotations
@@ -120,6 +134,21 @@ def select_impl(requested: str = "auto",
         return requested
     dev = torch.device("cpu" if device is None else device)
     return "cuda" if dev.type == "cuda" else "plain"
+
+
+def _rank_form(group) -> bool:
+    """Whether ``group`` runs one rank per process (a ``CudaGroup``): its
+    calls take this rank's tensor, not the ranks' stack."""
+    return getattr(group, "rank_form", False)
+
+
+def _rank_impl(impl: str, group) -> None:
+    """A rank-form group runs what its device gives: the kernels on the
+    card, the plain versions over the gathered stack on the CPU."""
+    want = "cuda" if group.device.type == "cuda" else "plain"
+    if select_impl(impl, group.device) != want:
+        raise ValueError(f"impl={impl!r}: a group of one rank per process "
+                         f"on {group.device} runs the {want} ring")
 
 
 def _norm_op(op: Any) -> str:
@@ -438,23 +467,25 @@ def _from_block(block: torch.Tensor, lead: Tuple[int, ...],
     return block.reshape(*lead, -1)[..., :size].reshape(*lead, *shape)
 
 
-def _rs_block(x: torch.Tensor):
-    """Per-slab padding of a reduce-scatter input [n, n * k, ...] (the
-    reference's ``ring.py:341-348``): each of the n slabs of a rank is
-    padded on its own, so chunk i is exactly slab i. Returns (block
-    [n, n * c, LANES], shard shape, elements per shard)."""
-    n = x.shape[0]
+def _rs_block(x: torch.Tensor, n: Optional[int] = None):
+    """Per-slab padding of a reduce-scatter input [R, n * k, ...] (R ranks
+    of a ring of n, by default R; the reference's ``ring.py:341-348``):
+    each of the n slabs of a rank is padded on its own, so chunk i is
+    exactly slab i. Returns (block [R, n * c, LANES], shard shape, elements
+    per shard)."""
+    ranks = x.shape[0]
+    n = ranks if n is None else n
     if x.dim() < 2 or x.shape[1] % n:
         raise ValueError(f"reduce_scatter: leading dim "
                          f"{x.shape[1] if x.dim() > 1 else None} of each "
                          f"rank not divisible by ring size {n}")
     shard_shape = (x.shape[1] // n,) + tuple(x.shape[2:])
     per_shard = math.prod(shard_shape)
-    slabs = x.reshape(n, n, per_shard)
+    slabs = x.reshape(ranks, n, per_shard)
     padded = -(-per_shard // LANES) * LANES
     if padded != per_shard:
         slabs = F.pad(slabs, (0, padded - per_shard))
-    return slabs.reshape(n, n * (padded // LANES), LANES), shard_shape, \
+    return slabs.reshape(ranks, n * (padded // LANES), LANES), shard_shape, \
         per_shard
 
 
@@ -474,6 +505,9 @@ def ring_allreduce(x: torch.Tensor, op: Any = "sum", *, impl: str = "auto",
     shaped ``ring_allreduce``): returns [n, ...], every row the
     reduction. ``avg`` sums, then divides by n."""
     op = _norm_op(op)
+    if _rank_form(group):
+        _rank_impl(impl, group)
+        return group.ring_collective("allreduce", x, op)
     n = x.shape[0]
     impl = select_impl(impl, x.device)
     if n == 1:
@@ -509,6 +543,9 @@ def ring_allgather(x: torch.Tensor, *, impl: str = "auto", group=None,
     """Allgather x [n, ...]: returns [n, n, ...], where ``[r, j]`` is rank
     j's shard on rank r (the reference's ``lax.all_gather``-shaped
     ``ring_allgather``). With ``out`` the result is written there."""
+    if _rank_form(group):
+        _rank_impl(impl, group)
+        return group.ring_collective("allgather", x, out=out)
     n = x.shape[0]
     impl = select_impl(impl, x.device)
     if n == 1:
@@ -528,13 +565,20 @@ def ring_allgather(x: torch.Tensor, *, impl: str = "auto", group=None,
 
 def ring_reduce_scatter(x: torch.Tensor, op: Any = "sum", *,
                         impl: str = "auto", group=None,
-                        donate: bool = False) -> torch.Tensor:
+                        donate: bool = False,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Reduce-scatter x [n, n * k, ...] along each rank's leading dim
     (the reference's ``psum_scatter(tiled=True)``-shaped
     ``ring_reduce_scatter``): returns [n, k, ...], rank r the reduced slab
-    r. With ``donate`` the ring may accumulate in x's memory, which is
-    then clobbered."""
+    r (into ``out`` if given). With ``donate`` the ring may accumulate in
+    x's memory, which is then clobbered."""
     op = _norm_op(op)
+    if _rank_form(group):
+        _rank_impl(impl, group)
+        return group.ring_collective("reducescatter", x, op, out=out)
+    if out is not None:
+        return out.copy_(ring_reduce_scatter(x, op, impl=impl, group=group,
+                                             donate=donate))
     n = x.shape[0]
     impl = select_impl(impl, x.device)
     if n == 1:
@@ -558,10 +602,11 @@ def ring_reduce_scatter(x: torch.Tensor, op: Any = "sum", *,
 class SplitPhaseHandle:
     """An in-flight split-phase ring collective. Every ``start_*`` must be
     balanced by the matching ``wait_*``; the handle holds the buffer the
-    remaining hops run on (and, on the card, the comm stream)."""
+    remaining hops run on (and, on the card, the comm stream; in the rank
+    form the hops enqueued, ``calls``)."""
 
     __slots__ = ("kind", "n", "op", "impl", "group", "stream", "buf",
-                 "hops_done", "meta")
+                 "hops_done", "meta", "calls")
 
     def __init__(self, kind, n, op, impl):
         self.kind = kind
@@ -573,10 +618,14 @@ class SplitPhaseHandle:
         self.buf = None
         self.hops_done = 0
         self.meta = None
+        self.calls = None
 
 
 def _bind(h: SplitPhaseHandle, x: torch.Tensor, group) -> None:
-    if h.impl == "cuda":
+    if _rank_form(group):
+        _rank_impl(h.impl, group)
+        h.group, h.stream, h.calls = group, group.comm_stream, []
+    elif h.impl == "cuda":
         h.group = _group_for(x, group)
         h.stream = h.group.comm_stream
 
@@ -623,6 +672,8 @@ def start_ring_reduce_scatter(x: torch.Tensor, op: Any = "sum", *,
     hop 0 now, the rest at ``wait_ring_reduce_scatter``. With ``donate``
     the hops run in x's memory."""
     op = _norm_op(op)
+    if _rank_form(group):
+        return _rank_start_rs(x, op, impl, group, donate)
     n = x.shape[0]
     h = SplitPhaseHandle("reduce_scatter", n, op, select_impl(impl, x.device))
     if n == 1:
@@ -646,6 +697,8 @@ def wait_ring_reduce_scatter(h: SplitPhaseHandle) -> torch.Tensor:
     """Await ``start_ring_reduce_scatter``: the remaining hops, then
     [n, k, ...] with rank r's reduced slab r."""
     n = h.n
+    if h.calls is not None:
+        return _rank_wait_rs(h)
     if n == 1:
         return h.buf
     b4 = h.buf.view(n, n, -1, LANES)
@@ -668,6 +721,8 @@ def start_ring_allgather(x: torch.Tensor, *, impl: str = "auto",
     """Issue an allgather of x [n, ...] (the contract of
     ``ring_allgather``, ``out`` included): hop 0 now, the rest at
     ``wait_ring_allgather``."""
+    if _rank_form(group):
+        return _rank_start_ag(x, impl, group, out)
     n = x.shape[0]
     h = SplitPhaseHandle("allgather", n, "sum", select_impl(impl, x.device))
     if n == 1:
@@ -696,6 +751,11 @@ def wait_ring_allgather(h: SplitPhaseHandle) -> torch.Tensor:
     """Await ``start_ring_allgather``: the remaining hops, then [n, n, ...]
     (or the caller's ``out``)."""
     n = h.n
+    if h.calls is not None:
+        h.group.finish_hops(h.calls)
+        h.calls = []
+        _join(h, h.buf)
+        return h.buf
     if n == 1:
         out = h.meta
         return out.copy_(h.buf) if out is not None else h.buf.clone()
@@ -714,7 +774,20 @@ def wait_ring_allgather(h: SplitPhaseHandle) -> torch.Tensor:
 def start_ring_permute(x: torch.Tensor, *, impl: str = "auto",
                        group=None) -> SplitPhaseHandle:
     """Issue a right rotation of x [n, ...]: rank r's shard goes to rank
-    r + 1; ``wait_ring_permute`` returns ``out[r] = x[r - 1]``."""
+    r + 1; ``wait_ring_permute`` returns ``out[r] = x[r - 1]`` (with one
+    rank per process: x is this rank's shard, and the wait returns its
+    left neighbour's)."""
+    if _rank_form(group):
+        h = SplitPhaseHandle("permute", group.n, "sum",
+                             select_impl(impl, group.device))
+        _bind(h, x, group)
+        block, shape, size = _to_block(x[None], 1)
+        h.meta = (shape, size)
+        with _issue(h, x, block):
+            hop = group.start_hop("permute", block[0])
+        h.calls.append(hop)
+        h.buf = hop.result
+        return h
     n = x.shape[0]
     h = SplitPhaseHandle("permute", n, "sum", select_impl(impl, x.device))
     if n == 1:
@@ -731,8 +804,87 @@ def start_ring_permute(x: torch.Tensor, *, impl: str = "auto",
 
 def wait_ring_permute(h: SplitPhaseHandle) -> torch.Tensor:
     """Await ``start_ring_permute``: the left neighbour's shard per rank."""
+    if h.calls is not None:
+        h.group.finish_hops(h.calls)
+        h.calls = []
+        _join(h, h.buf)
+        shape, size = h.meta
+        return _from_block(h.buf, (), shape, size)
     if h.n == 1:
         return h.buf
     _join(h, h.buf)
     shape, size = h.meta
     return _from_block(h.buf, (h.n,), shape, size)
+
+
+# ---------------------------------------------------------------------------
+# The split-phase forms with one process per rank (a CudaGroup).
+# ---------------------------------------------------------------------------
+
+def _rank_start_rs(x: torch.Tensor, op: str, impl: str, group,
+                   donate: bool) -> SplitPhaseHandle:
+    """``start_ring_reduce_scatter`` on this rank's x [n * k, ...]: every
+    hop enqueued now (C1's rank form, then the combine on the comm
+    stream)."""
+    n, r = group.n, group.rank
+    h = SplitPhaseHandle("reduce_scatter", n, op, select_impl(impl,
+                                                              group.device))
+    _bind(h, x, group)
+    block, shape, per_shard = _rs_block(x[None], n)
+    block = block[0]
+    own = donate or _own(block, x)
+    h.meta = (shape, per_shard)
+    combine = _COMBINE["sum" if op == "avg" else op]
+    with _issue(h, x, block):
+        if not own:
+            block = block.clone()
+        h.buf = b3 = block.view(n, -1, LANES)
+        for t in range(n - 1):
+            send, recv = (r - t - 1) % n, (r - t - 2) % n
+            hop = group.start_hop("permute", b3[send])
+            h.calls.append(hop)
+            b3[recv] = combine(b3[recv], hop.result)
+            hop.result = None
+    h.hops_done = n - 1
+    return h
+
+
+def _rank_wait_rs(h: SplitPhaseHandle) -> torch.Tensor:
+    h.group.finish_hops(h.calls)
+    h.calls = []
+    mine = h.buf[h.group.rank]
+    _join(h, mine)
+    shape, per_shard = h.meta
+    out = _from_block(mine, (), shape, per_shard)
+    return out / h.n if h.op == "avg" else out
+
+
+def _rank_start_ag(x: torch.Tensor, impl: str, group,
+                   out: Optional[torch.Tensor]) -> SplitPhaseHandle:
+    """``start_ring_allgather`` on this rank's x: its shard into its slab
+    of the [n, ...] result (or the caller's ``out``), then every hop
+    enqueued (C1's rank form storing straight into the slab it fills)."""
+    n, r = group.n, group.rank
+    h = SplitPhaseHandle("allgather", n, "sum", select_impl(impl,
+                                                            group.device))
+    _bind(h, x, group)
+    if out is None:
+        out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+    elif out.shape != (n,) + tuple(x.shape) or out.dtype != x.dtype \
+            or out.device != x.device:
+        raise ValueError(f"allgather out must be {(n,) + tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+    if x.numel() % LANES or not out.is_contiguous():
+        raise ValueError(f"a split-phase allgather of one rank per process "
+                         f"takes shards of a multiple of {LANES} elements "
+                         f"into a contiguous out")
+    o3 = out.view(n, -1, LANES)
+    with _issue(h, x, out):
+        o3[r] = x.reshape(-1, LANES)
+        for t in range(n - 1):
+            h.calls.append(group.start_hop(
+                "permute", o3[(r - t) % n], out=o3[(r - t - 1) % n]))
+    h.buf = out
+    h.hops_done = n - 1
+    return h

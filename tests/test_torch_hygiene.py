@@ -9,12 +9,15 @@
   ``ray_tpu_torch.`` processes.
 - Entry points called without a device run on the card; on a host without
   one they raise instead of running on the CPU.
+- No ``raise`` in the port names a ROADMAP item: those numbers change
+  each time ROADMAP.md is re-anchored; a message names its slice.
 """
 
 import ast
 import os
 import re
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -230,6 +233,41 @@ def test_no_jax_and_no_jax_package_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _raise_strings(path: Path):
+    """(line, text) of every string constant inside a ``raise`` (f-string
+    parts included)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Raise):
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Constant) and isinstance(sub.value,
+                                                                str):
+                    yield node.lineno, sub.value
+
+
+PORT_MODULES = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_MODULES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_raise_names_a_roadmap_item(path):
+    bad = [(line, text) for line, text in _raise_strings(path)
+           if "ROADMAP" in text]
+    assert not bad, f"{path.relative_to(ROOT)} raises naming {bad}"
+
+
+def test_raise_rule_reads_fstrings_and_concatenations(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "def f(x):\n"
+        "    raise NotImplementedError(f'{x} comes with ROADMAP ' 'A4')\n"
+        "def g():\n"
+        "    raise ValueError('the dag slice')\n")
+    texts = [t for _, t in _raise_strings(probe)]
+    assert any("ROADMAP" in t for t in texts)
+    assert "the dag slice" in texts
+
+
 def test_forbidden_rule_tells_the_packages_apart():
     assert _forbidden("ray_tpu") and _forbidden("ray_tpu.models.llama")
     assert _forbidden("jax.numpy") and _forbidden("jax")
@@ -376,7 +414,9 @@ def test_trainer_workers_lease_gpus_and_are_port_processes():
     holds a GPU lease (its ``metadata()`` reports the lease's ids and the
     raylet set ``CUDA_VISIBLE_DEVICES``), every process the node spawned
     for the trainer's workers runs a ``ray_tpu_torch.`` module, and a GPU
-    gang of two raises, naming the ZeRO-across-processes slice."""
+    gang of two on the card by default (its ``cuda`` collective group)
+    raises in its workers, whose processes have no CUDA device, naming the
+    missing card; its leases come back."""
     import ray_tpu_torch
     from ray_tpu_torch.accelerators import gpu as G
     from ray_tpu_torch.train import (
@@ -409,8 +449,12 @@ def test_trainer_workers_lease_gpus_and_are_port_processes():
         group.shutdown()
 
         with pytest.raises(TrainingFailedError,
-                           match="ZeRO-across-processes slice"):
+                           match="no CUDA device available"):
             CudaTrainer(pod_train_loop, scaling_config=ScalingConfig(
                 num_workers=2, use_gpu=True)).fit()
+        deadline = time.monotonic() + 30
+        while ray_tpu_torch.available_resources().get("GPU") != 2:
+            assert time.monotonic() < deadline, "the leases were not freed"
+            time.sleep(0.1)
     finally:
         ray_tpu_torch.shutdown()

@@ -12,7 +12,8 @@
   gloo, keep-k checkpoints, resume, restart after a worker crash, the
   failure budget) and its three ``TorchTrainer`` cases.
 - The refusals' error text: ``use_tpu``, ``datasets=``, ``as_trainable``,
-  a GPU gang of two, an ``fsdp`` axis, ``"data": -1``.
+  a gang of two on a card the host lacks, an ``fsdp`` axis, ``"data":
+  -1``.
 """
 
 import json
@@ -546,12 +547,14 @@ def test_get_dataset_shard_refused_naming_the_data_slice():
 
 
 def test_gpu_gang_of_two_refused(cluster, tmp_path):
-    """Two workers on the card (CudaConfig's default device) would be two
-    ranks of one ZeRO step in two processes: the backend refuses, naming
-    the ZeRO-across-processes slice, and tears the workers down."""
+    """Two workers on the card (CudaConfig's default device) are two ranks
+    of one ZeRO step in two processes: the backend forms their ``cuda``
+    collective group on the card, which raises in workers whose process
+    has no CUDA device, naming the missing card; the workers are torn
+    down."""
     before = ray_tpu_torch.available_resources().get("CPU")
     with pytest.raises(TrainingFailedError,
-                       match="ZeRO-across-processes slice"):
+                       match="no CUDA device available"):
         CudaTrainer(pod_train_loop,
                     scaling_config=ScalingConfig(num_workers=2),
                     run_config=RunConfig(storage_path=str(tmp_path))).fit()
