@@ -152,8 +152,18 @@ Phases, one line each; any failure raises and exits non-zero:
               the store and promoting back, a chain evicted whole (all
               of it promoted) and one evicted in part (its head run
               promoted, as in the reference), each with the tokens of a
-              run without the tier at the same depth. After shutdown no
-              cluster process is left and the card's memory is back
+              run without the tier at the same depth. The ingress, on
+              the routed app's two replicas before its delete: the 12
+              requests over HTTP through ``serve.start()``'s proxy, one
+              at a time and from 4 clients, give the serve phase's
+              tokens, B1 in the replicas = 16 x their prefills; one gRPC ``PREDICT`` gives
+              the same tokens; ``/-/healthz``, ``/-/routes`` and a 404
+              answer; neither proxy's process is listed by
+              ``nvidia-smi`` or maps ``libcuda``; a stream toy's chunks
+              come in order and a ``@serve.batch`` toy forms batches
+              under 4 HTTP clients; HTTP against handle latency and
+              tok/s are printed. After shutdown no cluster process is
+              left (the proxies included) and the card's memory is back
               within 1 GiB.
 6i. trainer -- (run after zero quant) Train on the port's runtime.
               First, in this process, ``run_pod_training`` at
@@ -3088,6 +3098,241 @@ def _ratio_text(r):
     return ", ".join(f"{k} {v:.3f}x" for k, v in r.items())
 
 
+def _http(port, path, payload=None, timeout=900):
+    """(status, decoded JSON body) of one call to the HTTP ingress; a
+    payload is sent as a JSON body (a POST), none makes a GET."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def _actor_pid(name):
+    """The pid of the live named actor's worker process."""
+    from ray_tpu_torch.util import state
+
+    wid = next(a["worker_id"] for a in state.list_actors()
+               if a["name"] == name and a["state"] != "DEAD")
+    return next(int(w["pid"]) for w in state.list_workers()
+                if w["worker_id"] == wid)
+
+
+def _compute_app_pids():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def _off_cuda(pid):
+    """What the process of an ingress proxy holds of the card: whether
+    ``nvidia-smi`` lists it, whether it maps ``libcuda`` (a CUDA context
+    needs it) and its ``CUDA_VISIBLE_DEVICES`` (empty for a worker that
+    leases no GPU)."""
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        env = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                   if b"=" in kv)
+    return {"listed": pid in _compute_app_pids(),
+            "libcuda": "libcuda" in maps,
+            "cuda_visible_devices":
+                env.get(b"CUDA_VISIBLE_DEVICES", b"unset").decode()}
+
+
+def _ingress_toys(rt, serve, port, card):
+    """A ``stream=True`` deployment's chunks over HTTP, in order and each
+    its own chunk, and an ``@serve.batch`` deployment under 4 HTTP
+    clients forming batches larger than 1."""
+    import urllib.request
+
+    @serve.deployment(stream=True, num_cpus=0.1, name="Chunks")
+    class Chunks:
+        def __call__(self, n=4):
+            for i in range(int(n)):
+                time.sleep(0.05)
+                yield f"chunk {i}\n"
+
+    @serve.deployment(num_cpus=0.1, max_ongoing_requests=16, name="Batcher")
+    class Batcher:
+        def __init__(self):
+            self.sizes = []
+
+        @serve.batch(max_batch_size=4, batch_wait_timeout_s=0.2)
+        def handle(self, items):
+            self.sizes.append(len(items))
+            return [x + 1000 for x in items]
+
+        def __call__(self, x):
+            return self.handle(x)
+
+        def batch_sizes(self):
+            return self.sizes
+
+    serve.run(Chunks.bind(), name="chunks")
+    batcher = serve.run(Batcher.bind(), name="batcher")
+    proxy = rt.get_actor("SERVE_PROXY")
+    check(_poll(lambda: {"chunks", "batcher"} <= set(rt.get(
+        proxy.stats.remote(), timeout=60)["routes"]), timeout=30),
+        "the proxy's routes never named the toy apps")
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/chunks",
+                                 data=b"6")
+    t0 = time.perf_counter()
+    lines, at = [], []
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        chunked = resp.headers.get("Transfer-Encoding") == "chunked"
+        for line in resp:
+            lines.append(line.decode())
+            at.append(1e3 * (time.perf_counter() - t0))
+    check(chunked and lines == [f"chunk {i}\n" for i in range(6)],
+          f"streamed chunks over HTTP: {lines} (chunked {chunked})")
+    errors = []
+    got = [None] * 16
+
+    def post(i):
+        got[i] = _http(port, "/batcher", i, timeout=120)
+
+    threads, _ = _clients(post, list(range(16)), errors)
+    _join(threads, errors)
+    sizes = batcher.batch_sizes.remote().result(timeout=60)
+    check(got == [(200, {"result": i + 1000}) for i in range(16)]
+          and sum(sizes) == 16 and max(sizes) > 1,
+          f"@serve.batch over HTTP: batches {sizes}, replies {got}")
+    log("serve-app", f"ingress toys: 6 chunks of a stream=True deployment "
+        f"in order over HTTP, line i read at "
+        f"{', '.join(f'{t:.0f}' for t in at)} ms (each chunk flushed as "
+        f"it came); @serve.batch under 4 HTTP clients formed batches "
+        f"{sizes}; {card}")
+    serve.delete("chunks")
+    serve.delete("batcher")
+    return {"chunk_ms": at, "batch_sizes": sizes}
+
+
+def _serve_ingress(rt, serve, reqs, reps, serve_tokens, cfg, lat_handle,
+                   card):
+    """6h's ingress step, on the routed app's two loaded replicas: the 12
+    serve requests over HTTP through ``serve.start()``'s proxy, one at a
+    time and from 4 client threads, each giving the serve phase's tokens;
+    B1 in the replicas grows by the layers times the prefills they ran;
+    ``/-/healthz``, ``/-/routes`` and a 404; the proxy (and the gRPC
+    proxy, whose one ``PREDICT`` gives the same tokens) holds no CUDA
+    context and leases no GPU; the stream and batch toys. The HTTP and
+    handle latencies and tok/s are printed, not gated: ``lat_handle`` are
+    part (1)'s times of the same requests one at a time through the
+    handle (its first pass, the HTTP one comes after it)."""
+    from ray_tpu_torch.serve.grpc_util import ServeGrpcClient
+
+    t_step = time.perf_counter()
+    proxy = serve.start()
+    port = rt.get(proxy.get_port.remote(), timeout=60)
+    check(_poll(lambda: _http(port, "/-/routes", timeout=60)[1].get(
+        "routed") == "/routed", timeout=30),
+        f"/-/routes never named routed: {_http(port, '/-/routes')}")
+    health = _http(port, "/-/healthz", timeout=60)
+    missing = _http(port, "/no-such-app", {"prompt": [1]}, timeout=60)
+    check(health == (200, {"ok": True}), f"/-/healthz answered {health}")
+    check(missing == (404, {"error": "no application 'no-such-app'"}),
+          f"an unknown app answered {missing}")
+
+    before = [_rcall(rt, r, "b1") for r in reps]
+    lat_http, one = [], []
+    for r in reqs:
+        t0 = time.perf_counter()
+        status, body = _http(port, "/routed", r)
+        lat_http.append(1e3 * (time.perf_counter() - t0))
+        check(status == 200, f"HTTP {status}: {body}")
+        one.append(body["result"])
+    same = sum(o["tokens"] == t for o, t in zip(one, serve_tokens))
+    check(same == len(reqs), f"HTTP tokens one at a time == the serve "
+          f"phase's for {same}/{len(reqs)}")
+    check(all(isinstance(o["x-trace-id"], str) for o in one),
+          "an HTTP reply without a string x-trace-id")
+    got = {}
+
+    def over_http(r):
+        status, body = _http(port, "/routed", r)
+        check(status == 200, f"HTTP {status}: {body}")
+        got[id(r)] = body["result"]
+        return body["result"]
+
+    mix = _timed_mix(over_http, reqs, "routed app mix over HTTP", card,
+                     phase="serve-app")
+    same_mix = sum(got[id(r)]["tokens"] == t
+                   for r, t in zip(reqs, serve_tokens))
+    check(same_mix == len(reqs), f"HTTP tokens from 4 clients == the "
+          f"serve phase's for {same_mix}/{len(reqs)}")
+    after = [_rcall(rt, r, "b1") for r in reps]
+    launches = sum(a["launches"] - b["launches"]
+                   for a, b in zip(after, before))
+    prefills = sum(a["prefills"] - b["prefills"]
+                   for a, b in zip(after, before))
+    check(prefills == 2 * len(reqs)
+          and launches == cfg.n_layers * prefills,
+          f"B1 in the replicas over HTTP {launches} != {cfg.n_layers} x "
+          f"{prefills} prefills")
+
+    gproxy = serve.start_grpc()
+    gport = rt.get(gproxy.get_port.remote(), timeout=60)
+    client = ServeGrpcClient(f"127.0.0.1:{gport}")
+    try:
+        grpc_out = json.loads(client.predict(reqs[0], application="routed",
+                                             timeout=900))
+    finally:
+        client.close()
+    check(grpc_out["tokens"] == serve_tokens[0], "the gRPC PREDICT's "
+          "tokens differ from the serve phase's")
+
+    pids = {"http": _actor_pid("SERVE_PROXY"),
+            "grpc": _actor_pid("SERVE_GRPC_PROXY")}
+    cmds = _cluster_pids()
+    check(all(pid in cmds for pid in pids.values()),
+          f"the proxies {pids} are not processes of this cluster")
+    held = {k: _off_cuda(pid) for k, pid in pids.items()}
+    listed = _compute_app_pids()
+    replicas_listed = sum(b["pid"] in listed for b in after)
+    for k, h in held.items():
+        check(not h["listed"] and not h["libcuda"]
+              and h["cuda_visible_devices"] == "",
+              f"the {k} proxy (pid {pids[k]}) holds the card: {h}")
+    toys = _ingress_toys(rt, serve, port, card)
+    stats = rt.get(proxy.stats.remote(), timeout=60)
+    step_s = time.perf_counter() - t_step
+    out = {"serial_http_ms_p50": float(np.median(lat_http)),
+           "serial_handle_ms_p50": float(np.median(lat_handle)),
+           "mix": mix, "b1_launches": launches, "prefills": prefills,
+           "requests_served": stats["requests_served"],
+           "proxy_pids": pids, "proxies_off_cuda": held,
+           "proxy_cmds": {pid: cmds[pid] for pid in pids.values()},
+           "replicas_listed_by_nvidia_smi": replicas_listed,
+           "grpc_tokens_equal": True, "toys": toys, "step_s": step_s}
+    log("serve-app", f"ingress: the 12 serve requests over HTTP through "
+        f"serve.start()'s proxy one at a time and from 4 clients, tokens "
+        f"== the serve phase's {same}/{len(reqs)} and "
+        f"{same_mix}/{len(reqs)}; one gRPC PREDICT's tokens equal too; B1 "
+        f"in the replicas {launches} = {cfg.n_layers} x {prefills} "
+        f"prefills; the proxies' processes {pids} hold no CUDA context "
+        f"(not listed by nvidia-smi, which lists {replicas_listed} of the "
+        f"2 replicas; no libcuda mapped; CUDA_VISIBLE_DEVICES empty); "
+        f"the proxy served {stats['requests_served']} requests; {card}")
+    log("serve-app", f"ingress latency, one at a time: HTTP p50 "
+        f"{out['serial_http_ms_p50']:.1f} ms, handle p50 "
+        f"{out['serial_handle_ms_p50']:.1f} ms "
+        f"({out['serial_http_ms_p50'] / out['serial_handle_ms_p50']:.3f}x)"
+        f"; from 4 clients over HTTP {mix['tok_s']:.1f} tok/s, client "
+        f"latency p50 {mix['latency_p50_ms']:.0f} ms (the handle's mix "
+        f"above is the comparison); {card}")
+    log("serve-app", f"[time] ingress step took {step_s:.1f} s")
+    return out
+
+
 def phase_serve_app(dev, card, serve_tokens, serve_fig, runtime,
                     disagg_tokens, disagg):
     """Serve on the port's runtime: (1) ``build_routed_llm_app``, two
@@ -3150,7 +3395,11 @@ def phase_serve_app(dev, card, serve_tokens, serve_fig, runtime,
         mark("routed ready")
         before = [_rcall(rt, r, "b1") for r in reps]
         reqs = serve_requests(cfg)
-        one = [handle.remote(r).result(timeout=900) for r in reqs]
+        one, lat_handle = [], []
+        for r in reqs:
+            t0 = time.perf_counter()
+            one.append(handle.remote(r).result(timeout=900))
+            lat_handle.append(1e3 * (time.perf_counter() - t0))
         same = sum(o["tokens"] == t for o, t in zip(one, serve_tokens))
         out["routed_tokens_equal"] = f"{same}/{len(reqs)}"
         log("serve-app", f"greedy tokens one at a time through the handle "
@@ -3221,8 +3470,17 @@ def phase_serve_app(dev, card, serve_tokens, serve_fig, runtime,
             f"serve phase: {_ratio_text(out['routed']['over_serve_phase'])}"
             f"; the trace serve.request > serve.replica_call > "
             f"llm.server_call > llm.request read back; {card}")
+        mark("routed checks")
+        # The ingress, on the same two loaded replicas.
+        out["ingress"] = _serve_ingress(rt, serve, reqs, reps, serve_tokens,
+                                        cfg, lat_handle, card)
+        out["ingress"]["over_handle_mix"] = _ratios(out["ingress"]["mix"],
+                                                    routed)
+        log("serve-app", f"routed app mix over HTTP / through the handle: "
+            f"{_ratio_text(out['ingress']['over_handle_mix'])}; {card}")
+        mark("ingress")
         serve.delete("routed")
-        mark("routed checks and delete")
+        mark("routed delete")
 
         # (2) The disaggregated app at full width, paged.
         t0 = time.perf_counter()
@@ -3534,6 +3792,10 @@ def phase_serve_app(dev, card, serve_tokens, serve_fig, runtime,
             break
         time.sleep(0.2)
     check(not left, f"processes left after shutdown: {left}")
+    proxies = out.get("ingress", {}).pop("proxy_cmds", {})
+    left = {p: c for p, c in proxies.items() if _alive(p, c)}
+    check(len(proxies) == 2 and not left,
+          f"ingress proxies left after shutdown: {left} of {proxies}")
     gc.collect()
     torch.cuda.empty_cache()
     out["memory_before_mib"] = mem0
@@ -3542,7 +3804,8 @@ def phase_serve_app(dev, card, serve_tokens, serve_fig, runtime,
           f"card memory {mem0:.0f} MiB before the phase, "
           f"{out['memory_after_mib']:.0f} MiB after")
     out["phase_s"] = time.perf_counter() - phase_t0
-    log("serve-app", f"shut down: no cluster process left, card memory "
+    log("serve-app", f"shut down: no cluster process left (the HTTP and "
+        f"gRPC proxies' included), card memory "
         f"{mem0:.0f} -> {out['memory_after_mib']:.0f} MiB; the phase took "
         f"{out['phase_s']:.1f} s; {card}")
     return out
@@ -6831,6 +7094,7 @@ def main() -> int:
     serve_app = phase_serve_app(dev, card, serve_tokens, serve_fig, runtime,
                                 disagg.pop("monolithic_tokens"), disagg)
     lap("serve_app")
+    ingress_b1 = serve_app["ingress"]["b1_launches"]
     app_b1 = serve_app["routed"]["b1_launches"] + \
         serve_app["spec"]["b1_launches"]
     print(json.dumps({"serve_app": serve_app}), flush=True)
@@ -7010,7 +7274,7 @@ def main() -> int:
         "replaces": "ray_tpu/ops/attention.py:47",
         "launches": (serve_launches + spec["b1_launches"]
                      + disagg["spec"]["b1_launches"]
-                     + runtime["b1_launches"] + app_b1
+                     + runtime["b1_launches"] + app_b1 + ingress_b1
                      + train["launches"][0] + zero_b[0] + zq_b[0]
                      + tr["B1"] + gang_launches["B1"]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
@@ -7019,6 +7283,7 @@ def main() -> int:
                                  disagg["spec"]["b1_launches"],
                              "runtime_gpu_actor": runtime["b1_launches"],
                              "serve_app": app_b1,
+                             "serve_ingress": ingress_b1,
                              "train": train["launches"][0],
                              "zero_train": zero_b[0], "zero_quant": zq_b[0],
                              "trainer_worker": tr["B1"],

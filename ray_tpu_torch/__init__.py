@@ -17,7 +17,10 @@ and the disaggregated prefill/decode tier (``models.llama``,
 ``ops.attention``, ``serve.llm``), Serve on that runtime (``serve``: the
 controller, replicas on ``num_gpus`` of the card, ``DeploymentHandle``,
 the LLM router with the cluster prefix index and the peer pull, and
-``build_llm_app`` / ``build_routed_llm_app`` / ``build_disagg_llm_app``),
+``build_llm_app`` / ``build_routed_llm_app`` / ``build_disagg_llm_app``,
+and the ingress: ``serve.start``'s HTTP proxy on the standard library,
+``serve.start_grpc``, ``@serve.ingress``, ``@serve.batch`` and config
+deploys),
 the serving engine's metrics, spans and cost meters, pushed to the GCS
 (``observability``, ``util.metrics``, ``util.tracing``, ``util.state``),
 training on one device (``ops.fused_loss``, ``parallel.train_step``, the
@@ -28,10 +31,9 @@ the ``cuda`` backend runs the ring kernels with one process per rank on
 the card, ``torch`` is gloo, ``shm`` the coordinator hub).
 
 Not ported yet, each raising where it is asked for: ``runtime_env``, the
-``ray_tpu_torch://`` client, ``dag``, the dashboard, the workers'
-device-profile bracket, and Serve's ingress (``serve.start``,
-``serve.start_grpc``). Importing the package imports no torch: a worker
-that never touches a tensor never loads it.
+``ray_tpu_torch://`` client, ``dag``, the dashboard and the workers'
+device-profile bracket. Importing the package imports no torch: a
+worker that never touches a tensor never loads it.
 
 Public API parity map (reference file:line):
   init/shutdown        ~ python/ray/_private/worker.py:1219

@@ -100,8 +100,8 @@ class Node:
     ):
         if include_dashboard:
             raise NotImplementedError(
-                "the dashboard is not ported yet (the dashboard slice, with "
-                "the Serve ingress slice); start the cluster without it")
+                "the dashboard is not ported yet (the dashboard slice); "
+                "start the cluster without it")
         self.head = head
         self.host = "127.0.0.1"
         # CLI-started nodes outlive the starting process; init()-started

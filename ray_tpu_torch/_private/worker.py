@@ -286,7 +286,7 @@ class Worker:
         bind_host = os.environ.get("RAY_TPU_NODE_IP") or raylet_addr[0]
         self.server = RpcServer(bind_host, 0)
         for name in ["push_task", "push_tasks", "create_actor",
-                     "push_actor_task", "push_actor_tasks",
+                     "push_actor_task",
                      "get_object_status", "kill_self", "cancel_task", "ping",
                      "busy_info", "add_borrower", "release_borrower",
                      "consume_pending_share",
@@ -2080,13 +2080,16 @@ class Worker:
             lock = self._actor_submit_locks[actor_id] = asyncio.Lock()
         return lock
 
-    # -- batched actor submission -------------------------------------------
-    # One sender coroutine per actor drains queued calls into multi-spec
-    # push frames (reference analogue: the direct actor transport's ordered
-    # send queue in core_worker; batching amortizes per-frame pickling and
-    # loop wakeups, the difference between ~1.7k and ~10k calls/s here).
-    # The single sender also provides the (assign seq, send) ordering the
-    # old per-actor lock enforced.
+    # -- ordered actor submission -------------------------------------------
+    # One sender coroutine per actor drains queued calls, looks up the
+    # actor's address once per drained group and sends each call as a
+    # frame of its own, back to back (reference analogue: the direct actor
+    # transport's ordered send queue in core_worker, one PushTask per
+    # call). A frame holding several calls is answered only when all of
+    # them have ended, so a quick call framed with a long one (a serve
+    # long poll, a long generation) waited out the long one; one frame a
+    # call keeps each reply independent. The single sender also provides
+    # the (assign seq, send) ordering the old per-actor lock enforced.
     async def _send_actor_task(self, actor_id: bytes, spec: TaskSpec):
         b = self._actor_batchers.get(actor_id)
         if b is None:
@@ -2142,18 +2145,17 @@ class Worker:
                         if not fut.done():
                             fut.set_exception(_ActorAddrUnavailable())
                     continue
-                seqs = []
-                for _ in batch:
-                    seqs.append(self._actor_seq[actor_id])
+                # Pipelined: frames go out while earlier replies are in
+                # flight; the worker starts tasks in seq order whatever
+                # order their frames arrive in, so per-caller FIFO holds.
+                for item in batch:
+                    seq = self._actor_seq[actor_id]
                     self._actor_seq[actor_id] += 1
-                # Pipelined: the next batch is framed while this one's reply
-                # is in flight; the worker starts tasks in frame order and
-                # the seq machinery keeps per-caller FIFO.
-                spawn_task(self._deliver_actor_batch(
-                    actor_id, batch, seqs, addr))
+                    spawn_task(self._deliver_actor_task(
+                        actor_id, item, seq, addr))
 
-    async def _deliver_actor_batch(self, actor_id, batch, seqs, addr):
-        """Send one framed batch, resending the SAME sequence numbers on
+    async def _deliver_actor_task(self, actor_id, item, seq, addr):
+        """Send one call's frame, resending the SAME sequence number on
         transient connection failures while the actor process is alive
         with an unchanged incarnation. Two reasons this retry must live
         HERE: (a) a connect blip to a live actor is a network event, not
@@ -2162,7 +2164,7 @@ class Worker:
         dropped frame would leave a permanent gap that wedges the
         worker's in-order start queue for every later call from this
         caller."""
-        batched = len(batch) > 1
+        spec, fut = item
         prev_inc = self._actor_incarnation.get(actor_id, 0)
         # Deadline, not a small attempt count: on an oversubscribed host
         # a healthy actor worker can be CPU-starved past the 10 s
@@ -2176,20 +2178,14 @@ class Worker:
         attempt = 0
         while True:
             if addr is None:
-                for _, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(_ActorAddrUnavailable())
+                if not fut.done():
+                    fut.set_exception(_ActorAddrUnavailable())
                 return
             client = self._client_for(addr)
             try:
-                if batched:
-                    reply = await client.acall(
-                        "push_actor_tasks", specs=[s for s, _ in batch],
-                        seqs=seqs, caller_id=self.worker_id.binary())
-                else:
-                    reply = await client.acall(
-                        "push_actor_task", spec=batch[0][0], seq=seqs[0],
-                        caller_id=self.worker_id.binary())
+                reply = await client.acall(
+                    "push_actor_task", spec=spec, seq=seq,
+                    caller_id=self.worker_id.binary())
             except (ConnectionLost, OSError) as e:
                 self._actor_addr_cache.pop(actor_id, None)
                 gcs_down = False
@@ -2230,21 +2226,17 @@ class Worker:
                       f"{(info or {}).get('restarts_used')} "
                       f"err={type(e).__name__}: {e}", file=sys.stderr,
                       flush=True)
-                for _, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(ConnectionLost(str(e)))
+                if not fut.done():
+                    fut.set_exception(ConnectionLost(str(e)))
                 return
             except Exception as e:  # noqa: BLE001 — RpcError etc.: a
                 # fire-and-forget task swallowing this would leave every
                 # caller future pending forever; fail the calls instead.
-                for _, fut in batch:
-                    if not fut.done():
-                        fut.set_exception(e)
-                return
-            replies = reply if batched else [reply]
-            for (spec, fut), r in zip(batch, replies):
                 if not fut.done():
-                    fut.set_result(r)
+                    fut.set_exception(e)
+                return
+            if not fut.done():
+                fut.set_result(reply)
             return
 
     async def _run_actor_task(self, spec: TaskSpec) -> None:
@@ -2968,12 +2960,6 @@ class Worker:
         actor.expected_seq[caller_id] = seq + 1
         self._advance_caller_queue(actor, caller_id)
         return await self._execute_actor_task(actor, spec)
-
-    async def _h_push_actor_tasks(self, specs, seqs, caller_id):
-        """Batched form of push_actor_task: one frame, N ordered calls."""
-        return list(await asyncio.gather(*[
-            self._h_push_actor_task(spec, seq, caller_id)
-            for spec, seq in zip(specs, seqs)]))
 
     def _advance_caller_queue(self, actor: _ActorState, caller_id: bytes):
         expected = actor.expected_seq[caller_id]

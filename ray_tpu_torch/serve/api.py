@@ -6,7 +6,7 @@ Reference: `serve/api.py` (`serve.run :521`), `serve/deployment.py`
 an Application graph). A replica's share of the card is ``num_gpus``
 (whole or a fraction in (0, 1), leased by the raylet as ``GPU``), where
 the reference's is ``num_tpus``; ``num_tpus`` raises as it does on any
-remote. The ingress (``start``, ``start_grpc``) is not ported yet.
+remote. ``start`` and ``start_grpc`` start the HTTP and gRPC ingress.
 """
 
 from __future__ import annotations
@@ -146,13 +146,57 @@ def deployment(func_or_class=None, *, name: Optional[str] = None,
 
 def start(http_port: int = 0, proxy_location: str = "HeadOnly",
           http_host: Optional[str] = None):
-    """The HTTP ingress. Not ported yet: the proxy needs ``aiohttp``,
-    which the card's machine does not have; call deployments through
-    ``DeploymentHandle`` (``serve.run`` returns one)."""
-    raise NotImplementedError(
-        "serve.start (the HTTP proxy) is not ported yet: it comes with "
-        "the Serve ingress slice (HTTP and gRPC proxies, @serve.ingress, "
-        "the route plane); use the handle serve.run returns")
+    """Start the HTTP ingress (controller starts lazily on first run()).
+
+    The proxy is an HTTP/1.1 server on ``asyncio`` streams from the
+    standard library (``serve/_private/proxy.py``), so it needs no
+    ``aiohttp``; it leases no GPU and never makes a CUDA context. Its
+    wire behaviour is the reference's: ``/<app>`` calls the app's ingress
+    with the decoded JSON body, ``/-/healthz`` and ``/-/routes`` answer.
+
+    ``proxy_location="EveryNode"`` pins one proxy actor per alive node
+    (reference: ProxyLocation.EveryNode — each node accepts traffic and
+    routes to replicas anywhere), returning the head-node proxy.
+
+    The proxy binds loopback by default (it has no authentication);
+    EveryNode implies 0.0.0.0 because cross-node ingress is the point,
+    and ``http_host`` overrides either way.
+    """
+    from ray_tpu_torch.serve._private.controller import (
+        get_or_create_controller,
+    )
+
+    get_or_create_controller()
+    from ray_tpu_torch.serve._private.proxy import ProxyActor
+
+    if proxy_location == "EveryNode":
+        from ray_tpu_torch.util.scheduling_strategies import (
+            NodeAffinitySchedulingStrategy,
+        )
+
+        head = None
+        for node in ray_tpu_torch.nodes():
+            if not node.get("Alive"):
+                continue
+            node_id = node["NodeID"]
+            name = f"{_PROXY_NAME}:{node_id[:12]}"
+            try:
+                proxy = ray_tpu_torch.get_actor(name)
+            except Exception:
+                proxy = ProxyActor.options(
+                    name=name, lifetime="detached",
+                    scheduling_strategy=NodeAffinitySchedulingStrategy(
+                        node_id=node_id, soft=False),
+                ).remote(http_port, http_host or "0.0.0.0")
+            if head is None:
+                head = proxy
+        return head
+    try:
+        return ray_tpu_torch.get_actor(_PROXY_NAME)
+    except Exception:
+        return ProxyActor.options(
+            name=_PROXY_NAME, lifetime="detached",
+        ).remote(http_port, http_host or "127.0.0.1")
 
 
 _GRPC_PROXY_NAME = "SERVE_GRPC_PROXY"
@@ -160,12 +204,53 @@ _GRPC_PROXY_NAME = "SERVE_GRPC_PROXY"
 
 def start_grpc(grpc_port: int = 0, host: str = "127.0.0.1",
                grpc_servicer_functions=None):
-    """The gRPC ingress. Not ported yet: the proxy needs ``grpcio``."""
-    raise NotImplementedError(
-        "serve.start_grpc (the gRPC proxy) is not ported yet: it comes "
-        "with the Serve ingress slice (HTTP and gRPC proxies, "
-        "@serve.ingress, the route plane); use the handle serve.run "
-        "returns")
+    """Start the gRPC ingress (reference: grpc_options on serve.start →
+    the gRPC proxy in `_private/proxy.py`). Shares the HTTP proxy's
+    routing plane; see `serve/_private/grpc_proxy.py` for the wire
+    contract. It needs ``grpcio``, imported in the proxy's process when
+    its server starts (the card's machine has it), not at import.
+    `grpc_servicer_functions`: generated ``add_XServicer_to_server``
+    callables (or their dotted import paths — pass strings when the proxy
+    actor may run in a process that must re-import them) whose rpc
+    methods the proxy serves with the user's own proto (de)serializers."""
+    from ray_tpu_torch.serve._private.controller import (
+        get_or_create_controller,
+    )
+    from ray_tpu_torch.serve._private.grpc_proxy import (
+        GrpcProxyActor, harvest_servicer_methods)
+
+    get_or_create_controller()
+    try:
+        proxy = ray_tpu_torch.get_actor(_GRPC_PROXY_NAME)
+    except Exception:
+        proxy = None
+    if proxy is not None:
+        if grpc_servicer_functions:
+            # A live proxy without the requested servicers would answer
+            # every user-proto rpc UNIMPLEMENTED with no hint why —
+            # recreate it (the proxy is stateless) instead of silently
+            # dropping the argument.
+            wanted = set(harvest_servicer_methods(grpc_servicer_functions))
+            have = set(ray_tpu_torch.get(
+                proxy.get_user_method_paths.remote(), timeout=30))
+            if not wanted <= have:
+                import time as _time
+
+                ray_tpu_torch.kill(proxy)
+                deadline = _time.monotonic() + 10
+                while _time.monotonic() < deadline:
+                    try:
+                        ray_tpu_torch.get_actor(_GRPC_PROXY_NAME)
+                        _time.sleep(0.1)   # name not released yet
+                    except Exception:
+                        break
+                proxy = None
+        if proxy is not None:
+            return proxy
+    return GrpcProxyActor.options(
+        name=_GRPC_PROXY_NAME, lifetime="detached",
+    ).remote(grpc_port, host,
+             servicer_functions=grpc_servicer_functions)
 
 
 def run(app: Application, *, name: str = "default",

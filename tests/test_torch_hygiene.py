@@ -158,7 +158,7 @@ def _cmdline(pid):
 
 def test_port_cluster_spawns_only_port_processes():
     """Every process a port cluster starts (GCS, raylet, task and actor
-    workers, and Serve's controller, router and replicas) runs a
+    workers, and Serve's controller, HTTP proxy, router and replicas) runs a
     ``ray_tpu_torch.`` module, and none loads JAX or the JAX package; a
     worker that touches no tensor loads no torch."""
     import ray_tpu_torch
@@ -176,6 +176,15 @@ def test_port_cluster_spawns_only_port_processes():
         out = handle.remote({"prompt": [1, 2, 3],
                              "max_tokens": 2}).result(timeout=120)
         assert out["num_tokens"] == 2
+        # The HTTP proxy runs in a worker of the port too.
+        import json
+        import urllib.request
+
+        port = ray_tpu_torch.get(serve.start().get_port.remote(),
+                                 timeout=60)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/-/healthz",
+                                    timeout=60) as resp:
+            assert json.loads(resp.read()) == {"ok": True}
 
         @serve.deployment
         def replica_modules(_):

@@ -423,6 +423,33 @@ class TestAsyncActors:
         assert ray_tpu_torch.get(sender, timeout=10) == "sent"
 
 
+class TestActorReplies:
+    def test_quick_call_is_not_held_behind_a_long_one(self, cluster):
+        """Each call's reply is its own: a quick call sent right after a
+        long one from the same caller returns while the long one runs
+        (calls sent in one frame were answered when all of them ended,
+        so a serve long poll held every call framed with it)."""
+
+        @ray_tpu_torch.remote(max_concurrency=2)
+        class Mixed:
+            def long(self, t):
+                import time as _time
+
+                _time.sleep(t)
+                return "long"
+
+            def quick(self):
+                return "quick"
+
+        m = Mixed.remote()
+        ray_tpu_torch.get(m.quick.remote(), timeout=60)
+        slow, fast = m.long.remote(2.5), m.quick.remote()
+        t0 = time.monotonic()
+        assert ray_tpu_torch.get(fast, timeout=60) == "quick"
+        assert time.monotonic() - t0 < 1.5
+        assert ray_tpu_torch.get(slow, timeout=60) == "long"
+
+
 class TestActorLifecycle:
     def test_kill(self, cluster):
         c = Counter.remote()

@@ -1,13 +1,14 @@
 """The port's Serve control plane (``ray_tpu_torch.serve``) on the CPU.
 
 The cases of the reference's own ``tests/test_serve.py`` (all but the
-HTTP proxy, which is not ported), each asserting what it asserts there,
-run against the port's cluster; then what the port adds or changes: a
-replica's share of the card is ``num_gpus`` (two 0.5 replicas on one
-card, the controller on none), ``num_tpus`` and the ingress raise, the
-GCS prefix index (the reference's ``test_cluster_prefix_index_gcs``), a
-scale decision of ``num_replicas="auto"`` reaching the GCS decision
-ring, and ``serve_replicas`` read back through the metrics push and
+HTTP proxy, held in ``tests/test_torch_serve_ingress.py``), each
+asserting what it asserts there, run against the port's cluster; then
+what the port adds or changes: a replica's share of the card is
+``num_gpus`` (two 0.5 replicas on one card, the controller on none),
+``num_tpus`` raises, the GCS prefix index (the reference's
+``test_cluster_prefix_index_gcs``), a scale decision of
+``num_replicas="auto"`` reaching the GCS decision ring, and
+``serve_replicas`` read back through the metrics push and
 ``util.metrics.query``. One cluster for the module, with one fake GPU
 and the prefix index's TTL short; every ``get`` has a timeout, so a hang
 fails one test.
@@ -209,12 +210,6 @@ def test_deployment_refuses_num_tpus_as_the_runtime_does():
         Doubler.options(num_tpus=1)
     with pytest.raises(TypeError, match="num_cpu"):
         serve.deployment(num_cpu=1)
-
-
-@pytest.mark.parametrize("start", ["start", "start_grpc"])
-def test_ingress_raises_naming_its_slice(start):
-    with pytest.raises(NotImplementedError, match="Serve ingress slice"):
-        getattr(serve, start)()
 
 
 def test_handles_rebuild_from_their_coordinates():

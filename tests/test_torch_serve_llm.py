@@ -154,6 +154,24 @@ def _probed(app):
     return app
 
 
+def _viewed(app):
+    """Swap the app's router for a subclass that reports its own view of
+    the cluster prefix index: what a pick would score for a prompt."""
+    from ray_tpu_torch.serve.llm import LLMRouter
+
+    class ViewedRouter(LLMRouter):
+        def view(self, prompt):
+            from ray_tpu_torch.serve.llm.router import replica_tag
+
+            with self._lock:
+                ids = {replica_tag(r): i for r, i in self._index_id.items()}
+            return {"fresh": self._index_age_s() <= self._index_ttl,
+                    "hits": self._expected_hits(prompt), "index_ids": ids}
+
+    app.deployment = app.deployment.options(func_or_class=ViewedRouter)
+    return app
+
+
 # ---------------------------------------------- policy against the reference
 
 
@@ -414,9 +432,9 @@ def test_cache_aware_pick_and_peer_pull(app):
 
     engine = dict(PAGED, max_seq_len=512, prefill_buckets=(16, 64),
                   kv_prefill_cost_per_token_ms=50.0)
-    handle = serve.run(build_routed_llm_app(
+    handle = serve.run(_viewed(build_routed_llm_app(
         engine_config=engine, num_replicas=2, probe_interval_s=0.05,
-        **_app_kwargs()), name="cached")
+        **_app_kwargs())), name="cached")
     shared = _prompt(30, 5 * BS)
     first = shared + _prompt(31, 4)
 
@@ -447,7 +465,18 @@ def test_cache_aware_pick_and_peer_pull(app):
         return idx if ids <= set(idx) and len(held) == 1 else None
 
     assert _poll(indexed), "both replicas in the index, one holding"
-    time.sleep(0.6)             # the router's index view catches up
+
+    def scores_holder():
+        """The router's own view has caught up with the index: it knows
+        both replicas' index ids, is fresh, and would score the holder's
+        5 blocks of this prompt."""
+        view = handle.view.remote(first).result(timeout=60)
+        iid = view["index_ids"].get(holder)
+        return (view["fresh"] and len(view["index_ids"]) == 2
+                and iid is not None and view["hits"].get(iid) == 5)
+
+    assert _poll(scores_holder), handle.view.remote(first).result(
+        timeout=60)
     assert _poll(settled)
     out = ask(first, 4).result(timeout=120)
     assert out["tokens"] == _reference(first, 4)
