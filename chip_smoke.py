@@ -275,6 +275,37 @@ Phases, one line each; any failure raises and exits non-zero:
               forms' staged bytes and the host's time in the ring's calls,
               against the step wall). A failed ``fit()`` prints every
               worker's stderr.
+6l. jobs    -- (run last, after 6k) the operator's plane: a cluster
+              with the dashboard (``init(include_dashboard=True)``; its
+              URL must be set and in the KV). A job submitted over HTTP
+              (``JobSubmissionClient(dashboard_url)``) with a
+              ``working_dir`` (an entrypoint, a helper module it imports
+              and its inputs) and ``env_vars`` (depth, seed, and a
+              ``CUDA_VISIBLE_DEVICES`` the raylet must undo) serves
+              Llama-3-8B at 4 of 32 layers (``JOB_LAYERS``; int8, flash,
+              buckets 128/256/512, seed 0) from a ``num_gpus=1`` actor: the
+              first 4 of the serve phase's requests, one at a time. Gates:
+              the job SUCCEEDED; its log over HTTP holds the tokens; they
+              equal an in-process server's of the same depth and seed,
+              built after the job let the card go; B1 launched once per
+              layer and prefill in the actor; the dashboard head, the
+              supervisor and the job's driver hold no CUDA context (not
+              among nvidia-smi's compute apps, no libcuda mapped,
+              ``CUDA_VISIBLE_DEVICES=""``) while the actor is listed.
+              Then a second job's actor in a one-bundle placement group
+              ({"CPU": 1, "GPU": 1}) serves without pause while the state
+              views (jobs, tasks, placement groups, actors, memory,
+              objects) and the dashboard (/api/cluster and /api/nodes GPU
+              1, /metrics, /api/logs?actor_id=, /api/stacks, a 2 s
+              /api/profile of the actor's worker) must show it;
+              ``stop_job`` must kill the entrypoint's tree, read STOPPED
+              and give the GPU back within 60 s, the actor's pid gone from
+              the compute apps. Last, a ``num_gpus=1`` task in a pip env
+              (a wheel built in the phase) runs B1 once at (1, 512, 32,
+              128) bf16 causal within B1's limits, twice, from one venv
+              under the manager's ``pip/`` with CUDA available. Printed:
+              submit to SUCCEEDED, the job actor's first token, the venv's
+              creation, stop to GPU free, the phase's time.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -6967,6 +6998,602 @@ def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
     return out
 
 
+# 6l: jobs -- runtime_env, job submission, the dashboard head and the
+# state views, with a job serving Llama-3-8B from a GPU actor.
+JOB_LAYERS = 4                   # the served job's depth (of 32)
+JOB_REQUESTS = 4                 # the first of the serve phase's requests
+JOB_CPUS = 8
+JOB_MODEL = {"preset": "llama3_8b", "attn_impl": "flash"}
+JOB_DEVICE = None                # the lease's card (a CPU rehearsal: "cpu")
+JOB_WAIT_S = 600.0               # any one wait of the phase
+JOB_FREE_S = 60.0                # stop_job to the GPU back in the cluster
+JOB_OBJECT_MIB = 16              # an object the state views must show
+
+# The served job's working dir: a helper module (its actor) and an
+# entrypoint that imports it, so the job runs only if the dir was
+# packaged, shipped through the GCS and unpacked as its cwd.
+JOB_HELPER = '''"""The served job's helper: its GPU actor and its inputs."""
+import json
+import os
+import time
+
+import ray_tpu_torch as rt
+
+
+def load():
+    with open("job.json") as f:            # the unpacked working dir
+        return json.load(f)
+
+
+@rt.remote(num_gpus=1)
+class JobServer:
+    """LLMServer on the leased card: int8, flash, the job's depth and
+    seed; built without device=, so it raises where there is no card."""
+
+    def __init__(self, model, layers, seed, engine, device):
+        import torch
+
+        from ray_tpu_torch.models.llama import LlamaConfig
+        from ray_tpu_torch.serve.llm import LLMServer
+
+        kw = {"device": device} if device else {}
+        cfg = getattr(LlamaConfig, model["preset"])(
+            n_layers=layers, attn_impl=model["attn_impl"],
+            param_dtype=torch.bfloat16)
+        engine = dict(engine, prefill_buckets=tuple(engine["prefill_buckets"]))
+        t0 = time.perf_counter()
+        self.server = LLMServer(cfg, engine, init_seed=seed,
+                                quantize="int8", **kw)
+        self.build_s = time.perf_counter() - t0
+        self._prefills0 = 0
+        self.served = 0
+
+    def info(self):
+        import sys
+
+        import torch
+
+        return {"pid": os.getpid(), "build_s": self.build_s,
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "cuda_bytes": (torch.cuda.memory_allocated()
+                               if torch.cuda.is_initialized() else 0),
+                "foreign_modules": sorted(
+                    m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "ray_tpu"))}
+
+    def reset_counts(self):
+        from ray_tpu_torch.ops import attention
+
+        self._prefills0 = self.server.stats()["prefills"]
+        attention.flash_fwd_cuda.launches = 0
+
+    def counts(self):
+        from ray_tpu_torch.ops import attention
+
+        return {"b1_launches": attention.flash_fwd_cuda.launches,
+                "prefills": self.server.stats()["prefills"] - self._prefills0}
+
+    def serve(self, request):
+        out = self.server(request)
+        self.served += 1
+        print(f"job actor served request {self.served}: "
+              f"{out['num_tokens']} tokens", flush=True)
+        return out
+'''
+
+JOB_ENTRY = '''"""The served job: a GPU actor answers the requests, one at a time."""
+import json
+import os
+import sys
+import time
+
+import jobhelper
+import ray_tpu_torch as rt
+
+rt.init(address=os.environ["RAY_TPU_ADDRESS"])
+job = jobhelper.load()
+t0 = time.perf_counter()
+actor = jobhelper.JobServer.remote(
+    job["model"], int(os.environ["JOB_LAYERS"]), int(os.environ["JOB_SEED"]),
+    job["engine"], job["device"])
+info = rt.get(actor.info.remote(), timeout=600)
+ready_s = time.perf_counter() - t0
+rt.get(actor.reset_counts.remote(), timeout=60)
+results = [rt.get(actor.serve.remote(r), timeout=600)
+           for r in job["requests"]]
+counts = rt.get(actor.counts.remote(), timeout=60)
+print("JOB_RESULT " + json.dumps({
+    "tokens": [r["tokens"] for r in results],
+    "ttft_s": [r["ttft_s"] for r in results],
+    "counts": counts, "actor": info, "actor_ready_s": ready_s,
+    "driver_pid": os.getpid(), "cwd": os.getcwd(),
+    "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+    "foreign_modules": sorted(m for m in sys.modules
+                              if m.split(".")[0] in ("jax", "ray_tpu",
+                                                     "torch"))}), flush=True)
+# Hold the card until the caller has read this job's processes.
+deadline = time.monotonic() + 600
+while not os.path.exists(os.environ["JOB_GATE"]):
+    if time.monotonic() > deadline:
+        sys.exit("the gate never opened")
+    time.sleep(0.1)
+rt.shutdown()
+'''
+
+BUSY_ENTRY = '''"""The second job: its GPU actor in a placement group serves until the
+job is stopped."""
+import json
+import os
+
+import jobhelper
+import ray_tpu_torch as rt
+from ray_tpu_torch.util.placement_group import placement_group
+from ray_tpu_torch.util.scheduling_strategies import (
+    PlacementGroupSchedulingStrategy,
+)
+
+rt.init(address=os.environ["RAY_TPU_ADDRESS"])
+job = jobhelper.load()
+pg = placement_group([{"CPU": 1, "GPU": 1}])
+rt.get(pg.ready(), timeout=600)
+actor = jobhelper.JobServer.options(
+    num_cpus=1, scheduling_strategy=PlacementGroupSchedulingStrategy(
+        pg, placement_group_bundle_index=0)).remote(
+    job["model"], int(os.environ["JOB_LAYERS"]), int(os.environ["JOB_SEED"]),
+    job["engine"], job["device"])
+info = rt.get(actor.info.remote(), timeout=600)
+print("BUSY_READY " + json.dumps({
+    "actor_id": actor._actor_id.hex(), "actor_pid": info["pid"],
+    "driver_pid": os.getpid()}), flush=True)
+while True:
+    rt.get(actor.serve.remote(job["busy_request"]), timeout=600)
+'''
+
+JOB_WHEEL_MODULE = '''"""A wheel installed into a job's pip env: B1's inputs."""
+
+
+def qkv(seq, seed, device):
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return [torch.randn((1, seq, 32, 128), generator=gen, device=device,
+                        dtype=torch.bfloat16) for _ in range(3)]
+'''
+
+
+def _make_wheel(dirname, name, module_text, version="0.1"):
+    """A minimal wheel of one module, built by hand (no network)."""
+    import zipfile
+
+    whl = os.path.join(dirname, f"{name}-{version}-py3-none-any.whl")
+    with zipfile.ZipFile(whl, "w") as z:
+        z.writestr(f"{name}/__init__.py", module_text)
+        z.writestr(f"{name}-{version}.dist-info/METADATA",
+                   f"Metadata-Version: 2.1\nName: {name}\n"
+                   f"Version: {version}\n")
+        z.writestr(f"{name}-{version}.dist-info/WHEEL",
+                   "Wheel-Version: 1.0\nGenerator: chip_smoke\n"
+                   "Root-Is-Purelib: true\nTag: py3-none-any\n")
+        z.writestr(f"{name}-{version}.dist-info/RECORD", "")
+    return whl
+
+
+def _pip_b1(seq, device):
+    """In a pip env's worker: B1 once at (1, seq, 32, 128) bf16 causal on
+    the wheel's inputs, against its plain version."""
+    import rtpu_jobwheel
+
+    from ray_tpu_torch.ops import attention
+
+    q, k, v = rtpu_jobwheel.qkv(seq, 0, device)
+    po, plse = attention.flash_attention_plain(q, k, v, True)
+    if device == "cpu":                  # a rehearsal: no kernel to launch
+        o, lse = po, plse
+    else:
+        o, lse = attention.flash_fwd_cuda(q, k, v, True)
+        torch.cuda.synchronize()
+    used_o, used_lse = b1_used(o, lse, po, plse, torch.bfloat16)
+    return {"executable": sys.executable,
+            "cuda_available": torch.cuda.is_available(),
+            "used_o": used_o, "used_lse": used_lse,
+            "max_abs_err": (o.float() - po.float()).abs().max().item(),
+            "wheel": rtpu_jobwheel.__file__}
+
+
+def _job_logs(client, sid, marker, timeout=JOB_WAIT_S):
+    """The JSON that follows ``marker`` on a line of the job's log,
+    fetched over HTTP, once the log holds it."""
+    deadline = time.monotonic() + timeout
+    while True:
+        text = client.get_job_logs(sid)
+        for line in text.splitlines():
+            if line.startswith(marker + " "):
+                return json.loads(line[len(marker) + 1:])
+        status = client.get_job_status(sid)
+        check(status in ("PENDING", "RUNNING") and time.monotonic() < deadline,
+              f"job {sid} is {status} without {marker}; its log:\n{text}")
+        time.sleep(0.2)
+
+
+def _gone(pid, timeout=15.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    return True
+        except (OSError, IndexError):
+            return True
+        time.sleep(0.1)
+    return False
+
+
+def _gpu_free(rt, timeout):
+    """Seconds until the cluster's available GPU is back to 1."""
+    t0 = time.perf_counter()
+    while rt.available_resources().get("GPU", 0) < 1:
+        check(time.perf_counter() - t0 < timeout,
+              f"the GPU was not back within {timeout:.0f} s: "
+              f"{rt.available_resources()}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _card_released(pid, mem_before, timeout=30.0):
+    """Whether the process ``pid`` has exited and the card's used memory
+    is back within 1 GiB of ``mem_before`` (MiB) within ``timeout``.
+    nvidia-smi on the card's machine lists no compute apps, so its list
+    cannot say which process holds the card."""
+    if not _gone(pid, timeout):
+        return False
+    deadline = time.monotonic() + timeout
+    while gpu_memory_used_mib() - mem_before >= 1024:
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.2)
+    return True
+
+
+def _http_get(base, path, timeout=120):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=timeout) as resp:
+        body = resp.read()
+        if resp.headers.get_content_type() == "application/json":
+            return json.loads(body)
+        return body.decode()
+
+
+def phase_jobs(dev, card):
+    """Jobs on the port's runtime; see the module docstring (6l)."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.serve.llm import LLMServer
+    from ray_tpu_torch.util import state
+
+    phase_t0 = time.perf_counter()
+    out = {"card": card}
+    cfg = getattr(LlamaConfig, JOB_MODEL["preset"])(
+        n_layers=JOB_LAYERS, attn_impl=JOB_MODEL["attn_impl"],
+        param_dtype=torch.bfloat16)
+    reqs = serve_requests(cfg)[:JOB_REQUESTS]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jobs_")
+    wd = os.path.join(tmp, "job")
+    os.makedirs(wd)
+    for name, text in (("jobhelper.py", JOB_HELPER),
+                       ("serve_job.py", JOB_ENTRY),
+                       ("busy_job.py", BUSY_ENTRY)):
+        with open(os.path.join(wd, name), "w") as f:
+            f.write(text)
+    with open(os.path.join(wd, "job.json"), "w") as f:
+        json.dump({"model": JOB_MODEL, "engine": ENGINE, "device": JOB_DEVICE,
+                   "requests": reqs,
+                   "busy_request": {"prompt": reqs[0]["prompt"],
+                                    "max_tokens": 64}}, f)
+    gate = os.path.join(tmp, "gate")
+    env_vars = {"JOB_LAYERS": str(JOB_LAYERS), "JOB_SEED": "0",
+                "JOB_GATE": gate,
+                # An env cannot make a card visible: the raylet sets it
+                # back to "" after the env's variables.
+                "CUDA_VISIBLE_DEVICES": "0"}
+    mem0 = gpu_memory_used_mib() if JOB_DEVICE is None else 0.0
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=JOB_CPUS, num_gpus=1, include_dashboard=True)
+    out["start_s"] = time.perf_counter() - t0
+    try:
+        url = info["dashboard_url"]
+        check(url is not None, "init(include_dashboard=True) started no "
+              "dashboard (see the session's logs/dashboard.err)")
+        kv = global_worker().gcs.call("kv_get", namespace="dashboard",
+                                      key="dashboard_url", timeout=10)
+        check(kv is not None and kv.decode() == url,
+              f"the KV's dashboard_url {kv!r} is not {url}")
+        head = [p for p, c in _cluster_pids().items()
+                if "ray_tpu_torch.dashboard.head" in c]
+        check(len(head) == 1, f"dashboard head processes: {head}")
+        log("jobs", f"cluster with the dashboard at {url} up in "
+            f"{out['start_s']:.2f} s (head pid {head[0]})")
+        client = JobSubmissionClient(url)
+
+        # --- (2) the serving job ------------------------------------------
+        t_submit = time.perf_counter()
+        sid = client.submit_job(
+            entrypoint=f"{sys.executable} serve_job.py",
+            runtime_env={"working_dir": wd, "env_vars": env_vars})
+        res = _job_logs(client, sid, "JOB_RESULT")
+        out["submit_to_result_s"] = time.perf_counter() - t_submit
+        record = client.get_job_info(sid)
+        check(record["runtime_env"]["working_dir"].startswith("gcs://"),
+              f"the working dir was not packaged: {record['runtime_env']}")
+        check(res["cwd"] != wd and "runtime_envs" in res["cwd"],
+              f"the job ran in {res['cwd']}, not the unpacked package")
+        pids = {"dashboard head": head[0], "supervisor": record["pid"],
+                "job driver": res["driver_pid"]}
+        if JOB_DEVICE is None:
+            held = {name: _off_cuda(pid) for name, pid in pids.items()}
+            actor_held = _off_cuda(res["actor"]["pid"])
+            log("jobs", f"while the job's actor holds the card: "
+                f"{held}; the actor: {actor_held}, its lease's "
+                f"CUDA_VISIBLE_DEVICES {res['actor']['cuda_visible_devices']!r}"
+                f", {res['actor']['cuda_bytes']} B allocated by torch")
+            for name, h in held.items():
+                check(not h["listed"] and not h["libcuda"]
+                      and h["cuda_visible_devices"] == "",
+                      f"the {name} holds the card: {h}")
+            # nvidia-smi lists no compute apps here: libcuda mapped and
+            # memory allocated on the leased card say the actor holds it.
+            check(actor_held["libcuda"] and res["actor"]["cuda_bytes"] > 0,
+                  f"the job's actor holds no CUDA context: {actor_held}, "
+                  f"{res['actor']}")
+        check(res["cuda_visible_devices"] == "",
+              f"the job's driver sees CUDA_VISIBLE_DEVICES="
+              f"{res['cuda_visible_devices']!r}")
+        check(res["foreign_modules"] == [] and
+              res["actor"]["foreign_modules"] == [],
+              f"the job's driver loaded {res['foreign_modules']}, its "
+              f"actor {res['actor']['foreign_modules']}")
+        check(res["actor"]["cuda_visible_devices"] == "0"
+              or JOB_DEVICE is not None,
+              f"the job's actor's lease: {res['actor']}")
+        with open(gate, "w") as f:
+            f.write("open")
+        status = client.wait_until_finished(sid, timeout=JOB_WAIT_S)
+        out["submit_to_succeeded_s"] = time.perf_counter() - t_submit
+        check(status == "SUCCEEDED", f"the serving job {status}: "
+              f"{client.get_job_logs(sid)}")
+        logs = client.get_job_logs(sid)
+        check(json.dumps(res["tokens"]) in logs,
+              "the tokens are not in the job's log as fetched over HTTP")
+        counts = res["counts"]
+        out["b1_launches"] = counts["b1_launches"]
+        out["job_prefills"] = counts["prefills"]
+        out["first_token_s"] = res["ttft_s"][0]
+        out["later_ttft_p50_s"] = float(np.median(res["ttft_s"][1:]))
+        out["actor_ready_s"] = res["actor_ready_s"]
+        out["actor_build_s"] = res["actor"]["build_s"]
+        check(counts["prefills"] == len(reqs)
+              and counts["b1_launches"] == cfg.n_layers * len(reqs)
+              or JOB_DEVICE is not None,
+              f"B1 in the job's actor: {counts}, want {cfg.n_layers} x "
+              f"{len(reqs)}")
+        # The in-process server is built once the job has let go of the
+        # card: its driver ended, and its actor with it.
+        out["release_s"] = _gpu_free(rt, JOB_FREE_S)
+        if JOB_DEVICE is None:
+            check(_card_released(res["actor"]["pid"], mem0),
+                  "the served job's actor still holds the card")
+        kw = {"device": dev}
+        local = LLMServer(cfg, dict(ENGINE), init_seed=0, quantize="int8",
+                          **kw)
+        try:
+            want = [local(r)["tokens"] for r in reqs]
+        finally:
+            local.shutdown()
+            del local
+            gc.collect()
+            if JOB_DEVICE is None:
+                torch.cuda.empty_cache()
+        same = sum(a == b for a, b in zip(res["tokens"], want))
+        out["tokens_equal"] = f"{same}/{len(reqs)}"
+        log("jobs", f"served job {sid}: SUCCEEDED {out['submit_to_succeeded_s']:.1f} "
+            f"s after its submit (results in its log after "
+            f"{out['submit_to_result_s']:.1f} s; the rest held at the gate "
+            f"for the process checks); actor ready in "
+            f"{out['actor_ready_s']:.1f} s (server built in "
+            f"{out['actor_build_s']:.1f} s), first token "
+            f"{1e3 * out['first_token_s']:.1f} ms (the later requests' TTFT "
+            f"p50 {1e3 * out['later_ttft_p50_s']:.1f} ms); B1 launches in "
+            f"the actor "
+            f"{counts['b1_launches']} for {counts['prefills']} prefills; "
+            f"greedy tokens, job actor == in-process server: "
+            f"{out['tokens_equal']}; card released {out['release_s']:.2f} s "
+            f"after SUCCEEDED; {card}")
+        check(same == len(reqs), f"the job's tokens differ from the "
+              f"in-process server's: {out['tokens_equal']}")
+
+        # --- (3) state and the dashboard while a second job holds the card
+        mem1 = gpu_memory_used_mib() if JOB_DEVICE is None else 0.0
+        obj = rt.put(torch.zeros(JOB_OBJECT_MIB << 18))      # f32 elements
+        obj_bytes = JOB_OBJECT_MIB << 20
+        sid2 = client.submit_job(
+            entrypoint=f"{sys.executable} busy_job.py",
+            runtime_env={"working_dir": wd, "env_vars": env_vars})
+        busy = _job_logs(client, sid2, "BUSY_READY")
+        record2 = client.get_job_info(sid2)
+        aid, apid = busy["actor_id"], busy["actor_pid"]
+        wid = next(a["worker_id"] for a in state.list_actors()
+                   if a["actor_id"] == aid)
+        jobs = state.list_jobs()
+        running = [j for j in jobs if j["state"] == "RUNNING"
+                   and "runtime_envs" in j["metadata"].get("cwd", "")]
+        finished = [j for j in jobs if j["state"] == "FINISHED"
+                    and "runtime_envs" in j["metadata"].get("cwd", "")]
+        check(len(running) == 1 and len(finished) == 1,
+              f"list_jobs: {jobs}")
+        tasks = state.list_tasks()
+        # The second job's placement group's readiness task.
+        check(any(t["name"] == "_pg_ready_waiter" and t["state"] == "FINISHED"
+                  for t in tasks),
+              f"list_tasks: {sorted({t['name'] for t in tasks})}")
+        pgs = [p for p in state.list_placement_groups()
+               if p["state"] == "CREATED"]
+        check(len(pgs) == 1 and pgs[0]["bundles"] == [{"CPU": 1, "GPU": 1}],
+              f"list_placement_groups: {pgs}")
+        actors = {r["class"]: r for r in state.summary_actors()}
+        check(actors.get("JobServer", {}).get("ALIVE") == 1
+              and actors.get("JobSupervisor", {}).get("ALIVE", 0) >= 1,
+              f"summary_actors: {actors}")
+        mem = state.memory_summary(top_n=5)
+        top = mem["top_objects"][0] if mem["top_objects"] else {}
+        check(top.get("object_id") == obj.hex() and
+              top.get("size", 0) >= obj_bytes and top["reference"] == "owned",
+              f"memory_summary's largest object: {top}")
+        objects = state.list_objects()
+        check(sum(o.get("num_objects", 0) for o in objects) >= 1
+              and sum(o.get("used", 0) for o in objects) >= obj_bytes,
+              f"list_objects: {objects}")
+        cluster = _http_get(url, "/api/cluster")
+        nodes = _http_get(url, "/api/nodes")
+        check(cluster["total"].get("GPU") == 1
+              and [n["total"].get("GPU") for n in nodes] == [1],
+              f"/api/cluster {cluster}, /api/nodes {nodes}")
+        deadline = time.monotonic() + 60
+        while True:
+            metrics = _http_get(url, "/metrics")
+            # The GCS labels each series node="...",resource="...".
+            missing = [m for m in (r'rtpu_resource_capacity\{[^}]*'
+                                   r'resource="GPU"\} 1\.0\b',
+                                   r"rtpu_node_cpu_percent\{",
+                                   r"rtpu_node_gpus_free\{",
+                                   r"rtpu_node_workers\{")
+                       if not re.search(m, metrics)]
+            if not missing or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        check(not missing, f"/metrics lacks {missing}")
+        deadline = time.monotonic() + 60
+        while True:
+            lines = _http_get(url, f"/api/logs?actor_id={aid}&tail=50")
+            if any("job actor served" in ln for ln in lines["lines"]) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        check(any("job actor served" in ln for ln in lines["lines"]),
+              f"/api/logs?actor_id= gave {lines}")
+        stacks = _http_get(url, "/api/stacks")
+        check(wid in stacks and "MainThread" in stacks[wid].get("stacks", ""),
+              f"/api/stacks lacks the actor's worker {wid}: {sorted(stacks)}")
+        prof = _http_get(url, f"/api/profile?duration=2&worker={wid}")
+        folded = prof.get(wid, {}).get("folded", "")
+        samples = prof.get(wid, {}).get("samples", 0)
+        check(samples > 0 and "serve" in folded,
+              f"/api/profile: {samples} samples, serve in the stacks: "
+              f"{'serve' in folded}")
+        log("jobs", f"state while job {sid2}'s actor holds the card: "
+            f"{len(jobs)} jobs, {len(tasks)} tasks, {len(pgs)} placement "
+            f"group, actors {sorted(actors)}, the largest object "
+            f"{top['size']} B (owned); /api/cluster and /api/nodes GPU 1, "
+            f"/metrics with the GPU capacity and the node gauges, "
+            f"{len(lines['lines'])} log lines of the actor, stacks of "
+            f"{len(stacks)} workers, a 2 s profile of the actor's worker "
+            f"with {samples} samples in serve")
+        del obj
+
+        # --- (4) stop ------------------------------------------------------
+        tree = [record2["child_pid"], busy["driver_pid"]]
+        t_stop = time.perf_counter()
+        check(client.stop_job(sid2), "stop_job refused")
+        stop_call_s = time.perf_counter() - t_stop
+        _gpu_free(rt, JOB_FREE_S - stop_call_s)
+        out["stop_to_free_s"] = time.perf_counter() - t_stop
+        status2 = client.get_job_status(sid2)
+        gone = {pid: _gone(pid) for pid in tree}
+        left = (_card_released(apid, mem1) if JOB_DEVICE is None
+                else _gone(apid))
+        log("jobs", f"stop_job: the job reads {status2}, its process tree "
+            f"gone {gone}, the GPU back in the cluster "
+            f"{out['stop_to_free_s']:.2f} s after the stop (the stop call "
+            f"{stop_call_s:.2f} s of it), the actor's process gone and "
+            f"the card's memory back: {left}; {card}")
+        check(status2 == "STOPPED" and all(gone.values()) and left,
+              f"stop: {status2}, {gone}, {left}")
+
+        # --- (5) a pip env on the card ---------------------------------------
+        whl = _make_wheel(tmp, "rtpu_jobwheel", JOB_WHEEL_MODULE)
+        pip_task = rt.remote(num_gpus=1, runtime_env={"pip": [whl]})(_pip_b1)
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            runs.append(rt.get(pip_task.remote(512, JOB_DEVICE or "cuda"),
+                               timeout=JOB_WAIT_S))
+            runs[-1]["call_s"] = time.perf_counter() - t0
+        stats = global_worker().raylet.call("runtime_env_stats", timeout=30)
+        pip_uris = [u for u in stats["cached_uris"] if u.startswith("pip:")]
+        pip_root = os.path.join(info["session_dir"], "runtime_envs", "pip")
+        first = runs[0]
+        out["venv_create_s"] = stats["create_seconds"][pip_uris[0]] \
+            if pip_uris else None
+        out["pip_calls_s"] = [r["call_s"] for r in runs]
+        out["pip_b1"] = {k: first[k] for k in ("used_o", "used_lse",
+                                               "max_abs_err")}
+        log("jobs", f"pip env: venv made in {out['venv_create_s']:.2f} s, "
+            f"first task {runs[0]['call_s']:.2f} s, second "
+            f"{runs[1]['call_s']:.2f} s, both under {first['executable']}; "
+            f"CUDA there {first['cuda_available']}; B1 at (1, 512, 32, 128) "
+            f"bf16 causal: O err {first['max_abs_err']:.3g} "
+            f"({first['used_o']:.2f} of the limit), LSE "
+            f"{first['used_lse']:.2f} of the limit; {card}")
+        check(all(r["executable"].startswith(pip_root + os.sep)
+                  for r in runs) and runs[0]["executable"]
+              == runs[1]["executable"] and len(pip_uris) == 1,
+              f"pip env: {runs}, {stats}")
+        check(all(r["cuda_available"] for r in runs)
+              or JOB_DEVICE is not None, "no CUDA in the pip env")
+        check(all(r["used_o"] <= 1.0 and r["used_lse"] <= 1.0 for r in runs),
+              f"B1 in the pip env: {runs}")
+    finally:
+        # A job's entrypoint runs in a session of its own: one a failed
+        # gate left running is stopped before the cluster goes.
+        try:
+            with open(gate, "w") as f:
+                f.write("open")
+            for job in (client.list_jobs() if "client" in locals() else []):
+                if job.get("status") in ("PENDING", "RUNNING"):
+                    client.stop_job(job["submission_id"])
+        finally:
+            procs = _cluster_pids()
+            rt.shutdown()
+            shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while True:
+        left = {p: c for p, c in procs.items() if _alive(p, c)}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"processes left after shutdown: {left}")
+    if JOB_DEVICE is None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["memory_before_mib"] = mem0
+        out["memory_after_mib"] = gpu_memory_used_mib()
+        check(abs(out["memory_after_mib"] - mem0) < 1024,
+              f"card memory {mem0:.0f} MiB before the phase, "
+              f"{out['memory_after_mib']:.0f} MiB after")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("time", f"jobs: submit to results {out['submit_to_result_s']:.1f} s"
+        f" and to SUCCEEDED {out['submit_to_succeeded_s']:.1f} "
+        f"s, the job actor's first token {1e3 * out['first_token_s']:.1f} ms, "
+        f"venv made in {out['venv_create_s']:.2f} s, stop to GPU free "
+        f"{out['stop_to_free_s']:.2f} s, the phase {out['phase_s']:.1f} s; "
+        f"{card}")
+    return out
+
+
 def serve_ab(tree: str) -> int:
     """``--serve-ab DIR``: the paged mix without its prompts over 512 on a
     dense server, then the whole mix on a paged server, each fresh and
@@ -7123,6 +7750,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     gang = phase_zero_gang(dev, card, trainer)
     lap("zero_gang")
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = phase_jobs(dev, card)
+    lap("jobs")
     # Launches in the gangs' workers, every worker and route.
     gang_launches = {k: sum(row["launches_per_worker"][k] * n
                             for n, g in gang["gangs"].items()
@@ -7276,7 +7907,8 @@ def main() -> int:
                      + disagg["spec"]["b1_launches"]
                      + runtime["b1_launches"] + app_b1 + ingress_b1
                      + train["launches"][0] + zero_b[0] + zq_b[0]
-                     + tr["B1"] + gang_launches["B1"]),
+                     + tr["B1"] + gang_launches["B1"]
+                     + jobs["b1_launches"]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
@@ -7287,7 +7919,8 @@ def main() -> int:
                              "train": train["launches"][0],
                              "zero_train": zero_b[0], "zero_quant": zq_b[0],
                              "trainer_worker": tr["B1"],
-                             "zero_gang_workers": gang_launches["B1"]},
+                             "zero_gang_workers": gang_launches["B1"],
+                             "jobs_gpu_actor": jobs["b1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "timed_by": TIMED_BY_GRAPH,
@@ -7346,6 +7979,7 @@ def main() -> int:
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
         "zero_quant": zq, "trainer": trainer, "zero_gang": gang,
+        "jobs": jobs,
         "collective": {k: v for k, v in collective.items() if k != "rows"}}),
         flush=True)
     print(card, flush=True)

@@ -28,12 +28,18 @@ attention's backward kernels), ZeRO over ring collectives
 (``parallel.zero``), Train on the runtime (``train``), and the
 reference's collective API with its ranks as actors (``util.collective``:
 the ``cuda`` backend runs the ring kernels with one process per rank on
-the card, ``torch`` is gloo, ``shm`` the coordinator hub).
+the card, ``torch`` is gloo, ``shm`` the coordinator hub), and the
+operator's plane: ``runtime_env`` (``env_vars``, ``working_dir``,
+``py_modules``, ``pip`` venvs; an env cannot make a card visible, only a
+GPU lease does), job submission (``job_submission``, in process or over
+the dashboard's REST API), the dashboard head
+(``init(include_dashboard=True)``) and the state views (``util.state``).
 
-Not ported yet, each raising where it is asked for: ``runtime_env``, the
-``ray_tpu_torch://`` client, ``dag``, the dashboard and the workers'
-device-profile bracket. Importing the package imports no torch: a
-worker that never touches a tensor never loads it.
+Not ported yet, each raising where it is asked for: the
+``ray_tpu_torch://`` client, ``dag``, and the device-facing views (the
+compiled-program ring and the workers' device-profile bracket).
+Importing the package imports no torch: a worker that never touches a
+tensor never loads it.
 
 Public API parity map (reference file:line):
   init/shutdown        ~ python/ray/_private/worker.py:1219

@@ -8,8 +8,8 @@ an environment variable ``RAY_TPU_<name>`` on any process, or by a
 propagated to every other process through the GCS at registration time. The
 names and defaults are the reference's, the serve knobs included. Only the
 settings that a module of the port reads are defined: the rest of the
-reference's table comes with the module that reads it (the runtime-env,
-client, dag, dashboard, device-profile, RLlib and Data slices).
+reference's table comes with the module that reads it (the client, dag,
+device-profile, RLlib and Data slices).
 """
 
 from __future__ import annotations

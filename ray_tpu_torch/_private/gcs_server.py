@@ -208,6 +208,8 @@ class GcsServer:
     def start(self) -> int:
         port = self.server.start()
         self._health_task = get_io_loop().submit(self._health_loop())
+        self._driver_watch_task = get_io_loop().submit(
+            self._driver_watch_loop())
         self._train_watchdog_task = get_io_loop().submit(
             self._train_watchdog_loop())
         for actor_id in self._reschedule_on_start:
@@ -1393,6 +1395,76 @@ class GcsServer:
                 deferred.discard(node_id)
                 await self._mark_node_dead(node_id, "health check failed")
 
+    async def _driver_watch_loop(self):
+        """A job ends with its driver process (reference: the GCS job
+        manager marks a job dead when its driver disconnects, and the
+        job's actors and placement groups go with it). Each period, every
+        RUNNING job's driver server gets _health_loop's TCP probe; a
+        driver refused ``health_check_failure_threshold`` times in a row
+        is gone, and its job is ended as if it had called shutdown(): what
+        it leased (a GPU actor, a bundle) returns to the cluster."""
+        period = GlobalConfig.health_check_period_ms / 1000
+        threshold = GlobalConfig.health_check_failure_threshold
+        misses: Dict[bytes, int] = {}
+        loop = asyncio.get_running_loop()
+        while True:
+            await asyncio.sleep(period)
+            running = [(job_id, tuple(job["driver_addr"]))
+                       for job_id, job in list(self.jobs.items())
+                       if job.get("state") == "RUNNING"
+                       and job.get("driver_addr")]
+            alive = await asyncio.gather(*[
+                loop.run_in_executor(None, self._tcp_alive, addr)
+                for _, addr in running])
+            for (job_id, addr), is_alive in zip(running, alive):
+                if is_alive:
+                    misses.pop(job_id, None)
+                    continue
+                misses[job_id] = misses.get(job_id, 0) + 1
+                if misses[job_id] >= threshold:
+                    del misses[job_id]
+                    await self._end_job_of_dead_driver(job_id, addr)
+
+    async def _end_job_of_dead_driver(self, job_id, addr):
+        job = self.jobs.get(job_id)
+        if job is None or job.get("state") != "RUNNING":
+            return
+        await self._h_mark_job_finished(
+            job_id, cause=f"its driver at {addr[0]}:{addr[1]} is gone")
+
+    async def _release_job(self, job_id):
+        """What a finished job's driver owned goes with it (reference:
+        Ray's owner fate-sharing): the non-detached actors it created, the
+        non-detached actors those created, and so on, are killed, and the
+        non-detached placement groups any of them created are removed, so
+        that a GPU they held returns to the cluster. An actor that a
+        detached actor created (a Serve replica, made by the detached
+        controller) is not the driver's, whatever job it runs under."""
+        job = self.jobs.get(job_id) or {}
+        if not job.get("driver_addr"):
+            return
+        owners = {tuple(job["driver_addr"])}
+        doomed = []
+        grew = True
+        while grew:
+            grew = False
+            for actor_id, a in self.actors.items():
+                spec = a["spec"]
+                if (actor_id in doomed or a["state"] == DEAD
+                        or spec.is_detached or spec.owner_addr is None
+                        or tuple(spec.owner_addr) not in owners):
+                    continue
+                doomed.append(actor_id)
+                if a["addr"] is not None:
+                    owners.add(tuple(a["addr"]))
+                grew = True
+        for actor_id in doomed:
+            await self._h_kill_actor(actor_id, no_restart=True)
+        for pg_id, pg in list(self.placement_groups.items()):
+            if (pg["state"] != "REMOVED" and not pg.get("detached")
+                    and pg.get("owner_addr") in owners):
+                await self._h_remove_placement_group(pg_id)
+
     def _client_for_node(self, node_id) -> Optional[RpcClient]:
         info = self.nodes.get(node_id)
         if info is None or info["state"] == DEAD:
@@ -1728,15 +1800,20 @@ class GcsServer:
         return True
 
     # ------------------------------------------------------- placement groups
-    async def _h_create_placement_group(self, pg_id, bundles, strategy, name=""):
+    async def _h_create_placement_group(self, pg_id, bundles, strategy, name="",
+                                        lifetime=None, owner_addr=None):
         """2-phase commit against raylets (reference:
         `gcs_placement_group_scheduler.h`, raylet PrepareBundles/CommitBundles
-        at `placement_group_resource_manager.h:54-61`)."""
+        at `placement_group_resource_manager.h:54-61`). A group that is not
+        ``lifetime="detached"`` ends with the driver that owns it, directly
+        or through its actors (``owner_addr``, its creator's address)."""
         if pg_id in self.placement_groups:
             return True    # duplicate delivery: first creation stands
         self.placement_groups[pg_id] = {
             "pg_id": pg_id, "bundles": bundles, "strategy": strategy,
             "name": name, "state": "PENDING", "bundle_nodes": [None] * len(bundles),
+            "detached": lifetime == "detached",
+            "owner_addr": tuple(owner_addr) if owner_addr else None,
         }
         spawn_task(self._schedule_pg(pg_id))
         return True
@@ -1905,14 +1982,17 @@ class GcsServer:
                            job_id=job_id.hex())
         return True
 
-    async def _h_mark_job_finished(self, job_id):
+    async def _h_mark_job_finished(self, job_id, cause=None):
         self._mark_dirty()
         if job_id in self.jobs:
             self.jobs[job_id]["state"] = "FINISHED"
             self.jobs[job_id]["end_time"] = time.time()
             self._record_event("JOB_FINISHED",
-                               f"job {job_id.hex()} finished",
+                               f"job {job_id.hex()} finished"
+                               + (f": {cause}" if cause else ""),
                                job_id=job_id.hex())
+            # Not awaited: the driver's shutdown waits for this reply.
+            spawn_task(self._release_job(job_id))
         return True
 
     async def _h_list_jobs(self):

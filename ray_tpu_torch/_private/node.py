@@ -98,10 +98,6 @@ class Node:
         gcs_port: int = 0,
         include_dashboard: bool = False,
     ):
-        if include_dashboard:
-            raise NotImplementedError(
-                "the dashboard is not ported yet (the dashboard slice); "
-                "start the cluster without it")
         self.head = head
         self.host = "127.0.0.1"
         # CLI-started nodes outlive the starting process; init()-started
@@ -129,6 +125,15 @@ class Node:
         self.labels = labels or {}
         self.raylet_addr = self._start_raylet(object_store_memory)
         self.dashboard_url: Optional[str] = None
+        if head and include_dashboard:
+            try:
+                self.dashboard_url = self._start_dashboard()
+            except Exception as e:
+                # Non-essential: a broken dashboard (missing aiohttp,
+                # port trouble) must not take the head node down.
+                sys.stderr.write(
+                    f"[node] dashboard failed to start ({e}); "
+                    "continuing without it\n")
         if fate_share:
             atexit.register(self.shutdown)
 
@@ -210,12 +215,34 @@ class Node:
             start_new_session=True)
         port = _read_port(proc, "RAYLET_PORT=")
         self._procs.append(proc)
+        self._raylet_proc = proc
         return (self.host, port)
+
+    def _start_dashboard(self) -> str:
+        log = open(os.path.join(self.session_dir, "logs",
+                                "dashboard.err"), "wb")
+        env = self._daemon_env()
+        # The head is a driver of the cluster (it submits jobs) and never
+        # holds a card: no CUDA context can be made in it.
+        env["CUDA_VISIBLE_DEVICES"] = ""
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.dashboard.head",
+             "--host", self.host, "--port", "0",
+             "--gcs-host", self.gcs_addr[0],
+             "--gcs-port", str(self.gcs_addr[1]),
+             "--session-dir", self.session_dir,
+             "--fate-share-pid",
+             str(os.getpid() if self._fate_share else 0)],
+            stdout=subprocess.PIPE, stderr=log, env=env,
+            start_new_session=True)
+        port = _read_port(proc, "DASHBOARD_PORT=")
+        self._procs.append(proc)
+        return f"http://{self.host}:{port}"
 
     # --------------------------------------------------------------- teardown
     def kill_raylet(self):
         """Test hook: kill this node's raylet process (fault injection)."""
-        self._procs[-1].kill()
+        self._raylet_proc.kill()
 
     def shutdown(self, cleanup_session: bool = True):
         import signal

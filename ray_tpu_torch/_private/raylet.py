@@ -329,9 +329,12 @@ class Raylet:
         return env
 
     def _runtime_env_manager(self):
-        raise NotImplementedError(
-            "runtime_env is not ported yet (the runtime-env slice, after "
-            "the core runtime)")
+        if getattr(self, "_renv_manager", None) is None:
+            from ray_tpu_torch.runtime_env.manager import RuntimeEnvManager
+
+            self._renv_manager = RuntimeEnvManager(
+                os.path.join(self.session_dir, "runtime_envs"), self.gcs)
+        return self._renv_manager
 
     def _release_worker_env(self, handle) -> None:
         """Per-worker teardown at every removal site: runtime_env cache
@@ -419,9 +422,52 @@ class Raylet:
             None, _open_logs)
         env = self._worker_env()
         env_uris = []
-        # runtime_env is not ported (the owner refuses it at submit), so
-        # every worker runs this interpreter as it is.
-        cmd = [sys.executable, "-m", "ray_tpu_torch._private.worker_main",
+        python_exe = sys.executable
+        if runtime_env:
+            # Applied at worker spawn (reference: RuntimeEnvContext.exec_worker
+            # runs the worker inside the env) — not mutated per-task. The
+            # manager materializes pip venvs / code packages on pool miss.
+            try:
+                ctx = await self._runtime_env_manager().setup(runtime_env)
+            except Exception as e:
+                out.close()
+                err.close()
+                self._starting[pool_key] = max(
+                    0, self._starting[pool_key] - 1)
+                sys.stderr.write(f"[raylet] runtime_env setup failed: {e}\n")
+                self._env_failures[pool_key] = (
+                    f"{type(e).__name__}: {e}", time.monotonic())
+                waiters = self._pending_pop[pool_key]
+                while waiters:
+                    fut = waiters.popleft()
+                    if not fut.done():
+                        fut.set_result(None)
+                        break
+                return
+            for key, val in ctx.env_vars.items():
+                env[str(key)] = str(val)
+            # The env's variables cannot make a card visible: a GPU lease
+            # stays the only thing that does (see _worker_env).
+            env["CUDA_VISIBLE_DEVICES"] = ""
+            if ctx.working_dir:
+                env["RAY_TPU_WORKING_DIR"] = ctx.working_dir
+            if ctx.pythonpath:
+                env["PYTHONPATH"] = os.pathsep.join(
+                    ctx.pythonpath
+                    + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+            if ctx.py_executable:
+                python_exe = ctx.py_executable
+                # The venv interpreter must still import ray_tpu_torch
+                # itself.
+                repo_root = os.path.dirname(os.path.dirname(
+                    os.path.dirname(os.path.abspath(__file__))))
+                path = [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                        if p]
+                if repo_root not in path:
+                    env["PYTHONPATH"] = os.pathsep.join(path + [repo_root])
+            env_uris = list(ctx.uris)
+        cmd = [python_exe, "-m", "ray_tpu_torch._private.worker_main",
                "--raylet-host", self.host,
                "--raylet-port", str(self.server.port),
                "--gcs-host", self.gcs_addr[0],
@@ -432,7 +478,9 @@ class Raylet:
                "--raylet-pid", str(os.getpid()),
                "--session-dir", self.session_dir]
         loop = asyncio.get_running_loop()
-        # The concurrency slot covers only fork + interpreter boot.
+        # The concurrency slot covers ONLY fork + interpreter boot — not
+        # runtime_env setup above (a cold pip install holding a slot
+        # would head-of-line block every plain spawn on the node).
         async with self._startup_sema():
             try:
                 proc = await loop.run_in_executor(
@@ -1300,6 +1348,10 @@ class Raylet:
             return
         self.local.release(lease["demand"])
         self._release_gpus(lease["demand"], lease["gpu_ids"])
+        for key in [k for k, b in self._bundles.items()
+                    if b.get("returning")]:
+            if not self._pg_leased(key[0].hex()):
+                self._return_bundle(key)
         self._lease_queue_event.set()
 
     def _release_orphaned_leases(self, owner_id: bytes) -> None:
@@ -1630,7 +1682,7 @@ class Raylet:
         # later draw from this pool instead of the node's free list.
         gpu_ids = self._take_gpus(demand)
         self._bundles[key] = {"resources": demand, "committed": False,
-                              "gpu_ids": gpu_ids}
+                              "gpu_ids": gpu_ids, "took": list(gpu_ids)}
         return True
 
     async def _h_commit_bundle(self, pg_id, bundle_index):
@@ -1650,15 +1702,42 @@ class Raylet:
         self._lease_queue_event.set()
         return True
 
+    def _pg_leased(self, pg_hex: str) -> bool:
+        """Whether a live lease on this node draws on the group's bundles."""
+        return any(
+            h.lease is not None
+            and any("_group_" in n and n.endswith(f"_{pg_hex}")
+                    for n in h.lease["demand"].names())
+            for h in self.workers.values())
+
     async def _h_return_bundle(self, pg_id, bundle_index):
         key = (pg_id, bundle_index)
-        bundle = self._bundles.pop(key, None)
+        bundle = self._bundles.get(key)
         if bundle is None:
             return True
-        for c in bundle.get("gpu_ids", []):
-            if c not in self._free_gpus:
-                self._free_gpus.append(c)
-        self._free_gpus.sort()
+        if self._pg_leased(pg_id.hex()):
+            # The group was removed under a live lease (its job's driver
+            # is gone and the actor is still exiting): the bundle stays,
+            # with what the lease holds of it, until the group's last
+            # lease here ends (_release_lease returns it then).
+            bundle["returning"] = True
+            return True
+        self._return_bundle(key)
+        return True
+
+    def _return_bundle(self, key) -> None:
+        pg_hex = key[0].hex()
+        pool = self._bundle_gpu_pool(pg_hex)
+        bundle = self._bundles.pop(key)
+        # The chips its prepare took go back as that take was made (a
+        # fractional bundle's share of the shared chip included); the
+        # group's other bundles keep the rest of the pool.
+        took = bundle.get("took", [])
+        for c in took:
+            if c in pool:
+                pool.remove(c)
+        self._set_bundle_gpu_pool(pg_hex, pool)
+        self._release_gpus(bundle["resources"], took)
         if bundle["committed"]:
             add = bundle["formatted"]
             self.local.total = self.local.total.subtract(add)
@@ -1669,7 +1748,6 @@ class Raylet:
                          self.local.available._fixed.items()}
                 self.local.available = ResourceSet(_fixed=fixed)
         self.local.release(bundle["resources"])
-        return True
 
     # ------------------------------------------------------------------- misc
     async def _h_node_stats(self):

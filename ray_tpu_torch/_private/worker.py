@@ -372,6 +372,7 @@ class Worker:
         self._actor_submit_locks: Dict[bytes, asyncio.Lock] = {}
         self._actor_batchers: Dict[bytes, "_ActorSendQueue"] = {}
         self._exported_functions: set = set()
+        self._prepared_env_cache: Dict[str, Dict[str, Any]] = {}
         self._exported_payloads: Dict[str, bytes] = {}
         self._cancelled_tasks: set = set()
         # task_id -> executing worker addr, while a push RPC is in flight
@@ -1139,9 +1140,16 @@ class Worker:
         don't re-hash directories."""
         if not env:
             return None
-        raise NotImplementedError(
-            "runtime_env is not ported yet (the runtime-env slice, after "
-            "the core runtime)")
+        import json as _json
+
+        key = _json.dumps(env, sort_keys=True, default=str)
+        prepared = self._prepared_env_cache.get(key)
+        if prepared is None:
+            from ray_tpu_torch.runtime_env.manager import prepare_runtime_env
+
+            prepared = prepare_runtime_env(env, self.gcs) or {}
+            self._prepared_env_cache[key] = prepared
+        return prepared or None
 
     def submit_task(self, fn_hash: str, fn_name: str, args, kwargs,
                     options: Dict[str, Any]) -> List[ObjectRef]:
@@ -1859,6 +1867,19 @@ class Worker:
                     continue
                 if reply.get("spillback_to"):
                     client = self._raylet_client(tuple(reply["spillback_to"]))
+                    continue
+                if reply.get("env_setup_error"):
+                    from ray_tpu_torch.runtime_env.manager import (
+                        RuntimeEnvSetupError,
+                    )
+
+                    while st.waiters:
+                        _spec, fut = st.waiters.popleft()
+                        if not fut.done():
+                            fut.set_exception(RuntimeEnvSetupError(
+                                reply["env_setup_error"]))
+                            break
+                    await asyncio.sleep(0.05)
                     continue
                 if reply.get("infeasible"):
                     # Infeasible *now* may become feasible (node still

@@ -80,7 +80,8 @@ def placement_group(bundles: List[Dict[str, float]], strategy: str = "PACK",
     w = global_worker()
     pg_id = PlacementGroupID.of(w.job_id)
     w.gcs.call("create_placement_group", pg_id=pg_id.binary(),
-               bundles=bundles, strategy=strategy, name=name)
+               bundles=bundles, strategy=strategy, name=name,
+               lifetime=lifetime, owner_addr=w.addr)
     return PlacementGroup(pg_id.binary(), bundles, strategy, name)
 
 

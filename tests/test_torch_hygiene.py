@@ -156,18 +156,51 @@ def _cmdline(pid):
         return None
 
 
-def test_port_cluster_spawns_only_port_processes():
+# Imported by every Python process the test's cluster starts (it is on
+# their PYTHONPATH): records any import of JAX or the JAX package, by pid,
+# in the directory that RTPU_IMPORT_WATCH names.
+_IMPORT_WATCH = """import os
+import sys
+
+
+class _Watch:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ray_tpu"):
+            with open(os.path.join(os.environ["RTPU_IMPORT_WATCH"],
+                                   str(os.getpid())), "a") as f:
+                f.write(name + "\\n")
+        return None
+
+
+if os.environ.get("RTPU_IMPORT_WATCH"):
+    sys.meta_path.insert(0, _Watch())
+"""
+
+
+def test_port_cluster_spawns_only_port_processes(tmp_path, monkeypatch):
     """Every process a port cluster starts (GCS, raylet, task and actor
-    workers, and Serve's controller, HTTP proxy, router and replicas) runs a
-    ``ray_tpu_torch.`` module, and none loads JAX or the JAX package; a
-    worker that touches no tensor loads no torch."""
+    workers, a runtime_env's worker, Serve's controller, HTTP proxy, router
+    and replicas, the dashboard head, a job's supervisor) runs a
+    ``ray_tpu_torch.`` module, and none of them, nor a submitted job's
+    driver, loads JAX or the JAX package; a worker that touches no tensor
+    loads no torch."""
     import ray_tpu_torch
     from ray_tpu_torch import serve
+    from ray_tpu_torch.job_submission import JobSubmissionClient
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.serve.llm import build_routed_llm_app
 
-    ray_tpu_torch.init(num_cpus=8, num_gpus=0,
-                       object_store_memory=64 * 1024 * 1024)
+    hook, seen = tmp_path / "hook", tmp_path / "imports"
+    hook.mkdir()
+    seen.mkdir()
+    (hook / "sitecustomize.py").write_text(_IMPORT_WATCH)
+    monkeypatch.setenv("RTPU_IMPORT_WATCH", str(seen))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(hook)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    info = ray_tpu_torch.init(num_cpus=8, num_gpus=0,
+                              object_store_memory=64 * 1024 * 1024,
+                              include_dashboard=True)
     try:
         handle = serve.run(build_routed_llm_app(
             LlamaConfig.tiny(dtype=torch.float32),
@@ -222,13 +255,41 @@ def test_port_cluster_spawns_only_port_processes():
                    if w["worker_id"] == wid)
         cmd = _cmdline(pid)
         assert cmd[cmd.index("-m") + 1].startswith("ray_tpu_torch."), cmd
-        cmds = [c for c in map(_cmdline, _descendants(os.getpid()))
-                if c is not None]
+
+        # A runtime_env's worker, a job submitted to the dashboard head
+        # (its supervisor and its driver): the port's modules only.
+        @ray_tpu_torch.remote(runtime_env={"env_vars": {"HYG": "1"}})
+        def env_worker():
+            return os.environ["HYG"], os.getpid()
+
+        env_value, env_pid = ray_tpu_torch.get(env_worker.remote(),
+                                               timeout=60)
+        assert env_value == "1"
+        client = JobSubmissionClient(info["dashboard_url"])
+        sid = client.submit_job(entrypoint=(
+            f"{sys.executable} -c \"import os, sys, ray_tpu_torch as rt; "
+            f"rt.init(address=os.environ['RAY_TPU_ADDRESS']); "
+            f"print('DRIVER', 'ray_tpu_torch' in sys.modules, sorted(m for m "
+            f"in sys.modules if m.split('.')[0] in ('jax', 'ray_tpu'))); "
+            f"rt.shutdown()\""))
+        assert client.wait_until_finished(sid, timeout=120) == "SUCCEEDED", \
+            client.get_job_logs(sid)
+        assert "DRIVER True []" in client.get_job_logs(sid)
+        supervisor = client.get_job_info(sid)["pid"]
+        procs = {p: _cmdline(p) for p in _descendants(os.getpid())}
+        cmds = [c for c in procs.values() if c is not None]
         assert len(cmds) >= 3                  # GCS, raylet, workers
+        for pid in (env_pid, supervisor):
+            assert pid in procs and "ray_tpu_torch._private.worker_main" in \
+                procs[pid], procs.get(pid)
+        assert any("ray_tpu_torch.dashboard.head" in c for c in cmds)
         for cmd in cmds:
             assert "-m" in cmd, cmd
             module = cmd[cmd.index("-m") + 1]
             assert module.startswith("ray_tpu_torch."), cmd
+        # No process of the cluster, the job's driver included, imported
+        # JAX or the JAX package.
+        assert {p.name: p.read_text() for p in seen.iterdir()} == {}
     finally:
         serve.shutdown()
         ray_tpu_torch.shutdown()

@@ -249,6 +249,9 @@ def test_config_file_deploy(serve_cluster, tmp_path):
     import yaml
 
     (tmp_path / "cfg_app_mod.py").write_text(APP_BUILDER_MODULE)
+    # The JAX package's own case imports a module of the same name in the
+    # same test process: neither may find the other's in sys.modules.
+    sys.modules.pop("cfg_app_mod", None)
     sys.path.insert(0, str(tmp_path))
     try:
         cfg = {"applications": [
@@ -281,6 +284,7 @@ def test_config_file_deploy(serve_cluster, tmp_path):
         serve.delete("cfg_pre")
     finally:
         sys.path.remove(str(tmp_path))
+        sys.modules.pop("cfg_app_mod", None)
 
 
 def test_streaming_deployment_http_and_handle(serve_cluster):
