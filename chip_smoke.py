@@ -31,8 +31,8 @@ Phases, one line each; any failure raises and exits non-zero:
               (padded to 128 by the wrappers) and with the full mask at
               S=256; then B1 at the draft prefill's shapes (4 heads of 16,
               S 128, 256 and 512, f32 and bf16).
-4. serve   -- Llama-3-8B at full width and half its depth (16 of 32
-              layers, ``SERVE_LAYERS``: the script's time limit; random
+4. serve   -- Llama-3-8B at full width and 12 of its 32 layers
+              (``SERVE_LAYERS``: the script's time limit; random
               weights from a seed, int8 weight-only,
               ``attn_impl="flash"``) answers 12
               requests from 4 client threads through ``LLMServer``; every
@@ -306,6 +306,37 @@ Phases, one line each; any failure raises and exits non-zero:
               under the manager's ``pip/`` with CUDA available. Printed:
               submit to SUCCEEDED, the job actor's first token, the venv's
               creation, stop to GPU free, the phase's time.
+6m. transports -- (run last, after 6l) the driver's transports on one
+              cluster (8 CPUs, the card) with a client server in it, each
+              leg driving 6l's model (4 of 32 layers, int8, flash, seed
+              0) on 6l's first 4 requests, its tokens held to 6l's
+              in-process server's. (a) A thin client, a process with
+              ``CUDA_VISIBLE_DEVICES=""``, connects with
+              ``init(address="ray_tpu_torch://...")``, makes a
+              ``num_gpus=1`` serving actor, sends the requests one at a
+              time, kills the actor and exits. Gates: equal tokens; B1 16
+              in the actor; the client maps no libcuda; the server holds
+              no pin of it afterwards and the GPU is back within 60 s.
+              (b) tokenize -> serve on a ``num_gpus=1`` actor ->
+              detokenize as a DAG of three actors' methods, interpreted
+              and compiled over shared-memory channels. Gates: equal
+              tokens each way; B1 16 a pass; ``teardown()`` gives each
+              stage's iterations; the GPU actor answers ``.remote()``
+              after it; a stage that raises comes back as its error and
+              the next execution succeeds. (c) The unchanged ``cpp/``
+              demo, built with make into a temporary directory, against
+              the client server with the reference's fixtures registered.
+              Gates: exit 0, at least 14 lines, all PASS, the five
+              ``cpp_*`` probes. (d) A three-step workflow whose middle
+              step leases the card and runs B1 once at (1, 512, 32, 128)
+              bf16; its last step fails on its first run, ``resume``
+              ends it. Gates: the output equals a direct call of the
+              three functions; the status goes RUNNING, FAILED, RUNNING,
+              SUCCEEDED; one B1 launch across run and resume. Printed:
+              the client's first-request latency and the p50 of the
+              rest against 6l's in-process ones, the compiled and the
+              interpreted DAG's p50 a one-token execution, each leg's
+              seconds.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -481,7 +512,7 @@ N_REQUESTS, N_CLIENTS, N_PARITY = 12, 4, 3
 # The served model's depth (of Llama-3-8B's 32): every serving phase
 # (4-6h) runs it, so it sets most of the script's time, which must stay
 # within its limit (1200 s with the build).
-SERVE_LAYERS = 16
+SERVE_LAYERS = 12
 
 
 def log(phase: str, msg: str) -> None:
@@ -7391,7 +7422,11 @@ def phase_jobs(dev, card):
         local = LLMServer(cfg, dict(ENGINE), init_seed=0, quantize="int8",
                           **kw)
         try:
-            want = [local(r)["tokens"] for r in reqs]
+            want, local_s = [], []
+            for r in reqs:
+                t0 = time.perf_counter()
+                want.append(local(r)["tokens"])
+                local_s.append(time.perf_counter() - t0)
         finally:
             local.shutdown()
             del local
@@ -7400,6 +7435,7 @@ def phase_jobs(dev, card):
                 torch.cuda.empty_cache()
         same = sum(a == b for a, b in zip(res["tokens"], want))
         out["tokens_equal"] = f"{same}/{len(reqs)}"
+        out["local_tokens"], out["local_latency_s"] = want, local_s
         log("jobs", f"served job {sid}: SUCCEEDED {out['submit_to_succeeded_s']:.1f} "
             f"s after its submit (results in its log after "
             f"{out['submit_to_result_s']:.1f} s; the rest held at the gate "
@@ -7594,6 +7630,489 @@ def phase_jobs(dev, card):
     return out
 
 
+# 6m: the driver's transports -- the thin client, a compiled DAG around
+# the GPU actor, the C++ frontend and a workflow's resume, each driving
+# 6l's model on 6l's first requests.
+XPORT_HOP_RUNS = 20              # one-token executions a DAG route, timed
+XPORT_HOP_PROMPT = 16            # the one-token request's prompt tokens
+XPORT_B1_SEQ = 512               # the workflow's B1 call: (1, S, 32, 128)
+XPORT_CPP_PROBES = ("cpp_to_cpp_task", "cpp_to_cpp_actor",
+                    "cpp_actor_ndarray", "cpp_actor_survives_error",
+                    "cpp_named_actor_lookup")
+
+# The thin client: a process that sees no card. It makes 6l's job actor
+# class (``jobhelper.JobServer``, shipped by value) through the client
+# server, serves the requests one at a time and, once the caller has read
+# its process, kills the actor and disconnects.
+XPORT_CLIENT = '''"""A thin client of the port: no card; its GPU actor serves."""
+import json
+import os
+import sys
+import time
+
+import cloudpickle
+
+import jobhelper
+import ray_tpu_torch as rt
+
+cloudpickle.register_pickle_by_value(jobhelper)
+with open(sys.argv[2]) as f:
+    spec = json.load(f)
+rt.init(address="ray_tpu_torch://127.0.0.1:" + sys.argv[1])
+t0 = time.perf_counter()
+actor = jobhelper.JobServer.remote(spec["model"], spec["layers"], 0,
+                                   spec["engine"], spec["device"])
+info = rt.get(actor.info.remote(), timeout=600)
+ready_s = time.perf_counter() - t0
+rt.get(actor.reset_counts.remote(), timeout=60)
+tokens, latency_s = [], []
+for r in spec["requests"]:
+    t = time.perf_counter()
+    tokens.append(rt.get(actor.serve.remote(r), timeout=600)["tokens"])
+    latency_s.append(time.perf_counter() - t)
+counts = rt.get(actor.counts.remote(), timeout=60)
+with open(spec["result"] + ".tmp", "w") as f:
+    json.dump({
+        "tokens": tokens, "latency_s": latency_s, "counts": counts,
+        "actor": info, "actor_ready_s": ready_s, "pid": os.getpid(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "modules": sorted(m for m in sys.modules if m.split(".")[0]
+                          in ("jax", "ray_tpu", "torch"))}, f)
+os.replace(spec["result"] + ".tmp", spec["result"])
+deadline = time.monotonic() + 600
+while not os.path.exists(spec["gate"]):
+    if time.monotonic() > deadline:
+        sys.exit("the gate never opened")
+    time.sleep(0.05)
+rt.kill(actor)
+rt.shutdown()
+'''
+
+
+def _transport_classes(rt):
+    """The compiled DAG's CPU stages around 6l's job actor (the GPU
+    stage): tokenize and detokenize."""
+
+    @rt.remote
+    class Tok:
+        def encode(self, request):
+            if "prompt" not in request:
+                raise ValueError("tokenize: a request without a prompt")
+            return {"prompt": list(request["prompt"]),
+                    "max_tokens": int(request["max_tokens"])}
+
+    @rt.remote
+    class Detok:
+        def decode(self, out):
+            return {"tokens": out["tokens"], "ttft_s": out["ttft_s"]}
+
+    return Tok, Detok
+
+
+# The workflow's three steps (module level: cloudpickle ships them by
+# value from ``__main__``).
+def _wf_inputs(seed):
+    """q, k, v of B1's serving shape, bf16, on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn((1, XPORT_B1_SEQ, N_HEADS, HEAD_DIM), generator=gen,
+                        dtype=torch.bfloat16) for _ in range(3)]
+
+
+def _wf_attend(qkv, marks, device):
+    """The GPU step: B1 once on the lease's card (counted), O to the CPU;
+    each execution leaves a file in ``marks`` with its launches."""
+    from ray_tpu_torch.ops import attention
+
+    dev = torch.device(device or "cuda")
+    q, k, v = (t.to(dev) for t in qkv)
+    before = attention.flash_fwd_cuda.launches
+    o = attention.flash_attention(q, k, v, causal=True)
+    launches = attention.flash_fwd_cuda.launches - before
+    with open(os.path.join(marks, f"attend_{time.time_ns()}.json"),
+              "w") as f:
+        json.dump({"launches": launches, "pid": os.getpid(),
+                   "cuda_visible_devices":
+                       os.environ.get("CUDA_VISIBLE_DEVICES")}, f)
+    return o.cpu()
+
+
+def _wf_finish(o, marks, status_path):
+    """The last step: records the workflow's status as it runs, fails
+    until ``marks/ok`` exists."""
+    status = None
+    if os.path.exists(status_path):
+        with open(status_path) as f:
+            status = json.load(f)["status"]
+    with open(os.path.join(marks, "finish_statuses"), "a") as f:
+        f.write(f"{status}\n")
+    if not os.path.exists(os.path.join(marks, "ok")):
+        raise RuntimeError("the workflow's last step fails on its first run")
+    return {"o": o, "checksum": float(o.double().sum())}
+
+
+def _xport_fixtures(lib):
+    """The reference's cross-language fixtures
+    (``tests/test_cpp_client.py``), the matmul on torch."""
+    from ray_tpu_torch import cross_language
+
+    def matmul_t(m):
+        t = torch.tensor(m)
+        return (t @ t.T).numpy()
+
+    def square(x):
+        return x * x
+
+    def boom():
+        raise RuntimeError("boom from the cluster")
+
+    for name, fn in (("xlang_matmul_t", matmul_t), ("xlang_square", square),
+                     ("xlang_boom", boom),
+                     ("cpp_fib", cross_language.cpp_function(lib, "fib")),
+                     ("CppCounter",
+                      cross_language.cpp_actor_class(lib, "Counter"))):
+        cross_language.register(name, fn)
+
+
+def phase_transports(dev, card, local_tokens, local_latency_s):
+    """The driver's transports on the port; see the module docstring
+    (6m)."""
+    import shutil
+
+    import cloudpickle
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.client import serve as client_serve
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    phase_t0 = time.perf_counter()
+    out = {"card": card}
+    rehearsal = JOB_DEVICE is not None
+    cfg = getattr(LlamaConfig, JOB_MODEL["preset"])(
+        n_layers=JOB_LAYERS, attn_impl=JOB_MODEL["attn_impl"],
+        param_dtype=torch.bfloat16)
+    reqs = serve_requests(cfg)[:JOB_REQUESTS]
+    b1_per_pass = cfg.n_layers * len(reqs)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_transports_")
+    # The C++ demo builds while the thin client runs.
+    cpp_out = os.path.join(tmp, "cpp")
+    cpp_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpp")
+    t_make = time.perf_counter()
+    make = subprocess.Popen(["make", "-s", f"BUILD={cpp_out}"], cwd=cpp_dir,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    t0 = time.perf_counter()
+    rt.init(num_cpus=JOB_CPUS, num_gpus=1)
+    out["start_s"] = time.perf_counter() - t0
+    srv = client = client_log = None
+    try:
+        srv = client_serve(0, host="127.0.0.1")
+        log("transports", f"cluster up in {out['start_s']:.2f} s, client "
+            f"server on port {srv.port}")
+
+        # --- (a) the thin client -------------------------------------------
+        t_leg = time.perf_counter()
+        for name, text in (("jobhelper.py", JOB_HELPER),
+                           ("client.py", XPORT_CLIENT)):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write(text)
+        gate, result = os.path.join(tmp, "gate"), os.path.join(tmp, "res")
+        spec = os.path.join(tmp, "client.json")
+        with open(spec, "w") as f:
+            json.dump({"model": JOB_MODEL, "layers": JOB_LAYERS,
+                       "engine": ENGINE, "device": JOB_DEVICE,
+                       "requests": reqs, "gate": gate, "result": result}, f)
+        root = os.path.dirname(os.path.abspath(__file__))
+        client_log = open(os.path.join(tmp, "client.log"), "w+")
+        client = subprocess.Popen(
+            [sys.executable, "client.py", str(srv.port), spec], cwd=tmp,
+            stdout=client_log, stderr=subprocess.STDOUT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                 "PYTHONPATH": os.pathsep.join(
+                     [root] + [p for p in os.environ.get(
+                         "PYTHONPATH", "").split(os.pathsep) if p])})
+
+        def client_tail():
+            client_log.seek(0)
+            return client_log.read()[-3000:]
+
+        deadline = time.monotonic() + JOB_WAIT_S
+        while not os.path.exists(result):
+            check(client.poll() is None and time.monotonic() < deadline,
+                  f"the thin client ended ({client.poll()}) or is late "
+                  f"without a result:\n{client_tail()}")
+            time.sleep(0.05)
+        with open(result) as f:
+            res = json.load(f)
+        held = _off_cuda(res["pid"])
+        with open(gate, "w") as f:
+            f.write("open")
+        check(client.wait(timeout=120) == 0,
+              f"the thin client exited {client.returncode}:\n"
+              f"{client_tail()}")
+        pins = {"objects": len(srv._refs), "actors": len(srv._actors)}
+        out["client_release_s"] = _gpu_free(rt, JOB_FREE_S)
+        counts = res["counts"]
+        out["client"] = {
+            "first_request_s": res["latency_s"][0],
+            "later_p50_s": float(np.median(res["latency_s"][1:])),
+            "in_process_first_s": local_latency_s[0],
+            "in_process_later_p50_s": float(np.median(local_latency_s[1:])),
+            "actor_ready_s": res["actor_ready_s"],
+            "b1_launches": counts["b1_launches"],
+            "prefills": counts["prefills"], "pins_after_exit": pins,
+            "release_s": out["client_release_s"],
+            "libcuda": held["libcuda"],
+            "leg_s": time.perf_counter() - t_leg}
+        c = out["client"]
+        log("transports", f"(a) thin client (CUDA_VISIBLE_DEVICES="
+            f"{held['cuda_visible_devices']!r}, libcuda mapped: "
+            f"{held['libcuda']}, modules {res['modules']}): actor ready in "
+            f"{c['actor_ready_s']:.1f} s, first request "
+            f"{1e3 * c['first_request_s']:.1f} ms (in process "
+            f"{1e3 * c['in_process_first_s']:.1f}), later p50 "
+            f"{1e3 * c['later_p50_s']:.1f} ms (in process "
+            f"{1e3 * c['in_process_later_p50_s']:.1f}); B1 "
+            f"{c['b1_launches']} for {c['prefills']} prefills; server pins "
+            f"after the client: {pins}; the GPU back "
+            f"{c['release_s']:.2f} s after; {card}")
+        check(res["tokens"] == local_tokens,
+              "the thin client's tokens differ from 6l's in-process ones")
+        check(counts["prefills"] == len(reqs) and (
+            counts["b1_launches"] == b1_per_pass or rehearsal),
+              f"B1 in the thin client's actor: {counts}, want "
+              f"{b1_per_pass}")
+        check(not held["libcuda"] and held["cuda_visible_devices"] == ""
+              and res["cuda_visible_devices"] == ""
+              and res["modules"] == [],
+              f"the thin client holds or loads CUDA: {held}, "
+              f"{res['modules']}")
+        check(pins == {"objects": 0, "actors": 0},
+              f"the server still pins for the client: {pins}")
+
+        # --- (b) the compiled DAG ------------------------------------------
+        t_leg = time.perf_counter()
+        # The GPU stage is (a)'s actor class, shipped by value.
+        sys.path.insert(0, tmp)
+        import jobhelper
+        sys.path.remove(tmp)
+        cloudpickle.register_pickle_by_value(jobhelper)
+        Tok, Detok = _transport_classes(rt)
+        t0 = time.perf_counter()
+        tok, serve, det = (Tok.remote(), jobhelper.JobServer.remote(
+            JOB_MODEL, JOB_LAYERS, 0, ENGINE, JOB_DEVICE), Detok.remote())
+        serve_pid = rt.get(serve.info.remote(), timeout=JOB_WAIT_S)["pid"]
+        dag_ready_s = time.perf_counter() - t0
+        with InputNode() as inp:
+            dag = det.decode.bind(serve.serve.bind(tok.encode.bind(inp)))
+        hop = {"prompt": reqs[0]["prompt"][:XPORT_HOP_PROMPT],
+               "max_tokens": 1}
+
+        def one_pass(run):
+            rt.get(serve.reset_counts.remote(), timeout=60)
+            tokens = [run(r)["tokens"] for r in reqs]
+            return tokens, rt.get(serve.counts.remote(), timeout=60)
+
+        def hop_p50(run):
+            """The p50 wall of a one-token execution, and its tokens."""
+            walls, tokens = [], set()
+            for _ in range(XPORT_HOP_RUNS):
+                t = time.perf_counter()
+                tokens.add(tuple(run(hop)["tokens"]))
+                walls.append(time.perf_counter() - t)
+            return float(np.median(walls)), tokens
+
+        def interp(r):
+            return rt.get(dag.execute(r), timeout=JOB_WAIT_S)
+
+        i_tokens, i_counts = one_pass(interp)
+        i_hop, i_hop_tokens = hop_p50(interp)
+        # One compiled DAG for a pass of the requests, whose teardown
+        # frees the actor for the count; a second for the hop timing and
+        # a stage that raises, then an execution after it.
+        rt.get(serve.reset_counts.remote(), timeout=60)
+        compiled = dag.experimental_compile()
+        try:
+            c_tokens = [compiled.execute(r).get(timeout=JOB_WAIT_S)["tokens"]
+                        for r in reqs]
+        finally:
+            c_stages = compiled.teardown()
+        c_counts = rt.get(serve.counts.remote(), timeout=60)
+        compiled = dag.experimental_compile()
+        try:
+            c_hop, c_hop_tokens = hop_p50(
+                lambda r: compiled.execute(r).get(timeout=JOB_WAIT_S))
+            raised = None
+            try:
+                compiled.execute({"max_tokens": 1}).get(timeout=JOB_WAIT_S)
+            except ValueError as e:
+                raised = str(e)
+            after = compiled.execute(hop).get(timeout=JOB_WAIT_S)
+        finally:
+            t_stages = compiled.teardown()
+        answered = rt.get(serve.info.remote(), timeout=60)["pid"] == serve_pid
+        for a in (tok, serve, det):
+            rt.kill(a)
+        out["dag"] = {
+            "interpreted_hop_p50_ms": 1e3 * i_hop,
+            "compiled_hop_p50_ms": 1e3 * c_hop,
+            "b1_launches": {"interpreted": i_counts["b1_launches"],
+                            "compiled": c_counts["b1_launches"]},
+            "stages": c_stages, "timing_stages": t_stages,
+            "actors_ready_s": dag_ready_s,
+            "leg_s": time.perf_counter() - t_leg}
+        d = out["dag"]
+        log("transports", f"(b) DAG tokenize -> serve (pid {serve_pid}) -> "
+            f"detokenize: actors ready in {dag_ready_s:.1f} s; tokens equal "
+            f"to 6l's interpreted {i_tokens == local_tokens}, compiled "
+            f"{c_tokens == local_tokens}; B1 a pass {d['b1_launches']}; "
+            f"teardown {c_stages}; a one-token execution's p50 compiled "
+            f"{d['compiled_hop_p50_ms']:.2f} ms, interpreted "
+            f"{d['interpreted_hop_p50_ms']:.2f} ms "
+            f"({XPORT_HOP_RUNS} each; prompt {XPORT_HOP_PROMPT} tokens); "
+            f"the raising stage: {raised!r}; {card}")
+        check(i_tokens == local_tokens and c_tokens == local_tokens,
+              "the DAG's tokens differ from 6l's in-process ones")
+        check(i_counts["prefills"] == len(reqs)
+              and c_counts["prefills"] == len(reqs)
+              and (rehearsal or i_counts["b1_launches"] == b1_per_pass
+                   == c_counts["b1_launches"]),
+              f"B1 in the DAG's GPU actor: {i_counts}, {c_counts}, want "
+              f"{b1_per_pass} a pass")
+        check(c_stages == [{"iterations": len(reqs)}] * 3
+              and t_stages == [{"iterations": XPORT_HOP_RUNS + 2}] * 3,
+              f"teardown: {c_stages}, {t_stages}")
+        check(answered, "the GPU actor did not answer after teardown")
+        check(i_hop_tokens == c_hop_tokens == {tuple(after["tokens"])}
+              and len(after["tokens"]) == 1,
+              f"one-token executions: interpreted {i_hop_tokens}, compiled "
+              f"{c_hop_tokens}, after the error {after}")
+        check(raised is not None and "without a prompt" in raised,
+              f"the raising stage came back as {raised!r}")
+        out["dag_release_s"] = _gpu_free(rt, JOB_FREE_S)
+
+        # --- (c) the C++ frontend ------------------------------------------
+        t_leg = time.perf_counter()
+        made = make.communicate(timeout=600)[0]
+        out["cpp_build_s"] = time.perf_counter() - t_make
+        check(make.returncode == 0, f"make of cpp/ failed: {made[-3000:]}")
+        _xport_fixtures(os.path.join(cpp_out, "libtasks.so"))
+        demo = subprocess.run(
+            [os.path.join(cpp_out, "xlang_demo"), str(srv.port),
+             "with_cpp_tasks"], capture_output=True, text=True, timeout=300)
+        lines = [ln for ln in demo.stdout.splitlines() if ln.strip()]
+        out["cpp"] = {"lines": len(lines),
+                      "passed": sum(ln.startswith("PASS") for ln in lines),
+                      "leg_s": time.perf_counter() - t_leg}
+        log("transports", f"(c) cpp/'s xlang_demo (built in "
+            f"{out['cpp_build_s']:.1f} s, beside (a) and (b)): exit "
+            f"{demo.returncode}, {out['cpp']['passed']} of {len(lines)} "
+            f"lines PASS")
+        check(demo.returncode == 0 and len(lines) >= 14
+              and all(ln.startswith("PASS") for ln in lines)
+              and all(any(p in ln for ln in lines)
+                      for p in XPORT_CPP_PROBES),
+              f"xlang_demo exited {demo.returncode}:\n{demo.stdout}\n"
+              f"{demo.stderr[-3000:]}")
+
+        # --- (d) the workflow ----------------------------------------------
+        t_leg = time.perf_counter()
+        marks = os.path.join(tmp, "marks")
+        os.makedirs(marks)
+        workflow.init(os.path.join(tmp, "wf"))
+        wf_id = "transports"
+        status_path = os.path.join(tmp, "wf", wf_id, "status.json")
+        wf = workflow.step(_wf_finish).step(
+            workflow.step(_wf_attend).options(num_gpus=1).step(
+                workflow.step(_wf_inputs).step(0), marks, JOB_DEVICE),
+            marks, status_path)
+        try:
+            wf.run(wf_id)
+            first_error = None
+        except Exception as e:        # the last step's planned failure
+            first_error = str(e)
+        after_run = workflow.get_status(wf_id)
+        with open(os.path.join(marks, "ok"), "w") as f:
+            f.write("ok")
+        result = workflow.resume(wf_id)
+        after_resume = workflow.get_status(wf_id)
+        with open(os.path.join(marks, "finish_statuses")) as f:
+            seen = f.read().split()
+        runs = []
+        for name in sorted(os.listdir(marks)):
+            if name.startswith("attend_"):
+                with open(os.path.join(marks, name)) as f:
+                    runs.append(json.load(f))
+        direct_marks = os.path.join(tmp, "direct")
+        os.makedirs(direct_marks)
+        with open(os.path.join(direct_marks, "ok"), "w") as f:
+            f.write("ok")
+        direct = _wf_finish(_wf_attend(_wf_inputs(0), direct_marks,
+                                       JOB_DEVICE or dev),
+                            direct_marks, status_path)
+        wf_b1 = sum(r["launches"] for r in runs)
+        out["workflow"] = {"statuses": [seen[0], after_run, seen[-1],
+                                        after_resume],
+                           "gpu_step_runs": len(runs), "b1_launches": wf_b1,
+                           "leg_s": time.perf_counter() - t_leg}
+        log("transports", f"(d) workflow: the last step raised "
+            f"{(first_error or '').splitlines()[:1]}; statuses "
+            f"{out['workflow']['statuses']}; the GPU step ran {len(runs)} "
+            f"time(s) (lease "
+            f"{[r['cuda_visible_devices'] for r in runs]}), B1 {wf_b1} "
+            f"across run and resume; output equal to a direct call: "
+            f"{torch.equal(result['o'], direct['o'])}; {card}")
+        check(first_error is not None and "first run" in first_error,
+              f"the workflow's first run: {first_error!r}")
+        check(out["workflow"]["statuses"] == ["RUNNING", "FAILED",
+                                              "RUNNING", "SUCCEEDED"]
+              and seen == ["RUNNING", "RUNNING"],
+              f"workflow statuses: {out['workflow']['statuses']}, seen by "
+              f"the last step {seen}")
+        check(len(runs) == 1 and (wf_b1 == 1 or rehearsal),
+              f"the GPU step's runs: {runs}")
+        check(torch.equal(result["o"], direct["o"])
+              and result["checksum"] == direct["checksum"]
+              and workflow.get_output(wf_id)["checksum"]
+              == direct["checksum"],
+              "the workflow's output differs from a direct call")
+    finally:
+        if client is not None and client.poll() is None:
+            client.kill()
+            client.wait()
+        if client_log is not None:
+            client_log.close()
+        if srv is not None:
+            srv.stop()
+        if make.poll() is None:
+            make.kill()
+            make.wait()
+        # The channels' resource tracker is this process's own helper
+        # (it unlinks what a crash would leave) and ends with it.
+        procs = {p: c for p, c in _cluster_pids().items()
+                 if "multiprocessing.resource_tracker" not in " ".join(c)}
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while True:
+        left = {p: c for p, c in procs.items() if _alive(p, c)}
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    check(not left, f"processes left after shutdown: {left}")
+    out["b1_launches"] = (out["client"]["b1_launches"]
+                          + sum(out["dag"]["b1_launches"].values())
+                          + out["workflow"]["b1_launches"])
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("time", f"transports: (a) {out['client']['leg_s']:.1f} s, (b) "
+        f"{out['dag']['leg_s']:.1f} s, (c) {out['cpp']['leg_s']:.1f} s "
+        f"(make {out['cpp_build_s']:.1f} s in the background), (d) "
+        f"{out['workflow']['leg_s']:.1f} s, the phase {out['phase_s']:.1f} "
+        f"s; {card}")
+    return out
+
+
 def serve_ab(tree: str) -> int:
     """``--serve-ab DIR``: the paged mix without its prompts over 512 on a
     dense server, then the whole mix on a paged server, each fresh and
@@ -7754,6 +8273,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     jobs = phase_jobs(dev, card)
     lap("jobs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    transports = phase_transports(dev, card, jobs.pop("local_tokens"),
+                                  jobs["local_latency_s"])
+    lap("transports")
     # Launches in the gangs' workers, every worker and route.
     gang_launches = {k: sum(row["launches_per_worker"][k] * n
                             for n, g in gang["gangs"].items()
@@ -7908,7 +8432,7 @@ def main() -> int:
                      + runtime["b1_launches"] + app_b1 + ingress_b1
                      + train["launches"][0] + zero_b[0] + zq_b[0]
                      + tr["B1"] + gang_launches["B1"]
-                     + jobs["b1_launches"]),
+                     + jobs["b1_launches"] + transports["b1_launches"]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
@@ -7920,7 +8444,14 @@ def main() -> int:
                              "zero_train": zero_b[0], "zero_quant": zq_b[0],
                              "trainer_worker": tr["B1"],
                              "zero_gang_workers": gang_launches["B1"],
-                             "jobs_gpu_actor": jobs["b1_launches"]},
+                             "jobs_gpu_actor": jobs["b1_launches"],
+                             "transports_thin_client_actor":
+                                 transports["client"]["b1_launches"],
+                             "transports_dag_actor":
+                                 sum(transports["dag"]["b1_launches"]
+                                     .values()),
+                             "transports_workflow_gpu_step":
+                                 transports["workflow"]["b1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "timed_by": TIMED_BY_GRAPH,
@@ -7979,7 +8510,7 @@ def main() -> int:
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
         "zero_quant": zq, "trainer": trainer, "zero_gang": gang,
-        "jobs": jobs,
+        "jobs": jobs, "transports": transports,
         "collective": {k: v for k, v in collective.items() if k != "rows"}}),
         flush=True)
     print(card, flush=True)

@@ -35,9 +35,15 @@ GPU lease does), job submission (``job_submission``, in process or over
 the dashboard's REST API), the dashboard head
 (``init(include_dashboard=True)``) and the state views (``util.state``).
 
-Not ported yet, each raising where it is asked for: the
-``ray_tpu_torch://`` client, ``dag``, and the device-facing views (the
-compiled-program ring and the workers' device-profile bracket).
+The driver's transports: the ``ray_tpu_torch://`` thin client
+(``client``, ``init(address="ray_tpu_torch://host:port")``) and the
+server the C++ frontend speaks to (``cross_language``), compiled DAGs
+over shared-memory channels (``dag``, ``experimental``) and durable
+workflows (``workflow``).
+
+Not ported yet, each raising where it is asked for: the device-facing
+views (the compiled-program ring and the workers' device-profile
+bracket).
 Importing the package imports no torch: a worker that never touches a
 tensor never loads it.
 
@@ -69,6 +75,7 @@ from ray_tpu_torch.runtime_context import get_runtime_context
 
 __version__ = "0.1.0"
 
+CLIENT_SCHEME = "ray_tpu_torch://"
 _init_lock = threading.Lock()
 _local_node = None
 
@@ -89,6 +96,11 @@ def init(
 ) -> Dict[str, Any]:
     """Start (or connect to) a cluster and attach this process as the driver."""
     global _local_node
+    if (address is not None and "://" in address
+            and not address.startswith(CLIENT_SCHEME)):
+        raise ValueError(
+            f"unknown address scheme in {address!r}: the thin client's is "
+            f"{CLIENT_SCHEME}host:port")
     with _init_lock:
         if global_worker_or_none() is not None:
             if ignore_reinit_error:
@@ -98,10 +110,14 @@ def init(
         from ray_tpu_torch._private.node import Node
         from ray_tpu_torch._private.rpc import RpcClient
 
-        if address is not None and "://" in address:
-            raise NotImplementedError(
-                "the thin client (ray_tpu_torch://) is not ported yet "
-                "(the client slice, after the core runtime)")
+        if address is not None and address.startswith(CLIENT_SCHEME):
+            # Thin-client mode (reference "ray://"): every API call
+            # proxies to a server-side driver; no local daemons.
+            from ray_tpu_torch.client.worker import ClientWorker
+
+            host, port = address[len(CLIENT_SCHEME):].rsplit(":", 1)
+            set_global_worker(ClientWorker(host, int(port)))
+            return {"client": True, "address": address}
 
         if address is None:
             node = Node(head=True, num_cpus=num_cpus, num_gpus=num_gpus,
@@ -219,6 +235,13 @@ def shutdown() -> None:
         if _log_listener_stop is not None:
             _log_listener_stop.set()
         w = global_worker_or_none()
+        from ray_tpu_torch.client.worker import ClientWorker
+
+        if isinstance(w, ClientWorker):
+            # Thin client: disconnect only — the cluster lives on.
+            w.shutdown()
+            set_global_worker(None)
+            return
         if w is not None:
             try:
                 w.gcs.call("mark_job_finished", job_id=w.job_id.binary(),

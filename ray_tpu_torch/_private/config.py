@@ -8,7 +8,7 @@ an environment variable ``RAY_TPU_<name>`` on any process, or by a
 propagated to every other process through the GCS at registration time. The
 names and defaults are the reference's, the serve knobs included. Only the
 settings that a module of the port reads are defined: the rest of the
-reference's table comes with the module that reads it (the client, dag,
+reference's table comes with the module that reads it (the
 device-profile, RLlib and Data slices).
 """
 

@@ -275,10 +275,20 @@ async def _read_frame(reader: asyncio.StreamReader):
     body = await reader.readexactly(length)
     if body[:1] == b"\x80":
         return pickle.loads(body), False
-    import msgpack
-
-    req_id, kind, method, payload = msgpack.unpackb(body, raw=False)
+    req_id, kind, method, payload = _msgpack().unpackb(body, raw=False)
     return (req_id, kind, method, payload), True
+
+
+def _msgpack():
+    """msgpack, which only a cross-language frame needs."""
+    try:
+        import msgpack
+    except ImportError as exc:
+        raise ImportError(
+            "a msgpack frame arrived (a cross-language caller such as the "
+            "C++ frontend, the driver transports' slice) and msgpack is "
+            "not installed in this process") from exc
+    return msgpack
 
 
 def _encode_frame(msg) -> bytes:
@@ -287,9 +297,7 @@ def _encode_frame(msg) -> bytes:
 
 
 def _encode_msgpack_frame(msg) -> bytes:
-    import msgpack
-
-    body = msgpack.packb(list(msg), use_bin_type=True)
+    body = _msgpack().packb(list(msg), use_bin_type=True)
     return _HEADER.pack(len(body)) + body
 
 

@@ -2994,9 +2994,17 @@ class Worker:
             return {"results": [], "app_error": serialize_error(
                 exc.TaskCancelledError(f"task {spec.name} cancelled"))}
         method_name = spec.function.qualname
-        # The compiled-DAG stage loop of the reference is not ported
-        # (dag / experimental.channel): every method is the instance's.
-        method = getattr(actor.instance, method_name, None)
+        from ray_tpu_torch.dag import COMPILED_STAGE_METHOD
+
+        if method_name == COMPILED_STAGE_METHOD:
+            # Compiled-DAG resident stage loop (ray_tpu_torch.dag):
+            # occupies this actor's executor until the DAG is torn down.
+            from ray_tpu_torch.dag import run_compiled_stage
+
+            method = lambda payload: run_compiled_stage(  # noqa: E731
+                actor.instance, payload)
+        else:
+            method = getattr(actor.instance, method_name, None)
         if method is None:
             return {"results": [], "app_error": serialize_error(
                 AttributeError(f"actor has no method {method_name!r}"))}

@@ -54,8 +54,11 @@ class ActorMethod:
                            {**self._options, **options})
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(
-            "dag is not ported yet (the dag slice, after the core runtime)")
+        """Lazy DAG node (reference `actor.py` bind); compose with
+        ray_tpu_torch.dag.InputNode and experimental_compile()."""
+        from ray_tpu_torch.dag import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

@@ -92,8 +92,10 @@ class RemoteFunction:
         return clone
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(
-            "dag is not ported yet (the dag slice, after the core runtime)")
+        """Lazy DAG node (reference `remote_function.py` bind)."""
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

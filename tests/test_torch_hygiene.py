@@ -71,7 +71,8 @@ def test_port_files_found():
             "goodput.py", "train.py", "collective.py", "util.py",
             "types.py", "process_ring.py", "base_collective_group.py",
             "shm_collective_group.py", "torch_collective_group.py",
-            "cuda_collective_group.py"} <= names
+            "cuda_collective_group.py", "channel.py", "common.py",
+            "server.py", "cross_language.py", "events.py"} <= names
     assert (ROOT / "ray_tpu_torch/_private/csrc/arena_store.cpp").exists()
 
 
@@ -292,6 +293,82 @@ def test_port_cluster_spawns_only_port_processes(tmp_path, monkeypatch):
         assert {p.name: p.read_text() for p in seen.iterdir()} == {}
     finally:
         serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+
+_THIN_CLIENT = """import sys
+import ray_tpu_torch as rt
+
+rt.init(address="ray_tpu_torch://127.0.0.1:" + sys.argv[1])
+
+
+@rt.remote
+def modules():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu"))
+
+
+@rt.remote
+class Probe:
+    def modules(self):
+        return sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "ray_tpu"))
+
+
+probe = Probe.remote()
+print("MODULES", rt.get([modules.remote(), probe.modules.remote()],
+                        timeout=60), sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu", "torch")))
+rt.kill(probe)
+rt.shutdown()
+"""
+
+
+def test_client_server_entry_point_spawns_only_port_processes(tmp_path,
+                                                               monkeypatch):
+    """``python -m ray_tpu_torch.client.server`` joins a port cluster, and
+    a thin client's task and actor through it run in processes of the
+    port; neither the server, the workers nor the client load JAX or the
+    JAX package."""
+    import subprocess
+
+    import ray_tpu_torch
+
+    hook, seen = tmp_path / "hook", tmp_path / "imports"
+    hook.mkdir()
+    seen.mkdir()
+    (hook / "sitecustomize.py").write_text(_IMPORT_WATCH)
+    monkeypatch.setenv("RTPU_IMPORT_WATCH", str(seen))
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(hook), str(ROOT)] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    info = ray_tpu_torch.init(num_cpus=4, num_gpus=0,
+                              object_store_memory=64 * 1024 * 1024)
+    server = None
+    try:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.client.server",
+             "--address", info["gcs_address"], "--host", "127.0.0.1",
+             "--port", "0"], stdout=subprocess.PIPE, text=True)
+        line = server.stdout.readline()
+        assert line.startswith("CLIENT_SERVER_PORT="), line
+        script = tmp_path / "client.py"
+        script.write_text(_THIN_CLIENT)
+        out = subprocess.run(
+            [sys.executable, str(script), line.strip().split("=")[1]],
+            capture_output=True, text=True, timeout=180)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert "MODULES [[], []] []" in out.stdout, out.stdout
+        procs = {p: _cmdline(p) for p in _descendants(os.getpid())}
+        assert server.pid in procs
+        for cmd in (c for c in procs.values() if c):   # [] is a zombie
+            assert "-m" in cmd, cmd
+            assert cmd[cmd.index("-m") + 1].startswith("ray_tpu_torch."), cmd
+        assert {p.name: p.read_text() for p in seen.iterdir()} == {}
+    finally:
+        if server is not None:
+            server.terminate()
+            server.wait(timeout=30)
         ray_tpu_torch.shutdown()
 
 
