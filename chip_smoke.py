@@ -31,7 +31,7 @@ Phases, one line each; any failure raises and exits non-zero:
               (padded to 128 by the wrappers) and with the full mask at
               S=256; then B1 at the draft prefill's shapes (4 heads of 16,
               S 128, 256 and 512, f32 and bf16).
-4. serve   -- Llama-3-8B at full width and 12 of its 32 layers
+4. serve   -- Llama-3-8B at full width and 8 of its 32 layers
               (``SERVE_LAYERS``: the script's time limit; random
               weights from a seed, int8 weight-only,
               ``attn_impl="flash"``) answers 12
@@ -337,6 +337,25 @@ Phases, one line each; any failure raises and exits non-zero:
               rest against 6l's in-process ones, the compiled and the
               interpreted DAG's p50 a one-token execution, each leg's
               seconds.
+6n. autoscaler -- (run last, after 6m) ``python -m ray_tpu_torch up`` of a
+              cluster YAML (the ``subprocess`` provider; a head type of 8
+              CPUs and no GPU; a node type ``gpu.h100`` of
+              ``node_config: {gpu: H100-1}``, 0 to 1 of it; idle timeout
+              6 s) as a subprocess: the monitor and the head. The driver
+              joins it, sees no GPU, and makes a ``num_gpus=1`` actor that
+              serves 6l's model on 6l's 4 requests one at a time; its
+              demand makes the autoscaler launch one GPU node on the card.
+              Gates: exactly one node launched, labelled
+              ``autoscaler-node-type: gpu.h100``, and the actor on it;
+              tokens equal to 6l's in-process server's; B1 16 in the
+              actor; the actor maps libcuda, the head's GCS and raylet and
+              the monitor do not; once the actor is killed, the node is
+              terminated within 60 s, ``GPU`` leaves the cluster, the
+              card's memory is back and no process of the session is a
+              compute app; ``python -m ray_tpu_torch down`` leaves no
+              process of the session. Printed: demand to launch, to join
+              and to the actor ready, the first request and the later
+              p50, kill to scale-down, the phase's time.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -512,7 +531,7 @@ N_REQUESTS, N_CLIENTS, N_PARITY = 12, 4, 3
 # The served model's depth (of Llama-3-8B's 32): every serving phase
 # (4-6h) runs it, so it sets most of the script's time, which must stay
 # within its limit (1200 s with the build).
-SERVE_LAYERS = 12
+SERVE_LAYERS = 8
 
 
 def log(phase: str, msg: str) -> None:
@@ -8113,6 +8132,305 @@ def phase_transports(dev, card, local_tokens, local_latency_s):
     return out
 
 
+# 6n: the autoscaler -- `python -m ray_tpu_torch up` of a cluster whose
+# head has no GPU; a GPU actor's demand launches a GPU node on the card,
+# which serves 6l's model on 6l's requests and goes once the actor does.
+AUTOSCALE_IDLE_MIN = 0.1         # the GPU node type's idle timeout (6 s)
+AUTOSCALE_DOWN_S = 60.0          # the actor's kill to the node's end
+AUTOSCALE_YAML = """cluster_name: {name}
+max_workers: 1
+provider:
+  type: subprocess
+available_node_types:
+  cpu.head:
+    resources: {{CPU: 8}}
+  gpu.h100:
+    node_config: {{gpu: H100-1}}
+    min_workers: 0
+    max_workers: 1
+head_node_type: cpu.head
+idle_timeout_minutes: {idle}
+"""
+_MONITOR_LINE = re.compile(
+    r"autoscaler: launched (\d+) terminated (\d+) at ([0-9.]+)")
+
+
+def _monitor_events(lines, launched):
+    """(count, wall time) of each pass the monitor printed that launched
+    (or, with ``launched`` false, terminated) nodes."""
+    out = []
+    for line in list(lines):
+        m = _MONITOR_LINE.match(line)
+        if m and int(m.group(1 if launched else 2)):
+            out.append((int(m.group(1 if launched else 2)),
+                        float(m.group(3))))
+    return out
+
+
+def _session_pids(session_dir):
+    """Live processes whose command line names ``session_dir``."""
+    out = subprocess.run(["pgrep", "-f", session_dir], capture_output=True,
+                         text=True, timeout=60)
+    return {int(p) for p in out.stdout.split()
+            if _alive(int(p), _cmdline(int(p)))}
+
+
+def _cmdline(pid):
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return [a.decode() for a in f.read().split(b"\0") if a]
+    except OSError:
+        return None
+
+
+def phase_autoscaler(dev, card, local_tokens):
+    """The autoscaler on the port; see the module docstring (6n)."""
+    import shutil
+
+    import cloudpickle
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.util import state
+
+    phase_t0 = time.perf_counter()
+    out = {"card": card}
+    rehearsal = JOB_DEVICE is not None
+    cfg = getattr(LlamaConfig, JOB_MODEL["preset"])(
+        n_layers=JOB_LAYERS, attn_impl=JOB_MODEL["attn_impl"],
+        param_dtype=torch.bfloat16)
+    reqs = serve_requests(cfg)[:JOB_REQUESTS]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_autoscaler_")
+    yaml_path = os.path.join(tmp, "cluster.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(AUTOSCALE_YAML.format(name=f"smoke-{os.getpid()}",
+                                      idle=AUTOSCALE_IDLE_MIN))
+    with open(os.path.join(tmp, "jobhelper.py"), "w") as f:
+        f.write(JOB_HELPER)
+    root = os.path.dirname(os.path.abspath(__file__))
+    # The launcher's state file and the session go under the phase's dir.
+    env = {**os.environ, "TMPDIR": tmp, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])}
+    mem0 = 0.0 if rehearsal else gpu_memory_used_mib()
+    lines, session, actor, driver = [], None, None, False
+
+    def read():
+        for line in up.stdout:
+            lines.append(line)
+
+    t0 = time.perf_counter()
+    up = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", "up",
+                           yaml_path], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, env=env)
+    threading.Thread(target=read, daemon=True).start()
+
+    def tail():
+        return "".join(lines)[-3000:]
+
+    try:
+        deadline = time.monotonic() + JOB_WAIT_S
+        while not any(ln.startswith("session dir:") for ln in list(lines)):
+            check(up.poll() is None and time.monotonic() < deadline,
+                  f"`up` exited ({up.poll()}) or is late:\n{tail()}")
+            time.sleep(0.05)
+        text = "".join(lines)
+        addr = text.split("address:")[1].split()[0]
+        session = text.split("session dir:")[1].split()[0]
+        out["up_s"] = time.perf_counter() - t0
+        rt.init(address=addr)
+        driver = True
+        heads = rt.nodes()
+        check(len(heads) == 1 and "GPU" not in rt.cluster_resources(),
+              f"the cluster `up` started: {heads}")
+        head_id = heads[0]["NodeID"]
+        log("autoscaler", f"`python -m ray_tpu_torch up` gave {addr} in "
+            f"{out['up_s']:.2f} s: one node, {rt.cluster_resources()}")
+
+        # --- the demand, the launch, the join, the actor -----------------
+        sys.modules.pop("jobhelper", None)
+        sys.path.insert(0, tmp)
+        import jobhelper
+        sys.path.remove(tmp)
+        cloudpickle.register_pickle_by_value(jobhelper)
+        t_demand, tp = time.time(), time.perf_counter()
+        actor = jobhelper.JobServer.remote(JOB_MODEL, JOB_LAYERS, 0, ENGINE,
+                                           JOB_DEVICE)
+        ref = actor.info.remote()
+        join_s = None
+        while not rt.wait([ref], timeout=0.05)[0]:
+            if join_s is None and any(
+                    n["Alive"] and n["Labels"].get("autoscaler-node-type")
+                    == "gpu.h100" for n in rt.nodes()):
+                join_s = time.perf_counter() - tp
+            check(up.poll() is None and time.perf_counter() - tp < JOB_WAIT_S,
+                  f"no actor after {time.perf_counter() - tp:.0f} s "
+                  f"(`up` {up.poll()}):\n{tail()}")
+        info = rt.get(ref, timeout=60)
+        out["actor_ready_s"] = time.perf_counter() - tp
+        launches = _monitor_events(lines, True)
+        gpu_nodes = [n for n in rt.nodes()
+                     if n["Labels"].get("autoscaler-node-type") == "gpu.h100"]
+        row = next(a for a in state.list_actors()
+                   if a["actor_id"] == actor._actor_id.hex())
+        check(sum(n for n, _ in launches) == 1 and len(gpu_nodes) == 1
+              and row["node_id"] == gpu_nodes[0]["NodeID"] != head_id,
+              f"launches {launches}, GPU nodes {gpu_nodes}, the actor on "
+              f"{row['node_id']}:\n{tail()}")
+        node = gpu_nodes[0]
+        check(node["Resources"].get("GPU") == 1
+              and node["Resources"].get("GPU-H100", 1) == 1,
+              f"the GPU node's resources: {node['Resources']}")
+        out["demand_to_launch_s"] = launches[0][1] - t_demand
+        out["demand_to_join_s"] = join_s if join_s is not None else \
+            out["actor_ready_s"]
+        log("autoscaler", f"demand to launch {out['demand_to_launch_s']:.2f}"
+            f" s, to the join {out['demand_to_join_s']:.2f} s, to the actor "
+            f"ready {out['actor_ready_s']:.2f} s (server built in "
+            f"{info['build_s']:.2f} s) on node {node['NodeID'][:12]} "
+            f"({node['Resources'].get('GPU')} GPU, labels {node['Labels']})")
+
+        # --- the requests ---------------------------------------------------
+        rt.get(actor.reset_counts.remote(), timeout=60)
+        results, latency = [], []
+        for r in reqs:
+            t = time.perf_counter()
+            results.append(rt.get(actor.serve.remote(r), timeout=JOB_WAIT_S))
+            latency.append(time.perf_counter() - t)
+        counts = rt.get(actor.counts.remote(), timeout=60)
+        tokens = [r["tokens"] for r in results]
+        out["first_request_s"] = latency[0]
+        out["later_p50_s"] = float(np.median(latency[1:]))
+        out["b1_launches"] = counts["b1_launches"]
+        same = sum(a == b for a, b in zip(tokens, local_tokens))
+        out["tokens_equal"] = f"{same}/{len(reqs)}"
+        procs = _cluster_pids()
+        head = {"monitor": up.pid}
+        for pid, cmd in procs.items():
+            if "ray_tpu_torch._private.gcs_server" in cmd:
+                head["head GCS"] = pid
+            elif ("ray_tpu_torch._private.raylet" in cmd
+                  and cmd[cmd.index("--node-id") + 1] == head_id):
+                head["head raylet"] = pid
+        check(len(head) == 3, f"the head's processes: {head}")
+        if not rehearsal:
+            held = {name: _off_cuda(pid) for name, pid in head.items()}
+            actor_held = _off_cuda(info["pid"])
+            log("autoscaler", f"while the actor holds the card: {held}; "
+                f"the actor: {actor_held}, {info['cuda_bytes']} B "
+                f"allocated by torch")
+            for name, h in held.items():
+                check(not h["listed"] and not h["libcuda"],
+                      f"the {name} holds the card: {h}")
+            check(actor_held["libcuda"] and info["cuda_bytes"] > 0,
+                  f"the actor holds no CUDA context: {actor_held}, {info}")
+        check(info["foreign_modules"] == [],
+              f"the actor loaded {info['foreign_modules']}")
+        log("autoscaler", f"the actor served {len(reqs)} requests: first "
+            f"{1e3 * out['first_request_s']:.1f} ms, later p50 "
+            f"{1e3 * out['later_p50_s']:.1f} ms; B1 {counts['b1_launches']}"
+            f" for {counts['prefills']} prefills; greedy tokens, autoscaled "
+            f"actor == 6l's in-process server: {out['tokens_equal']}; {card}")
+        check(same == len(reqs), f"the autoscaled actor's tokens differ from "
+              f"6l's in-process server's: {out['tokens_equal']}")
+        check(counts["prefills"] == len(reqs) and (
+            counts["b1_launches"] == cfg.n_layers * len(reqs) or rehearsal),
+              f"B1 in the autoscaled actor: {counts}, want {cfg.n_layers} x "
+              f"{len(reqs)}")
+
+        # --- the scale-down -----------------------------------------------
+        t_kill, tk = time.time(), time.perf_counter()
+        rt.kill(actor)
+        actor = None
+        while True:
+            ended = _monitor_events(lines, False)
+            if ended and "GPU" not in rt.cluster_resources():
+                break
+            check(time.perf_counter() - tk < AUTOSCALE_DOWN_S,
+                  f"{AUTOSCALE_DOWN_S:.0f} s after the kill: terminations "
+                  f"{ended}, {rt.cluster_resources()}:\n{tail()}")
+            time.sleep(0.1)
+        out["kill_to_terminated_s"] = ended[0][1] - t_kill
+        out["kill_to_gpu_gone_s"] = time.perf_counter() - tk
+        left = max(1.0, AUTOSCALE_DOWN_S - (time.perf_counter() - tk))
+        if rehearsal:
+            released = _gone(info["pid"], left)
+        else:
+            released = _card_released(info["pid"], mem0, left)
+            listed = _compute_app_pids() & _session_pids(session)
+            check(not listed, f"session processes on the card: {listed}")
+        out["kill_to_card_free_s"] = time.perf_counter() - tk
+        alive = [n for n in rt.nodes()
+                 if n["NodeID"] == node["NodeID"] and n["Alive"]]
+        log("autoscaler", f"the actor killed: the node terminated "
+            f"{out['kill_to_terminated_s']:.2f} s after (the monitor's "
+            f"line), GPU out of cluster_resources() after "
+            f"{out['kill_to_gpu_gone_s']:.2f} s, the actor's process gone "
+            f"and the card's memory back: {released} "
+            f"({out['kill_to_card_free_s']:.2f} s); the node alive in the "
+            f"GCS: {bool(alive)}; {card}")
+        check(released and not alive and
+              out["kill_to_card_free_s"] <= AUTOSCALE_DOWN_S,
+              "the GPU node or its card was not freed within "
+              f"{AUTOSCALE_DOWN_S:.0f} s of the kill")
+
+        # --- down ----------------------------------------------------------
+        rt.shutdown()
+        driver = False
+        td = time.perf_counter()
+        down = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "down",
+                               yaml_path], capture_output=True, text=True,
+                              timeout=180, env=env)
+        check(down.returncode == 0, f"`down` exited {down.returncode}: "
+              f"{down.stdout}{down.stderr}")
+        check(up.wait(timeout=60) == 0,
+              f"`up` exited {up.returncode}:\n{tail()}")
+        deadline = time.monotonic() + 15
+        while _session_pids(session) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        rest = {p: _cmdline(p) for p in _session_pids(session)}
+        out["down_s"] = time.perf_counter() - td
+        log("autoscaler", f"`python -m ray_tpu_torch down` in "
+            f"{out['down_s']:.2f} s; processes of the session left: {rest}")
+        check(not rest, f"processes of the session left after down: {rest}")
+    finally:
+        try:
+            if actor is not None:
+                rt.kill(actor)
+        finally:
+            if driver:
+                rt.shutdown()
+            if up.poll() is None:
+                up.terminate()
+                try:
+                    up.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    up.kill()
+                    up.wait()
+            if session:
+                subprocess.run(["pkill", "-9", "-f", session],
+                               capture_output=True, timeout=60)
+            shutil.rmtree(tmp, ignore_errors=True)
+    if not rehearsal:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["memory_before_mib"] = mem0
+        out["memory_after_mib"] = gpu_memory_used_mib()
+        check(abs(out["memory_after_mib"] - mem0) < 1024,
+              f"card memory {mem0:.0f} MiB before the phase, "
+              f"{out['memory_after_mib']:.0f} MiB after")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("time", f"autoscaler: demand to launch "
+        f"{out['demand_to_launch_s']:.2f} s, to the join "
+        f"{out['demand_to_join_s']:.2f} s, to the actor ready "
+        f"{out['actor_ready_s']:.2f} s, first request "
+        f"{1e3 * out['first_request_s']:.1f} ms, later p50 "
+        f"{1e3 * out['later_p50_s']:.1f} ms, kill to scale-down "
+        f"{out['kill_to_terminated_s']:.2f} s, the phase "
+        f"{out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def serve_ab(tree: str) -> int:
     """``--serve-ab DIR``: the paged mix without its prompts over 512 on a
     dense server, then the whole mix on a paged server, each fresh and
@@ -8275,9 +8593,14 @@ def main() -> int:
     lap("jobs")
     gc.collect()
     torch.cuda.empty_cache()
-    transports = phase_transports(dev, card, jobs.pop("local_tokens"),
+    local_tokens = jobs.pop("local_tokens")
+    transports = phase_transports(dev, card, local_tokens,
                                   jobs["local_latency_s"])
     lap("transports")
+    gc.collect()
+    torch.cuda.empty_cache()
+    autoscaler = phase_autoscaler(dev, card, local_tokens)
+    lap("autoscaler")
     # Launches in the gangs' workers, every worker and route.
     gang_launches = {k: sum(row["launches_per_worker"][k] * n
                             for n, g in gang["gangs"].items()
@@ -8432,7 +8755,8 @@ def main() -> int:
                      + runtime["b1_launches"] + app_b1 + ingress_b1
                      + train["launches"][0] + zero_b[0] + zq_b[0]
                      + tr["B1"] + gang_launches["B1"]
-                     + jobs["b1_launches"] + transports["b1_launches"]),
+                     + jobs["b1_launches"] + transports["b1_launches"]
+                     + autoscaler["b1_launches"]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
@@ -8451,7 +8775,9 @@ def main() -> int:
                                  sum(transports["dag"]["b1_launches"]
                                      .values()),
                              "transports_workflow_gpu_step":
-                                 transports["workflow"]["b1_launches"]},
+                                 transports["workflow"]["b1_launches"],
+                             "autoscaler_gpu_node_actor":
+                                 autoscaler["b1_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "timed_by": TIMED_BY_GRAPH,
@@ -8510,7 +8836,7 @@ def main() -> int:
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
         "zero_quant": zq, "trainer": trainer, "zero_gang": gang,
-        "jobs": jobs, "transports": transports,
+        "jobs": jobs, "transports": transports, "autoscaler": autoscaler,
         "collective": {k: v for k, v in collective.items() if k != "rows"}}),
         flush=True)
     print(card, flush=True)

@@ -96,6 +96,9 @@ class GcsServer:
         self.actors: Dict[bytes, Dict[str, Any]] = {}
         self.named_actors: Dict[Tuple[str, str], bytes] = {}
         self._actor_events: Dict[bytes, asyncio.Event] = {}
+        # actor_id -> the demand of an actor that no node can take now:
+        # the autoscaler's signal, as a raylet's infeasible task lease is.
+        self._actor_demands: Dict[bytes, Dict[str, float]] = {}
 
         # kv: namespace -> key -> bytes
         self.kv: Dict[str, Dict[str, bytes]] = defaultdict(dict)
@@ -1255,7 +1258,10 @@ class GcsServer:
 
     async def _h_get_cluster_load(self):
         """Autoscaler state (reference: gcs_autoscaler_state_manager.h):
-        per-node availability plus demands queued with no feasible home."""
+        per-node availability plus demands queued with no feasible home.
+        The actors that no node can take now are the GCS's own demands:
+        no raylet holds them, so they ride on the first live node's entry,
+        beside that raylet's own."""
         out = []
         for node_id, info in self.nodes.items():
             if info["state"] != ALIVE:
@@ -1265,10 +1271,12 @@ class GcsServer:
                 "node_id": node_id,
                 "total": nr.total.to_dict() if nr else {},
                 "available": nr.available.to_dict() if nr else {},
-                "pending_demands": info.get("pending_demands", []),
+                "pending_demands": list(info.get("pending_demands", [])),
                 "num_workers": info.get("num_workers", 0),
                 "labels": info.get("labels", {}),
             })
+        if out:
+            out[0]["pending_demands"] += list(self._actor_demands.values())
         return out
 
     def _nodes_snapshot(self):
@@ -1543,6 +1551,12 @@ class GcsServer:
         return [await self._h_register_actor(spec) for spec in specs]
 
     async def _schedule_actor(self, actor_id):
+        try:
+            await self._place_actor(actor_id)
+        finally:
+            self._actor_demands.pop(actor_id, None)
+
+    async def _place_actor(self, actor_id):
         from ray_tpu_torch._private.rpc import debug_log
 
         _dbg = debug_log(f"sched {actor_id.hex()[:6]}")
@@ -1586,9 +1600,12 @@ class GcsServer:
             node_id = pick_node(self.view, spec.resources, spec.scheduling,
                                 None, pg_res)
             if node_id is None:
+                if pg_res is None:
+                    self._actor_demands[actor_id] = spec.resources.to_dict()
                 await asyncio.sleep(delay)
                 delay = min(delay * 1.5, 1.0)
                 continue
+            self._actor_demands.pop(actor_id, None)
             client = self._client_for_node(node_id)
             _dbg("picked node", node_id.hex()[:6] if hasattr(node_id, 'hex') else node_id, "client", client is not None)
             if client is None:

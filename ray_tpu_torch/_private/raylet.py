@@ -1179,6 +1179,14 @@ class Raylet:
                                           node_id=strategy_node, soft=soft,
                                           hard_labels=hard_labels or {},
                                           soft_labels=soft_labels or {})
+        # A shape recorded as infeasible is not once a node could take it:
+        # drop the record at once, or the autoscaler would launch for it
+        # again until the record expires.
+        if self._unfulfilled:
+            key = tuple(sorted(demand_rs.to_dict().items()))
+            if key in self._unfulfilled and is_feasible_anywhere(self.view,
+                                                                 demand_rs):
+                del self._unfulfilled[key]
         # Fast path: local node can serve now (and the strategy permits it).
         if (strategy_kind in ("DEFAULT", "PLACEMENT_GROUP")
                 and self.local.available.is_superset_of(demand_rs)):

@@ -72,7 +72,11 @@ def test_port_files_found():
             "types.py", "process_ring.py", "base_collective_group.py",
             "shm_collective_group.py", "torch_collective_group.py",
             "cuda_collective_group.py", "channel.py", "common.py",
-            "server.py", "cross_language.py", "events.py"} <= names
+            "server.py", "cross_language.py", "events.py",
+            "node_provider.py", "autoscaler.py", "gpu_pod_provider.py",
+            "pod_autoscaler.py", "instance_manager.py", "reconciler.py",
+            "kuberay_provider.py", "gcp_gpu_provider.py", "cli.py",
+            "__main__.py"} <= names
     assert (ROOT / "ray_tpu_torch/_private/csrc/arena_store.cpp").exists()
 
 
