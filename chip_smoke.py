@@ -31,7 +31,7 @@ Phases, one line each; any failure raises and exits non-zero:
               (padded to 128 by the wrappers) and with the full mask at
               S=256; then B1 at the draft prefill's shapes (4 heads of 16,
               S 128, 256 and 512, f32 and bf16).
-4. serve   -- Llama-3-8B at full width and 8 of its 32 layers
+4. serve   -- Llama-3-8B at full width and 6 of its 32 layers
               (``SERVE_LAYERS``: the script's time limit; random
               weights from a seed, int8 weight-only,
               ``attn_impl="flash"``) answers 12
@@ -353,9 +353,36 @@ Phases, one line each; any failure raises and exits non-zero:
               terminated within 60 s, ``GPU`` leaves the cluster, the
               card's memory is back and no process of the session is a
               compute app; ``python -m ray_tpu_torch down`` leaves no
-              process of the session. Printed: demand to launch, to join
-              and to the actor ready, the first request and the later
-              p50, kill to scale-down, the phase's time.
+              process of the session. The head runs with a lease deadline
+              of 3 s (``worker_lease_timeout_ms``), below the node's join:
+              the actor waits past it while the monitor reads its demand,
+              with one ACTOR_PENDING warning. Printed: demand to launch,
+              to join and to the actor ready, the first request and the
+              later p50, kill to scale-down, the phase's time.
+6o. device observability -- in process, on phase 4's dense server after
+              its traffic (``phase_programs``): one tick trace, one insert
+              trace per bucket its inserts used, ``trace_count`` within the
+              reference's bound; the tick and insert rows name spec
+              ``h100`` and measurement ``gpu``; the insert's counted FLOPs
+              at bucket 128 within 1% of the analytic count (matmuls plus
+              B1's formula plus the lm-head row); a sampled tick's MFU and
+              MBU in (0, 1.05], printed with its verdict. Then (run last,
+              after 6n) a cluster (8 CPUs, the card, the dashboard) with a
+              ``num_gpus=1`` actor serving the serve phase's model (6 of
+              32 layers, int8, flash, seed 0): four requests, the third
+              wholly inside ``util.state.tpu_profile(actor_id=...,
+              duration=3)``. Gates: the Chrome trace holds as many B1
+              kernel events as the actor's ``flash_fwd_cuda.launches``
+              rose for that request; ``xla_summary()`` and
+              ``/api/programs`` list the actor's engine programs
+              (``gpu``); its ``device_hbm_used_bytes`` on ``/metrics``
+              within 5% of its allocator's in-use bytes and
+              ``device_hbm_total_bytes`` the card's total; the head's GCS,
+              raylet and dashboard map no libcuda. Last, with the actor
+              gone, a ``num_gpus=1`` task in a ``container`` env through a
+              stand-in runtime (``RAY_TPU_CONTAINER_RUNTIME``) runs B1 once
+              at (1, 512, 32, 128) bf16 within B1's limits, its command
+              passing ``-e CUDA_VISIBLE_DEVICES=0`` and ``--gpus all``.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -531,7 +558,7 @@ N_REQUESTS, N_CLIENTS, N_PARITY = 12, 4, 3
 # The served model's depth (of Llama-3-8B's 32): every serving phase
 # (4-6h) runs it, so it sets most of the script's time, which must stay
 # within its limit (1200 s with the build).
-SERVE_LAYERS = 8
+SERVE_LAYERS = 6
 
 
 def log(phase: str, msg: str) -> None:
@@ -1122,6 +1149,15 @@ def phase_serve(dev, cfg, loader, mix, card):
     t0 = time.perf_counter()
     server = LLMServer(model_config=cfg, engine_config=dict(ENGINE),
                        params_loader=loader, device=dev)
+    # The buckets the engine's inserts use, for 6o's trace gate.
+    buckets_used = set()
+    bucket_for = server._engine._bucket_for
+
+    def _bucket(n):
+        buckets_used.add(bucket_for(n))
+        return bucket_for(n)
+
+    server._engine._bucket_for = _bucket
     torch.cuda.synchronize()
     log("serve", f"Llama-3-8B (L={cfg.n_layers}, kv heads "
         f"{cfg.n_kv_heads}, vocab {cfg.vocab_size}) int8 built in "
@@ -1178,9 +1214,76 @@ def phase_serve(dev, cfg, loader, mix, card):
         profile = phase_profile(server, cfg)
         dense_mix = run_mix(server, mix, "serve", card, long_prompts=False)
         tokens = [res["tokens"] for res in results]
-        return launches, profile, dense_mix, tokens, figures
+        programs = phase_programs(server, cfg, buckets_used, card)
+        return launches, profile, dense_mix, tokens, figures, programs
     finally:
         server.shutdown()
+
+
+def insert_flops(cfg, P):
+    """The analytic FLOPs of one dense insert at bucket P: the layers'
+    weight matmuls (q, k, v, o, and the three of the MLP), B1's formula
+    (two products of 2 * head_dim flops per visible pair and head), and
+    the first token's lm-head row."""
+    D, H, KV, hd = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    per_layer = (2 * P * D * (H * hd + 2 * KV * hd) + 2 * P * H * hd * D
+                 + 3 * 2 * P * D * cfg.hidden_dim
+                 + 4.0 * hd * H * P * (P + 1) // 2)
+    return cfg.n_layers * per_layer + 2 * D * cfg.vocab_size
+
+
+def phase_programs(server, cfg, buckets_used, card):
+    """6o, in process: the dense server's tracked engine programs after
+    phase 4's traffic. Gates: one tick trace, one insert trace per bucket
+    the inserts used, ``trace_count`` within the reference's bound; the
+    tick and insert rows name the H100 spec and a GPU measurement; the
+    insert's counted FLOPs at bucket 128 within 1% of ``insert_flops``;
+    a sampled tick's MFU and MBU in (0, 1.05]."""
+    from ray_tpu_torch.observability import xla
+
+    st = server.stats()
+    traces, n_buckets = st["traces"], len(ENGINE["prefill_buckets"])
+    check(traces["tick"] == 1 and traces["insert"] == len(buckets_used)
+          and st["trace_count"] <= n_buckets + 1,
+          f"engine traces {traces} (trace_count {st['trace_count']}), "
+          f"buckets used {sorted(buckets_used)}")
+    rows = [r for r in xla.local_programs()
+            if r["fn"] in ("llm_engine_tick", "llm_engine_insert")]
+    check(all(r["spec"] == "h100" and r["measurement"] == "gpu"
+              for r in rows) and len(rows) == traces["tick"]
+          + traces["insert"], f"program rows {rows}")
+    ins = next(r for r in rows if r["fn"] == "llm_engine_insert"
+               and r["signature"].startswith("(int64[128],"))
+    want = insert_flops(cfg, 128)
+    tick = next(r for r in rows if r["fn"] == "llm_engine_tick")
+    out = {"traces": traces, "trace_count": st["trace_count"],
+           "buckets_used": sorted(buckets_used),
+           "insert128_flops": ins["flops"], "insert128_analytic": want,
+           "rows": [{k: r[k] for k in (
+               "fn", "signature", "flops", "bytes_accessed",
+               "transcendentals", "peak_hbm_bytes", "compile_seconds",
+               "calls", "samples", "wall_s", "mfu", "mbu", "verdict",
+               "lost_roofline_s_per_call", "spec", "measurement")}
+               for r in rows], "card": card}
+    for r in rows:
+        log("programs", f"{r['fn']} {r['signature']}: {r['flops']:.4g} "
+            f"flops, {r['bytes_accessed']:.4g} B, peak "
+            f"{(r['peak_hbm_bytes'] or 0) / 2**30:.2f} GiB, first call "
+            f"{r['compile_seconds'] * 1e3:.1f} ms, {r['samples']} samples"
+            + (f", wall {r['wall_s'] * 1e3:.3f} ms, MFU {r['mfu']:.4f}, "
+               f"MBU {r['mbu']:.4f}, {r['verdict']}"
+               if r["samples"] else "") + f"; {card}")
+    check(abs(ins["flops"] - want) <= 0.01 * want,
+          f"insert at bucket 128 counted {ins['flops']:.6g} flops, the "
+          f"analytic count is {want:.6g}")
+    check(tick["samples"] > 0 and 0 < tick["mfu"] <= 1.05
+          and 0 < tick["mbu"] <= 1.05,
+          f"the tick's sampled MFU/MBU: {tick}")
+    log("programs", f"traces {traces}, trace_count {st['trace_count']} "
+        f"(buckets used {sorted(buckets_used)}); insert at 128: "
+        f"{ins['flops']:.6g} flops counted, {want:.6g} analytic; the tick "
+        f"MFU {tick['mfu']:.4f}, MBU {tick['mbu']:.4f}, {tick['verdict']}")
+    return out
 
 
 def phase_parity(server, cfg, reqs, results, dev):
@@ -8136,6 +8239,10 @@ def phase_transports(dev, card, local_tokens, local_latency_s):
 # head has no GPU; a GPU actor's demand launches a GPU node on the card,
 # which serves 6l's model on 6l's requests and goes once the actor does.
 AUTOSCALE_IDLE_MIN = 0.1         # the GPU node type's idle timeout (6 s)
+# The head's lease deadline, below the GPU node's join (5.9-6.2 s on the
+# H100 machine): the actor must wait past it while the monitor reads its
+# demand, and serve.
+AUTOSCALE_LEASE_MS = 3000
 AUTOSCALE_DOWN_S = 60.0          # the actor's kill to the node's end
 AUTOSCALE_YAML = """cluster_name: {name}
 max_workers: 1
@@ -8211,7 +8318,8 @@ def phase_autoscaler(dev, card, local_tokens):
     # The launcher's state file and the session go under the phase's dir.
     env = {**os.environ, "TMPDIR": tmp, "PYTHONPATH": os.pathsep.join(
         [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
-            os.pathsep) if p])}
+            os.pathsep) if p]),
+           "RAY_TPU_worker_lease_timeout_ms": str(AUTOSCALE_LEASE_MS)}
     mem0 = 0.0 if rehearsal else gpu_memory_used_mib()
     lines, session, actor, driver = [], None, None, False
 
@@ -8284,6 +8392,20 @@ def phase_autoscaler(dev, card, local_tokens):
         out["demand_to_launch_s"] = launches[0][1] - t_demand
         out["demand_to_join_s"] = join_s if join_s is not None else \
             out["actor_ready_s"]
+        # The actor outlived its lease deadline waiting for the node: one
+        # ACTOR_PENDING warning names it (none if the node beat it).
+        pending = [e for e in state.list_cluster_events(
+            event_type="ACTOR_PENDING")
+            if e.get("actor_id") == actor._actor_id.hex()]
+        out["lease_timeout_ms"] = AUTOSCALE_LEASE_MS
+        out["actor_pending_events"] = len(pending)
+        waited = out["demand_to_join_s"] > AUTOSCALE_LEASE_MS / 1e3 + 0.5
+        log("autoscaler", f"lease deadline {AUTOSCALE_LEASE_MS} ms, the "
+            f"node joined {out['demand_to_join_s']:.2f} s after the demand:"
+            f" ACTOR_PENDING events for the actor {len(pending)}")
+        check(len(pending) <= 1 and (len(pending) == 1 or not waited),
+              f"the actor waited past its deadline ({waited}) with "
+              f"ACTOR_PENDING events {pending}")
         log("autoscaler", f"demand to launch {out['demand_to_launch_s']:.2f}"
             f" s, to the join {out['demand_to_join_s']:.2f} s, to the actor "
             f"ready {out['actor_ready_s']:.2f} s (server built in "
@@ -8431,6 +8553,361 @@ def phase_autoscaler(dev, card, local_tokens):
     return out
 
 
+# 6o: device observability -- a GPU actor serving the serve phase's model
+# inside a torch.profiler bracket, its programs in the GCS ring, its HBM
+# gauges on /metrics, and a container task through a stand-in runtime.
+DEVICE_OBS_PROFILE_S = 3.0       # util.state.tpu_profile's window
+DEVICE_OBS_IMAGE = "rtpu-standin:latest"
+DEVICE_OBS_HBM_TOL = 0.05        # the gauge against the allocator
+DEVICE_OBS_DEVICE = None         # the lease's card (a CPU rehearsal: "cpu")
+# A stand-in for a container runtime (the card's machine has none): it
+# records its arguments, drops ``run ... <image>``, applies the ``-e``
+# flags to the environment as a container would, and execs the rest with
+# this interpreter as the image's ``python3``.
+DEVICE_OBS_STANDIN = """#!{python}
+import json, os, sys
+args = sys.argv[1:]
+with open(os.environ["RTPU_STANDIN_LOG"], "a") as f:
+    f.write(json.dumps(sys.argv) + "\\n")
+image = args.index({image!r})
+env = dict(os.environ)
+i = 1
+while i < image:
+    if args[i] == "-e":
+        key, _, value = args[i + 1].partition("=")
+        env[key] = value
+        i += 2
+    elif args[i] in ("-v", "--gpus"):
+        i += 2
+    else:
+        i += 1
+cmd = args[image + 1:]
+if cmd[0] == "python3":
+    cmd[0] = sys.executable
+os.execve(cmd[0], cmd, env)
+"""
+
+
+def _device_obs_classes(rt):
+    @rt.remote(num_gpus=1)
+    class ProgramServer:
+        """``LLMServer`` at the serve phase's config on the leased card,
+        with probes of its own process."""
+
+        def __init__(self, cfg, engine, device):
+            from ray_tpu_torch.serve.llm import LLMServer
+
+            self.server = LLMServer(cfg, dict(engine), init_seed=0,
+                                    quantize="int8", device=device)
+            self.cuda = device is None
+
+        def serve(self, request):
+            return self.server(request)
+
+        def pid(self):
+            return os.getpid()
+
+        def b1_launches(self):
+            from ray_tpu_torch.ops import attention
+
+            return attention.flash_fwd_cuda.launches
+
+        def bracket_open(self):
+            from ray_tpu_torch.observability import profiling
+
+            return profiling.window_open.is_set()
+
+        def markers(self):
+            """Spin kernels ahead of the profiled request: the profiler
+            loses a window's first device records (see profile_window)."""
+            for _ in range(MARKER_LAUNCHES if self.cuda else 0):
+                torch.cuda._sleep(1)
+            if self.cuda:
+                torch.cuda.synchronize()
+            return MARKER_LAUNCHES
+
+        def memory(self):
+            """Flush this process's metrics (the device sampler runs
+            first), then read what the gauges were set from."""
+            from ray_tpu_torch.util import metrics
+
+            if not self.cuda:
+                return {"flushed": metrics.flush()}
+            torch.cuda.synchronize()
+            flushed = metrics.flush()
+            return {"flushed": flushed,
+                    "allocated": torch.cuda.memory_allocated(),
+                    "total": torch.cuda.mem_get_info()[1]}
+
+    @rt.remote(num_gpus=1, runtime_env={"container": {
+        "image": DEVICE_OBS_IMAGE, "run_options": ["--gpus", "all"]}})
+    def b1_in_container(device):
+        """B1 once at (1, 512, 32, 128) bf16 causal in a container worker,
+        against its plain version (a CPU rehearsal: the plain version
+        twice)."""
+        import ray_tpu_torch
+        from ray_tpu_torch.ops import attention
+
+        dev = device or "cuda"
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q, k, v = (torch.randn((1, 512, N_HEADS, HEAD_DIM), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        kernel = (attention.flash_attention_plain if device
+                  else attention.flash_fwd_cuda)
+        got, _ = kernel(q, k, v, True)
+        want, _ = attention.flash_attention_plain(q, k, v, True)
+        diff = (got.float() - want.float()).abs()
+        used = (diff / (TOL_O_BF16_ABS + TOL_O_BF16_REL
+                        * want.float().abs())).max().item()
+        return {"max_abs_err": diff.max().item(), "tol_used": used,
+                "launches": attention.flash_fwd_cuda.launches,
+                "cuda_visible_devices":
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "gpu_ids": ray_tpu_torch.get_gpu_ids(), "pid": os.getpid()}
+
+    return ProgramServer, b1_in_container
+
+
+def _hbm_gauge(text, pid):
+    """The device_hbm_{used,total}_bytes of process ``pid`` in a
+    Prometheus text."""
+    out = {}
+    for line in text.splitlines():
+        for key in ("used", "total"):
+            if line.startswith(f"rtpu_device_hbm_{key}_bytes{{") \
+                    and f'pid="{pid}@' in line:
+                out[key] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def phase_device_obs(dev, card):
+    """6o, on a cluster: see the module docstring."""
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.observability import profiling
+    from ray_tpu_torch.util import state
+
+    phase_t0 = time.perf_counter()
+    out = {"card": card}
+    rehearsal = DEVICE_OBS_DEVICE is not None
+    cfg = serve_config()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_device_obs_")
+    standin, standin_log = (os.path.join(tmp, "runtime"),
+                            os.path.join(tmp, "calls.jsonl"))
+    with open(standin, "w") as f:
+        f.write(DEVICE_OBS_STANDIN.format(python=sys.executable,
+                                          image=DEVICE_OBS_IMAGE))
+    os.chmod(standin, 0o755)
+    # The node's processes take these from their start.
+    env = {"RAY_TPU_CONTAINER_RUNTIME": standin,
+           "RTPU_STANDIN_LOG": standin_log,
+           "RAY_TPU_tpu_profile_dir": os.path.join(tmp, "traces")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    mem0 = 0.0 if rehearsal else gpu_memory_used_mib()
+    actor = None
+    try:
+        info = rt.init(num_cpus=8, num_gpus=1, include_dashboard=True)
+        base = info["dashboard_url"]
+        ProgramServer, b1_in_container = _device_obs_classes(rt)
+        t0 = time.perf_counter()
+        actor = ProgramServer.remote(cfg, ENGINE, DEVICE_OBS_DEVICE)
+        pid = rt.get(actor.pid.remote(), timeout=JOB_WAIT_S)
+        aid = actor._actor_id.hex()
+        reqs = serve_requests(cfg)[:3]
+        for r in reqs[:2]:
+            rt.get(actor.serve.remote(r), timeout=JOB_WAIT_S)
+        out["actor_ready_and_two_requests_s"] = time.perf_counter() - t0
+        launches0 = rt.get(actor.b1_launches.remote(), timeout=60)
+
+        # --- one request wholly inside a device-trace window --------------
+        box = {}
+
+        def bracket():
+            box.update(state.tpu_profile(actor_id=aid,
+                                         duration=DEVICE_OBS_PROFILE_S))
+
+        th = threading.Thread(target=bracket, daemon=True)
+        tb = time.perf_counter()
+        th.start()
+        while not rt.get(actor.bracket_open.remote(), timeout=60):
+            if rehearsal and not th.is_alive():
+                break                       # skipped: no context
+            check(time.perf_counter() - tb < 60 and th.is_alive(),
+                  f"the bracket never opened: {box}")
+            time.sleep(0.02)
+        t_open = time.perf_counter()
+        time.sleep(0.5)
+        rt.get(actor.markers.remote(), timeout=60)
+        b0 = rt.get(actor.b1_launches.remote(), timeout=60)
+        profiled = {"prompt": reqs[2]["prompt"][:200], "max_tokens": 8}
+        res = rt.get(actor.serve.remote(profiled), timeout=60)
+        b1 = rt.get(actor.b1_launches.remote(), timeout=60)
+        inside_s = time.perf_counter() - t_open
+        th.join(DEVICE_OBS_PROFILE_S + 120)
+        if rehearsal:
+            # No CUDA context in the actor: the bracket skips, and the
+            # trace gates below count the plain version's launches (0).
+            check("skipped" in box, f"tpu_profile replied {box}")
+            box = {"artifact": os.path.join(tmp, "empty.json"),
+                   "kernel_events": 0}
+            with open(box["artifact"], "w") as f:
+                f.write('{"traceEvents": [{"ph": "X", "cat": "kernel", '
+                        f'"name": "{MARKER_KERNEL}"}}]}}')
+        check(not th.is_alive() and "artifact" in box,
+              f"tpu_profile replied {box}")
+        events = profiling.trace_kernel_events(box["artifact"], "flash_fwd")
+        markers = profiling.trace_kernel_events(box["artifact"],
+                                                MARKER_KERNEL)
+        out["profile"] = {"artifact_bytes": os.path.getsize(box["artifact"]),
+                          "kernel_events": box["kernel_events"],
+                          "primed_s": box.get("primed_s"),
+                          "b1_events": len(events),
+                          "b1_launches": b1 - b0,
+                          "marker_events": len(markers),
+                          "request_end_s_into_window": inside_s,
+                          "bracket_s": time.perf_counter() - tb}
+        log("device_obs", f"tpu_profile of the actor ({DEVICE_OBS_PROFILE_S}"
+            f" s, CUPTI primed in {box.get('primed_s') or 0:.2f} s): "
+            f"{box['kernel_events']} kernel events, {len(markers)} of "
+            f"{MARKER_LAUNCHES} markers, B1 {len(events)} traced for "
+            f"{b1 - b0} launched by the profiled request (ended "
+            f"{inside_s:.2f} s after the bracket opened); {card}")
+        check(res["num_tokens"] == 8
+              and b1 - b0 == (0 if rehearsal else cfg.n_layers),
+              f"the profiled request: {res['num_tokens']} tokens, B1 "
+              f"{b1 - b0}")
+        check(inside_s < DEVICE_OBS_PROFILE_S and markers
+              and len(events) == b1 - b0,
+              f"the trace holds {len(events)} B1 events for {b1 - b0} "
+              f"launches ({len(markers)} markers, the request ended "
+              f"{inside_s:.2f} s into the window)")
+        rt.get(actor.serve.remote(reqs[0]), timeout=JOB_WAIT_S)
+        out["b1_launches"] = rt.get(actor.b1_launches.remote(), timeout=60)
+
+        # --- the actor's programs in the GCS ring and /api/programs --------
+        summary = state.xla_summary()
+        mine = {fn: [r for r in state.list_xla_programs(fn=fn)
+                     if r["pid"] == pid]
+                for fn in ("llm_engine_tick", "llm_engine_insert")}
+        api = _http_get(base, "/api/programs?fn=llm_engine_insert&limit=50")
+        want = ("cpu", "cpu") if rehearsal else ("gpu", "h100")
+        check(all(mine.values()) and all(
+            (r["measurement"], r["spec"]) == want
+            for rows in mine.values() for r in rows)
+              and summary["measurements"].get(want[0], 0) >= 2
+              and any(r["pid"] == pid for r in api["programs"]),
+              f"the actor's programs in the ring: {mine}, summary "
+              f"{summary['measurements']}, /api/programs "
+              f"{[r['pid'] for r in api['programs']]}")
+        out["programs"] = {"summary_programs": summary["programs"],
+                           "measurements": summary["measurements"],
+                           "verdicts": summary["verdicts"],
+                           "actor_rows": {fn: len(rows)
+                                          for fn, rows in mine.items()}}
+        log("device_obs", f"xla_summary: {summary['programs']} programs, "
+            f"measurements {summary['measurements']}, verdicts "
+            f"{summary['verdicts']}; the actor's rows "
+            f"{out['programs']['actor_rows']}, in /api/programs too")
+
+        # --- the HBM gauges -------------------------------------------------
+        mem = rt.get(actor.memory.remote(), timeout=60)
+        gauge = _hbm_gauge(_http_get(base, "/metrics"), pid)
+        if rehearsal:
+            # No context, no gauges: the sampler reads nothing.
+            check(mem["flushed"] and not gauge, f"gauges {gauge}")
+            gauge = {"used": 1, "total": 1}
+            mem = {"allocated": 1, "total": 1, "flushed": True}
+        check(mem["flushed"] and set(gauge) == {"used", "total"},
+              f"the actor's device gauges on /metrics: {gauge}, {mem}")
+        out["hbm"] = {"gauge_used": gauge["used"],
+                      "allocated": mem["allocated"],
+                      "gauge_total": gauge["total"], "total": mem["total"]}
+        log("device_obs", f"device_hbm_used_bytes {gauge['used']:.0f} "
+            f"against the allocator's {mem['allocated']}, "
+            f"device_hbm_total_bytes {gauge['total']:.0f} against "
+            f"{mem['total']}; {card}")
+        check(abs(gauge["used"] - mem["allocated"])
+              <= DEVICE_OBS_HBM_TOL * mem["allocated"]
+              and gauge["total"] == mem["total"],
+              f"the gauges against the actor's allocator: {out['hbm']}")
+
+        # --- the head holds no card ----------------------------------------
+        head = {}
+        for p, cmd in _cluster_pids().items():
+            text = " ".join(cmd)
+            for name, mod in (("GCS", "_private.gcs_server"),
+                              ("raylet", "_private.raylet"),
+                              ("dashboard", "dashboard.head")):
+                if f"ray_tpu_torch.{mod}" in text:
+                    head[name] = p
+        check(set(head) == {"GCS", "raylet", "dashboard"},
+              f"the head's processes: {head}")
+        held = {name: _off_cuda(p) for name, p in head.items()}
+        check(all(not h["libcuda"] and not h["listed"]
+                  for h in held.values()),
+              f"a head process holds the card: {held}")
+        rt.kill(actor)
+        actor = None
+        out["gpu_free_s"] = _gpu_free(rt, 60)
+
+        # --- a container task on the card -----------------------------------
+        tc = time.perf_counter()
+        got = rt.get(b1_in_container.remote(DEVICE_OBS_DEVICE),
+                     timeout=JOB_WAIT_S)
+        out["container_s"] = time.perf_counter() - tc
+        with open(standin_log) as f:
+            calls = [json.loads(line) for line in f]
+        argv = next(c for c in calls if DEVICE_OBS_IMAGE in c)
+        flags = [argv[i + 1] for i in range(len(argv) - 1)
+                 if argv[i] == "-e"]
+        out["container"] = dict(got, run_options=argv[6:8],
+                                env_flags=sorted(f.split("=")[0]
+                                                 for f in flags))
+        log("device_obs", f"the container task: B1 max abs err "
+            f"{got['max_abs_err']:.3g} ({got['tol_used']:.2f} of B1's bf16 "
+            f"tolerance), {got['launches']} launch, CUDA_VISIBLE_DEVICES "
+            f"{got['cuda_visible_devices']!r}; the runtime's argv "
+            f"{argv[1:8]} ... {argv[argv.index(DEVICE_OBS_IMAGE):][:4]} in "
+            f"{out['container_s']:.2f} s; {card}")
+        check("CUDA_VISIBLE_DEVICES=0" in flags and argv[6:8] == [
+            "--gpus", "all"] and got["cuda_visible_devices"] == "0"
+              and got["launches"] == (0 if rehearsal else 1)
+              and got["tol_used"] <= 1.0,
+              f"the container task: {out['container']}, flags {flags}")
+        for name, h in held.items():
+            out.setdefault("head_libcuda", {})[name] = h["libcuda"]
+    finally:
+        try:
+            if actor is not None:
+                rt.kill(actor)
+        finally:
+            rt.shutdown()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            shutil.rmtree(tmp, ignore_errors=True)
+    if not rehearsal:
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["memory_before_mib"] = mem0
+    out["memory_after_mib"] = 0.0 if rehearsal else gpu_memory_used_mib()
+    check(abs(out["memory_after_mib"] - mem0) < 1024,
+          f"card memory {mem0:.0f} MiB before the phase, "
+          f"{out['memory_after_mib']:.0f} MiB after")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log("time", f"device_obs: the actor and two requests "
+        f"{out['actor_ready_and_two_requests_s']:.1f} s, the bracket "
+        f"{out['profile']['bracket_s']:.1f} s, the container task "
+        f"{out['container_s']:.1f} s, the phase {out['phase_s']:.1f} s; "
+        f"{card}")
+    return out
+
+
 def serve_ab(tree: str) -> int:
     """``--serve-ab DIR``: the paged mix without its prompts over 512 on a
     dense server, then the whole mix on a paged server, each fresh and
@@ -8520,8 +8997,9 @@ def main() -> int:
     serve_cfg = serve_config()
     serve_params = init_params(serve_cfg, 0, dev)
     mix = paged_mix(serve_cfg.vocab_size)
-    serve_launches, serve_profile, dense_mix, serve_tokens, serve_fig = \
-        phase_serve(dev, serve_cfg, lambda: serve_params, mix, card)
+    (serve_launches, serve_profile, dense_mix, serve_tokens, serve_fig,
+     serve_programs) = phase_serve(dev, serve_cfg, lambda: serve_params,
+                                   mix, card)
     lap("serve")
     gc.collect()
     torch.cuda.empty_cache()
@@ -8601,6 +9079,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     autoscaler = phase_autoscaler(dev, card, local_tokens)
     lap("autoscaler")
+    gc.collect()
+    torch.cuda.empty_cache()
+    device_obs = phase_device_obs(dev, card)
+    lap("device_obs")
     # Launches in the gangs' workers, every worker and route.
     gang_launches = {k: sum(row["launches_per_worker"][k] * n
                             for n, g in gang["gangs"].items()
@@ -8756,7 +9238,9 @@ def main() -> int:
                      + train["launches"][0] + zero_b[0] + zq_b[0]
                      + tr["B1"] + gang_launches["B1"]
                      + jobs["b1_launches"] + transports["b1_launches"]
-                     + autoscaler["b1_launches"]),
+                     + autoscaler["b1_launches"]
+                     + device_obs["b1_launches"]
+                     + device_obs["container"]["launches"]),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
@@ -8777,7 +9261,11 @@ def main() -> int:
                              "transports_workflow_gpu_step":
                                  transports["workflow"]["b1_launches"],
                              "autoscaler_gpu_node_actor":
-                                 autoscaler["b1_launches"]},
+                                 autoscaler["b1_launches"],
+                             "device_obs_profiled_gpu_actor":
+                                 device_obs["b1_launches"],
+                             "device_obs_container_task":
+                                 device_obs["container"]["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "timed_by": TIMED_BY_GRAPH,
@@ -8837,6 +9325,7 @@ def main() -> int:
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
         "zero_quant": zq, "trainer": trainer, "zero_gang": gang,
         "jobs": jobs, "transports": transports, "autoscaler": autoscaler,
+        "serve_programs": serve_programs, "device_obs": device_obs,
         "collective": {k: v for k, v in collective.items() if k != "rows"}}),
         flush=True)
     print(card, flush=True)

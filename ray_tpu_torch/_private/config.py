@@ -294,6 +294,10 @@ _define("profiler_max_unique_stacks", int, 10_000,
 _define("profiler_max_duration_s", float, 60.0,
         "Cap on a single worker-side profile RPC window (long profiles "
         "are chunked by the util.state.profile client).")
+_define("tpu_profile_dir", str, "",
+        "Directory for util.state.tpu_profile device traces (Chrome trace "
+        "JSON from torch.profiler, CPU and CUDA activities); defaults "
+        "under the system temp dir.")
 
 # --- train goodput and the GCS step matrix (observability/goodput.py) ---
 _define("train_goodput_instrumentation", bool, True,
@@ -323,6 +327,40 @@ _define("train_stall_min_timeout_s", float, 10.0,
         "on the CPU) don't declare a stall on scheduler jitter.")
 _define("train_stall_check_interval_s", float, 1.0,
         "Period of the GCS train stall watchdog sweep.")
+
+# --- the program plane (observability/xla.py, observability/jit.py) ---
+_define("xla_attribution_instrumentation", bool, True,
+        "Per-program cost attribution on tracked_jit wrappers "
+        "(observability.xla.ProgramRegistry): FLOP, byte and "
+        "transcendental counts captured on a signature's first call, "
+        "MFU/MBU + roofline verdicts from sampled walls, rows into the GCS "
+        "report_xla_programs ring, and the PERF_REGRESSION sentinel. "
+        "Off = plain trace/compile counters only.")
+_define("xla_wall_sample_every", int, 64,
+        "Sample every Nth steady-state call of a tracked function with "
+        "torch.cuda.synchronize() to measure an honest execution wall "
+        "(feeds MFU/MBU). 0 disables wall sampling: no fence ever runs on "
+        "the hot path; rows then carry cost/memory counts but no "
+        "utilization ratios.")
+_define("xla_programs_buffer_size", int, 4096,
+        "Bound on the GCS program ring (report_xla_programs / "
+        "list_xla_programs rows across all processes).")
+_define("xla_regression_ratio", float, 1.5,
+        "Regression sentinel threshold: a new program whose flops or peak "
+        "device bytes, or a sampled wall whose EWMA, exceeds the "
+        "function's baseline by this factor fires one PERF_REGRESSION "
+        "cluster event per drifted-dimension episode (re-arms when the "
+        "dimension returns within the ratio). 0 disables the sentinel.")
+_define("xla_comm_bound_fraction", float, 0.5,
+        "Exposed-collective fraction of a sampled program wall above which "
+        "the roofline verdict is 'comm-bound' instead of compute-/memory-"
+        "bound (fed by the split-phase overlap accounting in "
+        "observability.collective).")
+_define("jit_recompile_warn_budget", int, 8,
+        "Default trace budget of observability.tracked_jit wrappers: a "
+        "tracked function that traces more argument signatures than this "
+        "warns RecompileWarning once. Explicit trace_budget= overrides per "
+        "wrapper; 0 disables the warning.")
 
 
 

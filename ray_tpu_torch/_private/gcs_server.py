@@ -196,6 +196,23 @@ class GcsServer:
         self._serve_ledger = None   # lazy accounting.TenantLedger
         self._serve_slo = None      # lazy accounting.SLOTracker
 
+        # Program-attribution ring (observability/xla.py): every tracked
+        # program publishes its cost rows here (flops, device bytes,
+        # sampled MFU/MBU, roofline verdict). The ring keeps row history;
+        # ``xla_latest`` keeps only each program's newest row, the fleet's
+        # current program set that the summary ranks by FLOPs, device
+        # bytes, and lost-to-roofline headroom.
+        self.xla_programs: deque = deque(
+            maxlen=GlobalConfig.xla_programs_buffer_size)
+        self._xla_seq = 0
+        self.xla_latest: Dict[tuple, Dict[str, Any]] = {}
+
+        # When an autoscaler last read the cluster's load, and the gap
+        # before that (its period): an actor no live node can fit waits
+        # past its lease deadline while an autoscaler reads its demand.
+        self._load_polls: List[float] = []
+        self._actors_warned_pending: set = set()
+
         self._reschedule_on_start: List[bytes] = []
         self._register_handlers()
         # Actor/PG lifecycle transitions all publish; piggyback snapshot
@@ -347,6 +364,8 @@ class GcsServer:
             "report_train_steps", "list_train_steps", "train_summary",
             "report_serve_accounting", "list_serve_accounting",
             "serve_accounting_summary",
+            "report_xla_programs", "list_xla_programs", "xla_summary",
+            "autoscaler_running",
         ]:
             s.register(name, getattr(self, f"_h_{name}"))
 
@@ -759,6 +778,112 @@ class GcsServer:
                 (rec for rec in reversed(self.serve_accounting)
                  if rec["trace_id"] == trace_id), None)
         return out
+
+    # ---------------------------------------------- program cost rows
+    _XLA_FLOAT_FIELDS = (
+        "flops", "bytes_accessed", "transcendentals", "arg_bytes",
+        "out_bytes", "temp_bytes", "alias_bytes", "peak_hbm_bytes",
+        "compile_seconds", "wall_s", "achieved_flops_per_s",
+        "achieved_bytes_per_s", "mfu", "mbu", "exposed_comm_fraction",
+        "lost_roofline_s_per_call", "lost_roofline_s_total")
+
+    async def _h_report_xla_programs(self, row=None, rows=None):
+        """Tracked-program processes publish cost rows here: one on every
+        new program (its counts) and one per sampled wall (MFU/MBU +
+        verdict refresh). Batched via ``rows`` when a publisher catches
+        up."""
+        for r in list(rows or []) + ([row] if row else []):
+            try:
+                self._ingest_xla_row(dict(r))
+            except Exception as e:
+                print(f"[gcs] WARNING: dropping malformed program row: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr,
+                      flush=True)
+        return True
+
+    def _ingest_xla_row(self, row: dict) -> None:
+        fn = str(row.get("fn") or "")
+        signature = str(row.get("signature") or "")
+        if not fn or not signature:
+            raise ValueError("program row needs fn and signature")
+        rec: Dict[str, Any] = {"fn": fn, "signature": signature}
+        for key in self._XLA_FLOAT_FIELDS:
+            v = row.get(key)
+            rec[key] = None if v is None else float(v)
+        rec["calls"] = int(row.get("calls") or 0)
+        rec["samples"] = int(row.get("samples") or 0)
+        rec["verdict"] = str(row.get("verdict") or "unsampled")
+        rec["spec"] = str(row.get("spec") or "unknown")
+        rec["measurement"] = str(row.get("measurement") or "unknown")
+        rec["pid"] = int(row.get("pid") or 0)
+        node_id = row.get("node_id")
+        rec["node_id"] = node_id.hex() if hasattr(node_id, "hex") \
+            else node_id
+        rec["recv_ts"] = time.time()
+        self._xla_seq += 1
+        rec["seq"] = self._xla_seq
+        self.xla_programs.append(rec)
+        self.xla_latest[(rec["node_id"], rec["pid"], fn, signature)] = rec
+        # The latest-view is bounded by the same knob as the ring: evict
+        # the stalest program when a churning fleet overflows it.
+        while len(self.xla_latest) > (self.xla_programs.maxlen or 0) > 0:
+            oldest = min(self.xla_latest,
+                         key=lambda k: self.xla_latest[k]["seq"])
+            del self.xla_latest[oldest]
+
+    async def _h_list_xla_programs(self, fn=None, verdict=None,
+                                   limit=200):
+        """Newest-last slice of the program-row ring, optionally filtered
+        by function name or roofline verdict."""
+        out = []
+        for rec in self.xla_programs:
+            if fn is not None and rec["fn"] != fn:
+                continue
+            if verdict is not None and rec["verdict"] != verdict:
+                continue
+            out.append(rec)
+        return out[-max(int(limit), 0):]
+
+    async def _h_xla_summary(self, top_n=8):
+        """The rollup behind ``util.state.xla_summary()`` and
+        ``GET /api/programs``: the fleet's current program set ranked by
+        cumulative FLOPs, peak device bytes, and lost-to-roofline
+        headroom seconds, plus verdict/measurement counts (an all-cpu
+        ``measurements`` dict says the ratios prove plumbing, not
+        performance)."""
+        top_n = max(int(top_n), 1)
+        rows = list(self.xla_latest.values())
+
+        def total_flops(r):
+            return (r["flops"] or 0.0) * max(r["calls"], 1)
+
+        sampled = [r for r in rows
+                   if r.get("lost_roofline_s_total") is not None]
+        verdicts: Dict[str, int] = defaultdict(int)
+        measurements: Dict[str, int] = defaultdict(int)
+        for r in rows:
+            verdicts[r["verdict"]] += 1
+            measurements[r["measurement"]] += 1
+        return {
+            "programs": len(rows),
+            "rows_in_buffer": len(self.xla_programs),
+            "rows_recorded": self._xla_seq,
+            "total_flops": sum(total_flops(r) for r in rows),
+            "total_peak_hbm_bytes": sum(
+                r["peak_hbm_bytes"] or 0.0 for r in rows),
+            "lost_roofline_s_total": sum(
+                r["lost_roofline_s_total"] for r in sampled),
+            "verdicts": dict(verdicts),
+            "measurements": dict(measurements),
+            "top_by_flops": sorted(
+                rows, key=total_flops, reverse=True)[:top_n],
+            "top_by_hbm": sorted(
+                rows, key=lambda r: r["peak_hbm_bytes"] or 0.0,
+                reverse=True)[:top_n],
+            "top_by_headroom": sorted(
+                sampled, key=lambda r: r["lost_roofline_s_total"],
+                reverse=True)[:top_n],
+        }
 
     async def _train_watchdog_loop(self):
         """Stall watchdog: a worker that published step rows and then
@@ -1261,7 +1386,10 @@ class GcsServer:
         per-node availability plus demands queued with no feasible home.
         The actors that no node can take now are the GCS's own demands:
         no raylet holds them, so they ride on the first live node's entry,
-        beside that raylet's own."""
+        beside that raylet's own. Each call is an autoscaler's poll
+        (its only callers are the autoscalers' passes):
+        ``_autoscaler_running`` reads their times."""
+        self._load_polls = (self._load_polls + [time.monotonic()])[-2:]
         out = []
         for node_id, info in self.nodes.items():
             if info["state"] != ALIVE:
@@ -1278,6 +1406,26 @@ class GcsServer:
         if out:
             out[0]["pending_demands"] += list(self._actor_demands.values())
         return out
+
+    # The monitor's default period (pod_autoscaler.run_monitor_loop): the
+    # floor of the period estimate while only one poll has come.
+    _MONITOR_PERIOD_S = 5.0
+
+    def _autoscaler_running(self) -> bool:
+        """Whether an autoscaler reads the cluster's load: its last poll
+        of ``get_cluster_load`` came within two of its periods (the gap
+        between its last two polls, at least the monitor's default)."""
+        if not self._load_polls:
+            return False
+        period = self._MONITOR_PERIOD_S
+        if len(self._load_polls) == 2:
+            period = max(period, self._load_polls[1] - self._load_polls[0])
+        return time.monotonic() - self._load_polls[-1] <= 2 * period
+
+    async def _h_autoscaler_running(self):
+        """For a task's lease requester at its deadline: whether an
+        infeasible lease should wait for the node an autoscaler adds."""
+        return self._autoscaler_running()
 
     def _nodes_snapshot(self):
         out = []
@@ -1556,6 +1704,18 @@ class GcsServer:
         finally:
             self._actor_demands.pop(actor_id, None)
 
+    def _warn_actor_pending(self, actor_id, spec) -> None:
+        if actor_id in self._actors_warned_pending:
+            return
+        self._actors_warned_pending.add(actor_id)
+        self._record_event(
+            "ACTOR_PENDING",
+            f"actor {actor_id.hex()} demands {spec.resources.to_dict()}, "
+            f"which no live node can fit; it waits past its "
+            f"{GlobalConfig.worker_lease_timeout_ms} ms lease deadline "
+            f"for the node a running autoscaler is adding",
+            actor_id=actor_id.hex(), demand=spec.resources.to_dict())
+
     async def _place_actor(self, actor_id):
         from ray_tpu_torch._private.rpc import debug_log
 
@@ -1586,6 +1746,16 @@ class GcsServer:
                     if pg is None or pg.get("state") == "REMOVED":
                         break  # the PG is gone: this can never schedule
                 if is_feasible_anywhere(self.view, spec.resources):
+                    deadline = (time.monotonic()
+                                + GlobalConfig.worker_lease_timeout_ms
+                                / 1000)
+                elif (actor_id in self._actor_demands
+                      and self._autoscaler_running()):
+                    # No live node fits it, but a running autoscaler
+                    # reads its demand: it waits for the node being
+                    # added, as Ray keeps such an actor pending, and
+                    # warns once.
+                    self._warn_actor_pending(actor_id, spec)
                     deadline = (time.monotonic()
                                 + GlobalConfig.worker_lease_timeout_ms
                                 / 1000)

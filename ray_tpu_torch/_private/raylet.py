@@ -357,24 +357,33 @@ class Raylet:
         return self._runtime_env_manager().stats()
 
     @staticmethod
-    def _pool_key(job_id: bytes, runtime_env: Optional[Dict[str, Any]]
-                  ) -> bytes:
+    def _pool_key(job_id: bytes, runtime_env: Optional[Dict[str, Any]],
+                  gpu_ids: Optional[List[int]] = None) -> bytes:
+        """The idle pool a worker goes back to: its job and runtime_env,
+        and for a container env the cards its command names (a container
+        worker is started with its lease's CUDA_VISIBLE_DEVICES)."""
         if not runtime_env:
             return job_id
         digest = hashlib.md5(json.dumps(
             runtime_env, sort_keys=True, default=str).encode()).digest()
-        return job_id + digest[:8]
+        key = job_id + digest[:8]
+        if gpu_ids and runtime_env.get("container"):
+            key += b"|gpus=" + ",".join(map(str, gpu_ids)).encode()
+        return key
 
     def _spawn_worker(self, job_id: bytes,
-                      runtime_env: Optional[Dict[str, Any]] = None) -> None:
-        pool_key = self._pool_key(job_id, runtime_env)
+                      runtime_env: Optional[Dict[str, Any]] = None,
+                      gpu_ids: Optional[List[int]] = None) -> None:
+        pool_key = self._pool_key(job_id, runtime_env, gpu_ids)
         self._starting[pool_key] += 1
-        spawn_task(
-            self._spawn_worker_async(job_id, runtime_env, pool_key))
+        spawn_task(self._spawn_worker_async(job_id, runtime_env, pool_key,
+                                            gpu_ids))
 
     async def _spawn_worker_async(self, job_id: bytes,
                                   runtime_env: Optional[Dict[str, Any]],
-                                  pool_key: bytes) -> None:
+                                  pool_key: bytes,
+                                  gpu_ids: Optional[List[int]] = None
+                                  ) -> None:
         """Fork/exec OFF the event loop: Popen of this process takes
         ~100ms+, and a replenish burst of spawns on the
         loop thread stalls heartbeats long enough for the GCS to declare
@@ -385,7 +394,8 @@ class Raylet:
         burst boots hundreds of Python processes at once, starving every
         daemon's heartbeat on a small host — nodes get declared dead at
         exactly the moment they're busiest."""
-        await self._spawn_worker_throttled(job_id, runtime_env, pool_key)
+        await self._spawn_worker_throttled(job_id, runtime_env, pool_key,
+                                           gpu_ids)
 
     def _startup_sema(self) -> asyncio.Semaphore:
         if not hasattr(self, "_spawn_sema"):
@@ -397,7 +407,9 @@ class Raylet:
 
     async def _spawn_worker_throttled(self, job_id: bytes,
                                       runtime_env: Optional[Dict[str, Any]],
-                                      pool_key: bytes) -> None:
+                                      pool_key: bytes,
+                                      gpu_ids: Optional[List[int]] = None
+                                      ) -> None:
         log_dir = os.path.join(self.session_dir, "logs")
         worker_id = WorkerID.from_random()
         out_path = os.path.join(
@@ -435,7 +447,7 @@ class Raylet:
                 self._starting[pool_key] = max(
                     0, self._starting[pool_key] - 1)
                 sys.stderr.write(f"[raylet] runtime_env setup failed: {e}\n")
-                self._env_failures[pool_key] = (
+                self._env_failures[self._pool_key(job_id, runtime_env)] = (
                     f"{type(e).__name__}: {e}", time.monotonic())
                 waiters = self._pending_pop[pool_key]
                 while waiters:
@@ -467,7 +479,12 @@ class Raylet:
                 if repo_root not in path:
                     env["PYTHONPATH"] = os.pathsep.join(path + [repo_root])
             env_uris = list(ctx.uris)
-        cmd = [python_exe, "-m", "ray_tpu_torch._private.worker_main",
+            command_prefix, python_exe = self._container_command(
+                ctx, env, python_exe, gpu_ids)
+        else:
+            command_prefix = []
+        cmd = command_prefix + [
+               python_exe, "-m", "ray_tpu_torch._private.worker_main",
                "--raylet-host", self.host,
                "--raylet-port", str(self.server.port),
                "--gcs-host", self.gcs_addr[0],
@@ -510,6 +527,30 @@ class Raylet:
             except asyncio.TimeoutError:
                 pass
         return None
+
+    @staticmethod
+    def _container_command(ctx, env: Dict[str, str], python_exe: str,
+                           gpu_ids: Optional[List[int]]):
+        """(command prefix, interpreter) of a worker spawn. In a container
+        env the Popen env applies to the container CLI, not inside the
+        container: the worker's env goes in through -e flags before the
+        image, with CUDA_VISIBLE_DEVICES naming the lease's cards (none
+        without a GPU lease), and the image's own python3 runs it (the
+        reference's spawn, plus the card rule)."""
+        prefix = list(ctx.command_prefix)
+        if not prefix:
+            return [], python_exe
+        passthrough = dict(ctx.env_vars)
+        for k in ("PYTHONPATH", "RAY_TPU_NODE_ID", "RAY_TPU_NODE_IP",
+                  "RAY_TPU_WORKING_DIR"):
+            if env.get(k):
+                passthrough[k] = env[k]
+        passthrough["CUDA_VISIBLE_DEVICES"] = ",".join(
+            str(i) for i in gpu_ids or [])
+        flags = []
+        for k, v in passthrough.items():
+            flags += ["-e", f"{k}={v}"]
+        return prefix[:-1] + flags + prefix[-1:], "python3"
 
     def _spawn_failed(self, e, out, pool_key, env_uris) -> None:
         """Popen failure cleanup: undo the _starting slot, return env
@@ -587,14 +628,19 @@ class Raylet:
     async def _pop_worker(self, job_id: bytes,
                           runtime_env: Optional[Dict[str, Any]] = None,
                           timeout: float = 60.0,
-                          dedicated: bool = False
+                          dedicated: bool = False,
+                          gpu_ids: Optional[List[int]] = None
                           ) -> Optional[_WorkerHandle]:
-        pool_key = self._pool_key(job_id, runtime_env)
+        pool_key = self._pool_key(job_id, runtime_env, gpu_ids)
+        # A container worker named with its cards is started per device
+        # set: no warm floor of them is kept.
+        replenish = pool_key == self._pool_key(job_id, runtime_env)
         idle = self._idle[pool_key]
         while idle:
             handle = idle.popleft()
             if handle.proc.poll() is None:
-                self._maybe_replenish(job_id, runtime_env)
+                if replenish:
+                    self._maybe_replenish(job_id, runtime_env)
                 return handle
             self.workers.pop(handle.worker_id, None)
             self._release_worker_env(handle)
@@ -619,7 +665,7 @@ class Raylet:
                 n_spawn = min(GlobalConfig.worker_startup_batch,
                               self._max_workers)
             for _ in range(n_spawn):
-                self._spawn_worker(job_id, runtime_env)
+                self._spawn_worker(job_id, runtime_env, gpu_ids)
         fut = asyncio.get_running_loop().create_future()
         self._pending_pop[pool_key].append(fut)
         try:
@@ -1058,15 +1104,10 @@ class Raylet:
                                 kind="profile", hz=None):
         """On-demand worker profiling (reference: `profile_manager.py`):
         forwards to the worker's sampling profiler / stack dumper
-        (``kind`` = "profile" | "stacks"). With no worker_id, covers every
-        live worker on this node. The device-trace bracket
-        (``"tpu_profile"`` in the reference) is not ported yet."""
+        (``kind`` = "profile" | "stacks" | "tpu_profile", the last the
+        worker's torch.profiler bracket). With no worker_id, covers every
+        live worker on this node."""
         from ray_tpu_torch._private.rpc import RpcClient
-
-        if kind == "tpu_profile":
-            raise NotImplementedError(
-                "the worker's device-profile bracket is not ported yet "
-                "(the device-profile slice, torch.profiler)")
 
         targets = ([self.workers[worker_id]] if worker_id in self.workers
                    else list(self.workers.values()) if worker_id is None
@@ -1080,6 +1121,11 @@ class Raylet:
                     self._worker_probe_clients[h.worker_id] = client
                 if kind in ("stacks", "dump_stacks"):
                     reply = await client.acall("dump_stacks", timeout=10)
+                elif kind == "tpu_profile":
+                    reply = await asyncio.wait_for(
+                        client.acall("tpu_profile", duration_s=duration_s,
+                                     timeout=duration_s + 60),
+                        duration_s + 60)
                 else:
                     reply = await asyncio.wait_for(
                         client.acall("profile", duration_s=duration_s,
@@ -1247,7 +1293,8 @@ class Raylet:
             except asyncio.TimeoutError:
                 return {"timeout": True}
         gpu_ids = self._take_gpus(demand)
-        handle = await self._pop_worker(job_id, runtime_env)
+        handle = await self._pop_worker(job_id, runtime_env,
+                                        gpu_ids=gpu_ids)
         if handle is None:
             self.local.release(demand)
             self._release_gpus(demand, gpu_ids)
@@ -1499,7 +1546,7 @@ class Raylet:
         gpu_ids = self._take_gpus(demand_rs)
         handle = await self._pop_worker(spec.job_id.binary(),
                                         getattr(spec, "runtime_env", None),
-                                        dedicated=True)
+                                        dedicated=True, gpu_ids=gpu_ids)
         if handle is None:
             self.local.release(demand_rs)
             self._release_gpus(demand_rs, gpu_ids)

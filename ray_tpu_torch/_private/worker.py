@@ -290,7 +290,7 @@ class Worker:
                      "get_object_status", "kill_self", "cancel_task", "ping",
                      "busy_info", "add_borrower", "release_borrower",
                      "consume_pending_share",
-                     "stack_dump", "dump_stacks", "profile",
+                     "stack_dump", "dump_stacks", "profile", "tpu_profile",
                      "delete_object_notification", "report_generator_item",
                      "recover_object", "wait_object_status",
                      "early_task_result"]:
@@ -1796,6 +1796,13 @@ class Worker:
             spawn_task(self._lease_requester(
                 key, st, demand, strategy, runtime_env))
 
+    async def _autoscaler_running(self) -> bool:
+        try:
+            return bool(await self.gcs.acall("autoscaler_running",
+                                             timeout=5))
+        except Exception:
+            return False
+
     async def _lease_requester(self, key, st: "_LeaseState", demand,
                                strategy, runtime_env):
         client = self.raylet
@@ -1890,11 +1897,15 @@ class Worker:
                     # raylet (a saturated cluster must never fail tasks
                     # with a timeout).
                     if time.monotonic() >= deadline:
-                        while st.waiters:
-                            _spec, fut = st.waiters.popleft()
-                            if not fut.done():
-                                fut.set_result(None)
-                                break
+                        # Past the deadline a task waits on only for the
+                        # node a running autoscaler is adding (the raylet
+                        # reports its demand), as an actor does.
+                        if not await self._autoscaler_running():
+                            while st.waiters:
+                                _spec, fut = st.waiters.popleft()
+                                if not fut.done():
+                                    fut.set_result(None)
+                                    break
                         deadline = (time.monotonic()
                                     + GlobalConfig.worker_lease_timeout_ms
                                     / 1000)
@@ -2456,6 +2467,25 @@ class Worker:
                 "counts": result["counts"],
                 "folded": _profiling.collapse(result["counts"])}
 
+
+    async def _h_tpu_profile(self, duration_s=1.0, trace_dir=None):
+        """Device-trace bracket (torch.profiler, CPU and CUDA activities)
+        on this worker; no-op-with-reason where the process holds no CUDA
+        context, an error reply while another bracket is open here. Runs
+        in an executor thread: the bracket blocks for its window, and the
+        event loop must keep serving task pushes."""
+        from ray_tpu_torch.observability import profiling as _profiling
+
+        duration_s = min(float(duration_s),
+                         GlobalConfig.profiler_max_duration_s)
+        try:
+            reply = await asyncio.get_running_loop().run_in_executor(
+                None, _profiling.capture_tpu_trace, duration_s, trace_dir)
+        except RuntimeError as e:
+            reply = {"error": str(e)}
+        reply["pid"] = os.getpid()
+        reply["worker_id"] = self.worker_id.hex()
+        return reply
 
     async def _h_busy_info(self):
         """Liveness+load probe for the raylet's worker-killing policy: a

@@ -7,9 +7,9 @@ Prometheus endpoint). Runs as its own process per head node
 the URL is registered in the GCS KV under "dashboard_url" so clients
 and the CLI can find it.
 
-The port's head is the reference's route for route, with one
-difference: ``/api/programs`` answers 501 until the GCS keeps the
-compiled-program ring (the device-facing observability slice). A job
+The port's head is the reference's route for route; ``/api/programs``
+reads the GCS program ring, whose rows on the card count the CUDA
+programs (observability/xla.py). A job
 submitted over HTTP carries its ``runtime_env`` as written; the head's
 own client packages a local ``working_dir`` or ``py_modules`` entry
 into the GCS, as a driver does. The head is started with
@@ -38,8 +38,8 @@ Endpoints:
                       attainment/burn, per-request cost rows
                       (?tenant=, ?lane=, ?trace_id=, ?limit=), and the
                       serve_tenant_*/serve_request_cost_* metric series
-  GET /api/programs   501: the compiled-program cost ring comes with the
-                      device-facing observability slice
+  GET /api/programs   program cost & roofline rollup (?fn=, ?verdict=,
+                      ?limit=, ?top_n=) and the xla_program_* series
   GET /api/memory     per-node object-store introspection + spill metrics
   GET /api/data       data-pipeline (DatasetStats) metric summary
   GET /api/events     ClusterEventLog (failure forensics) with ?type=,
@@ -440,13 +440,31 @@ class DashboardHead:
             "metrics": metrics or {},
         })
 
-    async def programs(self, _req) -> web.Response:
-        """The reference's XLA program cost & roofline page reads the GCS
-        program ring (``xla_summary`` / ``list_xla_programs``), which the
-        port's GCS does not keep yet."""
-        return web.json_response(
-            {"error": "not ported yet: the compiled-program ring comes with "
-                      "the device-facing observability slice"}, status=501)
+    async def programs(self, req) -> web.Response:
+        """The program cost & roofline page: the fleet summary
+        (``xla_summary``), the newest program rows (``list_xla_programs``,
+        ``fn``/``verdict``/``limit`` filter them), and the cluster-folded
+        ``xla_program_*`` metric series. Rows tagged ``measurement:
+        "cpu"`` carry nominal-spec ratios: plumbing proof, not
+        performance."""
+        try:
+            limit = int(req.query.get("limit", 50))
+            top_n = int(req.query.get("top_n", 8))
+        except ValueError:
+            return web.json_response({"error": "bad limit"}, status=400)
+        summary = await self._gcs.acall(
+            "xla_summary", top_n=top_n, timeout=10)
+        rows = await self._gcs.acall(
+            "list_xla_programs", fn=req.query.get("fn"),
+            verdict=req.query.get("verdict"), limit=limit, timeout=10)
+        metrics = await self._gcs.acall(
+            "user_metrics_summary", prefixes=["xla_program_"],
+            timeout=10)
+        return web.json_response({
+            "summary": summary or {},
+            "programs": rows or [],
+            "metrics": metrics or {},
+        })
 
     async def memory(self, req) -> web.Response:
         """Object-store memory introspection: live per-node snapshots

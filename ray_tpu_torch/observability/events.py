@@ -62,6 +62,19 @@ EVENT_TYPES: Dict[str, str] = {
                        "dominant phase.",
     "TRAIN_STALL": "A train worker missed its step-report heartbeats; "
                    "carries the worker's auto-captured thread stacks.",
+    # The program plane (observability/xla.py): the regression sentinel
+    # compares every new program's counts and every sampled wall against
+    # the function's baseline program.
+    "PERF_REGRESSION": "A tracked program's FLOPs, peak device bytes, or "
+                       "sampled wall drifted past xla_regression_ratio "
+                       "times its baseline (the event names the "
+                       "program and the drifted dimension).",
+    # An actor that no live node can take stays queued while a running
+    # autoscaler reads its demand (Ray keeps such an actor pending and
+    # warns); one event per waiting actor.
+    "ACTOR_PENDING": "An actor that no live node can fit outlived its "
+                     "lease deadline and waits for the node a running "
+                     "autoscaler is adding.",
 }
 
 # Worker exit taxonomy (reference: `WorkerExitType`). The raylet picks
@@ -97,6 +110,8 @@ DEFAULT_SEVERITY: Dict[str, str] = {
     "SLO_BURN": "WARNING",
     "TRAIN_STRAGGLER": "WARNING",
     "TRAIN_STALL": "ERROR",
+    "PERF_REGRESSION": "WARNING",
+    "ACTOR_PENDING": "WARNING",
 }
 
 _EXIT_SEVERITY = {

@@ -26,9 +26,9 @@ on the worker image. Three layers share this module:
   millisecond-scale scheduling overheads; Podracer, arXiv:2104.06272,
   shows host-side stalls are the dominant TPU perf bug).
 
-The reference's device-trace bracket (``capture_tpu_trace``, a
-``jax.profiler`` window) is not ported: its torch counterpart comes with
-the device-profile slice.
+A fourth, the device-trace bracket (:func:`capture_tpu_trace`, the
+reference's name), holds ``torch.profiler`` open over a live worker for
+a window and writes a Chrome trace of its CUDA kernels and host ops.
 """
 
 from __future__ import annotations
@@ -315,3 +315,125 @@ def render_speedscope(counts: Dict[str, Dict[str, int]],
         "shared": {"frames": frames},
         "profiles": profiles,
     }
+
+
+# ---------------------------------------------------------------------------
+# Device-trace capture (torch.profiler bracket; host flamegraphs and device
+# traces come from the same util.state API)
+# ---------------------------------------------------------------------------
+
+# Kineto runs one profiler per process: a second bracket is refused.
+_trace_lock = threading.Lock()
+_primed = False
+# Set while a bracket's recording window is open (after its priming).
+window_open = threading.Event()
+# How long a process's first bracket may wait for CUPTI to record, and
+# the kernels each of its probe sessions launches (a window loses some of
+# its first device records).
+_PRIME_TIMEOUT_S = 60.0
+_PRIME_LAUNCHES = 256
+
+
+def _prime_cupti(profile, activities, kw) -> bool:
+    """Open short probe sessions, each launching ``_PRIME_LAUNCHES`` tiny
+    kernels, until one records a kernel (or ``_PRIME_TIMEOUT_S`` passes).
+    On the H100 machine a process's first window sometimes recorded no
+    kernel at all while CUPTI started, for seconds, and every window after
+    a recording one did record."""
+    import torch
+    from torch.autograd import DeviceType
+
+    dev = torch.cuda.current_device()
+    deadline = time.monotonic() + _PRIME_TIMEOUT_S
+    while True:
+        with profile(activities=activities, **kw) as prof:
+            for _ in range(_PRIME_LAUNCHES):
+                torch.zeros(1, device=dev)
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return True
+        if time.monotonic() > deadline:
+            return False
+
+
+def capture_tpu_trace(duration_s: float,
+                      trace_dir: Optional[str] = None) -> Dict[str, Any]:
+    """Hold ``torch.profiler`` (CPU and CUDA activities) open for
+    ``duration_s`` and write its Chrome trace JSON under ``trace_dir``
+    (default: ``tpu_profile_dir``, else the temp dir); returns
+    ``{"artifact": path, "duration_s", "kernel_events", "primed_s"}``:
+    the number of CUDA kernel records in the trace, and the seconds this
+    call waited for CUPTI first (``_prime_cupti``; 0 after a process's
+    first bracket). The name is the reference's; on the card it traces
+    the CUDA device.
+
+    CUPTI records the kernels of every thread of the process, but the CPU
+    ops only of the thread that opened the profiler (this one): read a
+    trace's device side by its kernel events.
+
+    A process without a CUDA context gets ``{"skipped": reason}``: the
+    bracket never creates a context, and never gives a CPU-only trace in
+    a process that holds the card. A second bracket while one is open in
+    this process raises ``RuntimeError`` (Kineto takes one profiler per
+    process). Blocking: callers run it in an executor thread."""
+    global _primed
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return {"skipped": "this process holds no CUDA context: no device "
+                           "trace taken (host-side profile() still works)"}
+    if not _trace_lock.acquire(blocking=False):
+        raise RuntimeError("a device trace is already open in this process "
+                           "(torch.profiler takes one at a time)")
+    try:
+        import inspect
+
+        from torch.profiler import ProfilerActivity, profile
+
+        # One window, every event kept (the default clears each cycle's).
+        kw = ({"acc_events": True}
+              if "acc_events" in inspect.signature(profile).parameters
+              else {})
+        if not trace_dir:
+            from ray_tpu_torch._private.config import GlobalConfig
+
+            base = GlobalConfig.tpu_profile_dir
+            if not base:
+                import tempfile
+
+                base = tempfile.gettempdir()
+            trace_dir = os.path.join(
+                base, f"rtpu-tpu-profile-{os.getpid()}-{int(time.time())}")
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, "trace.json")
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        t0 = time.monotonic()
+        if not _primed:
+            _primed = _prime_cupti(profile, activities, kw)
+        primed_s = time.monotonic() - t0
+        with profile(activities=activities, **kw) as prof:
+            window_open.set()
+            try:
+                time.sleep(max(float(duration_s), 0.0))
+                torch.cuda.synchronize()
+            finally:
+                window_open.clear()
+        prof.export_chrome_trace(path)
+        return {"artifact": path, "duration_s": float(duration_s),
+                "kernel_events": len(trace_kernel_events(path)),
+                "primed_s": primed_s}
+    finally:
+        _trace_lock.release()
+
+
+def trace_kernel_events(path: str, name: Optional[str] = None
+                        ) -> List[Dict[str, Any]]:
+    """The CUDA kernel records of a Chrome trace ``capture_tpu_trace``
+    wrote (``cat == "kernel"``), those whose name holds ``name`` if
+    given."""
+    import json
+
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and (name is None or name in e.get("name", ""))]

@@ -54,6 +54,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ray_tpu_torch.observability.xla import kernel_cost
+
 NEG_INF = -1e30
 MIN_KERNEL_SEQ = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,6 +75,50 @@ def pad_head(t: torch.Tensor, width: int = KERNEL_HEAD_DIM) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
+def visible_pairs(S: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs one head attends: all S * Sk, or under the
+    causal mask (query i sees keys 0..i) S(S+1)/2 when S == Sk."""
+    if not causal:
+        return S * Sk
+    if S <= Sk:
+        return S * (S + 1) // 2
+    return Sk * (Sk + 1) // 2 + (S - Sk) * Sk
+
+
+def fwd_cost(q: torch.Tensor, k: torch.Tensor, causal: bool) -> kernel_cost:
+    """B1's count, the one its bound uses: two products of 2 * D flops
+    per visible pair; q, k, v read once, O and the f32 LSE written once;
+    one exp per visible pair."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    pairs = B * H * visible_pairs(S, Sk, causal)
+    elem = q.element_size()
+    nbytes = 2 * B * (S + Sk) * H * D * elem + 4 * B * H * S
+    return kernel_cost(4.0 * D * pairs, nbytes, pairs)
+
+
+def bwd_cost(q: torch.Tensor, k: torch.Tensor, causal: bool,
+             dkv: bool = True, dq: bool = True) -> kernel_cost:
+    """B2's count (``dkv``: 4 products, dK and dV written) plus B3's
+    (``dq``: 3 products, dQ written), the ones their bounds use: 2 * D
+    flops a product per visible pair; q, k, v, dO read once, LSE and
+    delta (f32) read once; one exp per visible pair each."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    pairs = B * H * visible_pairs(S, Sk, causal)
+    elem = q.element_size()
+    read = 2 * B * (S + Sk) * H * D * elem + 2 * B * H * S * 4
+    flops = nbytes = exps = 0
+    if dkv:
+        flops, nbytes, exps = (4 * 2.0 * D * pairs,
+                               read + 2 * B * Sk * H * D * elem, pairs)
+    if dq:
+        flops += 3 * 2.0 * D * pairs
+        nbytes += read + B * S * H * D * elem
+        exps += pairs
+    return kernel_cost(flops, nbytes, exps)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,7 +127,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     1/sqrt(D)). Scores and P.V accumulate in f32 (operands upcast, so
     bf16 products are exact); P is rounded to v's type before P.V, as in
     the kernel. Keys are masked with -1e30 as in the reference, so a row
-    with no visible key gives O = 0 and LSE = -1e30."""
+    with no visible key gives O = 0 and LSE = -1e30. Counts as B1 in a
+    program's costs (``fwd_cost``)."""
+    with fwd_cost(q, k, causal):
+        return _attention_plain(q, k, v, causal, scale)
+
+
+def _attention_plain(q, k, v, causal, scale):
     S, Sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     s = s * (default_scale(q) if scale is None else scale)
@@ -170,17 +222,19 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, f32 or bf16, D <= 128; below 128 padded with zeros, scale
     1/sqrt(D)). Returns (O [B, S, H, D], LSE [B, H, S] f32). Raises on
     any input the kernel does not take and on a refused launch.
-    ``flash_fwd_cuda.launches`` counts launches."""
+    ``flash_fwd_cuda.launches`` counts launches; a program's costs count
+    ``fwd_cost``."""
     _cuda_inputs("flash_fwd_cuda", q, k, v)
     B, S, H, D = q.shape
     scale = default_scale(q)
-    q, k, v = pad_head(q), pad_head(k), pad_head(v)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", "flash_fwd", (q, k, v, out, lse), q, k, causal,
-            scale)
-    flash_fwd_cuda.launches += 1
-    return out[..., :D].contiguous(), lse
+    with fwd_cost(q, k, causal):
+        q, k, v = pad_head(q), pad_head(k), pad_head(v)
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        _launch("flash_fwd", "flash_fwd", (q, k, v, out, lse), q, k, causal,
+                scale)
+        flash_fwd_cuda.launches += 1
+        return out[..., :D].contiguous(), lse
 
 
 flash_fwd_cuda.launches = 0
@@ -205,7 +259,13 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     ``scale`` (default 1/sqrt(D)). Products take operands of the input
     type (upcast, so bf16 products are exact) and sum in f32; P is
     rounded to the input type before P^T dO and dS before dS^T Q and
-    dS K, as in the kernels. Masked pairs get P = 0 by index."""
+    dS K, as in the kernels. Masked pairs get P = 0 by index. Counts as
+    B2 plus B3 in a program's costs (``bwd_cost``)."""
+    with bwd_cost(q, k, causal):
+        return _attention_bwd_plain(q, k, v, out, lse, do, causal, scale)
+
+
+def _attention_bwd_plain(q, k, v, out, lse, do, causal, scale):
     S, Sk = q.shape[1], k.shape[1]
     if scale is None:
         scale = default_scale(q)
@@ -248,12 +308,13 @@ def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a refused launch. ``.launches`` counts launches."""
     _bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta)
     D, scale = q.shape[-1], default_scale(q)
-    q, k, v, do = (pad_head(t) for t in (q, k, v, do))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd", "flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
-            q, k, causal, scale)
-    flash_bwd_dkv_cuda.launches += 1
-    return dk[..., :D].contiguous(), dv[..., :D].contiguous()
+    with bwd_cost(q, k, causal, dq=False):
+        q, k, v, do = (pad_head(t) for t in (q, k, v, do))
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _launch("flash_bwd", "flash_bwd_dkv",
+                (q, k, v, do, lse, delta, dk, dv), q, k, causal, scale)
+        flash_bwd_dkv_cuda.launches += 1
+        return dk[..., :D].contiguous(), dv[..., :D].contiguous()
 
 
 flash_bwd_dkv_cuda.launches = 0
@@ -267,12 +328,13 @@ def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as ``flash_bwd_dkv_cuda``. ``.launches`` counts launches."""
     _bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, delta)
     D, scale = q.shape[-1], default_scale(q)
-    q, k, v, do = (pad_head(t) for t in (q, k, v, do))
-    dq = torch.empty_like(q)
-    _launch("flash_bwd", "flash_bwd_dq", (q, k, v, do, lse, delta, dq),
-            q, k, causal, scale)
-    flash_bwd_dq_cuda.launches += 1
-    return dq[..., :D].contiguous()
+    with bwd_cost(q, k, causal, dkv=False):
+        q, k, v, do = (pad_head(t) for t in (q, k, v, do))
+        dq = torch.empty_like(q)
+        _launch("flash_bwd", "flash_bwd_dq", (q, k, v, do, lse, delta, dq),
+                q, k, causal, scale)
+        flash_bwd_dq_cuda.launches += 1
+        return dq[..., :D].contiguous()
 
 
 flash_bwd_dq_cuda.launches = 0
@@ -286,17 +348,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dQ, dK, dV) of flash attention: the plain version for CPU tensors,
     kernels B2 and B3 for CUDA tensors. dO is cast to q's type and made
     contiguous (the gradient that reaches attention may be a strided
-    view)."""
-    do = do.to(q.dtype)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
-    if q.device.type != "cuda":
+    view). The cast, the copy and delta count inside B2's and B3's cost,
+    on both devices alike."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    do = do.contiguous()
-    delta = attention_delta(out, do)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
-    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
-    return dq, dk, dv
+    with bwd_cost(q, k, causal):
+        do = do.to(q.dtype)
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        do = do.contiguous()
+        delta = attention_delta(out, do)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal)
+        return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -306,13 +370,15 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cpu":
-            out, lse = flash_attention_plain(q, k, v, causal)
-        elif q.device.type == "cuda":
-            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            out, lse = flash_fwd_cuda(q, k, v, causal)
-        else:
+        if q.device.type not in ("cpu", "cuda"):
             raise ValueError(f"flash_attention: no kernel for {q.device}")
+        # The copies into contiguous inputs count inside B1's cost.
+        with fwd_cost(q, k, causal):
+            if q.device.type == "cpu":
+                out, lse = flash_attention_plain(q, k, v, causal)
+            else:
+                q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+                out, lse = flash_fwd_cuda(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.mark_non_differentiable(lse)

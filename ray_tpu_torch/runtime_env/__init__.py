@@ -24,10 +24,14 @@ Supported fields (reference parity: `runtime_env.py` schema):
 - ``conda``: not supported in this image (no conda binary) — raises at
   validation, matching the fail-fast behavior of the reference when the
   backing tool is missing.
-- ``container``: {"image": ..., "run_options": [...]} — validated as the
-  reference validates it (it fails fast when RAY_TPU_CONTAINER_RUNTIME
-  names no runtime), but the port spawns no worker in a container yet:
-  the node's env setup refuses it, naming its slice.
+- ``container``: {"image": ..., "run_options": [...]}: the worker runs as
+  ``$RAY_TPU_CONTAINER_RUNTIME run --rm --network=host -v /tmp:/tmp
+  <run_options> -e K=V... <image> python3 -m
+  ray_tpu_torch._private.worker_main ...`` (fails fast when the variable
+  names no runtime). The worker's env goes in through ``-e`` flags, with
+  ``CUDA_VISIBLE_DEVICES`` naming the cards of its lease (none without a
+  GPU lease); exposing the card's device files to the container is the
+  user's ``run_options`` (e.g. ``["--gpus", "all"]``).
 - ``config``: {"setup_timeout_seconds": int, "eager_install": bool}.
 """
 

@@ -37,13 +37,16 @@ class RuntimeEnvContext:
     """What the raylet needs to spawn a worker inside the env."""
 
     __slots__ = ("env_vars", "py_executable", "pythonpath", "working_dir",
-                 "uris")
+                 "command_prefix", "uris")
 
     def __init__(self):
         self.env_vars: Dict[str, str] = {}
         self.py_executable: Optional[str] = None
         self.pythonpath: List[str] = []
         self.working_dir: Optional[str] = None
+        # ``<runtime> run ... <image>`` for a container env: the raylet
+        # puts the worker's env in -e flags before the image.
+        self.command_prefix: List[str] = []
         self.uris: List[str] = []   # cache keys this context references
 
 
@@ -146,12 +149,20 @@ class RuntimeEnvManager:
             ctx.py_executable = os.path.join(venv, "bin", "python")
             ctx.uris.append(f"pip:{os.path.basename(venv)}")
 
-        if runtime_env.get("container"):
-            # Validated as the reference validates it, but no worker is
-            # spawned in a container yet.
-            raise RuntimeEnvSetupError(
-                "runtime_env 'container' is not ported yet (a later slice "
-                "of the operator's plane)")
+        container = runtime_env.get("container")
+        if container:
+            runtime = os.environ.get("RAY_TPU_CONTAINER_RUNTIME")
+            if not runtime:
+                raise RuntimeEnvSetupError(
+                    "container runtime_env needs RAY_TPU_CONTAINER_RUNTIME")
+            # The reference's prefix. A card reaches the container only
+            # through the user's run_options (e.g. --gpus); which card the
+            # lease names goes in as CUDA_VISIBLE_DEVICES (the raylet).
+            ctx.command_prefix = (
+                [runtime, "run", "--rm", "--network=host",
+                 "-v", "/tmp:/tmp"]
+                + list(container.get("run_options") or [])
+                + [container["image"]])
 
     async def _ensure_package(self, uri: str) -> str:
         key = hashlib.sha256(uri.encode()).hexdigest()[:24]

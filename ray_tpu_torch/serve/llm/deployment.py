@@ -220,8 +220,12 @@ class LLMServer:
         }
 
     def stats(self) -> Dict[str, Any]:
+        from ray_tpu_torch.observability import jit_stats
+
         out = self._engine.stats()
         out["quantize"] = self.quantize
+        out["jit"] = {k: v for k, v in jit_stats().items()
+                      if k.startswith("llm_engine_")}
         return out
 
     def check_health(self) -> None:

@@ -475,7 +475,48 @@ class LLMEngine:
                                               c.max_seq_len,
                                               device=self.device)
 
+        # Program tracking through the program plane: each tracked
+        # callable counts its argument signatures as traces (one per
+        # program the reference compiles), so trace_count is bounded by
+        # the per-family budgets as there: ONE tick and one insert per
+        # prefill bucket, plus at most one export, one adopt, one
+        # speculative round and one draft insert per bucket. Export and
+        # adopt take fixed-shape arguments for that (a padded table row
+        # or id row and the valid count), and copy only the valid blocks.
+        from ray_tpu_torch.observability.device import (
+            ensure_sampler_registered)
+        from ray_tpu_torch.observability.jit import tracked_jit
+
+        n_buckets = len(c.prefill_buckets)
+        # Host blocks [L, n, bs, n_kv, hd] for the next adopt: they reach
+        # it through the engine, not as arguments, so the adopt program's
+        # signature stays fixed.
+        self._staged_blocks: Optional[Tuple[torch.Tensor, torch.Tensor]] = \
+            None
+        if self._paged:
+            self._jit_tick = tracked_jit(
+                self._tick_fn_paged, name="llm_engine_tick", trace_budget=1)
+            self._jit_insert = tracked_jit(
+                self._insert_fn_paged, name="llm_engine_insert",
+                trace_budget=n_buckets)
+            self._jit_export = tracked_jit(
+                self._export_fn, name="llm_engine_export", trace_budget=1)
+            self._jit_adopt = tracked_jit(
+                self._adopt_fn, name="llm_engine_adopt", trace_budget=1)
+            if self._draft is not None:
+                self._jit_spec = tracked_jit(
+                    self._spec_fn, name="llm_engine_spec", trace_budget=1)
+                self._jit_draft_insert = tracked_jit(
+                    self._draft_insert_fn, name="llm_engine_draft_insert",
+                    trace_budget=n_buckets)
+        else:
+            self._jit_tick = tracked_jit(
+                self._tick_fn, name="llm_engine_tick", trace_budget=1)
+            self._jit_insert = tracked_jit(
+                self._insert_fn, name="llm_engine_insert",
+                trace_budget=n_buckets)
         self._metrics = serve_metrics()
+        ensure_sampler_registered()
         # Per-request cost accounting. The gate is latched once per
         # engine: meters attach at submit, so flipping the knob mid-flight
         # would half-meter requests.
@@ -584,24 +625,36 @@ class LLMEngine:
         self._first_token(hidden[0, suffix_len - 1], slot, temperature,
                           hist_len + suffix_len)
 
-    def _export_fn(self, block_ids: Sequence[int]
+    def _export_fn(self, table_row: np.ndarray, n_valid: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Copy pool blocks to the host: CPU tensors [L, n, bs, n_kv, hd],
-        one gather and one copy per tensor."""
-        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
-                              device=self.device)
+        """Copy the first ``n_valid`` blocks of a table row [max_blocks]
+        to the host: CPU tensors [L, n_valid, bs, n_kv, hd], one gather
+        and one copy per tensor. The row's fixed shape keeps this one
+        program; only the valid blocks are copied (the reference gathers
+        the whole row and the host slices it)."""
+        ids = torch.from_numpy(np.ascontiguousarray(
+            table_row[:n_valid])).to(self.device).long()
         return (self._cache["k"][:, ids].cpu(),
                 self._cache["v"][:, ids].cpu())
 
-    def _adopt_fn(self, kb: torch.Tensor, vb: torch.Tensor,
-                  block_ids: Sequence[int]) -> None:
-        """Copy host blocks [L, n, bs, n_kv, hd] into the pool at
-        ``block_ids`` (exactly n ids: nothing is padded, so nothing needs
-        dropping)."""
-        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
-                              device=self.device)
+    def _adopt_fn(self, scatter_ids: np.ndarray, n_valid: int) -> None:
+        """Copy the staged host blocks into the pool at the first
+        ``n_valid`` of ``scatter_ids`` (padded to max_blocks with the pool
+        size, as the reference pads them; only the valid ids are
+        written)."""
+        kb, vb = self._staged_blocks
+        self._staged_blocks = None
+        ids = torch.from_numpy(np.ascontiguousarray(
+            scatter_ids[:n_valid])).to(self.device).long()
         self._cache["k"][:, ids] = kb.to(self.device)
         self._cache["v"][:, ids] = vb.to(self.device)
+
+    def _padded_ids(self, ids: Sequence[int], fill: int) -> np.ndarray:
+        """``ids`` in a [max_blocks] int32 row (a block table's type),
+        padded with ``fill``."""
+        row = np.full((self.config.max_blocks_per_slot,), fill, np.int32)
+        row[:len(ids)] = np.asarray(ids, np.int32)
+        return row
 
     def _draft_insert_fn(self, padded_prompt: np.ndarray, slot: int) -> None:
         """Prefill the draft model's dense cache for one admitted slot
@@ -908,7 +961,7 @@ class LLMEngine:
                 P = len(req.prompt)
                 padded = np.zeros((self._bucket_for(P),), np.int64)
                 padded[:P] = np.asarray(req.prompt, np.int64)
-                self._insert_fn(padded, P, slot, float(req.temperature))
+                self._jit_insert(padded, P, slot, float(req.temperature))
                 handle.prefilled_tokens += P
                 ok = True
             if not ok:
@@ -1052,8 +1105,8 @@ class LLMEngine:
         padded[:suffix_len] = np.asarray(prompt[hist_len:], np.int64)
         scatter_ids = np.asarray(new_blocks[n_pro:n_pro + bucket // bs],
                                  np.int64)
-        self._insert_fn_paged(row, hist_len, padded, suffix_len,
-                              scatter_ids, slot, float(req.temperature))
+        self._jit_insert(row, int(hist_len), padded, int(suffix_len),
+                         scatter_ids, int(slot), float(req.temperature))
         handle.prefilled_tokens += suffix_len
         if handle._chunk_ends:
             handle._chunk_inserts += 1
@@ -1091,7 +1144,9 @@ class LLMEngine:
         self._slot_blocks[slot] = blocks
         if handle.meter is not None:
             handle.meter.blocks_acquired(len(blocks))
-        self._adopt_fn(st.k_blocks, st.v_blocks, blocks[:n_valid])
+        self._staged_blocks = (st.k_blocks, st.v_blocks)
+        self._jit_adopt(self._padded_ids(blocks[:n_valid], c.pool_blocks),
+                        int(n_valid))
         self._tok[slot] = st.next_tok
         self._pos[slot] = st.pos
         if self._prefix is not None:
@@ -1131,7 +1186,7 @@ class LLMEngine:
             return
         padded = np.zeros((self._bucket_for(n),), np.int64)
         padded[:n] = np.asarray(consumed, np.int64)
-        self._draft_insert_fn(padded, slot)
+        self._jit_draft_insert(padded, int(slot))
         self._spec_ok[slot] = True
 
     def _release_slot(self, slot: int, donate: bool = False) -> None:
@@ -1237,7 +1292,7 @@ class LLMEngine:
         bs = self.config.kv_block_size
         pos = int(self._pos[slot])
         n_valid = -(-pos // bs)
-        kb, vb = self._export_fn(self._tables[slot, :n_valid])
+        kb, vb = self._jit_export(self._tables[slot].copy(), int(n_valid))
         state = KVState(prompt=list(req.prompt), tokens=list(handle.tokens),
                         next_tok=int(self._tok[slot]), pos=pos,
                         temperature=req.temperature, block_size=bs,
@@ -1260,12 +1315,20 @@ class LLMEngine:
         ents = [e for e in victims if e.tokens]
         if not ents:
             return 0
-        kb, vb = self._export_fn([e.block for e in ents])
-        return self._tiers.spill([
-            KVPrefix(tokens=e.tokens, block_size=self.config.kv_block_size,
-                     k_blocks=kb[:, j:j + 1].clone(),
-                     v_blocks=vb[:, j:j + 1].clone())
-            for j, e in enumerate(ents)])
+        nb = self.config.max_blocks_per_slot
+        prefixes: List[Any] = []
+        # Through the one export program, a table row's worth at a time.
+        for i in range(0, len(ents), nb):
+            chunk = ents[i:i + nb]
+            kb, vb = self._jit_export(
+                self._padded_ids([e.block for e in chunk], 0), len(chunk))
+            prefixes += [
+                KVPrefix(tokens=e.tokens,
+                         block_size=self.config.kv_block_size,
+                         k_blocks=kb[:, j:j + 1].clone(),
+                         v_blocks=vb[:, j:j + 1].clone())
+                for j, e in enumerate(chunk)]
+        return self._tiers.spill(prefixes)
 
     def _promote_tier_hits(self, hits: List[Any], dst_blocks: List[int],
                            handle: Optional[RequestHandle] = None) -> None:
@@ -1275,7 +1338,10 @@ class LLMEngine:
         t_pro = time.time()
         kb = torch.cat([h.prefix.k_blocks[:, -1:] for h in hits], dim=1)
         vb = torch.cat([h.prefix.v_blocks[:, -1:] for h in hits], dim=1)
-        self._adopt_fn(kb, vb, dst_blocks)
+        self._staged_blocks = (kb, vb)
+        self._jit_adopt(self._padded_ids(dst_blocks,
+                                         self.config.pool_blocks),
+                        len(dst_blocks))
         self._tiers.pop(hits)
         self._promoted_blocks += len(hits)
         if handle is not None:
@@ -1326,8 +1392,9 @@ class LLMEngine:
         link (CPU tensors). Non-destructive: the donor keeps its copies.
         Must run on the scheduler thread; wrap it in
         :meth:`call_on_scheduler` from anywhere else. The pool links are
-        gathered by their exact block ids (``_export_fn``), where the
-        reference gathers a full padded table row."""
+        gathered through the export program, which copies only the valid
+        blocks of the padded row, where the reference gathers the whole
+        row."""
         from ray_tpu_torch.serve.llm.kv_cache import KVPrefix
 
         if not self._paged or self._prefix is None:
@@ -1343,7 +1410,7 @@ class LLMEngine:
         hit = self._prefix.match(tokens, max_blocks=cap)
         if hit:
             n = min(len(hit), c.max_blocks_per_slot)
-            kb, vb = self._export_fn(hit[:n])
+            kb, vb = self._jit_export(self._padded_ids(hit[:n], 0), n)
             for j in range(n):
                 out.append(KVPrefix(
                     tokens=tuple(tokens[: (j + 1) * bs]), block_size=bs,
@@ -1689,10 +1756,7 @@ class LLMEngine:
                             and int(n_emit[slot]) > 0:
                         h.meter.note_spec(k_prop, int(n_emit[slot]) - 1)
         else:
-            if self._paged:
-                toks_host = self._tick_fn_paged()         # [K, B]
-            else:
-                toks_host = self._tick_fn()
+            toks_host = self._jit_tick()                  # [K, B]
             n_emit = np.full((self.config.num_slots,), toks_host.shape[0])
             self._credit_decode(live, time.monotonic() - t_tick)
         for slot in live:
@@ -1724,7 +1788,7 @@ class LLMEngine:
     def _spec_tick(self) -> Tuple[np.ndarray, np.ndarray]:
         """One speculative round: (tokens [K, B], n_emit [B]) on the host;
         the caller emits tokens[0:n_emit[s], s] per slot."""
-        t, n_emit = self._spec_fn()
+        t, n_emit = self._jit_spec()
         live = int((n_emit > 0).sum())
         self._spec_rounds += 1
         self._spec_proposed += (self.config.spec_k - 1) * live
@@ -1777,16 +1841,35 @@ class LLMEngine:
 
     # ------------------------------------------------------------ inspection
 
+    @property
+    def trace_count(self) -> int:
+        """Number of engine programs traced so far (argument signatures
+        of the tracked callables; the compile guard: bounded by the
+        per-family budgets under any workload, len(buckets) inserts + 1
+        tick, plus at most 1 export, 1 adopt, 1 spec round, and
+        len(buckets) draft inserts when wired)."""
+        n = self._jit_tick.traces + self._jit_insert.traces
+        for name in ("_jit_export", "_jit_adopt", "_jit_spec",
+                     "_jit_draft_insert"):
+            fn = getattr(self, name, None)
+            if fn is not None:
+                n += fn.traces
+        return n
+
     def stats(self) -> Dict[str, Any]:
-        """Scheduler counters, the reference's sections. Unlike the
-        reference there is no ``traces``/``trace_count``: eager PyTorch
-        compiles no shape-specialised programs, so there is no compile
-        budget to guard; ``prefills`` counts inserts instead (chunks
-        included). ``chunked_prefill``, ``kv.admission_waits`` and
+        """Scheduler counters, the reference's sections with ``traces``
+        and ``trace_count``. ``prefills`` counts inserts (chunks
+        included); ``chunked_prefill``, ``kv.admission_waits`` and
         ``spec.draft_prefills`` are the port's own counters."""
         with self._lock:
             queued_by_lane = {lane: len(q)
                               for lane, q in self._queues.items()}
+        traces = {"tick": self._jit_tick.traces,
+                  "insert": self._jit_insert.traces}
+        for name in ("export", "adopt", "spec", "draft_insert"):
+            fn = getattr(self, f"_jit_{name}", None)
+            if fn is not None:
+                traces[name] = fn.traces
         out = {
             "num_slots": self.config.num_slots,
             "active_slots": int(self._active.sum()),
@@ -1797,6 +1880,8 @@ class LLMEngine:
             "prefills": self._prefills,
             "preempted": self._preempted,
             "kv_layout": self.config.kv_layout,
+            "traces": traces,
+            "trace_count": self.trace_count,
         }
         if self._paged:
             out["kv"] = dict(self._allocator.stats(),

@@ -71,6 +71,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from ray_tpu_torch.observability.xla import counts
 from ray_tpu_torch.util.collective import ring
 from ray_tpu_torch.util.collective.ring import (
     _DTYPE_CODES, _OPS, FLAG_SECTIONS, KINDS, LANES, MAX_BLOCKS_PER_RANK,
@@ -681,6 +682,14 @@ def _rank_block(kind: str, x: torch.Tensor) -> torch.Tensor:
 # The rank form's wrappers, one per kernel, each counting its launches.
 # ---------------------------------------------------------------------------
 
+def _rank_cost(factor):
+    """The rank form's count in a program's costs: its own block's share
+    of the kernel's bytes, ``factor(n)`` times x's bytes."""
+    def cost_of(x, *a, ring: ProcessRing, **kw):
+        return 0.0, factor(ring.n) * x.numel() * x.element_size()
+    return cost_of
+
+
 def _check_rank(name: str, x: torch.Tensor, ring_: ProcessRing) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
@@ -692,6 +701,7 @@ def _check_rank(name: str, x: torch.Tensor, ring_: ProcessRing) -> None:
                         f"bfloat16, float16 and int32 only)")
 
 
+@counts(_rank_cost(lambda n: 2))
 def ring_allreduce_rank_cuda(x: torch.Tensor, op: str = "sum", *,
                              ring: ProcessRing,
                              out: Optional[torch.Tensor] = None
@@ -704,6 +714,7 @@ def ring_allreduce_rank_cuda(x: torch.Tensor, op: str = "sum", *,
     return ring.run("allreduce", op, x, out)
 
 
+@counts(_rank_cost(lambda n: 1 + 1 / n))
 def ring_reduce_scatter_rank_cuda(x: torch.Tensor, op: str = "sum", *,
                                   ring: ProcessRing,
                                   out: Optional[torch.Tensor] = None
@@ -715,6 +726,7 @@ def ring_reduce_scatter_rank_cuda(x: torch.Tensor, op: str = "sum", *,
     return ring.run("reduce_scatter", op, x, out)
 
 
+@counts(_rank_cost(lambda n: 1 + n))
 def ring_allgather_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
                              out: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
@@ -725,6 +737,7 @@ def ring_allgather_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
     return ring.run("allgather", "sum", x, out)
 
 
+@counts(_rank_cost(lambda n: 2))
 def ring_qallreduce_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
                               out: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
@@ -739,6 +752,7 @@ def ring_qallreduce_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
     return ring.run("qallreduce", "sum", x, out)
 
 
+@counts(_rank_cost(lambda n: 2))
 def ring_permute_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
                            out: Optional[torch.Tensor] = None) -> "_Call":
     """C1, this rank's launch on its block x [rows, 128], enqueued: the
@@ -749,6 +763,7 @@ def ring_permute_rank_cuda(x: torch.Tensor, *, ring: ProcessRing,
     return ring.start_permute(x, out)
 
 
+@counts(_rank_cost(lambda n: 3 / n))
 def ring_qrs_hop_rank_cuda(buf: torch.Tensor, t: int, carry: torch.Tensor,
                            *, ring: ProcessRing) -> "_Call":
     """C5 in place, this rank's two launches (send, receive) of hop t of

@@ -76,6 +76,7 @@ from typing import Any, Optional
 
 import torch
 
+from ray_tpu_torch.observability.xla import counts
 from ray_tpu_torch.util.collective import ring
 from ray_tpu_torch.util.collective.ring import (
     LANES, SplitPhaseHandle, _bind, _check_block, _from_block, _group_for,
@@ -157,6 +158,23 @@ def _qsend(src: torch.Tensor, dst: torch.Tensor, accumulate: bool) -> None:
 # Plain versions.
 # ---------------------------------------------------------------------------
 
+# Each kernel's count in a program's costs, the bytes of its bound (f32
+# in and out; C5's in-place hop reads the send and receive chunks and
+# writes the receive chunk, a third of x [n, n * c, LANES] each way).
+# Its plain version counts the same.
+def qallreduce_cost(x, *a, **kw):
+    return 0.0, 2.0 * x.numel() * 4
+
+
+def qhop_cost(x, *a, **kw):
+    return 0.0, 2.0 * x.numel() * 4
+
+
+def qrs_hop_cost(x, *a, **kw):
+    return 0.0, 3.0 * x.numel() * 4 / x.shape[0]
+
+
+@counts(qallreduce_cost)
 def ring_qallreduce_plain(x: torch.Tensor,
                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C6's function on x [n, n * c, LANES] f32: returns [n, n * c, LANES]
@@ -180,6 +198,7 @@ def ring_qallreduce_plain(x: torch.Tensor,
     return out
 
 
+@counts(qhop_cost)
 def ring_qhop_plain(x: torch.Tensor) -> torch.Tensor:
     """C5's function on x [n, rows, LANES] f32: ``out[(r + 1) % n] =
     dequant(quant(x[r]))``, one scale per rank."""
@@ -190,6 +209,7 @@ def ring_qhop_plain(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@counts(qrs_hop_cost)
 def ring_qrs_hop_plain(x: torch.Tensor, t: int,
                        carry: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
@@ -222,6 +242,7 @@ def _check_f32(name: str, x: torch.Tensor) -> None:
                         f"ring takes float32 only)")
 
 
+@counts(qallreduce_cost)
 def ring_qallreduce_cuda(x: torch.Tensor, *, group=None,
                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch C6 on x [n, n * c, LANES] f32: returns [n, n * c, LANES]
@@ -246,6 +267,7 @@ def ring_qallreduce_cuda(x: torch.Tensor, *, group=None,
 ring_qallreduce_cuda.launches = 0
 
 
+@counts(qhop_cost)
 def ring_qhop_cuda(x: torch.Tensor, *, group=None) -> torch.Tensor:
     """Launch C5 on x [n, rows, LANES] f32: returns out with
     ``out[(r + 1) % n] = dequant(quant(x[r]))``. ``.launches`` counts
@@ -263,6 +285,7 @@ def ring_qhop_cuda(x: torch.Tensor, *, group=None) -> torch.Tensor:
 ring_qhop_cuda.launches = 0
 
 
+@counts(qrs_hop_cost)
 def ring_qrs_hop_cuda(x: torch.Tensor, t: int, carry: torch.Tensor, *,
                       group=None) -> torch.Tensor:
     """Launch C5's in-place form: hop t of the split-phase int8

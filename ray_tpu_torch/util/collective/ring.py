@@ -78,6 +78,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch.observability.xla import counts
 from ray_tpu_torch.util.collective.types import ReduceOp
 
 # The minor dim of every block (the reference's TPU lane count): one
@@ -207,6 +208,30 @@ def _ag_hop(o4: torch.Tensor, t: int, permute) -> None:
 # Plain versions: the kernels' functions, hop by hop, in plain PyTorch.
 # ---------------------------------------------------------------------------
 
+def _bytes(x: torch.Tensor) -> float:
+    return float(x.numel() * x.element_size())
+
+
+# Each kernel's count in a program's costs, the bytes of its bound (each
+# input read once, each output written once; a ring does no arithmetic to
+# speak of), on x [n, ...]. Its plain version counts the same.
+def permute_cost(x, *a, **kw):
+    return 0.0, 2 * _bytes(x)
+
+
+def reduce_scatter_cost(x, *a, **kw):
+    return 0.0, _bytes(x) * (1 + 1 / x.shape[0])
+
+
+def allgather_cost(x, *a, **kw):
+    return 0.0, _bytes(x) * (1 + x.shape[0])
+
+
+def allreduce_cost(x, *a, **kw):
+    return 0.0, 2 * _bytes(x)
+
+
+@counts(permute_cost)
 def ring_permute_plain(x: torch.Tensor) -> torch.Tensor:
     """C1's function: ``out[(r + 1) % n] = x[r]``, one hop."""
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -214,6 +239,7 @@ def ring_permute_plain(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@counts(reduce_scatter_cost)
 def ring_reduce_scatter_plain(x: torch.Tensor, op: str = "sum",
                               donate: bool = False) -> torch.Tensor:
     """C2's function on x [n, n * c, LANES]: n - 1 hops of the reference's
@@ -228,6 +254,7 @@ def ring_reduce_scatter_plain(x: torch.Tensor, op: str = "sum",
     return a4[ranks, ranks]
 
 
+@counts(allgather_cost)
 def ring_allgather_plain(x: torch.Tensor,
                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C3's function on x [n, rows, LANES]: returns [n, n * rows, LANES]
@@ -244,6 +271,7 @@ def ring_allgather_plain(x: torch.Tensor,
     return out
 
 
+@counts(allreduce_cost)
 def ring_allreduce_plain(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """C4's function on x [n, n * c, LANES]: the reference's reduce-scatter
     sweep (rank r sends chunk r - s, combines into r - s - 1), then its
@@ -362,6 +390,7 @@ def _launch(group, kind: str, op: str, x: torch.Tensor, out: torch.Tensor,
                            f"{lib.ring_error_string(err).decode()} ({err})")
 
 
+@counts(permute_cost)
 def ring_permute_cuda(x: torch.Tensor, *, group=None) -> torch.Tensor:
     """Launch C1 on x [n, rows, LANES]: returns out with
     ``out[(r + 1) % n] = x[r]``. ``.launches`` counts launches."""
@@ -377,6 +406,7 @@ def ring_permute_cuda(x: torch.Tensor, *, group=None) -> torch.Tensor:
 ring_permute_cuda.launches = 0
 
 
+@counts(reduce_scatter_cost)
 def ring_reduce_scatter_cuda(x: torch.Tensor, op: str = "sum", *,
                              group=None, donate: bool = False
                              ) -> torch.Tensor:
@@ -397,6 +427,7 @@ def ring_reduce_scatter_cuda(x: torch.Tensor, op: str = "sum", *,
 ring_reduce_scatter_cuda.launches = 0
 
 
+@counts(allgather_cost)
 def ring_allgather_cuda(x: torch.Tensor, *, group=None,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch C3 on x [n, rows, LANES]: returns [n, n * rows, LANES]
@@ -420,6 +451,7 @@ def ring_allgather_cuda(x: torch.Tensor, *, group=None,
 ring_allgather_cuda.launches = 0
 
 
+@counts(allreduce_cost)
 def ring_allreduce_cuda(x: torch.Tensor, op: str = "sum", *,
                         group=None) -> torch.Tensor:
     """Launch C4 on x [n, n * c, LANES] (op sum, max, min or prod):

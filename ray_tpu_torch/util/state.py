@@ -589,20 +589,51 @@ def trace_critical_path(tree_or_id: Any) -> Dict[str, Any]:
     return critical_path(tree)
 
 
-# Not ported yet: each raises, naming the slice that brings it.
-_DEVICE = ("the device-facing observability slice (the compiled-program "
-           "ring and the workers' device-profile bracket)")
+def xla_summary(top_n: int = 8) -> Dict[str, Any]:
+    """The fleet's program cost rollup from the GCS program ring: the
+    current program set (one row per tracked function x argument
+    signature x process) ranked by cumulative FLOPs, peak device bytes,
+    and lost-to-roofline headroom seconds, plus roofline-verdict and
+    measurement counts. Answers "which program is eating the fleet, and
+    is it compute-, memory-, or comm-bound?". The name is the
+    reference's; rows whose ``measurement`` is ``"gpu"`` measure the
+    CUDA program on the card, ``"cpu"`` rows carry nominal-spec ratios
+    that prove the plumbing, not performance."""
+    return _gcs().call("xla_summary", top_n=top_n, timeout=30)
 
 
-def _not_ported(name: str, where: str):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"util.state.{name} is not ported yet: it comes with {where}")
+def list_xla_programs(fn: Optional[str] = None,
+                      verdict: Optional[str] = None,
+                      limit: int = 200) -> List[Dict[str, Any]]:
+    """Newest-last program cost rows from the GCS program ring (fn,
+    signature, flops, bytes accessed, device-memory breakdown, sampled
+    wall, MFU/MBU, roofline verdict), optionally filtered by function
+    name or verdict (``compute-bound`` / ``memory-bound`` /
+    ``comm-bound`` / ``unsampled`` / ``unknown``)."""
+    return _gcs().call("list_xla_programs", fn=fn, verdict=verdict,
+                       limit=limit, timeout=30)
 
-    missing.__name__ = name
-    return missing
 
+def tpu_profile(actor_id: Optional[str] = None,
+                worker_id: Optional[str] = None,
+                duration: float = 1.0) -> Dict[str, Any]:
+    """Capture a device trace (torch.profiler, CPU and CUDA activities)
+    on the target worker for ``duration`` seconds and return
+    ``{"artifact": path, "kernel_events": n, ...}``: a Chrome trace JSON
+    on the worker's host (chrome://tracing, Perfetto). The name is the
+    reference's; on the card it traces the CUDA device. A worker without
+    a CUDA context gives ``{"skipped": reason}`` (host flamegraphs,
+    :func:`profile`, still work there), and one whose bracket is already
+    open ``{"error": reason}``."""
+    from ray_tpu_torch._private.worker import global_worker
 
-xla_summary = _not_ported("xla_summary", _DEVICE)
-list_xla_programs = _not_ported("list_xla_programs", _DEVICE)
-tpu_profile = _not_ported("tpu_profile", _DEVICE)
+    if sum(bool(s) for s in (worker_id, actor_id)) != 1:
+        raise ValueError("tpu_profile() requires exactly one of actor_id=, "
+                         "worker_id=")
+    if actor_id is not None:
+        worker_id = _resolve_actor_worker(actor_id)
+    row = _worker_row(worker_id)
+    w = global_worker()
+    client = w._client_for(tuple(row["addr"]))
+    return client.call("tpu_profile", duration_s=float(duration),
+                       timeout=float(duration) + 60)

@@ -453,3 +453,116 @@ def test_task_demand_clears_once_a_node_can_take_it(cluster):
         assert len(provider.non_terminated_nodes()) == 1
     finally:
         provider.shutdown()
+
+
+# ------------------------------------- a node that joins past the deadline
+
+LEASE_MS = 1500
+
+
+@pytest.fixture
+def short_lease_cluster(monkeypatch):
+    """The ``cluster`` fixture's head with a lease deadline of 1.5 s."""
+    monkeypatch.setenv(G.FAKE_GPUS_ENV, "1")
+    monkeypatch.setenv(G.FAKE_GPU_TYPE_ENV, "H100")
+    monkeypatch.setenv("RAY_TPU_worker_lease_timeout_ms", str(LEASE_MS))
+    info = ray_tpu_torch.init(num_cpus=4, num_gpus=0,
+                              object_store_memory=128 * 1024 * 1024)
+    yield info
+    ray_tpu_torch.shutdown()
+
+
+class SlowBootProvider(FakeMultiNodeProvider):
+    """A node that starts booting only ``boot_s`` after it is asked for
+    (past the lease deadline), as a cloud VM boots before it runs
+    ``ray_tpu_torch start``. The monitor makes no poll meanwhile, which
+    stays well inside the GCS's window of two 5 s periods."""
+
+    boot_s = 2.5
+
+    def create_node(self, node_type, node_config):
+        time.sleep(self.boot_s)
+        return super().create_node(node_type, node_config)
+
+
+def _monitor(autoscaler, stop, period=0.5):
+    """A monitor loop in a thread: one ``update()`` every ``period``."""
+    import threading
+
+    def loop():
+        while not stop.is_set():
+            try:
+                autoscaler.update()
+            except Exception:
+                pass
+            stop.wait(period)
+
+    t = threading.Thread(target=loop, daemon=True)
+    t.start()
+    return t
+
+
+@pytest.mark.timeout(120)
+def test_actor_outlives_its_deadline_while_an_autoscaler_runs(
+        short_lease_cluster):
+    """An actor that no live node can fit waits past its lease deadline
+    while a running autoscaler reads its demand, and lands on the node
+    that joins later; one ACTOR_PENDING warning names it. A task of the
+    same demand waits the same way."""
+    import threading
+
+    from ray_tpu_torch.util import state
+
+    w = _worker()
+    provider = SlowBootProvider(w.gcs_addr, w.session_dir)
+    autoscaler = StandardAutoscaler(
+        w.gcs_addr, provider, available_node_types={"gpu.node": GPU_NODE},
+        max_workers=1, idle_timeout_s=60.0)
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    class OnTheCard:
+        def where(self):
+            return ray_tpu_torch.get_runtime_context().get_node_id()
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    def on_the_card():
+        return ray_tpu_torch.get_runtime_context().get_node_id()
+
+    stop = threading.Event()
+    monitor = _monitor(autoscaler, stop)
+    try:
+        actor = OnTheCard.remote()
+        ref = on_the_card.remote()
+        node_id = ray_tpu_torch.get(actor.where.remote(), timeout=90)
+        assert ray_tpu_torch.get(ref, timeout=60) == node_id
+        pid = provider.non_terminated_nodes()[0]
+        assert provider.internal_node_id(pid).hex() == node_id
+        # The one warning: the actor outlived its deadline, waiting.
+        events = state.list_cluster_events(event_type="ACTOR_PENDING")
+        assert len(events) == 1
+        assert events[0]["severity"] == "WARNING"
+        assert events[0]["actor_id"] == actor._actor_id.hex()
+        ray_tpu_torch.kill(actor)
+    finally:
+        stop.set()
+        monitor.join(timeout=30)
+        provider.shutdown()
+
+
+@pytest.mark.timeout(60)
+def test_actor_dies_at_its_deadline_without_an_autoscaler(
+        short_lease_cluster):
+    """With no autoscaler reading the load, an actor that no node can fit
+    dies at its lease deadline, as in the reference."""
+    from ray_tpu_torch.exceptions import ActorDiedError
+    from ray_tpu_torch.util import state
+
+    @ray_tpu_torch.remote(num_gpus=1)
+    class OnTheCard:
+        def where(self):
+            return ray_tpu_torch.get_runtime_context().get_node_id()
+
+    actor = OnTheCard.remote()
+    with pytest.raises(ActorDiedError):
+        ray_tpu_torch.get(actor.where.remote(), timeout=30)
+    assert not state.list_cluster_events(event_type="ACTOR_PENDING")

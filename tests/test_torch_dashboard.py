@@ -3,8 +3,7 @@ the cases of the reference's own ``tests/test_dashboard.py``, the log
 retrieval cases of ``tests/test_failure_forensics.py`` and the stack and
 profile cases of ``tests/test_profiling.py``, each asserting what it
 asserts there, against a port cluster started with
-``include_dashboard=True``; ``/api/programs`` answering 501 until the
-program ring is ported; and the Grafana dashboard held to the JAX
+``include_dashboard=True``; and the Grafana dashboard held to the JAX
 package's, panel for panel, with its accelerator panel over ``GPU``. One
 cluster for the module; every wait has a timeout.
 """
@@ -228,25 +227,6 @@ def test_profile_and_stack_endpoints(dash_cluster):
                or v.get("stacks") for v in stacks.values()
                if isinstance(v, dict))
     assert ray_tpu_torch.get(ref, timeout=60) > 0
-
-
-def test_programs_answers_501_naming_its_slice(dash_cluster):
-    """The compiled-program page reads a GCS ring the port does not keep
-    yet: 501, naming the slice that brings it; the state functions over
-    that ring and the device-profile bracket raise, naming it too."""
-    from ray_tpu_torch.util import state
-
-    with pytest.raises(urllib.error.HTTPError) as e:
-        urllib.request.urlopen(_dashboard_url() + "/api/programs",
-                               timeout=15)
-    assert e.value.code == 501
-    body = json.loads(e.value.read())
-    assert "device-facing observability slice" in body["error"]
-    for fn in (state.xla_summary, state.list_xla_programs,
-               state.tpu_profile):
-        with pytest.raises(NotImplementedError,
-                           match="device-facing observability slice"):
-            fn()
 
 
 # -------------------------------------- failure forensics: log retrieval

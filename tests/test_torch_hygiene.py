@@ -76,7 +76,8 @@ def test_port_files_found():
             "node_provider.py", "autoscaler.py", "gpu_pod_provider.py",
             "pod_autoscaler.py", "instance_manager.py", "reconciler.py",
             "kuberay_provider.py", "gcp_gpu_provider.py", "cli.py",
-            "__main__.py"} <= names
+            "__main__.py", "jit.py", "xla.py", "device.py",
+            "chipspec.py"} <= names
     assert (ROOT / "ray_tpu_torch/_private/csrc/arena_store.cpp").exists()
 
 

@@ -17,11 +17,66 @@ import pytest
 import ray_tpu_torch
 
 
+CONTAINER_VAR = "RAY_TPU_CONTAINER_RUNTIME"
+STANDIN_IMAGE = "rtpu-standin:latest"
+
+# A stand-in for a container runtime (this host has none): it records its
+# arguments, drops ``run ... <image>``, applies the ``-e`` flags to the
+# environment as a container would, and execs the rest (the image's
+# ``python3`` is this interpreter).
+_STANDIN = """#!{python}
+import json, os, sys
+args = sys.argv[1:]
+with open(os.environ["RTPU_STANDIN_LOG"], "a") as f:
+    f.write(json.dumps(sys.argv) + "\\n")
+assert args[0] == "run", args
+image = args.index({image!r})
+env = dict(os.environ)
+i = 1
+while i < image:
+    if args[i] == "-e":
+        key, _, value = args[i + 1].partition("=")
+        env[key] = value
+        i += 2
+    elif args[i] in ("-v", "--gpus"):
+        i += 2
+    else:
+        i += 1
+cmd = args[image + 1:]
+if cmd[0] == "python3":
+    cmd[0] = sys.executable
+os.execve(cmd[0], cmd, env)
+"""
+
+
 @pytest.fixture(scope="module")
-def cluster():
-    info = ray_tpu_torch.init(num_cpus=8, num_gpus=1,
-                              object_store_memory=128 * 1024 * 1024,
-                              ignore_reinit_error=True)
+def standin(tmp_path_factory):
+    """(runtime path, log path) of the stand-in container runtime."""
+    d = tmp_path_factory.mktemp("standin")
+    path, log = d / "runtime", d / "calls.jsonl"
+    path.write_text(_STANDIN.format(python=sys.executable,
+                                    image=STANDIN_IMAGE))
+    path.chmod(0o755)
+    return str(path), str(log)
+
+
+@pytest.fixture(scope="module")
+def cluster(standin):
+    # The node's processes take the stand-in runtime from their start;
+    # the test process itself keeps no such variable.
+    saved = {k: os.environ.get(k) for k in (CONTAINER_VAR,
+                                            "RTPU_STANDIN_LOG")}
+    os.environ[CONTAINER_VAR], os.environ["RTPU_STANDIN_LOG"] = standin
+    try:
+        info = ray_tpu_torch.init(num_cpus=8, num_gpus=1,
+                                  object_store_memory=128 * 1024 * 1024,
+                                  ignore_reinit_error=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     yield info
     ray_tpu_torch.shutdown()
 
@@ -385,3 +440,112 @@ def test_packaging_matches_reference(tmp_path, include_root_name):
         (root / "sub" / "b.txt").read_bytes()
     assert not (prefix / "x.pyc").exists()
     assert (prefix / "run.sh").read_text() == "#!/bin/sh\n"
+
+
+# ------------------------------------------------------ container workers
+
+def _spawn_command(raylet_mod, manager_cls, runtime_env, tmp_path,
+                   monkeypatch, **kw):
+    """(argv, env) a package's raylet would start a worker with for
+    ``runtime_env``: its ``_spawn_worker_throttled`` on a stand-in raylet
+    whose Popen records the call and fails."""
+    import asyncio
+    import collections
+    import types
+
+    recorded = {}
+
+    def popen(cmd, **kwargs):
+        recorded.update(cmd=list(cmd), env=dict(kwargs["env"]))
+        raise OSError("recorded")
+
+    monkeypatch.setattr(raylet_mod.subprocess, "Popen", popen)
+    node = types.SimpleNamespace(
+        session_dir=str(tmp_path), host="127.0.0.1",
+        server=types.SimpleNamespace(port=1), gcs_addr=("127.0.0.1", 2),
+        node_id=types.SimpleNamespace(hex=lambda: "ab" * 14),
+        _starting=collections.defaultdict(int), _env_failures={},
+        _pending_pop=collections.defaultdict(collections.deque))
+    manager = manager_cls(str(tmp_path / "envs"), None)
+    node._worker_env = lambda: {"PATH": "/usr/bin", "PYTHONPATH": "/pkg",
+                                "RAY_TPU_NODE_ID": "ab" * 14,
+                                "RAY_TPU_NODE_IP": "127.0.0.1"}
+    node._runtime_env_manager = lambda: manager
+    node._startup_sema = lambda: asyncio.Semaphore(1)
+    node._spawn_failed = lambda e, out, *a: out.close()
+    node._pool_key = raylet_mod.Raylet._pool_key
+    if hasattr(raylet_mod.Raylet, "_container_command"):
+        node._container_command = raylet_mod.Raylet._container_command
+    asyncio.run(raylet_mod.Raylet._spawn_worker_throttled(
+        node, b"\x01" * 4, runtime_env, b"pool", **kw))
+    cmd = recorded["cmd"]
+    cmd[cmd.index("--worker-id") + 1] = "<worker id>"
+    return cmd, recorded["env"]
+
+
+@pytest.mark.parametrize("gpu_ids", [[], [0]], ids=["no_gpu", "gpu0"])
+def test_container_command_matches_reference(gpu_ids, tmp_path,
+                                             monkeypatch):
+    """The same container spec through both packages' manager and raylet
+    spawn: the same ``<runtime> run`` prefix, run options, ``-e`` flags
+    and image, with the port's one addition, ``-e CUDA_VISIBLE_DEVICES``
+    naming the lease's cards; then the image's ``python3`` runs each
+    package's own worker."""
+    from ray_tpu._private import raylet as ref_raylet
+    from ray_tpu.runtime_env.manager import RuntimeEnvManager as RefManager
+
+    from ray_tpu_torch._private import raylet
+    from ray_tpu_torch.runtime_env.manager import RuntimeEnvManager
+
+    monkeypatch.setenv(CONTAINER_VAR, "/usr/bin/podman")
+    spec = {"container": {"image": "img:1", "run_options": ["--gpus",
+                                                            "all"]},
+            "env_vars": {"A": "1"}}
+    want, _ = _spawn_command(ref_raylet, RefManager, spec, tmp_path,
+                             monkeypatch)
+    got, env = _spawn_command(raylet, RuntimeEnvManager, spec, tmp_path,
+                              monkeypatch, gpu_ids=gpu_ids)
+    cuda = ["-e", "CUDA_VISIBLE_DEVICES=" + ",".join(map(str, gpu_ids))]
+    image = want.index("img:1")
+    assert want[:6] == ["/usr/bin/podman", "run", "--rm", "--network=host",
+                        "-v", "/tmp:/tmp"]
+    assert got[:image] + got[image + 2:] == [
+        "ray_tpu_torch._private.worker_main" if a == "ray_tpu._private."
+        "worker_main" else a for a in want]
+    assert got[image:image + 2] == cuda
+    assert got[image + 2:image + 4] == ["img:1", "python3"]
+    # The Popen env is the container CLI's: the card stays hidden there.
+    assert env["CUDA_VISIBLE_DEVICES"] == ""
+
+
+def test_container_worker_runs_with_its_lease(cluster, standin,
+                                              monkeypatch):
+    """A ``num_gpus=1`` task in a container env runs through the
+    stand-in runtime: its command passes the lease's card by ``-e`` and
+    the user's run options, and the worker inside sees that card."""
+    import json
+
+    monkeypatch.setenv(CONTAINER_VAR, standin[0])
+    env = {"container": {"image": STANDIN_IMAGE,
+                         "run_options": ["--gpus", "all"]},
+           "env_vars": {"RTPU_IN_CONTAINER": "yes"}}
+
+    @ray_tpu_torch.remote(num_gpus=1, runtime_env=env)
+    def inside():
+        return (os.environ.get("RTPU_IN_CONTAINER"),
+                os.environ.get("CUDA_VISIBLE_DEVICES"),
+                ray_tpu_torch.get_gpu_ids())
+
+    assert ray_tpu_torch.get(inside.remote(), timeout=120) == (
+        "yes", "0", [0])
+    with open(standin[1]) as f:
+        calls = [json.loads(line) for line in f]
+    argv = next(c for c in calls if STANDIN_IMAGE in c)
+    image = argv.index(STANDIN_IMAGE)
+    assert argv[1:4] == ["run", "--rm", "--network=host"]
+    assert ["--gpus", "all"] == argv[6:8]
+    flags = argv[8:image]
+    assert "CUDA_VISIBLE_DEVICES=0" in flags
+    assert "RTPU_IN_CONTAINER=yes" in flags
+    assert argv[image + 1:image + 4] == [
+        "python3", "-m", "ray_tpu_torch._private.worker_main"]
