@@ -211,7 +211,12 @@ Phases, one line each; any failure raises and exits non-zero:
               read where it lies into the right neighbour's staging) and
               C5 in place (f32, every hop of a reduce-scatter, two
               launches a hop: send, then receive after the peers' done
-              words; its carry column) the same way; the host-level
+              words; its carry column) the same way; at n 4, ring
+              attention over ``get_group_mesh``: each rank its [1, 2048,
+              32, 128] bf16 sequence shard of 6p(a)'s inputs, the hops
+              C1's rank form (8 launches a rank, gated), its rows within
+              one bf16 ulp of the virtual-rank cuda route computed in
+              this process (the largest difference printed); the host-level
               API on the card (allreduce, reducescatter held to C4 then
               the split, allgather, broadcast, reduce, barrier, send/recv)
               equal to its CPU path for the same seeds, every call counted
@@ -383,6 +388,39 @@ Phases, one line each; any failure raises and exits non-zero:
               stand-in runtime (``RAY_TPU_CONTAINER_RUNTIME``) runs B1 once
               at (1, 512, 32, 128) bf16 within B1's limits, its command
               passing ``-e CUDA_VISIBLE_DEVICES=0`` and ``--gpus all``.
+6p. mesh   -- (run after zero quant) sequence, expert and pipeline
+              parallelism on meshes of virtual ranks (``make_mesh(...,
+              devices=[card] * n)``), random weights from seed 0.
+              (a) Ring attention, forward, B=1 S=8192 H=32 D=128 bf16
+              causal over seq 4: the cuda route (C1 on K and V before
+              each block, waited after it: 8 launches a call, gated)
+              equal to the lax route (the rank axis rotated) bit for bit;
+              within B1's bf16 limit of plain full-sequence attention in
+              f32 and a relative L2 of 1e-2 of it in bf16; both routes'
+              ms beside B1's on the whole sequence. (b) The train cell's
+              4 layers (remat "dots", fused loss, AdamW) on 1 x 8193
+              tokens, 3 steps from one state one device (flash), through
+              ``context_parallel_attention`` ring and Ulysses over seq 4:
+              losses within 1e-2 relative of one device's, Ulysses' B1,
+              B2, B3 exact (B1 on [4, 8192, 8, 128]), step s, tok/s and
+              peak memory each. (c) Mixtral-8x7B's widths (dim 4096, 32
+              heads, 8 KV heads, FFN 14336, 8 experts top 2, vocab 32000,
+              rope 1e6) at 2 of 32 layers, f32 params, batch 4 x 1025,
+              flash, on expert 8 through ``llama_param_specs`` and
+              ``build_train_step(mesh=...)``: one expert (top 1, every
+              token's slot) equal to the dense FFN in f32 within 1e-4;
+              each layer's dispatch, combine and assign on the card equal
+              to the CPU's from the same router probabilities; 3 steps,
+              finite losses, aux > 0, exact B1-B3; the share of dropped
+              tokens a layer, step s, tok/s. (d) ``pipeline_apply`` on
+              pipe 4, a Llama-3-8B decoder layer a stage, 8 microbatches
+              of 1 x 1024, forward and backward against the 4 layers in
+              sequence on the whole batch: outputs and grads within bf16
+              limits, B1 (M + P - 1) P a forward, B2 = B3 = P (M + P - 2)
+              + 1; both walls. (e) One step of ``build_train_step(mesh=
+              data 4, weight_update="sharded")`` at 1 layer bit for bit
+              ``build_zero_train_step`` over ``RingGroup(4)``, C2 = C3 =
+              1.
 7. train   -- f32 checks first: flash against plain attention at dim
               256 (head dim 128) and at ``LlamaConfig.tiny()`` (head dim
               16), which also trains one step with exact B1-B3 counts.
@@ -5384,6 +5422,523 @@ def phase_zero_quant(dev, card):
     return out
 
 
+# Phase 6p: sequence, expert and pipeline parallelism on meshes of virtual
+# ranks (``parallel.mesh``: n entries of the card, the ranks' shards
+# rank-major in one tensor), at Llama-3-8B's widths (Mixtral-8x7B's for the
+# MoE model), random weights from seed 0.
+MESH_N = 4                       # ranks of the seq, pipe and data axes
+RING_SEQ = 8192                  # Llama-3-8B's max_seq_len
+RING_SEED = 22                   # 6p(a)'s q, k, v; 6j's ring step takes them
+CP_STEPS = 3                     # 6p(b): steps of each route, one state
+# 6p(c): Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json) at 2 of its
+# 32 layers: 3.17 B params, 51 GB of f32 params, grads and AdamW moments
+# (4 layers would need 98 GB).
+MOE_LAYERS, MOE_BATCH, MOE_SEQ, MOE_STEPS = 2, 4, 1024, 3
+MOE_GATE_TOKENS = 256            # the single-expert gate's tokens (f32)
+PIPE_MICRO, PIPE_SEQ = 8, 1024   # 6p(d): M microbatches of 1 x PIPE_SEQ
+# 6p(a): the ring against plain full-sequence attention (``xla_attention``)
+# on the same bf16 inputs, twice. (1) Computed in f32 (the scores, P and O
+# unrounded): the ring rounds P to bf16 before P.V and O at the end, as B1
+# does against its plain version, so each element is held to B1's limit,
+# TOL_O_BF16_ABS + TOL_O_BF16_REL * |plain|. (2) In bf16, the plain path
+# the model runs: it also rounds every score to bf16 before the softmax,
+# which moves the first rows' outputs past that limit (a CPU run at S =
+# 4096, D = 128 read 0.0156 at row 1), so the whole output is held to a
+# relative L2 distance of TOL_RING_PLAIN_L2, the train phase's limit for
+# flash against plain attention's loss (the same CPU run read 4.3e-3).
+TOL_RING_PLAIN_L2 = TOL_PARITY_LOSS
+# 6j: a rank's rows against the virtual-rank result run the same block math
+# on one rank's slice, their f32 sums perhaps in another order, and round O
+# to bf16: at most one bf16 ulp apart (2**-7 of the value), plus 1e-5 for
+# values near 0, where an f32 difference of the terms' size may exceed it.
+TOL_RING_RANK = (1e-5, 2.0 ** -7)
+# 6p(b): each context-parallel route's losses against the one-device flash
+# step's, bf16 at 4 layers. The routes compute one function and round to
+# bf16 at other places (the ring's f32 scores and P per 2048-key block
+# against B1's per 64-key tile), so they differ as flash and plain
+# attention do in the train phase, whose loss limit (TOL_PARITY_LOSS, 1e-2
+# relative) they are held to. The reference's own test holds 2e-3 at f32
+# and a tiny width, where nothing is rounded to bf16.
+# 6p(d): the pipeline against the 4 layers in sequence on the whole batch,
+# bf16: each product at batch 1 against batch 8 (another GEMM tiling), and
+# each stage's weight gradient summed over the ticks in bf16. Outputs are
+# held to a relative L2 distance of TOL_PARITY_LOSS and each gradient leaf
+# to TOL_PARITY_GRAD, the train phase's limits for bf16 rounding.
+
+
+def moe_config():
+    """6p(c)'s model: Mixtral-8x7B's published widths in the repo's
+    ``LlamaConfig`` (its routing is the repo's: softmax, then top 2 with
+    capacity), at MOE_LAYERS layers, f32 params, bf16 compute."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(
+        vocab_size=32000, dim=4096, n_layers=MOE_LAYERS, n_heads=32,
+        n_kv_heads=8, hidden_dim=14336, max_seq_len=MOE_SEQ,
+        rope_theta=1e6, norm_eps=1e-5, attn_impl="flash", remat="dots",
+        n_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+
+
+def ring_qkv(dev):
+    """6p(a)'s q, k, v: [1, RING_SEQ, 32, 128] bf16 each, from seed
+    RING_SEED on ``dev`` (6j's ranks make the same ones on the card)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(RING_SEED)
+    return [torch.randn((1, RING_SEQ, N_HEADS, HEAD_DIM), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(3)]
+
+
+def _virtual_mesh(axes, dev):
+    """A mesh of virtual ranks on ``dev``: one entry of it per rank."""
+    from ray_tpu_torch.parallel import make_mesh
+
+    return make_mesh(axes, devices=[dev] * int(np.prod(list(axes.values()))))
+
+
+def _b_kernels():
+    from ray_tpu_torch.ops import attention
+
+    return (attention.flash_fwd_cuda, attention.flash_bwd_dkv_cuda,
+            attention.flash_bwd_dq_cuda)
+
+
+def _reset(kernels):
+    for fn in kernels:
+        fn.launches = 0
+
+
+def _launches(kernels):
+    return tuple(fn.launches for fn in kernels)
+
+
+def _clone(tree):
+    return torch.utils._pytree.tree_map(torch.clone, tree)
+
+
+def phase_ring(dev, card):
+    """6p(a): ring attention, forward, S = RING_SEQ over seq = MESH_N."""
+    from ray_tpu_torch.models.llama import xla_attention
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.ring_attention import ring_attention, \
+        shard_sequence
+    from ray_tpu_torch.util.collective import ring as R
+
+    n = MESH_N
+    mesh = _virtual_mesh({"seq": n}, dev)
+    q, k, v = ring_qkv(dev)
+    shards = [shard_sequence(t, n) for t in (q, k, v)]
+
+    def call(impl):
+        return ring_attention(*shards, True, "seq", impl, mesh=mesh)
+
+    with torch.no_grad():
+        _reset(R.KERNELS)
+        out = call("cuda")
+        torch.cuda.synchronize()
+        launches = _launches(R.KERNELS)
+        check(launches == (2 * n, 0, 0, 0),
+              f"ring attention's cuda route: launches (C1-C4) {launches} "
+              f"!= {(2 * n, 0, 0, 0)}")
+        lax = call("lax")
+        check(torch.equal(out, lax), "ring attention: the cuda route "
+              f"differs from the lax route by "
+              f"{(out.float() - lax.float()).abs().max().item()}")
+        del lax
+        plain = shard_sequence(xla_attention(
+            q.float(), k.float(), v.float(), causal=True), n)
+        diff = (out.float() - plain).abs()
+        used = (diff / (TOL_O_BF16_ABS + TOL_O_BF16_REL
+                        * plain.abs())).max().item()
+        err = diff.max().item()
+        del plain, diff
+        check(used <= 1.0, f"ring attention against f32 plain attention: "
+              f"max abs err {err}, {used:.3f} of the limit")
+        plain = shard_sequence(xla_attention(q, k, v, causal=True), n)
+        rel = _rel_l2([out], [plain])[0]
+        del plain
+        check(rel <= TOL_RING_PLAIN_L2, f"ring attention against bf16 "
+              f"plain attention: relative L2 {rel}")
+        cuda_ms = time_ms(lambda: call("cuda"), 3)
+        lax_ms = time_ms(lambda: call("lax"), 3)
+        b1_ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+    log("mesh", f"6p(a) ring attention, B=1 S={RING_SEQ} H={N_HEADS} "
+        f"D={HEAD_DIM} bf16 causal over seq={n} virtual ranks: the cuda "
+        f"route (C1 split-phase hops) equal to the lax route bit for bit; "
+        f"against plain full-sequence attention in f32 within {used:.3f} "
+        f"of B1's bf16 limit (max abs err {err:.3g}), in bf16 relative L2 "
+        f"{rel:.2e} (tol {TOL_RING_PLAIN_L2}); C1 launches {launches[0]} a "
+        f"call (2n); a call: cuda {cuda_ms:.3f} ms, lax {lax_ms:.3f} ms; "
+        f"B1 at [1, {RING_SEQ}, {N_HEADS}, {HEAD_DIM}] on one device "
+        f"{b1_ms:.3f} ms; {card}")
+    return {"n": n, "c1_launches": launches[0], "max_abs_err": err,
+            "tol_used": used, "bf16_plain_rel_l2": rel, "cuda_ms": cuda_ms, "lax_ms": lax_ms,
+            "b1_one_device_ms": b1_ms, "card": card}
+
+
+def phase_context_parallel(dev, card):
+    """6p(b): the train cell's 4 layers on one sequence of RING_SEQ
+    tokens, CP_STEPS steps from one state through the one-device flash
+    step, ring attention and Ulysses over seq = MESH_N."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.parallel import (
+        build_train_step, context_parallel_attention, create_train_state)
+
+    cfg = LlamaConfig.llama3_8b(
+        n_layers=TRAIN_LAYERS, max_seq_len=RING_SEQ, attn_impl="flash",
+        remat="dots", param_dtype=torch.bfloat16)
+    L = cfg.n_layers
+    master = init_params(cfg, seed=0, device=dev)
+    toks = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, RING_SEQ + 1)).astype(np.int64)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    mesh = _virtual_mesh({"seq": MESH_N}, dev)
+    kernels = _b_kernels()
+    flash = (2 * L * CP_STEPS, L * CP_STEPS, L * CP_STEPS)
+    routes = (("one device", None, flash),
+              ("ring", context_parallel_attention(mesh, impl="ring"),
+               (0, 0, 0)),
+              ("ulysses", context_parallel_attention(mesh, impl="ulysses"),
+               flash))
+    out = {}
+    for name, attn, want in routes:
+        state = create_train_state(_clone(master), device=dev)
+        if attn is None:
+            step = build_train_step(lambda p, b: loss_fn(p, b, cfg),
+                                    device=dev)
+        else:
+            step = build_train_step(
+                lambda p, b, a=attn: loss_fn(p, b, cfg, attn_impl=a),
+                mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        losses, times = [], []
+        for _ in range(CP_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            times.append(time.perf_counter() - t0)
+        got = _launches(kernels)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(all(np.isfinite(losses)), f"6p(b) {name}: losses {losses}")
+        check(got == want, f"6p(b) {name}: launches (B1, B2, B3) {got} != "
+              f"{want}")
+        step_s = float(np.median(times[1:]))
+        rec = {"losses": losses, "step_times_s": times, "step_s": step_s,
+               "tokens_per_s": RING_SEQ / step_s, "peak_gib": peak,
+               "launches_b1_b3": list(got)}
+        if attn is not None:
+            ref = out["one device"]["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            check(rel <= TOL_PARITY_LOSS, f"6p(b) {name}: losses {losses} "
+                  f"against the one-device step's {ref}: rel {rel}")
+            rec["loss_rel_to_one_device"] = rel
+        out[name] = rec
+        log("mesh", f"6p(b) {name}: {CP_STEPS} steps of 1 x {RING_SEQ} "
+            f"tokens, {L} layers: losses "
+            + ", ".join(f"{x:.5f}" for x in losses)
+            + (f" (rel to one device {rec['loss_rel_to_one_device']:.2e}, "
+               f"tol {TOL_PARITY_LOSS})" if attn is not None else "")
+            + "; step times " + ", ".join(f"{x:.3f}" for x in times)
+            + f" s; {RING_SEQ / step_s:.0f} tokens/s; peak memory "
+            f"{peak:.2f} GiB; launches B1, B2, B3 {got} (expected {want}); "
+            f"{card}")
+    del master
+    return out
+
+
+def phase_moe(dev, card):
+    """6p(c): the MoE layer at Mixtral-8x7B's widths: a single expert
+    against the dense FFN (f32), then MOE_LAYERS layers on an ``expert``
+    mesh of 8 virtual ranks: the dispatch against the CPU's, MOE_STEPS
+    steps."""
+    import torch.nn.functional as F
+
+    import ray_tpu_torch.models.moe as M
+    from ray_tpu_torch.models.llama import forward_hidden, init_params, \
+        loss_fn
+    from ray_tpu_torch.parallel import (
+        batch_sharding, build_train_step, create_train_state,
+        llama_param_shardings, shard_params)
+
+    cfg = moe_config()
+    # One expert, top 1, a capacity of every token: the dense SwiGLU FFN.
+    one = M.MoEConfig(dim=cfg.dim, hidden_dim=cfg.hidden_dim, n_experts=1,
+                      top_k=1, capacity_factor=1.0, dtype=torch.float32)
+    ep = M.init_moe_params(one, seed=1, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn((1, MOE_GATE_TOKENS, one.dim), generator=gen,
+                    device=dev)
+    with torch.no_grad():
+        got, _ = M.moe_layer(x, ep, one)
+        dense = (F.silu(x[0] @ ep["w_gate"][0]) * (x[0] @ ep["w_up"][0])) \
+            @ ep["w_down"][0]
+    one_rel = _rel_l2([got[0]], [dense])[0]
+    del ep, x, got, dense
+    check(one_rel <= TOL_PARITY_F32, f"6p(c) one expert against the dense "
+          f"FFN: relative L2 {one_rel}")
+
+    L, k, T = cfg.n_layers, cfg.moe_top_k, MOE_BATCH * MOE_SEQ
+    mesh = _virtual_mesh({"expert": cfg.n_experts}, dev)
+    shardings = llama_param_shardings(cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    params = shard_params(init_params(cfg, seed=0, device=dev), shardings)
+    toks = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ + 1)).astype(np.int64)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+
+    # Each layer's router probabilities and dispatch, from one forward.
+    seen, dispatch = [], M._top_k_dispatch
+
+    def recording(probs, k_, capacity, out_dtype):
+        res = dispatch(probs, k_, capacity, out_dtype)
+        seen.append((probs, capacity, res))
+        return res
+
+    M._top_k_dispatch = recording
+    try:
+        with torch.no_grad():
+            _, aux = forward_hidden(params, batch["tokens"][:, :-1],
+                                    dataclasses.replace(cfg, remat=False))
+    finally:
+        M._top_k_dispatch = dispatch
+    aux = aux.item()
+    dropped = []
+    for i, (probs, capacity, res) in enumerate(seen):
+        cpu = dispatch(probs.cpu(), k, capacity, cfg.dtype)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(res, cpu)),
+              f"6p(c) layer {i}: dispatch, combine or assign on the card "
+              f"differs from the CPU's on the same router probabilities")
+        dropped.append(1.0 - res[0].float().sum().item() / (T * k))
+    capacity = seen[0][1]
+    del seen, probs, res, cpu
+    check(aux > 0, f"6p(c): the load-balance term {aux}")
+
+    kernels = _b_kernels()
+    state = create_train_state(params, device=dev)
+    step = build_train_step(lambda p, b: loss_fn(p, b, cfg), mesh=mesh,
+                            param_shardings=shardings,
+                            batch_shardings=batch_sharding(mesh))
+    _reset(kernels)
+    losses, times = [], []
+    for _ in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+    got = _launches(kernels)
+    want = (2 * L * MOE_STEPS, L * MOE_STEPS, L * MOE_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"6p(c): losses {losses}")
+    check(got == want, f"6p(c): launches (B1, B2, B3) {got} != {want}")
+    step_s = float(np.median(times[1:]))
+    log("mesh", f"6p(c) MoE at Mixtral-8x7B widths ({MOE_LAYERS} of 32 "
+        f"layers, {cfg.num_params() / 1e9:.3f} B params f32, 8 experts "
+        f"top 2, capacity {capacity} of {T} tokens) on expert=8 virtual "
+        f"ranks: one expert against the dense FFN (f32, {MOE_GATE_TOKENS} "
+        f"tokens) relative L2 {one_rel:.2e} (tol {TOL_PARITY_F32}); "
+        f"dispatch, combine and assign on the card equal to the CPU's in "
+        f"every layer; dropped tokens by layer "
+        + ", ".join(f"{100 * d:.2f}%" for d in dropped)
+        + f"; aux {aux:.5f}; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; step times " + ", ".join(f"{x:.3f}" for x in times)
+        + f" s; {T / step_s:.0f} tokens/s; peak memory {peak:.2f} GiB; "
+        f"launches B1, B2, B3 {got} (expected {want}); {card}")
+    return {"layers": MOE_LAYERS, "params": cfg.num_params(),
+            "capacity": capacity, "tokens": T, "one_expert_rel_l2": one_rel,
+            "dropped_share_by_layer": dropped, "aux": aux, "losses": losses,
+            "step_times_s": times, "step_s": step_s,
+            "tokens_per_s": T / step_s, "peak_gib": peak,
+            "launches_b1_b3": list(got)}
+
+
+def phase_pipeline(dev, card):
+    """6p(d): GPipe over pipe = MESH_N virtual ranks, a Llama-3-8B
+    decoder layer a stage, PIPE_MICRO microbatches, forward and backward
+    against the layers in sequence on the whole batch."""
+    from ray_tpu_torch.models.llama import (
+        LlamaConfig, decoder_layer, init_params, rope_freqs)
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel.pipeline import (
+        microbatch, pipeline_apply, unmicrobatch)
+
+    P_, M_ = MESH_N, PIPE_MICRO
+    cfg = LlamaConfig.llama3_8b(n_layers=P_, max_seq_len=PIPE_SEQ,
+                                attn_impl="flash",
+                                param_dtype=torch.bfloat16)
+    layers = init_params(cfg, seed=0, device=dev)["layers"]
+    names = sorted(layers)
+    for t in layers.values():
+        t.requires_grad_(True)
+    cos, sin = rope_freqs(cfg.head_dim, PIPE_SEQ, cfg.rope_theta, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x, ct = (torch.randn((M_, PIPE_SEQ, cfg.dim), generator=gen,
+                         device=dev).to(torch.bfloat16) for _ in range(2))
+    mesh = _virtual_mesh({"pipe": P_}, dev)
+    kernels = _b_kernels()
+
+    def stage(p, h):
+        return decoder_layer(cfg, cos, sin, flash_attention, h, p)[0]
+
+    def piped(h):
+        return unmicrobatch(pipeline_apply(stage, layers, microbatch(h, M_),
+                                           mesh))
+
+    def sequential(h):
+        for s in range(P_):
+            h = stage({k: v[s] for k, v in layers.items()}, h)
+        return h
+
+    def run(fn):
+        h = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        y = fn(h)
+        torch.cuda.synchronize()
+        fwd = _launches(kernels)
+        (y.float() * ct.float()).sum().backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bwd = tuple(a - b for a, b in zip(_launches(kernels), fwd))
+        grads = [h.grad] + [layers[k].grad for k in names]
+        for t in layers.values():
+            t.grad = None
+        return y.detach(), grads, wall, fwd, bwd
+
+    run(sequential)                  # warm-up: the shapes' first calls
+    y_p, g_p, wall_p, fwd_p, bwd_p = run(piped)
+    y_s, g_s, wall_s, fwd_s, bwd_s = run(sequential)
+    want_fwd = ((M_ + P_ - 1) * P_, 0, 0)
+    want_bwd = (0, P_ * (M_ + P_ - 2) + 1, P_ * (M_ + P_ - 2) + 1)
+    check(fwd_p == want_fwd and bwd_p == want_bwd,
+          f"6p(d) pipeline launches: forward {fwd_p} != {want_fwd} or "
+          f"backward {bwd_p} != {want_bwd}")
+    check(fwd_s == (P_, 0, 0) and bwd_s == (0, P_, P_),
+          f"6p(d) sequential launches: {fwd_s}, {bwd_s}")
+    out_rel = _rel_l2([y_p], [y_s])[0]
+    grad_rel = _rel_l2(g_p, g_s)
+    del layers, g_p, g_s, y_p, y_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(out_rel <= TOL_PARITY_LOSS and max(grad_rel) <= TOL_PARITY_GRAD,
+          f"6p(d) pipeline against the sequence: outputs relative L2 "
+          f"{out_rel}, gradients {grad_rel}")
+    log("mesh", f"6p(d) pipeline: {P_} stages of one Llama-3-8B decoder "
+        f"layer (flash) on pipe={P_} virtual ranks, M={M_} microbatches "
+        f"of 1 x {PIPE_SEQ}: outputs against the layers in sequence on the "
+        f"whole batch relative L2 {out_rel:.2e} (tol {TOL_PARITY_LOSS}), "
+        f"gradients (x and {len(names)} stacked leaves) max "
+        f"{max(grad_rel):.2e} (tol {TOL_PARITY_GRAD}); launches forward "
+        f"B1 {fwd_p[0]} ((M + P - 1) P), backward B2 {bwd_p[1]}, B3 "
+        f"{bwd_p[2]} (P (M + P - 2) + 1); forward and backward "
+        f"{wall_p:.3f} s against {wall_s:.3f} s in sequence; {card}")
+    return {"stages": P_, "microbatches": M_, "out_rel_l2": out_rel,
+            "grad_rel_l2_max": max(grad_rel), "wall_s": wall_p,
+            "sequential_wall_s": wall_s, "launches_fwd_b1_b3": list(fwd_p),
+            "launches_bwd_b1_b3": list(bwd_p)}
+
+
+def phase_mesh_sharded(dev, card):
+    """6p(e): one step of ``build_train_step(mesh=make_mesh({"data":
+    MESH_N}), weight_update="sharded")`` at 1 layer against
+    ``build_zero_train_step`` over ``RingGroup(MESH_N)``."""
+    from ray_tpu_torch.models.llama import LlamaConfig, init_params, loss_fn
+    from ray_tpu_torch.parallel import (
+        build_train_step, build_zero_train_step, create_train_state,
+        create_zero_state)
+    from ray_tpu_torch.parallel.train_step import DEFAULT_OPTIMIZER
+    from ray_tpu_torch.util.collective import RingGroup
+    from ray_tpu_torch.util.collective import ring as R
+
+    n = MESH_N
+    cfg = LlamaConfig.llama3_8b(
+        n_layers=1, max_seq_len=TRAIN_SEQ, attn_impl="flash", remat="dots",
+        param_dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device=dev)
+    toks = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (n, TRAIN_SEQ + 1)).astype(np.int64)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+
+    def loss(p, b):
+        return loss_fn(p, b, cfg)
+
+    # The ZeRO ring itself, first; only its result is kept.
+    ring = RingGroup(n, dev)
+    zstep = build_zero_train_step(loss, DEFAULT_OPTIMIZER, ring)
+    zstate, zm = zstep(create_zero_state(params, DEFAULT_OPTIMIZER, ring),
+                       batch)
+    want_flat, want_m = zstate.flat, zm
+    del zstate, zstep, ring
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = _virtual_mesh({"data": n}, dev)
+    step = build_train_step(loss, mesh=mesh, weight_update="sharded",
+                            params_shape=params)
+    state = create_train_state(params, device=dev)
+    kernels = R.KERNELS + _b_kernels()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _launches(kernels)
+    want = (0, 1, 1, 0, 2 * n, n, n)
+    same = (torch.equal(m["loss"], want_m["loss"])
+            and torch.equal(m["grad_norm"], want_m["grad_norm"])
+            and torch.equal(state.flat, want_flat))
+    del state, step, want_flat, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(same, "6p(e): the sharded route differs from the ZeRO ring")
+    check(got == want, f"6p(e): launches (C1-C4, B1-B3) {got} != {want}")
+    log("mesh", f"6p(e) build_train_step(mesh=data {n}, weight_update="
+        f"'sharded'), 1 layer, {n} x {TRAIN_SEQ} tokens: loss "
+        f"{m['loss'].item():.5f}, grad norm {m['grad_norm'].item():.4f}, "
+        f"bit for bit the ZeRO ring's (loss, grad norm, every rank's "
+        f"params); launches C1-C4 {got[:4]}, B1-B3 {got[4:]} (expected "
+        f"{want}); the step {wall:.3f} s; {card}")
+    return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "step_s": wall, "launches_c1_c4": list(got[:4]),
+            "launches_b1_b3": list(got[4:])}
+
+
+def phase_mesh_parallel(dev, card):
+    """Phase 6p; see the module docstring."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, fn in (("ring", phase_ring),
+                    ("context_parallel", phase_context_parallel),
+                    ("moe", phase_moe), ("pipeline", phase_pipeline),
+                    ("sharded", phase_mesh_sharded)):
+        t1 = time.perf_counter()
+        out[key] = fn(dev, card)
+        out[key]["phase_s"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+    uly = out["context_parallel"]["ulysses"]["launches_b1_b3"]
+    moe = out["moe"]["launches_b1_b3"]
+    pipe = [a + b for a, b in zip(out["pipeline"]["launches_fwd_b1_b3"],
+                                  out["pipeline"]["launches_bwd_b1_b3"])]
+    sharded = out["sharded"]["launches_b1_b3"]
+    out["launches_b1_b3"] = {
+        "ulysses": uly, "moe": moe, "pipeline": pipe, "sharded": sharded}
+    out["phase_s"] = time.perf_counter() - t0
+    log("mesh", f"6p took {out['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {out[k]['phase_s']:.1f}" for k in
+                    ("ring", "context_parallel", "moe", "pipeline",
+                     "sharded")) + f"); {card}")
+    return out
+
+
 # Phase 6i: the trainer on the card. Timed steps after the warmup step;
 # the model, batch and ranks are the ZeRO phase's.
 TRAINER_STEPS = 3
@@ -6741,6 +7296,25 @@ def _collective_member(rt):
                                         f"processes), the copies to and "
                                         f"from the card included"}
 
+        def ring_attention(self, g):
+            """6j's ring step: this rank's sequence shard of 6p(a)'s q, k,
+            v through ring attention over the group's mesh, its hops C1's
+            rank form."""
+            from ray_tpu_torch.ops.ring_attention import ring_attention
+            from ray_tpu_torch.util import collective as col
+
+            _, n, r, dev = self._group(g)
+            mesh = col.get_group_mesh(g, "seq")
+            sl = RING_SEQ // n
+            q, k, v = (t[:, r * sl:(r + 1) * sl].contiguous()
+                       for t in ring_qkv(dev))
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = ring_attention(q, k, v, True, "seq", "cuda", mesh=mesh)
+            torch.cuda.synchronize()
+            return {"out": out.cpu(), "shape": dict(mesh.shape),
+                    "rank": mesh.rank, "wall_s": time.perf_counter() - t0}
+
         def call(self, g, rows):
             """One allreduce on the card; raises what the group raises."""
             grp, n, r, dev = self._group(g)
@@ -6750,6 +7324,56 @@ def _collective_member(rt):
             return time.perf_counter() - t0
 
     return Member
+
+
+def collective_ring_attention(rt, actors, name, dev, card):
+    """6j's ring step: each rank of the group runs ring attention on its
+    [1, RING_SEQ / n, 32, 128] shard of 6p(a)'s inputs over
+    ``get_group_mesh`` (C1's rank form), against the virtual-rank cuda
+    route on the same inputs in this process."""
+    from ray_tpu_torch.ops.ring_attention import ring_attention, \
+        shard_sequence
+
+    n = len(actors)
+    mesh = _virtual_mesh({"seq": n}, dev)
+    with torch.no_grad():
+        want = ring_attention(*(shard_sequence(t, n) for t in ring_qkv(dev)),
+                              True, "seq", "cuda", mesh=mesh).cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt.get([a.reset_counts.remote() for a in actors], timeout=60)
+    res = rt.get([a.ring_attention.remote(name) for a in actors],
+                 timeout=300)
+    counts = rt.get([a.counts.remote() for a in actors], timeout=60)
+    want_counts = [0, 0, 0, 0, 2 * n, 0]
+    check(all(c == want_counts for c in counts),
+          f"ring attention's rank-form launches {counts} != {want_counts} "
+          f"a rank")
+    a, r_ = TOL_RING_RANK
+    errs, used, equal = [], [], []
+    for r, x in enumerate(res):
+        check(x["shape"] == {"seq": n} and x["rank"] == r,
+              f"rank {r}'s group mesh: {x['shape']}, rank {x['rank']}")
+        got, w = x["out"].float(), want[r].float()
+        diff = (got - w).abs()
+        errs.append(diff.max().item())
+        used.append((diff / (a + r_ * w.abs())).max().item())
+        equal.append(torch.equal(x["out"], want[r]))
+    check(max(used) <= 1.0, f"ring attention in rank form against the "
+          f"virtual ranks: max abs err {errs}, {used} of the limit")
+    out = {"n": n, "c1_launches": sum(c[4] for c in counts),
+           "max_abs_err": max(errs), "tol_used": max(used),
+           "bitwise_ranks": equal,
+           "wall_s": [x["wall_s"] for x in res]}
+    log("collective", f"n={n}: ring attention over get_group_mesh, each "
+        f"rank its [1, {RING_SEQ // n}, {N_HEADS}, {HEAD_DIM}] bf16 shard "
+        f"of 6p(a)'s inputs, the hops C1's rank form: every rank's rows "
+        f"within {out['tol_used']:.3f} of one bf16 ulp of the virtual-rank "
+        f"cuda route (max abs diff {out['max_abs_err']:.3g}; bit for bit "
+        f"on ranks {[r for r, e in enumerate(equal) if e]}); C1 launches "
+        f"{2 * n} a rank; the call "
+        + ", ".join(f"{s:.3f}" for s in out["wall_s"]) + f" s; {card}")
+    return out
 
 
 def _overlap_rows(elems, n):
@@ -6847,6 +7471,9 @@ def phase_collective(dev, card, built, zero_rows, q_elems, ring_rows,
                            for a in actors], timeout=600)
             bad = [b for x in hops for b in x["bad"]]
             check(not bad, f"n={n} C1 and C5 rank-form gates: {bad}")
+            if n == COLLECTIVE_NS[-1]:
+                out["ring_attention"] = collective_ring_attention(
+                    rt, actors, name, dev, card)
             gates[n] = {"actor_start_s": start_s, "group_s": join_s,
                         "gates_s": time.perf_counter() - t0,
                         "cases": len(res[0]["cases"]) * n,
@@ -9059,6 +9686,11 @@ def main() -> int:
     lap("zero_quant")
     gc.collect()
     torch.cuda.empty_cache()
+    mesh = phase_mesh_parallel(dev, card)
+    lap("mesh_parallel")
+    mesh_b = mesh["launches_b1_b3"]
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer = phase_trainer(dev, card)
     lap("trainer")
     gc.collect()
@@ -9104,7 +9736,7 @@ def main() -> int:
                  f"causal bf16")
 
     def bwd_kernel(name, key, outs, replaces, train_launches, zero_launches,
-                   zq_launches, trainer_launches, gang_workers):
+                   zq_launches, trainer_launches, gang_workers, i):
         report = kernel_report(built, f"{name}_kernel")
         f32_report = kernel_report(built, f"{name}_f32_kernel")
         return {
@@ -9112,12 +9744,15 @@ def main() -> int:
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": replaces,
             "launches": (train_launches + zero_launches + zq_launches
-                         + trainer_launches + gang_workers),
+                         + trainer_launches + gang_workers
+                         + sum(p[i] for p in mesh_b.values())),
             "launches_by_path": {"train": train_launches,
                                  "zero_train": zero_launches,
                                  "zero_quant": zq_launches,
                                  "trainer_worker": trainer_launches,
-                                 "zero_gang_workers": gang_workers},
+                                 "zero_gang_workers": gang_workers,
+                                 **{f"mesh_{k}": p[i]
+                                    for k, p in mesh_b.items()}},
             "max_abs_err": max(r[f"bf16_{o}_err"] for r in bwd_rows
                                for o in outs),
             "f32_max_abs_err": max(r[f"f32_{o}_err"] for r in bwd_rows
@@ -9181,6 +9816,8 @@ def main() -> int:
 
     def rank_kernel(i, kind, key, name, replaces):
         row = collective["rows"][key]
+        ring_attn = (collective["ring_attention"]["c1_launches"]
+                     if key == "C1" else 0)
         return {
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/ring.cu",
@@ -9189,11 +9826,13 @@ def main() -> int:
                     f"{row['n']} GPU actors, peers through CUDA IPC, "
                     f"ordered by {collective['transport']}",
             "launches": (collective["launches"][i]
-                         + gang_launches.get(key, 0)),
+                         + gang_launches.get(key, 0) + ring_attn),
             "launches_by_path": {"collective_api_b2b_full_size":
                                  collective["launches"][i],
                                  "zero_gang_workers":
-                                     gang_launches.get(key, 0)},
+                                     gang_launches.get(key, 0),
+                                 **({"ring_attention_ranks": ring_attn}
+                                    if key == "C1" else {})},
             "max_abs_err": 0.0,
             "tolerance": "bitwise: torch.equal with the in-process kernel "
                          "and the plain version at the gates (n 2 and 4)"
@@ -9240,7 +9879,8 @@ def main() -> int:
                      + jobs["b1_launches"] + transports["b1_launches"]
                      + autoscaler["b1_launches"]
                      + device_obs["b1_launches"]
-                     + device_obs["container"]["launches"]),
+                     + device_obs["container"]["launches"]
+                     + sum(p[0] for p in mesh_b.values())),
         "launches_by_path": {"serve": serve_launches, "paged_serve": 0,
                              "spec_serve_draft": spec["b1_launches"],
                              "disagg_spec_decode_draft":
@@ -9265,7 +9905,9 @@ def main() -> int:
                              "device_obs_profiled_gpu_actor":
                                  device_obs["b1_launches"],
                              "device_obs_container_task":
-                                 device_obs["container"]["launches"]},
+                                 device_obs["container"]["launches"],
+                             **{f"mesh_{k}": p[0]
+                                for k, p in mesh_b.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "timed_by": TIMED_BY_GRAPH,
@@ -9293,21 +9935,24 @@ def main() -> int:
         "per_shape": rows,
     }, bwd_kernel("flash_bwd_dkv", "dkv", ("dk", "dv"),
                   "ray_tpu/ops/attention.py:149", train["launches"][1],
-                  zero_b[1], zq_b[1], tr["B2"], gang_launches["B2"]),
+                  zero_b[1], zq_b[1], tr["B2"], gang_launches["B2"], 1),
         bwd_kernel("flash_bwd_dq", "dq", ("dq",),
                    "ray_tpu/ops/attention.py:211", train["launches"][2],
-                   zero_b[2], zq_b[2], tr["B3"], gang_launches["B3"]),
+                   zero_b[2], zq_b[2], tr["B3"], gang_launches["B3"], 2),
         ring_kernel("C1", "ring_permute", 378,
                     {"zero_train_overlap": over["launches_c1_c4"][0],
-                     "zero_quant_overlap": qover["launches_c1_c6"][0]}),
+                     "zero_quant_overlap": qover["launches_c1_c6"][0],
+                     "mesh_ring_attention": mesh["ring"]["c1_launches"]}),
         ring_kernel("C2", "ring_reduce_scatter", 169,
                     {"zero_train": mono["launches_c1_c4"][1],
-                     "trainer_worker": tr["C2"]}),
+                     "trainer_worker": tr["C2"],
+                     "mesh_sharded": mesh["sharded"]["launches_c1_c4"][1]}),
         ring_kernel("C3", "ring_allgather", 146,
                     {"zero_train": mono["launches_c1_c4"][2],
                      "zero_quant": qmono["launches_c1_c6"][2]
                      + qef["launches_c1_c6"][2],
-                     "trainer_worker": tr["C3"]}),
+                     "trainer_worker": tr["C3"],
+                     "mesh_sharded": mesh["sharded"]["launches_c1_c4"][2]}),
         ring_kernel("C4", "ring_allreduce", 107,
                     {"zero_replicated_f32": c4_launches}),
         qring_kernel("C5", "ring_qhop", 121,
@@ -9323,7 +9968,8 @@ def main() -> int:
         "disagg_gates": disagg_gates, "runtime": runtime,
         "train": {k: v for k, v in train.items() if k != "launches"},
         "zero_train": zero, "zero_f32_max_abs_err": zero_f32_err,
-        "zero_quant": zq, "trainer": trainer, "zero_gang": gang,
+        "zero_quant": zq, "mesh_parallel": mesh, "trainer": trainer,
+        "zero_gang": gang,
         "jobs": jobs, "transports": transports, "autoscaler": autoscaler,
         "serve_programs": serve_programs, "device_obs": device_obs,
         "collective": {k: v for k, v in collective.items() if k != "rows"}}),

@@ -7,8 +7,10 @@ that tree into the port's, on a device, in the config's ``param_dtype``
 (f32 or bf16: a bf16 value upcast to f32 converts back exactly), and
 ``params_to_numpy`` is its inverse, so trained params can be held
 against the reference's. Both the plain tree
-of ``init_params`` and the int8 tree of ``quantize_weights_int8``
-(``w_q``/``w_s``, ``lm_head_q``/``lm_head_s``) convert. The layout is
+of ``init_params`` (a MoE config's too: ``router`` [L, D, E] and the
+expert stacks [L, E, D, F], [L, E, F, D]) and the int8 tree of
+``quantize_weights_int8`` (``w_q``/``w_s``, ``lm_head_q``/``lm_head_s``)
+convert. The layout is
 the same on both sides (stacked layers, weights [in, out]), so nothing is
 transposed.
 """

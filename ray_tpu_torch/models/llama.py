@@ -46,8 +46,16 @@ Numerics against the JAX package (the tests hold each of these):
   (``tests/test_torch_paged.py``). The pool carries one sink block past
   the reference's (``init_paged_kv_cache``) where inactive rows write.
 
-``n_experts > 0`` (MoE) and ``attn_impl="ring"`` belong to later slices
-and raise ``NotImplementedError``.
+- MoE (``n_experts > 0``): each layer's FFN is ``models.moe.moe_layer``
+  on the stacked ``router`` [L, D, E] and expert weights [L, E, D, F] /
+  [L, E, F, D], as in the reference; ``forward_hidden`` sums the layers'
+  load-balance terms into ``aux``, which ``loss_fn`` adds
+  (``tests/test_torch_moe.py``). The KV-cache functions (``prefill_kv``,
+  ``decode_step``, the paged ones, and so the engine) refuse MoE
+  configs, as the reference's do: ``forward`` scores them.
+- ``attn_impl="ring"`` is ``ops.ring_attention.ring_attention``, which
+  without a mesh is exact local attention; a callable (such as
+  ``parallel.context_parallel_attention(mesh)``) passes through.
 """
 
 from __future__ import annotations
@@ -114,18 +122,21 @@ class LlamaConfig:
 
     def num_params(self) -> int:
         d, h, v = self.dim, self.hidden_dim, self.vocab_size
+        ffn = (self.n_experts * 3 * d * h + d * self.n_experts
+               if self.n_experts else 3 * d * h)
         per_layer = (self.dim * self.head_dim * self.n_heads
                      + 2 * self.dim * self.head_dim * self.n_kv_heads
-                     + self.dim * self.dim + 3 * d * h + 2 * d)
+                     + self.dim * self.dim + ffn + 2 * d)
         out_head = 0 if self.tie_embeddings else d * v
         return v * d + self.n_layers * per_layer + d + out_head
 
 
 def _dense_only(config: LlamaConfig) -> None:
+    """The KV-cache paths take dense FFNs, as the reference's do."""
     if config.n_experts:
         raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet; it comes with the "
-            "expert-parallel slice")
+            "KV-cache decode for MoE configs is not implemented yet; "
+            "use forward() for scoring")
 
 
 # ---------------------------------------------------------------------------
@@ -138,8 +149,10 @@ def init_params(config: LlamaConfig, seed: int = 0,
     at 1), drawn on ``device`` (default: the card) from a
     ``torch.Generator`` seeded with ``seed``. The bits differ from the JAX
     package's ``init_params``; tests share weights through
-    ``models.convert.params_from_numpy`` instead."""
-    _dense_only(config)
+    ``models.convert.params_from_numpy`` instead. A MoE config
+    (``n_experts > 0``) draws ``router`` [L, D, E] and the expert stacks
+    ``w_gate``/``w_up`` [L, E, D, F], ``w_down`` [L, E, F, D] in place of
+    the dense FFN."""
     c = config
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -160,9 +173,16 @@ def init_params(config: LlamaConfig, seed: int = 0,
             "wv": dense(L, c.dim, c.n_kv_heads * kd),
             "wo": dense(L, c.n_heads * kd, c.dim),
             "ffn_norm": torch.ones((L, c.dim), **ones),
-            "w_gate": dense(L, c.dim, c.hidden_dim),
-            "w_up": dense(L, c.dim, c.hidden_dim),
-            "w_down": dense(L, c.hidden_dim, c.dim),
+            **({
+                "router": dense(L, c.dim, c.n_experts),
+                "w_gate": dense(L, c.n_experts, c.dim, c.hidden_dim),
+                "w_up": dense(L, c.n_experts, c.dim, c.hidden_dim),
+                "w_down": dense(L, c.n_experts, c.hidden_dim, c.dim),
+            } if c.n_experts else {
+                "w_gate": dense(L, c.dim, c.hidden_dim),
+                "w_up": dense(L, c.dim, c.hidden_dim),
+                "w_down": dense(L, c.hidden_dim, c.dim),
+            }),
         },
         "norm_f": torch.ones((c.dim,), **ones),
     }
@@ -301,9 +321,9 @@ def _get_attention_fn(impl) -> Callable:
 
         return flash_attention
     if impl == "ring":
-        raise NotImplementedError(
-            "attn_impl='ring' (context parallel) is not ported yet; it "
-            "comes with the sequence-parallel slice")
+        from ray_tpu_torch.ops.ring_attention import ring_attention
+
+        return ring_attention
     if impl == "xla":
         return xla_attention
     raise ValueError(f"unknown attn_impl {impl!r}")
@@ -360,6 +380,20 @@ def _ffn(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return x + (gate * up) @ _weight(p, "w_down", c.dtype)
 
 
+def _moe_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor],
+             c: LlamaConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN block: (x + moe_layer(rms_norm(x)), aux)."""
+    from ray_tpu_torch.models.moe import MoEConfig, moe_layer
+
+    mcfg = MoEConfig(dim=c.dim, hidden_dim=c.hidden_dim,
+                     n_experts=c.n_experts, top_k=c.moe_top_k,
+                     capacity_factor=c.moe_capacity_factor, dtype=c.dtype)
+    h = rms_norm(x, p["ffn_norm"], c.norm_eps)
+    delta, aux = moe_layer(h, {k: p[k] for k in
+                               ("router", "w_gate", "w_up", "w_down")}, mcfg)
+    return x + delta, aux
+
+
 def _qkv(x: torch.Tensor, p: Dict[str, torch.Tensor], c: LlamaConfig):
     B, S, _ = x.shape
     kd = c.head_dim
@@ -374,17 +408,37 @@ def _qkv(x: torch.Tensor, p: Dict[str, torch.Tensor], c: LlamaConfig):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _layer(c: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
-           attn_fn: Callable, x: torch.Tensor, p: Dict[str, torch.Tensor]):
-    """One decoder layer: x [B, S, D] -> (x, pre-repeat k, v)."""
+def _attention_block(c: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
+                     attn_fn: Callable, x: torch.Tensor,
+                     p: Dict[str, torch.Tensor]):
+    """x [B, S, D] -> (x + attention, pre-repeat k, v)."""
     B, S, _ = x.shape
     rep = c.n_heads // c.n_kv_heads
     q, k, v = _qkv(x, p, c)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attn_fn(q, _repeat_kv(k, rep), _repeat_kv(v, rep), causal=True)
-    x = x + attn.reshape(B, S, -1) @ _weight(p, "wo", c.dtype)
+    return x + attn.reshape(B, S, -1) @ _weight(p, "wo", c.dtype), k, v
+
+
+def _layer(c: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
+           attn_fn: Callable, x: torch.Tensor, p: Dict[str, torch.Tensor]):
+    """One dense decoder layer: x [B, S, D] -> (x, pre-repeat k, v)."""
+    x, k, v = _attention_block(c, cos, sin, attn_fn, x, p)
     return _ffn(x, p, c), k, v
+
+
+def decoder_layer(c: LlamaConfig, cos: torch.Tensor, sin: torch.Tensor,
+                  attn_fn: Callable, x: torch.Tensor,
+                  p: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer, dense or MoE: x [B, S, D] -> (x, aux), aux the
+    layer's MoE load-balance term (0 for a dense layer)."""
+    x, _, _ = _attention_block(c, cos, sin, attn_fn, x, p)
+    if c.n_experts:
+        return _moe_ffn(x, p, c)
+    return _ffn(x, p, c), torch.zeros((), dtype=torch.float32,
+                                      device=x.device)
 
 
 def prefill_kv(params: Params, tokens: torch.Tensor, config: LlamaConfig,
@@ -421,10 +475,10 @@ def _remat_dots():
 def forward_hidden(params: Params, tokens: torch.Tensor, config: LlamaConfig,
                    attn_impl: Optional[Any] = None):
     """Trunk only: tokens [B, S] -> (normed hidden [B, S, D], aux). aux is
-    the MoE load-balance term of the reference, 0 for a dense model.
-    ``config.remat`` checkpoints each layer: ``True`` whole, ``"dots"``
-    keeping its weight matmuls' outputs."""
-    _dense_only(config)
+    the MoE load-balance term of the reference (the layers' terms
+    summed), 0 for a dense model. ``config.remat`` checkpoints each
+    layer: ``True`` whole, ``"dots"`` keeping its weight matmuls'
+    outputs."""
     c = config
     if isinstance(c.remat, str) and c.remat != "dots":
         raise ValueError(
@@ -434,26 +488,30 @@ def forward_hidden(params: Params, tokens: torch.Tensor, config: LlamaConfig,
     attn_fn = _get_attention_fn(attn_impl or c.attn_impl)
 
     def layer(x, p):
-        return _layer(c, cos, sin, attn_fn, x, p)[0]
+        return decoder_layer(c, cos, sin, attn_fn, x, p)
 
     x = _embed(params, tokens, c.dtype)
+    auxes = []
     for p in _layer_views(params):
         if c.remat == "dots":
-            x = checkpoint(layer, x, p, use_reentrant=False,
-                           context_fn=_remat_dots)
+            x, aux = checkpoint(layer, x, p, use_reentrant=False,
+                                context_fn=_remat_dots)
         elif c.remat:
-            x = checkpoint(layer, x, p, use_reentrant=False)
+            x, aux = checkpoint(layer, x, p, use_reentrant=False)
         else:
-            x = layer(x, p)
+            x, aux = layer(x, p)
+        auxes.append(aux)
     x = rms_norm(x, params["norm_f"], c.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.stack(auxes).sum()
 
 
 def forward(params: Params, tokens: torch.Tensor, config: LlamaConfig,
-            attn_impl: Optional[Any] = None) -> torch.Tensor:
-    """tokens [B, S] -> f32 logits [B, S, V]."""
-    x, _ = forward_hidden(params, tokens, config, attn_impl)
-    return _logits(x, params, config)
+            attn_impl: Optional[Any] = None, return_aux: bool = False):
+    """tokens [B, S] -> f32 logits [B, S, V] (or (logits, aux) with
+    ``return_aux``: the MoE router's load-balance term)."""
+    x, aux = forward_hidden(params, tokens, config, attn_impl)
+    logits = _logits(x, params, config)
+    return (logits, aux) if return_aux else logits
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -680,7 +738,8 @@ def decode_step_paged(params: Params, pools: Dict[str, torch.Tensor],
     contiguous tensor, so the same bits."""
     if config.n_experts:
         raise NotImplementedError(
-            "paged KV-cache decode for MoE configs is not implemented")
+            "paged KV-cache decode for MoE configs is not implemented; "
+            "use forward() for scoring")
     tables = block_tables.to(tokens.device).long()
     S_pad = tables.shape[1] * pools["k"].shape[2]
     phys, off = _paged_targets(pools, tables, positions[:, None], active)
@@ -736,7 +795,8 @@ def verify_kv_paged(params: Params, pools: Dict[str, torch.Tensor],
     write to the sink block."""
     if config.n_experts:
         raise NotImplementedError(
-            "paged KV-cache verify for MoE configs is not implemented")
+            "paged KV-cache verify for MoE configs is not implemented; "
+            "use forward() for scoring")
     tables = block_tables.to(tokens.device).long()
     S_pad = tables.shape[1] * pools["k"].shape[2]
     K = tokens.shape[1]

@@ -539,3 +539,25 @@ def build_replicated_train_step(
                        "step": state.step}
 
     return step_fn
+
+
+def zero_moment_shardings(param_specs, optimizer, params_shape, mesh,
+                          axis_name: str = "data"):
+    """The optimizer state's shardings with ``axis_name`` folded into the
+    moments' dim 0 (the reference's ``parallel.zero`` helper): the
+    ``opt_state`` of ``state_shardings(..., weight_update="sharded")``
+    for a tree of specs."""
+    if axis_name != "data":
+        raise ValueError("the port folds the 'data' axis")
+    from ray_tpu_torch.parallel.sharding import NamedSharding, _tree_map
+    from ray_tpu_torch.parallel.train_step import state_shardings
+
+    shardings = _tree_map(lambda s: NamedSharding(mesh, s), param_specs)
+    return state_shardings(shardings, optimizer, params_shape, mesh,
+                           "sharded")["opt_state"]
+
+
+def constrain_opt_state(opt_state, moment_shardings):
+    """The reference's in-step sharding constraint: on virtual ranks a
+    placement changes no value, so the state comes back as it is."""
+    return opt_state

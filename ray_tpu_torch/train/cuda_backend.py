@@ -29,8 +29,15 @@ kernels' rank forms across processes that share the card). So:
   ``build_replicated_train_step`` (B1–B3, C4); ``"sharded"`` is
   ``build_zero_train_step`` (B1–B3, C2 + C3); ``overlap=True`` its
   split-phase form (B1–B3, C1 per hop); across processes the same steps
-  run the kernels' rank forms. ``fsdp`` and ``tensor`` axes raise (the
-  mesh-parallel slice).
+  run the kernels' rank forms.
+- Other mesh axes (``fsdp``, ``tensor``, ``seq``, ``expert``, ``pipe``)
+  at W = 1 make a mesh of virtual ranks on the device
+  (``parallel.make_mesh``), as the reference's ``run_pod_training``
+  builds its mesh: the model is sharded with ``llama_param_specs`` and
+  steps through ``build_train_step(mesh=...)``, which on such a mesh is
+  the one-device step (partitioning changes no value). At W > 1 any
+  axis other than ``data`` raises: it comes with the mesh across
+  processes.
 
 The ranks sum their gradients (the ZeRO step's contract); the reference's
 GSPMD routes average them. AdamW divides each element by its own running
@@ -156,17 +163,18 @@ class CudaBackend(Backend):
 
 def _data_ranks(mesh_axes: Optional[dict], world_size: int = 1) -> int:
     """The number of data ranks ``mesh_axes`` asks for: virtual ranks on
-    one device at world size 1, else the W processes of the gang."""
+    one device at world size 1, else the W processes of the gang. With
+    other axes above 1 (a virtual mesh, at world size 1 only): the ranks
+    the batch splits over, ``data`` times ``fsdp``."""
     axes = dict(mesh_axes) if mesh_axes else {
         "data": -1 if world_size > 1 else 1}
     other = {ax: size for ax, size in axes.items()
              if ax != "data" and size != 1}
-    if other:
+    if other and world_size > 1:
         raise NotImplementedError(
-            f"mesh_axes {axes}: the port shards only over 'data' (virtual "
-            f"ranks on one device); the non-trivial axes {other} come with "
-            "the mesh-parallel slice (fsdp, tensor, sequence and expert "
-            "parallelism)")
+            f"mesh_axes {axes}: in a gang of {world_size} workers each "
+            f"worker is one data rank; the axes {other} across processes "
+            "come with the mesh across processes")
     n = int(axes.get("data", 1))
     if world_size > 1:
         if n not in (-1, world_size):
@@ -175,15 +183,26 @@ def _data_ranks(mesh_axes: Optional[dict], world_size: int = 1) -> int:
                 f"{world_size} workers of the gang (each worker is one data "
                 f"rank); give 'data': {world_size} or -1")
         return world_size
-    if n == -1:
+    if -1 in axes.values():
         raise ValueError(
-            f"mesh_axes {axes}: 'data': -1 absorbs the device count in the "
-            "reference, but the port's data ranks are virtual ranks on one "
+            f"mesh_axes {axes}: -1 absorbs the device count in the "
+            "reference, but the port's ranks are virtual ranks on one "
             "device, so there is no device count to absorb; give the number "
             "of ranks, e.g. {'data': 4}")
-    if n < 1:
-        raise ValueError(f"mesh_axes {axes}: 'data' must be >= 1")
-    return n
+    if any(size < 1 for size in axes.values()):
+        raise ValueError(f"mesh_axes {axes}: every axis must be >= 1")
+    return n * int(axes.get("fsdp", 1))
+
+
+def _virtual_mesh(mesh_axes: Optional[dict], dev: torch.device):
+    """A mesh of virtual ranks on ``dev`` when ``mesh_axes`` has an axis
+    other than ``data`` above 1, else None (the data ranks' ring)."""
+    from ray_tpu_torch.parallel import make_mesh
+
+    axes = dict(mesh_axes or {})
+    if not any(ax != "data" and size != 1 for ax, size in axes.items()):
+        return None
+    return make_mesh(axes, devices=[dev] * int(np.prod(list(axes.values()))))
 
 
 def gang_group(device: Optional[Union[str, torch.device]] = None):
@@ -269,8 +288,9 @@ def run_pod_training(model_config=None, mesh_axes=None, steps: int = 4,
         set_active_ledger,
     )
     from ray_tpu_torch.parallel import (
-        build_replicated_train_step, build_train_step,
+        batch_sharding, build_replicated_train_step, build_train_step,
         build_zero_train_step, create_train_state, create_zero_state,
+        llama_param_shardings, shard_params,
     )
     from ray_tpu_torch.parallel.train_step import WEIGHT_DECAY
     from ray_tpu_torch.util.collective import RingGroup
@@ -284,7 +304,15 @@ def run_pod_training(model_config=None, mesh_axes=None, steps: int = 4,
             hidden_dim=256, max_seq_len=128)
     world = _process_group_size()
     n = _data_ranks(mesh_axes, world)
+    mesh = _virtual_mesh(mesh_axes, dev)
     if overlap:
+        if mesh is not None:
+            non_data = [ax for ax in mesh.axis_names
+                        if ax != "data" and mesh.shape[ax] > 1]
+            raise ValueError(
+                f"overlap=True needs a pure data mesh, got non-trivial "
+                f"axes {non_data} — the chunked schedule shards the whole "
+                "flat parameter vector over 'data'")
         weight_update = "sharded"
     if weight_update not in ("replicated", "sharded"):
         raise ValueError(f"weight_update must be 'replicated'|'sharded', "
@@ -298,7 +326,15 @@ def run_pod_training(model_config=None, mesh_axes=None, steps: int = 4,
     optimizer = functools.partial(torch.optim.AdamW, lr=learning_rate,
                                   weight_decay=WEIGHT_DECAY)
     params = init_params(model_config, seed, device=dev)
-    if weight_update == "replicated" and n == 1:
+    if mesh is not None:
+        shardings = llama_param_shardings(model_config, mesh)
+        state = create_train_state(shard_params(params, shardings),
+                                   optimizer, device=dev)
+        step = build_train_step(
+            loss, optimizer, mesh=mesh, param_shardings=shardings,
+            batch_shardings=batch_sharding(mesh),
+            weight_update=weight_update, params_shape=params)
+    elif weight_update == "replicated" and n == 1:
         state = create_train_state(params, optimizer, device=dev)
         step = build_train_step(loss, optimizer, device=dev)
     else:
@@ -393,7 +429,7 @@ def run_pod_training(model_config=None, mesh_axes=None, steps: int = 4,
     return {
         **extra,
         "n_devices": n_devices,
-        "mesh": {"data": n},
+        "mesh": dict(mesh.shape) if mesh is not None else {"data": n},
         "weight_update": weight_update,
         "overlap": overlap,
         "steps": steps,

@@ -126,12 +126,15 @@ def get_collective_group_size(group_name: str = "default") -> int:
 
 
 def get_group_mesh(group_name: str = "default", axis_name: str = "x"):
-    """The reference's TPU-native extension (the group's global mesh). The
-    port's meshes come with its mesh-parallel slice: this raises."""
-    raise NotImplementedError(
-        f"get_group_mesh({group_name!r}): device meshes of a collective "
-        "group come with the port's mesh-parallel slice (sharding and mesh "
-        "axes); use the group's collectives")
+    """The reference's TPU-native extension: the group's mesh. On a
+    ``cuda`` group a 1-D ``parallel.Mesh`` over its ranks (one process
+    and one card per rank); the host backends have none."""
+    group = _group_mgr.get_group(group_name)
+    if not hasattr(group, "get_mesh"):
+        raise RuntimeError(
+            f"group {group_name!r} uses backend without a device mesh; use "
+            "backend='cuda'")
+    return group.get_mesh(axis_name)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,9 @@ ring's workspace handles through the coordinator. The data plane:
   plain version on the gathered stack when it is started.
 - ``gather(x)``: every rank's x stacked rank-major on the group's device
   (through gloo), for the ZeRO step's per-rank scalars.
+- ``get_mesh(axis)``: a 1-D ``parallel.Mesh`` over the group's ranks, one
+  process and one card per rank (the reference's ``XLAGroup.get_mesh``);
+  ring attention over it hops through C1's rank form.
 - Host-level ops keep the reference's dispatch: ``allreduce`` (any op of
   ``_RING_OPS``) rides C4, or C6 in a group made with ``quantized=True``;
   ``reducescatter`` is the reference's "allreduce, then split axis 0,
@@ -132,6 +135,14 @@ class CudaGroup(TorchGroup):
     @property
     def n(self) -> int:
         return self.world_size
+
+    def get_mesh(self, axis_name: str = "x"):
+        """A 1-D mesh over the group's ranks, this process's rank on its
+        device (``Mesh.group`` is this group)."""
+        from ray_tpu_torch.parallel.mesh import Mesh, _device_array
+
+        return Mesh(_device_array([self.device] * self.n, (self.n,)),
+                    (axis_name,), group=self)
 
     @property
     def comm_stream(self):

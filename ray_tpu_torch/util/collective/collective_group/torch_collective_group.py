@@ -16,8 +16,8 @@ tensors, the port's counterpart of the reference's ``XLAGroup``
 - ``send`` / ``recv`` go through the coordinator's mailboxes, tagged in
   sequence per (src, dst) pair (the reference's one fixed tag lets a
   second send overwrite an unread first).
-- ``get_mesh`` / ``device_mesh`` raise: meshes come with the port's
-  mesh-parallel slice.
+- No device mesh: ``get_group_mesh`` refuses a ``torch`` group, as the
+  reference refuses its host groups (the ``cuda`` group has one).
 """
 
 from __future__ import annotations
@@ -85,16 +85,6 @@ class TorchGroup(BaseGroup):
                                         False, timeout=timeout)
         self._pg = dist.ProcessGroupGloo(self._store, self.rank,
                                          self.world_size, timeout)
-
-    # ---------------------------------------------------------------- meshes
-    def get_mesh(self, axis_name: str = "x"):
-        raise NotImplementedError(
-            "device meshes of a collective group come with the port's "
-            "mesh-parallel slice (sharding and mesh axes); use the group's "
-            "collectives")
-
-    def device_mesh(self, shape, axis_names):
-        return self.get_mesh()
 
     # ---------------------------------------------------- host-level parity
     def _gather_tensors(self, tensor) -> torch.Tensor:

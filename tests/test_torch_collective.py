@@ -21,7 +21,9 @@ numpy inputs (made from seeds), computed in this process:
   split.
 
 Then the errors and the bookkeeping: the JAX package's backend names
-raise, naming the port's; ``get_group_mesh`` raises; a second group of
+raise, naming the port's; ``get_group_mesh`` refuses the host backends
+and gives a ``cuda`` group's ranks a mesh that ring attention runs over
+in rank form (bit for bit with virtual ranks); a second group of
 one name raises and a destroyed group can be made again; the metrics'
 names and tags are the reference's ``CollectiveMetrics``'; a peer that
 never arrives makes the others raise within the group's timeout. One
@@ -397,9 +399,51 @@ def test_jax_package_backends_raise_naming_the_port_s(name):
     assert Backend.validate("gloo") == Backend.validate("cpu") == "shm"
 
 
-def test_get_group_mesh_raises_naming_the_mesh_slice():
-    with pytest.raises(NotImplementedError, match="mesh-parallel slice"):
-        col.get_group_mesh("default")
+def test_get_group_mesh_raises_naming_the_mesh_slice(members):
+    """The host backends have no device mesh: ``get_group_mesh`` refuses
+    them with the reference's text; a ``cuda`` group has one (below)."""
+    for backend in ("shm", "torch"):
+        actors, name = _shared_group(members, 2, backend)
+
+        def mesh(g):
+            try:
+                col.get_group_mesh(g, "sp")
+            except RuntimeError as e:
+                return str(e)
+            return None
+
+        for text in _run(actors, mesh, [name] * 2):
+            assert text == (f"group {name!r} uses backend without a device "
+                            f"mesh; use backend='cuda'"), text
+
+
+def test_cuda_group_mesh_runs_ring_attention_in_rank_form(members):
+    """``get_group_mesh`` on a ``cuda`` group: a 1-D mesh over its ranks,
+    one process a rank. Ring attention over it (each rank its own
+    sequence shard, the hops C1's rank form; on the CPU its plain hop over
+    the gathered stack) gives each rank its rows of the virtual-rank
+    result, bit for bit."""
+    from ray_tpu_torch.ops import ring_attention as TR
+    from ray_tpu_torch.parallel import make_mesh
+
+    n = 4
+    actors, name = _cuda_group(members, n)
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.randn(1, 64, 2, 16).astype(np.float32))
+               for _ in range(3))
+    shards = [TR.shard_sequence(t, n) for t in (q, k, v)]
+    want = TR.ring_attention(*shards, True, "sp", "pallas",
+                             mesh=make_mesh({"sp": n}, devices=["cpu"] * n))
+
+    def attend(g, r, a, b, c):
+        mesh = col.get_group_mesh(g, "sp")
+        assert mesh.shape == {"sp": 4} and mesh.rank == r
+        return TR.ring_attention(a, b, c, True, "sp", "cuda", mesh=mesh)
+
+    got = _run(actors, attend, [name] * n, list(range(n)),
+               *[[s[r] for r in range(n)] for s in shards])
+    for r in range(n):
+        assert torch.equal(got[r], want[r]), r
 
 
 def test_second_init_raises_and_destroy_then_reinit_works(members):

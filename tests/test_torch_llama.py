@@ -185,12 +185,21 @@ def test_default_device_is_the_card():
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError):
-        T.init_params(T.LlamaConfig.tiny(n_experts=4), device="cpu")
+    """MoE and ``attn_impl="ring"`` are ported (``tests/test_torch_moe.py``,
+    ``tests/test_torch_ring_attention.py``): a MoE config builds and
+    scores, and ring attention without a mesh is exact local attention.
+    The KV-cache paths still refuse MoE, as the reference's do."""
+    moe = T.LlamaConfig.tiny(n_experts=4)
+    mp = T.init_params(moe, device="cpu")
+    assert tuple(mp["layers"]["w_gate"].shape) == (2, 4, 64, 128)
     _, _, tc, tp = _pair("f32")
     toks = _t(_tokens(6, 1, 4))
-    with pytest.raises(NotImplementedError):
-        T.forward(tp, toks, T.LlamaConfig.tiny(attn_impl="ring"))
+    assert torch.equal(
+        T.forward(tp, toks, dataclasses.replace(tc, attn_impl="ring")),
+        T.forward(tp, toks, tc))
+    assert T.forward(mp, toks, moe).shape == (1, 4, 256)
+    with pytest.raises(NotImplementedError, match="use forward"):
+        T.prefill_kv(mp, toks, moe)
 
 
 @pytest.mark.parametrize("remat", [True, "dots"])

@@ -321,11 +321,22 @@ def test_params_round_trip_through_numpy():
 
 
 def test_unported_options_raise():
+    """Meshes and the sharded update are ported
+    (``tests/test_torch_mesh_train.py``): what is left refuses with the
+    reference's texts, and a collective group's mesh (one rank per
+    process) names the slice that brings it."""
+    from ray_tpu_torch.parallel import make_mesh
+
     loss = lambda p, b: None  # noqa: E731
-    with pytest.raises(NotImplementedError, match="mesh-parallel slice"):
+    with pytest.raises(ValueError, match="'sharded' needs params_shape"):
         build_train_step(loss, weight_update="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh-parallel slice"):
-        build_train_step(loss, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="give mesh="):
+        build_train_step(loss, weight_update="sharded", params_shape={},
+                         device="cpu")
+    mesh = make_mesh({"data": 2}, devices=["cpu"] * 2)
+    mesh.group = object()
+    with pytest.raises(NotImplementedError, match="mesh across processes"):
+        build_train_step(loss, mesh=mesh)
     with pytest.raises(ValueError):
         build_train_step(loss, weight_update="zero", device="cpu")
     _, _, tc, tp = _models()

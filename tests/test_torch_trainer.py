@@ -149,13 +149,18 @@ def test_run_pod_training_matches_reference(route, reference_runs,
 
 
 def test_run_pod_training_refusals():
+    """``fsdp`` and ``tensor`` axes at one worker are a mesh of virtual
+    ranks now (``tests/test_torch_mesh_train.py``); what is refused is
+    the overlap schedule on such a mesh (the reference's text) and a
+    data ``-1`` with no device count to absorb."""
     cfg = _tiny_config()
-    with pytest.raises(NotImplementedError, match="mesh-parallel slice"):
-        run_pod_training(model_config=cfg, mesh_axes={"data": 1, "fsdp": 2},
-                         steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="non-trivial axes"):
+    summary = run_pod_training(model_config=cfg,
+                               mesh_axes={"data": 1, "fsdp": 2}, steps=1,
+                               device="cpu")
+    assert summary["mesh"] == {"data": 1, "fsdp": 2}
+    with pytest.raises(ValueError, match="non-trivial axes"):
         run_pod_training(model_config=cfg, mesh_axes={"tensor": 2},
-                         steps=1, device="cpu")
+                         overlap=True, steps=1, device="cpu")
     with pytest.raises(ValueError, match="no device count to absorb"):
         run_pod_training(model_config=cfg, mesh_axes={"data": -1}, steps=1,
                          device="cpu")
